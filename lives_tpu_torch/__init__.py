@@ -1,0 +1,19 @@
+"""lives_tpu_torch: the PyTorch/CUDA port of lives_tpu, for an NVIDIA H100.
+
+Counterpart of `lives_tpu/__init__.py`. The package mirrors `lives_tpu`'s
+layout and module names; each module's docstring names its counterpart by
+`file:line`. It imports torch and numpy, never jax: the JAX package is the
+reference it is tested against (tests/test_torch_*.py).
+
+Ported so far: the multitrack render path (ROADMAP Queue 1, Slices 0-1),
+from `scenes.multitrack_timeline` through `events.renderer.render_events`
+and `graph.nodemodel.FrameGraph.run_batch` to the fused sweep kernel,
+hand-written in CUDA C++ for sm_90a (`csrc/fused_sweep.cu`). Every entry
+point takes its device explicitly; nothing picks a device on its own.
+"""
+
+from .constants import (Gamma, Palette, YUVClamping, YUVSampling,
+                        YUVSubspace)
+from .layer import Layer, layer_blank
+
+__version__ = "0.3.0"

@@ -1,0 +1,255 @@
+"""Effect host: filter classes, instances, palette negotiation, chains.
+
+Counterpart of `lives_tpu/effects/host.py:40-351` (reference
+`src/effects-weed.c`). Process functions are plain PyTorch functions on
+batched layers: planes are ``(B, C, H, W)`` and a per-frame parameter is a
+``(B,)`` tensor, so one call processes a whole chunk of frames where the
+JAX package vmaps a single-frame function.
+
+Ported for the render slice: `Param` (with `clamp`), `Filter`, `Instance`,
+`FrameContext`, the registry, `negotiate_layer` for RGB-family and float
+layers, and stateless `apply_instance` with the short-stack rule of
+`host.py:283-288`. Stateful filters, alpha in-channels (cconx) and
+analysers raise `NotImplementedError` until Slice 4 (ROADMAP Queue 1 items
+15-16) and Slice 6 (item 21) bring them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Sequence
+
+import torch
+
+from ..constants import Palette, has_alpha, is_float_palette, is_rgb_palette
+from ..layer import Layer
+from ..ops.colorspace import convert_layer
+
+# Filter flags (semantic parity with weed-effects.h:105-114)
+FILTER_NON_REALTIME = 1 << 0
+FILTER_IS_CONVERTER = 1 << 1
+FILTER_STATEFUL = 1 << 2        # carries state between frames
+FILTER_IS_TRANSITION = 1 << 3
+FILTER_IS_GENERATOR = 1 << 4
+FILTER_MAY_RESIZE = 1 << 5
+
+
+@dataclass(frozen=True)
+class ChannelTemplate:
+    """Channel template (weed chantmpl)."""
+    name: str = "in"
+    palettes: tuple[int, ...] | None = None  # None = any
+    optional: bool = False
+    can_alpha: bool = True
+
+
+@dataclass(frozen=True)
+class Param:
+    """Parameter template (weed paramtmpl). On an instance the value may be
+    a Python scalar or a ``(B,)`` tensor of per-frame values."""
+    name: str
+    kind: str = "num"  # num | int | bool | color | string | string_list
+    default: Any = 0.0
+    min: float = 0.0
+    max: float = 1.0
+    choices: tuple[str, ...] = ()
+    group: int = 0
+    label: str = ""
+
+    def clamp(self, v):
+        if self.kind in ("num", "int"):
+            if isinstance(v, torch.Tensor):
+                return torch.clamp(v, self.min, self.max)
+            return min(max(v, self.min), self.max)
+        return v
+
+
+@dataclass(frozen=True)
+class Filter:
+    """A filter class: `process(inputs, params, ctx) -> Layer`."""
+    name: str
+    process: Callable
+    in_channels: tuple[ChannelTemplate, ...] = (ChannelTemplate("in"),)
+    out_channels: tuple[ChannelTemplate, ...] = (ChannelTemplate("out"),)
+    params: tuple[Param, ...] = ()
+    flags: int = 0
+    # the JAX package's author string, so hashnames (the serialised
+    # identity of a filter) are the same in both packages
+    author: str = "lives_tpu"
+    version: int = 1
+    description: str = ""
+    preferred_gamma: int | None = None
+
+    @property
+    def hashname(self) -> str:
+        """Registry key (reference hashnames, effects-weed.c:10605)."""
+        return f"{self.name}|{self.author}|{self.version}"
+
+    @property
+    def is_transition(self) -> bool:
+        return bool(self.flags & FILTER_IS_TRANSITION)
+
+    @property
+    def is_generator(self) -> bool:
+        return bool(self.flags & FILTER_IS_GENERATOR) or not self.in_channels
+
+    @property
+    def n_in(self) -> int:
+        return len(self.in_channels)
+
+    def param(self, name: str) -> Param:
+        for p in self.params:
+            if p.name == name:
+                return p
+        raise KeyError(f"{self.name}: no param {name!r}")
+
+
+@dataclass
+class Instance:
+    """A filter instance: filter + current param values
+    (weed_instance_from_filter, effects-weed.c:6299)."""
+    filter: Filter
+    values: dict[str, Any] = field(default_factory=dict)
+    state: Any = None
+    enabled: bool = True
+    in_tracks: tuple[int, ...] = (0,)
+    out_tracks: tuple[int, ...] = (0,)
+
+    def param_values(self) -> dict[str, Any]:
+        return {p.name: self.values.get(p.name, p.default)
+                for p in self.filter.params}
+
+    def set(self, **kw) -> "Instance":
+        for k, v in kw.items():
+            self.filter.param(k)  # validate
+            self.values[k] = v
+        return self
+
+
+@dataclass(frozen=True)
+class FrameContext:
+    """Per-frame info handed to process fns. `tc`/`frame` may be ``(B,)``
+    tensors. width/height are the FULL frame dims; (y0, x0) is the origin
+    of a tile inside it (0 for a whole frame)."""
+    tc: Any = 0.0
+    frame: Any = 0
+    fps: float = 25.0
+    width: int = 0
+    height: int = 0
+    y0: int = 0
+    x0: int = 0
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: dict[str, Filter] = {}
+
+
+def register_filter(f: Filter) -> Filter:
+    _REGISTRY[f.name] = f
+    return f
+
+
+def get_filter(name: str) -> Filter:
+    _ensure_builtins()
+    return _REGISTRY[name]
+
+
+def list_filters() -> list[str]:
+    _ensure_builtins()
+    return sorted(_REGISTRY)
+
+
+_BUILTINS_LOADED = False
+
+
+def _ensure_builtins():
+    global _BUILTINS_LOADED
+    if not _BUILTINS_LOADED:
+        _BUILTINS_LOADED = True
+        from . import builtin  # noqa: F401  (registers on import)
+
+
+def instantiate(name_or_filter, **values) -> Instance:
+    f = name_or_filter if isinstance(name_or_filter, Filter) \
+        else get_filter(name_or_filter)
+    inst = Instance(filter=f, in_tracks=tuple(range(max(f.n_in, 1))))
+    if values:
+        inst.set(**values)
+    return inst
+
+
+# ---------------------------------------------------------------------------
+# Application: negotiation + dispatch
+# ---------------------------------------------------------------------------
+
+def negotiate_layer(layer: Layer, tmpl: ChannelTemplate,
+                    width: int | None = None, height: int | None = None,
+                    gamma: int | None = None) -> Layer:
+    """Convert a layer to a palette the template accepts
+    (`lives_tpu/effects/host.py:228`). Float RGB layers satisfy integer RGB
+    templates directly (a precision superset), which keeps the chain in
+    float between effects."""
+    if (tmpl.palettes and is_float_palette(layer.palette)
+            and is_rgb_palette(layer.palette)
+            and any(is_rgb_palette(p) for p in tmpl.palettes)):
+        need_alpha = all(has_alpha(p) for p in tmpl.palettes
+                         if is_rgb_palette(p))
+        if need_alpha and not has_alpha(layer.palette):
+            layer = convert_layer(layer, Palette.RGBAFLOAT)
+    elif tmpl.palettes and layer.palette not in tmpl.palettes:
+        if not is_rgb_palette(layer.palette):
+            raise NotImplementedError(
+                f"negotiate_layer: {Palette(layer.palette).name} input is "
+                "not ported yet (ROADMAP Queue 1 item 11)")
+        target = next((p for p in tmpl.palettes if is_rgb_palette(p)),
+                      tmpl.palettes[0])
+        layer = convert_layer(layer, target)
+    if width and height and (layer.width, layer.height) != (width, height):
+        raise NotImplementedError(
+            "negotiate_layer: resizing inputs is not ported yet "
+            "(ROADMAP Queue 1 item 11)")
+    if gamma is not None and layer.gamma != gamma:
+        raise NotImplementedError(
+            "negotiate_layer: gamma conversion is not ported yet "
+            "(ROADMAP Queue 1 item 11)")
+    return layer
+
+
+def apply_instance(inst: Instance, layers: Sequence[Layer],
+                   ctx: FrameContext | None = None) -> list[Layer]:
+    """Apply one stateless instance to a layer stack; returns the new stack
+    (`lives_tpu/effects/host.py:265`, weed_apply_instance). inst.in_tracks
+    selects the inputs; the result replaces the layer at out_tracks[0]."""
+    f = inst.filter
+    layers = list(layers)
+    if not inst.enabled:
+        return layers
+    if f.flags & FILTER_STATEFUL:
+        raise NotImplementedError(
+            f"{f.name}: stateful filters are not ported yet "
+            "(ROADMAP Queue 1 items 15-16)")
+    # missing tracks fall back to the front layer (the reference drops or
+    # reuses tracks when a multi-input filter has fewer layers than
+    # channels)
+    ins = [layers[t] if t < len(layers) and layers[t] is not None
+           else layers[0]
+           for t in inst.in_tracks[: f.n_in]] if f.n_in else []
+    if ins:
+        w, h = ins[0].width, ins[0].height
+        ins = [negotiate_layer(l, f.in_channels[min(i, f.n_in - 1)], w, h,
+                               f.preferred_gamma)
+               for i, l in enumerate(ins)]
+    if ctx is None:
+        ctx = FrameContext(width=ins[0].width if ins else 0,
+                           height=ins[0].height if ins else 0)
+    params = {k: f.param(k).clamp(v) for k, v in inst.param_values().items()}
+    out = f.process(ins, params, ctx)
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    for t, o in zip(inst.out_tracks, outs):
+        while len(layers) <= t:
+            layers.append(None)
+        layers[t] = o
+    return layers

@@ -1,0 +1,201 @@
+"""Each ported filter of lives_tpu_torch against its lives_tpu original.
+
+The same seeded numpy frames and per-frame parameters go through the JAX
+filter's `process`, one frame at a time, and through the port's, which
+takes the whole batch with (B,) parameter tensors. Float32 layers agree to
+atol=1e-5 (both compute in float32; only the order of a few operations
+may differ); u8 layers, quantised by `from_f01`, agree to +/-1 LSB."""
+
+import zlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lives_tpu.constants import Palette
+from lives_tpu.effects.host import FrameContext as JContext
+from lives_tpu.effects.host import get_filter as j_get_filter
+from lives_tpu.layer import Layer as JLayer
+from lives_tpu_torch.effects.builtin.blends import _BLEND_MODES
+from lives_tpu_torch.effects.host import FrameContext as TContext
+from lives_tpu_torch.effects.host import get_filter as t_get_filter
+from lives_tpu_torch.layer import Layer as TLayer
+
+B, H, W = 3, 24, 40
+
+#: (case id, filter name, static values, (y0, x0, full H, full W) or None)
+CASES = [("crossfade", "crossfade", {}, None)]
+CASES += [(n, n, {}, None) for n in _BLEND_MODES]
+CASES += [
+    ("luma_key", "luma_key", {}, None),
+    ("chroma_key", "chroma_key", {}, None),
+    ("gaussian_blur_r3", "gaussian_blur", {"radius": 3}, None),
+    # 41 taps > 33: the band-matrix form (bf16 in, f32 accumulate)
+    ("gaussian_blur_r20", "gaussian_blur", {"radius": 20}, None),
+    ("box_blur_r2", "box_blur", {"radius": 2}, None),
+    ("sharpen_r2", "sharpen", {"radius": 2}, None),
+    ("colour_balance", "colour_balance", {}, None),
+    ("saturation", "saturation", {}, None),
+    ("vignette", "vignette", {}, None),
+    # a tile of a larger frame, its origin partly outside (clamped grid)
+    ("vignette_tile", "vignette", {}, (-3, 17, 60, 70)),
+    ("vignette_tile_inside", "vignette", {}, (30, 25, 90, 80)),
+]
+
+
+def _inputs(name, static, dtype):
+    """Seeded frames and per-frame parameter values for one case."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    filt = j_get_filter(name)
+    frames = [rng.random((B, 3, H, W), np.float32)
+              for _ in range(filt.n_in)]
+    if dtype == "u8":
+        frames = [np.floor(f * 255.0 + 0.5).astype(np.uint8)
+                  for f in frames]
+    params = {}
+    for p in filt.params:
+        if p.name in static:
+            params[p.name] = static[p.name]
+        elif p.kind == "num":
+            params[p.name] = rng.uniform(p.min, p.max, B).astype(np.float32)
+        else:
+            params[p.name] = p.default
+    return filt, frames, params
+
+
+@pytest.mark.parametrize("dtype", ["f32", "u8"])
+@pytest.mark.parametrize("case,name,static,tile", CASES,
+                         ids=[c[0] for c in CASES])
+def test_filter_matches_jax(case, name, static, tile, dtype):
+    filt, frames, params = _inputs(name, static, dtype)
+    pal = Palette.RGBFLOAT if dtype == "f32" else Palette.RGB24
+    y0, x0, fh, fw = tile if tile else (0, 0, H, W)
+    tcs = np.array([0.0, 0.5, 1.25], np.float32)
+    ref = []
+    for b in range(B):
+        ins = [JLayer(planes=(jnp.asarray(f[b]),), palette=int(pal))
+               for f in frames]
+        p = {k: (jnp.asarray(v[b], jnp.float32) if isinstance(v, np.ndarray)
+                 else v) for k, v in params.items()}
+        ctx = JContext(tc=jnp.float32(tcs[b]), frame=jnp.int32(b), fps=25.0,
+                       width=fw, height=fh, y0=y0, x0=x0)
+        ref.append(np.asarray(filt.process(ins, p, ctx).planes[0]))
+    ref = np.stack(ref)
+
+    tfilt = t_get_filter(name)
+    assert tfilt.hashname == filt.hashname
+    assert [(p.name, p.kind, p.default, p.min, p.max) for p in tfilt.params] \
+        == [(p.name, p.kind, p.default, p.min, p.max) for p in filt.params]
+    ins = [TLayer(planes=(torch.from_numpy(f),), palette=int(pal))
+           for f in frames]
+    p = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+         for k, v in params.items()}
+    ctx = TContext(tc=torch.from_numpy(tcs), frame=torch.arange(B), fps=25.0,
+                   width=fw, height=fh, y0=y0, x0=x0)
+    out = tfilt.process(ins, p, ctx)
+    got = out.planes[0].numpy()
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert out.palette == int(pal)
+    if dtype == "f32":
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    else:
+        diff = np.abs(got.astype(int) - ref.astype(int))
+        assert diff.max() <= 1, diff.max()
+
+
+def test_apply_instance_clamps_and_short_stack():
+    """apply_instance clamps each parameter to its range and feeds a
+    missing track from the front layer (`host.py:283-288`), as in JAX."""
+    from lives_tpu.effects.host import Instance as JInstance
+    from lives_tpu.effects.host import apply_instance as j_apply
+    from lives_tpu_torch.effects.host import Instance as TInstance
+    from lives_tpu_torch.effects.host import apply_instance as t_apply
+    rng = np.random.default_rng(5)
+    f0 = rng.random((2, 3, H, W), np.float32)
+    values = {"amount": 1.7}   # above max 1.0
+    ref = [np.asarray(j_apply(
+        JInstance(filter=j_get_filter("blend_screen"), values=values,
+                  in_tracks=(0, 3)),
+        [JLayer(planes=(jnp.asarray(f0[b]),), palette=int(Palette.RGBFLOAT))],
+        JContext(width=W, height=H))[0].planes[0]) for b in range(2)]
+    got = t_apply(
+        TInstance(filter=t_get_filter("blend_screen"), values=values,
+                  in_tracks=(0, 3)),
+        [TLayer(planes=(torch.from_numpy(f0),),
+                palette=int(Palette.RGBFLOAT))],
+        TContext(width=W, height=H))[0].planes[0].numpy()
+    np.testing.assert_allclose(got, np.stack(ref), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("src,dst", [
+    (Palette.RGB24, Palette.RGBFLOAT), (Palette.RGB24, Palette.RGBAFLOAT),
+    (Palette.RGBA32, Palette.RGBFLOAT), (Palette.RGBFLOAT, Palette.RGB24),
+    (Palette.RGBAFLOAT, Palette.RGB24), (Palette.RGBFLOAT, Palette.RGBA32),
+    (Palette.RGB24, Palette.RGBA32)])
+def test_convert_layer_rgb_family_matches_jax(src, dst):
+    """The conversions of the float chain and the RGB24 sink, exact (u8 out
+    rounds half up and clamps before the cast)."""
+    from lives_tpu.constants import has_alpha, is_float_palette
+    from lives_tpu.ops.colorspace import convert_layer as j_convert
+    from lives_tpu_torch.ops.colorspace import convert_layer as t_convert
+    rng = np.random.default_rng(int(src) * 100 + int(dst))
+    c = 4 if has_alpha(src) else 3
+    if is_float_palette(src):
+        # include values outside [0,1] and exact half steps
+        arr = rng.uniform(-0.2, 1.2, (2, c, 8, 16)).astype(np.float32)
+        arr[0, 0, 0, :4] = np.array([0.5, 1.5, 254.5, 127.5]) / 255.0
+    else:
+        arr = rng.integers(0, 256, (2, c, 8, 16), dtype=np.uint8)
+    ref = np.stack([np.asarray(j_convert(
+        JLayer(planes=(jnp.asarray(a),), palette=int(src)), dst).planes[0])
+        for a in arr])
+    out = t_convert(TLayer(planes=(torch.from_numpy(arr),), palette=int(src)),
+                    dst)
+    assert out.palette == int(dst)
+    np.testing.assert_array_equal(out.planes[0].numpy(), ref)
+
+
+def test_conversions_outside_the_slice_raise():
+    from lives_tpu_torch.ops.colorspace import convert_layer as t_convert
+    lay = TLayer(planes=(torch.zeros(1, 3, 8, 8, dtype=torch.uint8),),
+                 palette=int(Palette.RGB24))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        t_convert(lay, Palette.YUV420P)
+
+
+@pytest.mark.parametrize("pal", [Palette.RGB24, Palette.RGBA32,
+                                 Palette.RGBFLOAT, Palette.YUV420P,
+                                 Palette.YUVA4444P])
+def test_layer_blank_matches_jax(pal):
+    from lives_tpu.layer import layer_blank as j_blank
+    from lives_tpu_torch.layer import layer_blank as t_blank
+    ref = j_blank(20, 10, pal)
+    got = t_blank(20, 10, pal, device="cpu")
+    assert (got.width, got.height, got.palette) == (20, 10, int(pal))
+    for a, b in zip(ref.planes, got.planes):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+@pytest.mark.parametrize("centered", [False, True])
+@pytest.mark.parametrize("tile", [None, (0, 0, 12, 20), (-4, 9, 30, 25),
+                                  (8, -2, 15, 1)])
+def test_grids_match_jax(centered, tile):
+    """lazy_grid and ctx_grid (tile origins clamped to the frame) give the
+    JAX package's float32 coordinates exactly."""
+    from lives_tpu.effects.util import ctx_grid as j_ctx_grid
+    from lives_tpu.effects.util import lazy_grid as j_lazy_grid
+    from lives_tpu_torch.effects.util import ctx_grid, lazy_grid
+    h, w = 12, 20
+    if tile is None:
+        ref = j_lazy_grid(h, w, centered)
+        got = lazy_grid(h, w, centered, device="cpu")
+    else:
+        y0, x0, fh, fw = tile
+        ref = j_ctx_grid(JContext(width=fw, height=fh, y0=y0, x0=x0), h, w,
+                         centered)
+        got = ctx_grid(TContext(width=fw, height=fh, y0=y0, x0=x0), h, w,
+                       centered, device="cpu")
+    for a, b in zip(ref, got):
+        assert b.dtype == torch.float32
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
