@@ -1,30 +1,52 @@
 #!/usr/bin/env python
 """Smoke run of lives_tpu_torch on one NVIDIA GPU: build, check, render.
 
-Drives the port's main path, the 10-track 1080p30 multitrack render
-(`scenes.multitrack_timeline` -> `events.renderer.render_events` ->
-`graph.nodemodel.FrameGraph.run_batch` -> the fused sweep kernel), after
-building the kernel from `lives_tpu_torch/csrc/fused_sweep.cu` and holding
-it against its plain PyTorch version and the committed JAX golden.
+Drives the port's paths through the entry points a user calls
+(`events.renderer.render_events` -> `graph.nodemodel.FrameGraph.run_batch`
+-> the kernels) at 1920x1080, 30 fps, in 96-frame chunks, after building
+both kernel libraries from `lives_tpu_torch/csrc/` and holding every kernel
+against its plain PyTorch version:
+
+- the main path, the 10-track multitrack timeline (`scenes.
+  multitrack_timeline`) through the fused sweep kernel;
+- three stateful chains (ROADMAP Slice 4), recorded as init events:
+  A "stateful-LED" (benchmarks/render_stateful_led.py:49-60; its 11-step
+  tail runs the sweep in comp-in mode), B "stateful prefix"
+  (benchmarks/render_stateful.py:33-40; its prefix runs the sweep in
+  comp-out mode) and C "alien" (render_stateful_led.py:43-47; the fused
+  stateful sweep under LIVES_TPU_FUSED_STATEFUL=1, the 3-phase route
+  without it).
 
     python3 chip_smoke.py
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
-2. build the kernel (nvcc, sm_90a) and print the build time;
-3. kernel vs `plain_sweep` on the card, max |diff| <= 1 LSB: the 13-effect
-   chain at 1920x1080 with 10 tracks (B=4), and a ragged 1000x562 frame
-   with 3 tracks;
+2. build both kernels (one nvcc each, started together), build times;
+3. the sweep vs `plain_sweep` on the card, max |diff| <= 1 LSB: the
+   13-effect chain at 1920x1080 with 10 tracks (B=4), and a ragged 1000x562
+   frame with 3 tracks;
 4. `render_to_arrays` of the golden timeline on the card vs
    tests/fixtures/render_golden.npz (lives_tpu, f32 XLA path), <= 1 LSB;
 5. the main path through `render_events`: 192 frames in 96-frame chunks;
    the kernel must launch once a chunk, its first frames must match the
    plain route; then a timed pass (frames/s, x realtime), and the kernel's
-   and `plain_sweep`'s time on one 96-frame chunk.
+   and `plain_sweep`'s time on one 96-frame chunk;
+6. the sweep's comp-out and comp-in modes vs their plain versions at
+   1920x1080 (B=4) and 1000x562: the f32 comp within 1/255, u8 within
+   1 LSB;
+7. the fused stateful sweep vs `plain_stateful_sweep` over two chunks on
+   config C, on life + gaussian_blur r=2 and on gaussian_blur r=2 + fire:
+   frames within 1 LSB, final states within 1e-5 (f32) or exact (u8);
+8. configs A, B and C (C with and without the pref) through
+   `render_events`, 192 frames in 96-frame chunks: the launch counts of each
+   path, its first 4 frames against the plain route (<= 1 LSB), a warm
+   timed pass, and kernel vs plain ms on one 96-frame chunk for each new
+   kernel.
 Then a JSON line of the kernels and, last, the JSON result line.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -33,6 +55,36 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 W, H, FPS, TRACKS, CHUNK, N_FRAMES = 1920, 1080, 30.0, 10, 96, 192
 
+TRANSITIONS = ["crossfade", "blend_screen", "blend_overlay", "blend_add",
+               "blend_multiply", "blend_lighten", "blend_difference",
+               "blend_darken", "crossfade"]
+RGB_DELAY = ("rgb_delay", {"delay_r": 0.0, "delay_g": 1.0, "delay_b": 2.0})
+
+
+def led_chain(second):
+    """fire + `second` | 9 transitions | saturation + vignette."""
+    return ([("fire", {"threshold": 0.6}, [0]), (*second, [0])]
+            + [(TRANSITIONS[t - 1], {"amount": 0.5}, [0, t])
+               for t in range(1, 10)]
+            + [("saturation", {"saturation": 1.2}, [0]),
+               ("vignette", {"amount": 0.5}, [0])])
+
+
+#: name -> (tracks, [(filter, values, in_tracks)])
+CONFIGS = {
+    "A": (10, led_chain(RGB_DELAY)),
+    "B": (4, [("crossfade", {"amount": 0.6}, [0, 1]),
+              ("vignette", {"amount": 0.5}, [0]), (*RGB_DELAY, [0]),
+              ("fire", {"threshold": 0.6}, [0]),
+              ("saturation", {"saturation": 1.2}, [0])]),
+    "C": (10, led_chain(("alien_overlay", {}))),
+    "life_blur": (1, [("life", {"threshold": 0.15, "amount": 0.5}, [0]),
+                      ("gaussian_blur", {"radius": 2}, [0])]),
+    "blur_fire": (1, [("gaussian_blur", {"radius": 2}, [0]),
+                      ("fire", {"threshold": 0.5}, [0]),
+                      ("saturation", {"saturation": 1.2}, [0])]),
+}
+
 
 def line(phase: str, **kw) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
@@ -40,27 +92,47 @@ def line(phase: str, **kw) -> None:
 
 
 def diff_stats(a, b):
-    """(max |a-b|, share of differing values) of two u8 tensors."""
-    d = (a.int() - b.int()).abs()
-    return int(d.max().item()), float((d > 0).float().mean().item())
+    """(max |a-b|, share of differing values) of two tensors."""
+    d = (a.double() - b.double()).abs()
+    return d.max().item(), float((d > 0).float().mean().item())
 
 
-def first_chunk(el, device, n: int):
-    """The first n frames of the timeline's first segment, as the renderer
-    hands them to FrameGraph.run_batch: (plan, src ids, packed) on the
-    device."""
+def timeline(name, n_frames, width=W, height=H):
+    """A CONFIGS chain as recorded init events (as lives_tpu/scenes.py:
+    105-142 records one): track t plays clip t+1, frame i at frame i."""
+    from lives_tpu_torch.events.event_list import (EventList,
+                                                   TICKS_PER_SECOND,
+                                                   filter_init_event,
+                                                   filter_map_event,
+                                                   frame_event)
+    n_tracks, specs = CONFIGS[name]
+    el = EventList(fps=FPS, width=width, height=height)
+    inits = [filter_init_event(0, f, in_tracks=tr, out_tracks=[0],
+                               values=v) for f, v, tr in specs]
+    for e in inits:
+        el.insert(e)
+    el.insert(filter_map_event(0, [e.event_id for e in inits]))
+    tpf = int(TICKS_PER_SECOND / FPS)
+    for i in range(n_frames):
+        el.insert(frame_event(i * tpf, list(range(1, n_tracks + 1)),
+                              [i] * n_tracks))
+    return el
+
+
+def chunk_of(el, device, n: int, k: int = 0):
+    """Frames [k*n, (k+1)*n) of the timeline's first segment, as the
+    renderer hands them to FrameGraph.run_batch: (chain spec, src ids,
+    packed, rows_key) on the device."""
     import numpy as np
     import torch
 
     from lives_tpu_torch.events.event_list import TICKS_PER_SECOND
     from lives_tpu_torch.events.renderer import (_chain_for, _interp_arrays,
                                                  segment_events)
-    from lives_tpu_torch.graph import SinkSpec, fused_sweep
     from lives_tpu_torch.graph.nodemodel import chain_spec_of, pack_params
-    from lives_tpu_torch.scenes import DeviceSyntheticSource
     seg = segment_events(el)[0]
     inits, chain = _chain_for(seg.inits, el, seg.frames[0].tc)
-    frames = seg.frames[:n]
+    frames = seg.frames[k * n:(k + 1) * n]
     tcs = [f.tc for f in frames]
     packed, rows = pack_params(
         _interp_arrays(el, inits, chain, tcs),
@@ -68,13 +140,20 @@ def first_chunk(el, device, n: int):
         [round(tc * el.fps / TICKS_PER_SECOND) for tc in tcs])
     ids = np.stack([np.array([f.clips for f in frames]).T,
                     np.array([f.frames for f in frames]).T]).astype(np.int32)
+    return (chain_spec_of(chain), torch.from_numpy(ids).to(device),
+            torch.from_numpy(packed).to(device), rows)
+
+
+def sweep_plan(el, spec, rows, device, n_tracks, **mode):
+    """The fused sweep's plan for `spec` on the timeline's geometry."""
+    from lives_tpu_torch.graph import SinkSpec, fused_sweep
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
     plan = fused_sweep.build_fused_sweep(
-        chain_spec_of(chain), ids.shape[1], el.height, el.width, rows, el.fps,
+        spec, n_tracks, el.height, el.width, rows, el.fps,
         DeviceSyntheticSource(el.height, el.width, device=device),
-        SinkSpec(el.width, el.height), device)
-    assert plan is not None, "the main-path chain must qualify for the kernel"
-    return (plan, torch.from_numpy(ids).to(device),
-            torch.from_numpy(packed).to(device))
+        SinkSpec(el.width, el.height), device, **mode)
+    assert plan is not None, "the chain must qualify for the kernel"
+    return plan
 
 
 def time_ms(fn, reps: int) -> float:
@@ -93,6 +172,48 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def in_turns(plain, kern, plain_reps=2, kern_reps=5):
+    """(kernel ms, plain ms, text) timed in turns plain, kernel, kernel,
+    plain."""
+    p1, k1, k2, p2 = (time_ms(plain, plain_reps), time_ms(kern, kern_reps),
+                      time_ms(kern, kern_reps), time_ms(plain, plain_reps))
+    return ((k1 + k2) / 2, (p1 + p2) / 2,
+            f"kernel={k1:.3f},{k2:.3f} plain={p1:.3f},{p2:.3f}")
+
+
+#: a launch count (MODE_LAUNCHES entry, or the stateful sweep's) -> kernel
+KERNEL_OF = {"u8": "fused_sweep", "comp_out": "fused_sweep_comp_out",
+             "comp_in": "fused_sweep_comp_in", "stateful": "stateful_sweep"}
+
+
+def render_path(el, src, sink, check=True):
+    """One pass of `render_events` over `el`, every launch count set to 0
+    just before it and read just after: (frames, first 4 frames, the
+    non-zero counts by KERNEL_OF key, wall s)."""
+    import torch
+
+    from lives_tpu_torch.events.renderer import render_events
+    from lives_tpu_torch.graph import fused_sweep, stateful_sweep
+    fused_sweep.MODE_LAUNCHES.update(
+        dict.fromkeys(fused_sweep.MODE_LAUNCHES, 0))
+    stateful_sweep.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rendered, head = 0, None
+    for tcs, lay in render_events(el, src, sink, batch_size=CHUNK):
+        if check:
+            arr = lay.planes[0]
+            assert arr.dtype == torch.uint8 and arr.device.type == "cuda"
+            assert tuple(arr.shape) == (len(tcs), 3, el.height, el.width)
+            if head is None:
+                head = arr[:4].clone()
+        rendered += len(tcs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**fused_sweep.MODE_LAUNCHES, "stateful": stateful_sweep.LAUNCHES}
+    return rendered, head, {k: v for k, v in counts.items() if v}, wall
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -102,13 +223,15 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
+    from lives_tpu_torch import native
     from lives_tpu_torch.events.event_list import EventList
     from lives_tpu_torch.events.renderer import (render_events,
                                                  render_to_arrays)
-    from lives_tpu_torch.graph import SinkSpec, fused_sweep
+    from lives_tpu_torch.graph import SinkSpec, fused_sweep, stateful_sweep
     from lives_tpu_torch.scenes import (DeviceSyntheticSource,
                                         multitrack_timeline)
 
+    os.environ["LIVES_TPU_FUSED_STATEFUL"] = "0"
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -119,28 +242,39 @@ def main() -> int:
          name=repr(torch.cuda.get_device_name(0)),
          count=torch.cuda.device_count())
 
-    # 2. build
-    built = fused_sweep.build()
-    ptxas = [ln.strip() for ln in built.log.splitlines()
-             if "registers" in ln or "spill" in ln or "smem" in ln]
-    line("2 build", seconds=f"{built.seconds:.2f}", lib=built.path.name,
-         ptxas=repr(" | ".join(ptxas)))
+    # 2. build both libraries, one nvcc each, started together
+    t0 = time.perf_counter()
+    native.load_all(["fused_sweep", "stateful_sweep"])
+    wall = time.perf_counter() - t0
+    for mod in (fused_sweep, stateful_sweep):
+        built = mod.build()
+        ptxas = [ln.strip() for ln in built.log.splitlines()
+                 if "registers" in ln or "spill" in ln or "smem" in ln]
+        line("2 build", lib=built.path.name,
+             seconds=f"{built.seconds:.2f}", ptxas=repr(" | ".join(ptxas)))
+    line("2 build", wall_s=f"{wall:.2f}")
+
+    err = {"fused_sweep": 0.0, "fused_sweep_comp_out": 0.0,
+           "fused_sweep_comp_in": 0.0, "stateful_sweep": 0.0}
+
+    def held(name, what, got, ref, tol, **kw):
+        worst, share = diff_stats(got, ref)
+        line(what, **kw, max_abs_err=f"{worst:.6g}",
+             differing_share=f"{share:.3g}")
+        assert worst <= tol, f"{what} {kw}: max |diff| {worst} > {tol}"
+        err[name] = max(err[name], worst)
 
     # 3. kernel vs plain_sweep on the card
-    max_err = 0
     for w, h, tracks in ((W, H, TRACKS), (1000, 562, 3)):
         el = multitrack_timeline(n_tracks=tracks, n_frames=N_FRAMES,
                                  width=w, height=h, fps=FPS)
-        plan, ids, packed = first_chunk(el, dev, 4)
+        spec, ids, packed, rows = chunk_of(el, dev, 4)
+        plan = sweep_plan(el, spec, rows, dev, tracks)
         got = fused_sweep.fused_sweep(plan, ids, packed)
         torch.cuda.synchronize()
-        ref = fused_sweep.plain_sweep(plan, ids, packed)
-        worst, share = diff_stats(got, ref)
-        line("3 kernel_vs_plain", size=f"{w}x{h}", tracks=tracks,
-             frames=ids.shape[2], max_abs_err=worst,
-             differing_share=f"{share:.3g}")
-        assert worst <= 1, f"kernel vs plain_sweep at {w}x{h}: {worst} LSB"
-        max_err = max(max_err, worst)
+        held("fused_sweep", "3 kernel_vs_plain", got,
+             fused_sweep.plain_sweep(plan, ids, packed), 1,
+             size=f"{w}x{h}", tracks=tracks, frames=ids.shape[2])
 
     # 4. the card against the JAX golden
     g = np.load(ROOT / "tests" / "fixtures" / "render_golden.npz")
@@ -151,84 +285,170 @@ def main() -> int:
         gold.shape[2], gold.shape[3], device=dev),
         SinkSpec(gold.shape[3], gold.shape[2]),
         batch_size=int(g["batch_size"]))
-    worst, share = diff_stats(torch.from_numpy(out), torch.from_numpy(gold))
-    line("4 golden", frames=out.shape[0], launches=fused_sweep.LAUNCHES -
-         before, max_abs_err=worst, differing_share=f"{share:.3g}")
     assert fused_sweep.LAUNCHES > before, "golden render missed the kernel"
-    assert worst <= 1, f"kernel render vs JAX golden: {worst} LSB"
-    max_err = max(max_err, worst)
+    held("fused_sweep", "4 golden", torch.from_numpy(out),
+         torch.from_numpy(gold), 1, frames=out.shape[0],
+         launches=fused_sweep.LAUNCHES - before)
+
+    class Materialised:
+        """A source without its LOAD step: run_batch gets layers and takes
+        the plain route."""
+
+        def __init__(self, src):
+            self.get_batch = src.get_batch
+
+    src = DeviceSyntheticSource(H, W, device=dev)
+    sink = SinkSpec(W, H)
+    n_chunks = -(-N_FRAMES // CHUNK)
 
     # 5. the main path through the user's entry points
     el = multitrack_timeline(n_tracks=TRACKS, n_frames=N_FRAMES, width=W,
                              height=H, fps=FPS)
-    src = DeviceSyntheticSource(H, W, device=dev)
-    sink = SinkSpec(W, H)
-    n_chunks = -(-N_FRAMES // CHUNK)
-    fused_sweep.LAUNCHES = 0
-    t0 = time.perf_counter()
-    rendered, head = 0, None
-    for tcs, lay in render_events(el, src, sink, batch_size=CHUNK):
-        arr = lay.planes[0]
-        assert arr.dtype == torch.uint8 and arr.device.type == "cuda"
-        assert tuple(arr.shape) == (len(tcs), 3, H, W), tuple(arr.shape)
-        if head is None:
-            head = arr[:4].clone()
-        rendered += len(tcs)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = fused_sweep.LAUNCHES
-    line("5 main_path", frames=rendered, chunks=n_chunks, launches=launches,
+    rendered, head, counts, first_s = render_path(el, src, sink)
+    line("5 main_path", frames=rendered, chunks=n_chunks, launches=counts,
          first_pass_s=f"{first_s:.3f}")
     assert rendered == N_FRAMES
-    assert launches == n_chunks, f"{launches} launches for {n_chunks} chunks"
-
-    class Materialised:
-        """The same source without its LOAD step: run_batch gets layers
-        and takes the plain chain (route b)."""
-        get_batch = src.get_batch
-    _, plain_head = next(iter(render_events(el, Materialised(), sink,
+    assert counts == {"u8": n_chunks}, counts
+    launches = {"fused_sweep": counts["u8"]}
+    _, plain_head = next(iter(render_events(el, Materialised(src), sink,
                                             batch_size=4)))
-    worst, share = diff_stats(head, plain_head.planes[0])
-    line("5 main_vs_plain_route", frames=4, max_abs_err=worst,
-         differing_share=f"{share:.3g}")
-    assert worst <= 1, f"main path vs plain route: {worst} LSB"
-    max_err = max(max_err, worst)
-
-    # timed pass (warm: the pass above built the plan and the library)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    rendered = 0
-    for tcs, _lay in render_events(el, src, sink, batch_size=CHUNK):
-        rendered += len(tcs)
-    end.record()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    fps = rendered / wall_s
+    held("fused_sweep", "5 main_vs_plain_route", head, plain_head.planes[0],
+         1, frames=4)
+    rendered, _, _, wall_s = render_path(el, src, sink, check=False)
     line("5 timed", card=repr(card), frames=rendered, wall_s=f"{wall_s:.4f}",
-         event_ms=f"{start.elapsed_time(end):.2f}", frames_per_s=f"{fps:.1f}",
-         x_realtime=f"{fps / FPS:.2f}")
-
-    # one 96-frame chunk: kernel vs plain_sweep, in turns
-    plan, ids, packed = first_chunk(el, dev, CHUNK)
+         frames_per_s=f"{rendered / wall_s:.1f}",
+         x_realtime=f"{rendered / wall_s / FPS:.2f}")
+    spec, ids, packed, rows = chunk_of(el, dev, CHUNK)
+    plan = sweep_plan(el, spec, rows, dev, TRACKS)
     torch.cuda.reset_peak_memory_stats()
-    plain = lambda: fused_sweep.plain_sweep(plan, ids, packed)  # noqa: E731
-    kern = lambda: fused_sweep._launch(plan, ids, packed)  # noqa: E731
-    p1, k1, k2, p2 = (time_ms(plain, 2), time_ms(kern, 5),
-                      time_ms(kern, 5), time_ms(plain, 2))
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    line("5 chunk_ms", card=repr(card), frames=CHUNK, kernel=f"{k1:.3f},"
-         f"{k2:.3f}", plain=f"{p1:.3f},{p2:.3f}",
+    ms = {}
+    ms["fused_sweep"] = in_turns(
+        lambda: fused_sweep.plain_sweep(plan, ids, packed),
+        lambda: fused_sweep._launch(plan, ids, packed, None))
+    line("5 chunk_ms", card=repr(card), frames=CHUNK,
+         times=ms["fused_sweep"][2],
          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
 
+    # 6. the comp modes vs their plain versions
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for w, h in ((W, H), (1000, 562)):
+        for name, tracks, cut in (("main", TRACKS, 13), ("B", 4, 2)):
+            tel = (multitrack_timeline(n_tracks=tracks, n_frames=8, width=w,
+                                       height=h, fps=FPS) if name == "main"
+                   else timeline(name, 8, w, h))
+            spec, ids, packed, rows = chunk_of(tel, dev, 4)
+            plan = sweep_plan(tel, spec[:cut], rows, dev, tracks,
+                              emit="comp")
+            got = fused_sweep.fused_sweep(plan, ids, packed)
+            torch.cuda.synchronize()
+            held("fused_sweep_comp_out", "6 comp_out_vs_plain", got,
+                 fused_sweep.plain_sweep(plan, ids, packed), 1 / 255,
+                 chain=f"{name}[:{cut}]", size=f"{w}x{h}", frames=4)
+        tel = timeline("A", 8, w, h)
+        spec, ids, packed, rows = chunk_of(tel, dev, 4)
+        plan = sweep_plan(tel, spec[2:], rows, dev, 10, consume="comp",
+                          idx_base=2)
+        comp = torch.rand((4, 3, h, w), generator=gen, device=dev)
+        got = fused_sweep.fused_sweep(plan, ids, packed, comp)
+        torch.cuda.synchronize()
+        held("fused_sweep_comp_in", "6 comp_in_vs_plain", got,
+             fused_sweep.plain_sweep(plan, ids, packed, comp), 1,
+             chain="A[2:]", size=f"{w}x{h}", frames=4)
+
+    # 7. the fused stateful sweep vs its plain version, two chunks
+    for name in ("C", "life_blur", "blur_fire"):
+        tel = timeline(name, 8)
+        spec, _, _, rows = chunk_of(tel, dev, 4)
+        plan = stateful_sweep.build_stateful_sweep(
+            spec, CONFIGS[name][0], H, W, rows, FPS, src, sink, dev)
+        assert plan is not None, f"{name} must qualify for the kernel"
+        st_k = [f.init_state(W, H, None, dev) if f.init_state else None
+                for f, *_ in spec]
+        st_p = list(st_k)
+        for k in range(2):
+            _, ids, packed, _ = chunk_of(tel, dev, 4, k)
+            got, st_k = stateful_sweep.stateful_sweep(plan, ids, packed,
+                                                      st_k)
+            torch.cuda.synchronize()
+            ref, st_p = stateful_sweep.plain_stateful_sweep(plan, ids,
+                                                            packed, st_p)
+            held("stateful_sweep", "7 stateful_vs_plain", got, ref, 1,
+                 chain=name, chunk=k, frames=4)
+        for i, step, kind in plan.state_steps:
+            worst, _ = diff_stats(st_k[i], st_p[i])
+            line("7 state", chain=name, step=step, kind=kind,
+                 max_abs_err=f"{worst:.3g}")
+            assert worst <= (1e-5 if kind != "u8hw" else 0), (name, worst)
+
+    # 8. configs A, B and C through render_events
+    want = {"A": {"comp_in": n_chunks}, "B": {"comp_out": n_chunks},
+            "C": {"comp_in": n_chunks}, "C+sf": {"stateful": N_FRAMES}}
+    rates = {}
+    for path, kinds in want.items():
+        os.environ["LIVES_TPU_FUSED_STATEFUL"] = "1" if "sf" in path else "0"
+        tel = timeline(path[0], N_FRAMES)
+        rendered, head, counts, first_s = render_path(tel, src, sink)
+        line("8 path", config=path, frames=rendered, launches=counts,
+             first_pass_s=f"{first_s:.3f}")
+        assert rendered == N_FRAMES and counts == kinds, (path, counts)
+        for k, v in counts.items():
+            launches.setdefault(KERNEL_OF[k], v)
+        _, plain_head = next(iter(render_events(tel, Materialised(src), sink,
+                                                batch_size=4)))
+        held(KERNEL_OF[next(iter(kinds))], "8 path_vs_plain_route", head,
+             plain_head.planes[0], 1, config=path, frames=4)
+        rendered, _, _, wall_s = render_path(tel, src, sink, check=False)
+        rates[path] = rendered / wall_s
+        line("8 timed", card=repr(card), config=path, frames=rendered,
+             wall_s=f"{wall_s:.4f}", frames_per_s=f"{rates[path]:.1f}",
+             x_realtime=f"{rates[path] / FPS:.2f}")
+    os.environ["LIVES_TPU_FUSED_STATEFUL"] = "0"
+
+    # kernel vs plain ms on one 96-frame chunk for each new kernel
+    torch.cuda.reset_peak_memory_stats()
+    spec, ids, packed, rows = chunk_of(timeline("B", CHUNK), dev, CHUNK)
+    plan = sweep_plan(timeline("B", 1), spec[:2], rows, dev, 4,
+                      emit="comp")
+    ms["fused_sweep_comp_out"] = in_turns(
+        lambda: fused_sweep.plain_sweep(plan, ids, packed),
+        lambda: fused_sweep._launch(plan, ids, packed, None))
+    spec, ids, packed, rows = chunk_of(timeline("A", CHUNK), dev, CHUNK)
+    plan = sweep_plan(timeline("A", 1), spec[2:], rows, dev, 10,
+                      consume="comp", idx_base=2)
+    comp = torch.rand((CHUNK, 3, H, W), generator=gen, device=dev)
+    ms["fused_sweep_comp_in"] = in_turns(
+        lambda: fused_sweep.plain_sweep(plan, ids, packed, comp),
+        lambda: fused_sweep._launch(plan, ids, packed, comp))
+    spec, ids, packed, rows = chunk_of(timeline("C", CHUNK), dev, CHUNK)
+    plan = stateful_sweep.build_stateful_sweep(spec, 10, H, W, rows, FPS,
+                                               src, sink, dev)
+    states = [f.init_state(W, H, None, dev) if f.init_state else None
+              for f, *_ in spec]
+    ms["stateful_sweep"] = in_turns(
+        lambda: stateful_sweep.plain_stateful_sweep(plan, ids, packed,
+                                                    states),
+        lambda: stateful_sweep._launch(plan, ids, packed, states),
+        plain_reps=1, kern_reps=3)
+    for name in ("fused_sweep_comp_out", "fused_sweep_comp_in",
+                 "stateful_sweep"):
+        line("8 chunk_ms", card=repr(card), kernel=name, frames=CHUNK,
+             times=ms[name][2])
+    line("8 peak", gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
+
+    sources = {"fused_sweep": ("lives_tpu_torch/csrc/fused_sweep.cu",
+                               "lives_tpu/graph/pallas_composite.py:240"),
+               "stateful_sweep": ("lives_tpu_torch/csrc/stateful_sweep.cu",
+                                  "lives_tpu/graph/pallas_stateful.py:94")}
+    print(card, flush=True)
     print(json.dumps({"kernels": [{
-        "name": "fused_sweep", "route": "cuda",
-        "source": "lives_tpu_torch/csrc/fused_sweep.cu",
-        "replaces": "lives_tpu/graph/pallas_composite.py:240",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": round(ms, 4), "plain_ms": round(plain_ms, 4)}]}), flush=True)
+        "name": name, "route": "cuda",
+        "source": sources[name.split("_comp")[0]][0],
+        "replaces": sources[name.split("_comp")[0]][1],
+        "launches": launches[name], "max_abs_err": err[name],
+        "ms": round(ms[name][0], 4), "plain_ms": round(ms[name][1], 4)}
+        for name in ("fused_sweep", "fused_sweep_comp_out",
+                     "fused_sweep_comp_in", "stateful_sweep")]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

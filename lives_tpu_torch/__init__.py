@@ -8,8 +8,11 @@ reference it is tested against (tests/test_torch_*.py).
 Ported so far: the multitrack render path (ROADMAP Queue 1, Slices 0-1),
 from `scenes.multitrack_timeline` through `events.renderer.render_events`
 and `graph.nodemodel.FrameGraph.run_batch` to the fused sweep kernel,
-hand-written in CUDA C++ for sm_90a (`csrc/fused_sweep.cu`). Every entry
-point takes its device explicitly; nothing picks a device on its own.
+hand-written in CUDA C++ for sm_90a (`csrc/fused_sweep.cu`), and stateful
+chains of the EffecTV filters (Slice 4): the sweep's comp-out and comp-in
+modes around a frame loop, or the fused stateful sweep
+(`csrc/stateful_sweep.cu`). Every entry point takes its device
+explicitly; nothing picks a device on its own.
 """
 
 from .constants import (Gamma, Palette, YUVClamping, YUVSampling,

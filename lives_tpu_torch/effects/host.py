@@ -8,10 +8,14 @@ JAX package vmaps a single-frame function.
 
 Ported for the render slice: `Param` (with `clamp`), `Filter`, `Instance`,
 `FrameContext`, the registry, `negotiate_layer` for RGB-family and float
-layers, and stateless `apply_instance` with the short-stack rule of
-`host.py:283-288`. Stateful filters, alpha in-channels (cconx) and
-analysers raise `NotImplementedError` until Slice 4 (ROADMAP Queue 1 items
-15-16) and Slice 6 (item 21) bring them.
+layers, and `apply_instance` with the short-stack rule of `host.py:283-288`.
+Stateful filters (`host.py:80-91,136-140,319-331`) take one frame at a
+time, ``(1, C, H, W)``: `FrameGraph.run_batch` loops a chunk's frames and
+threads the state, where the JAX package scans. A stateful filter's
+`init_state(width, height, palette, device)` makes its state at the frame
+geometry on first use, and `process(ins, params, ctx, state)` returns
+``(out, new_state)``. Alpha in-channels (cconx) and analysers come with
+Slice 6 (ROADMAP Queue 1 item 21).
 """
 
 from __future__ import annotations
@@ -66,7 +70,9 @@ class Param:
 
 @dataclass(frozen=True)
 class Filter:
-    """A filter class: `process(inputs, params, ctx) -> Layer`."""
+    """A filter class: `process(inputs, params, ctx) -> Layer`, or for a
+    stateful filter `process(inputs, params, ctx, state) -> (Layer,
+    state)`."""
     name: str
     process: Callable
     in_channels: tuple[ChannelTemplate, ...] = (ChannelTemplate("in"),)
@@ -78,6 +84,8 @@ class Filter:
     author: str = "lives_tpu"
     version: int = 1
     description: str = ""
+    # (width, height, palette, device) -> state, for FILTER_STATEFUL
+    init_state: Callable | None = None
     preferred_gamma: int | None = None
 
     @property
@@ -220,17 +228,16 @@ def negotiate_layer(layer: Layer, tmpl: ChannelTemplate,
 
 def apply_instance(inst: Instance, layers: Sequence[Layer],
                    ctx: FrameContext | None = None) -> list[Layer]:
-    """Apply one stateless instance to a layer stack; returns the new stack
+    """Apply one instance to a layer stack; returns the new stack
     (`lives_tpu/effects/host.py:265`, weed_apply_instance). inst.in_tracks
-    selects the inputs; the result replaces the layer at out_tracks[0]."""
+    selects the inputs; the result replaces the layer at out_tracks[0]. A
+    stateful instance takes one frame, creates its state on first use at
+    the input's geometry and device, and stores the new state in
+    inst.state."""
     f = inst.filter
     layers = list(layers)
     if not inst.enabled:
         return layers
-    if f.flags & FILTER_STATEFUL:
-        raise NotImplementedError(
-            f"{f.name}: stateful filters are not ported yet "
-            "(ROADMAP Queue 1 items 15-16)")
     # missing tracks fall back to the front layer (the reference drops or
     # reuses tracks when a multi-input filter has fewer layers than
     # channels)
@@ -246,7 +253,18 @@ def apply_instance(inst: Instance, layers: Sequence[Layer],
         ctx = FrameContext(width=ins[0].width if ins else 0,
                            height=ins[0].height if ins else 0)
     params = {k: f.param(k).clamp(v) for k, v in inst.param_values().items()}
-    out = f.process(ins, params, ctx)
+    if f.flags & FILTER_STATEFUL:
+        lead = ins[0]
+        if lead.planes[0].shape[0] != 1:
+            raise ValueError(f"{f.name}: a stateful filter takes one frame "
+                             f"at a time, got {lead.planes[0].shape[0]}")
+        state = inst.state
+        if state is None and f.init_state is not None:
+            state = f.init_state(lead.width, lead.height, lead.palette,
+                                 lead.device)
+        out, inst.state = f.process(ins, params, ctx, state)
+    else:
+        out = f.process(ins, params, ctx)
     outs = out if isinstance(out, (list, tuple)) else [out]
     for t, o in zip(inst.out_tracks, outs):
         while len(layers) <= t:

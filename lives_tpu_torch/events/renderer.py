@@ -6,6 +6,8 @@ filter-map boundaries; within a segment the chain is static, so whole frame
 chunks run through one `FrameGraph.run_batch` call each, with per-frame
 parameter values interpolated on the host into ``(B,)`` arrays.
 
+A segment's `FrameGraph` lives across its chunks, so a stateful chain's
+state carries from one chunk to the next, as in the JAX package.
 `ClipFrameSource`/`render_recording` (decoded clips) and the cconx wiring
 of recorded init events are not ported yet (ROADMAP Queue 1 items 20-21).
 """
@@ -126,9 +128,11 @@ def _chain_for(inits: list[Event], el: EventList,
         try:
             f = get_filter(name)
         except KeyError:
+            from ..effects.builtin.effectv import DEFERRED
+            why = DEFERRED.get(name, "ROADMAP Queue 1 items 13-14 port the "
+                                     "rest of the effect library")
             raise NotImplementedError(
-                f"filter {name!r} is not ported yet (ROADMAP Queue 1 items "
-                "13-14 port the rest of the effect library)") from None
+                f"filter {name!r} is not ported yet ({why})") from None
         values = dict(init.props.get("values", {}))
         if start_tc is not None:
             # fold in recorded STATIC-kind param changes effective at the

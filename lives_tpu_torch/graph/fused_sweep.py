@@ -1,26 +1,38 @@
 """The fused render sweep: its eligibility rule, plan encoding, kernel
 wrapper and plain version.
 
-Counterpart of `lives_tpu/graph/pallas_composite.py:240`
-(`build_fused_sweep`, default mode): for a stateless chain over the
-synthetic source, ONE kernel per frame chunk generates every track, runs
-the whole chain in f32 and writes the RGB24 sink's u8 frames. The kernel is
-CUDA C++ for the H100 (`csrc/fused_sweep.cu`); its note says what bounds it.
+Counterpart of `lives_tpu/graph/pallas_composite.py:240-537`
+(`build_fused_sweep`, `sweep_suffix_len`, `sweep_prefix_len`): for a
+stateless chain over the synthetic source, ONE kernel per frame chunk
+generates every track, runs the whole chain in f32 and writes the RGB24
+sink's u8 frames. The kernel is CUDA C++ for the H100
+(`csrc/fused_sweep.cu`); its note says what bounds it. Its two comp modes
+serve stateful chains (`nodemodel.FrameGraph.run_batch`):
+
+- `emit="comp"` (the prefix sweep, `pallas_composite.py:316-318,457-458`):
+  no sink step; the kernel writes a ``(B, 3, H, W)`` f32 comp. The JAX
+  package stores it bf16 by default, a TPU bandwidth choice; the port keeps
+  f32.
+- `consume="comp"` (the suffix sweep, `:329-331,343-344,398-402,418`):
+  track 0 is read from an f32 comp, the other tracks are generated; no
+  stencils (the comp carries no halo). `idx_base` is the global index of
+  the suffix's first instance in `rows_key`.
 
 - `build_fused_sweep` decides eligibility as a pure function of chain,
   source and sink, before any launch, and returns None for a chain the
   kernel does not take (the caller then runs the plain chain, as the JAX
   package runs its XLA path). Otherwise it encodes the chain once into a
   small op table on the device: a `SweepPlan`, which the plan cache keeps.
-- `fused_sweep(plan, src_ids, packed)` launches the kernel on CUDA tensors
-  and counts the launch in `LAUNCHES`. On CPU tensors it returns
-  `plain_sweep`, because the kernel cannot run there.
-- `plain_sweep(plan, src_ids, packed)` computes the same frames with the
-  ported effect functions (FrameGraph's plain route).
+- `fused_sweep(plan, src_ids, packed, comp=None)` launches the kernel on
+  CUDA tensors and counts the launch in `LAUNCHES` and in its mode's entry
+  of `MODE_LAUNCHES`. On CPU tensors it returns `plain_sweep`, because the
+  kernel cannot run there.
+- `plain_sweep(plan, src_ids, packed, comp=None)` computes the same result
+  with the ported effect functions (FrameGraph's plain route).
 - `build()` compiles the kernel with nvcc on first use (`native.load`) and
   binds it with ctypes; `fused_sweep` calls it on its first launch.
 
-The JAX kernel's `emit="comp"`, `consume="comp"` and `band_h` modes are not
+The JAX kernel's `band_h` mode serves the multi-device path and is not
 ported yet (ROADMAP Queue 2, K1).
 """
 
@@ -37,9 +49,12 @@ from ..constants import Gamma, Palette
 from ..effects.builtin.blends import _BLEND_MODES
 from ..effects.builtin.blur import _box_kernel, _gauss_kernel, shift_taps
 from ..effects.host import FILTER_STATEFUL
+from ..layer import Layer
 
-#: launches of the sweep kernel since the count was last set to 0
+#: launches of the sweep kernel since the count was last set to 0, all
+#: modes, and by mode
 LAUNCHES = 0
+MODE_LAUNCHES = {"u8": 0, "comp_out": 0, "comp_in": 0}
 
 # kernel geometry and limits: keep in step with csrc/fused_sweep.cu
 TILE_H = TILE_W = 32
@@ -48,8 +63,10 @@ MAX_RADIUS = 16          # the JAX sweep's limit (pallas_composite.py:349)
 SMEM_LIMIT = 232448      # 227 KB of shared memory a block can use
 STATIC_SMEM = 4 * MAX_SLOTS
 
+# opcodes and op fields: keep in step with csrc/sweep_common.cuh
 (OP_CROSSFADE, OP_BLEND, OP_LUMA_KEY, OP_CHROMA_KEY, OP_COLOUR_BALANCE,
- OP_SATURATION, OP_VIGNETTE, OP_STENCIL) = range(8)
+ OP_SATURATION, OP_VIGNETTE, OP_STENCIL, OP_FIRE, OP_LIFE,
+ OP_ALIEN) = range(11)
 OP_FIELDS = 7  # code, in0, in1, arg, taps offset, sharpen, first slot
 
 _POINT_OPS = {"crossfade": OP_CROSSFADE, "luma_key": OP_LUMA_KEY,
@@ -64,6 +81,39 @@ _STENCILS = {"gaussian_blur": (_gauss_kernel, False),
              "sharpen": (_gauss_kernel, True)}
 #: the kernel's vocabulary
 VOCABULARY = frozenset(_POINT_OPS) | frozenset(_STENCILS)
+#: the stateful steps of the fused stateful sweep (csrc/stateful_sweep.cu):
+#: name -> (opcode, halo, state kind in the JAX state contract)
+#: (`lives_tpu/graph/pallas_stateful.py:54-63`)
+STATEFUL_STEPS = {"fire": (OP_FIRE, 1, "f32hw"),
+                  "life": (OP_LIFE, 1, "u8hw"),
+                  "alien_overlay": (OP_ALIEN, 0, "f32chw")}
+
+
+def sweep_suffix_len(chain) -> int:
+    """Length of the trailing run of enabled stateless point effects (no
+    stencils: the suffix kernel's comp carries no halo), disabled instances
+    passing (`pallas_composite.py:502`)."""
+    n = 0
+    for inst in reversed(list(chain)):
+        if inst.enabled and (inst.filter.flags & FILTER_STATEFUL
+                             or inst.filter.name not in _POINT_OPS):
+            break
+        n += 1
+    return n
+
+
+def sweep_prefix_len(chain) -> int:
+    """Length of the leading run of enabled stateless effects of the
+    kernel's vocabulary, disabled instances passing
+    (`pallas_composite.py:520`); `build_fused_sweep` re-checks the track
+    wiring."""
+    n = 0
+    for inst in chain:
+        if inst.enabled and (inst.filter.flags & FILTER_STATEFUL
+                             or inst.filter.name not in VOCABULARY):
+            break
+        n += 1
+    return n
 
 
 @dataclass(frozen=True, eq=False)
@@ -77,12 +127,24 @@ class SweepPlan:
     fps: float
     source: Any
     sink: Any
-    halo: int                # R, the sum of the stencil radii
+    halo: int                # R, the sum of the stencil (and state) halos
     n_stencils: int
     ops: torch.Tensor        # (n_ops, OP_FIELDS) int32
     slot_rows: torch.Tensor  # (n_slots,) int32 packed row, -1 = constant
     slot_vals: torch.Tensor  # (n_slots, 3) f32: constant, min, max
     taps: torch.Tensor       # (n_taps,) f32
+    emit: str = "u8"         # "u8" or "comp" (f32 comp out)
+    consume: str | None = None  # "comp": track 0 read from an f32 comp
+    idx_base: int = 0        # rows_key index of chain_spec[0]
+    #: the stateful sweep's steps: (chain index, name, state kind) each
+    state_steps: tuple = ()
+
+    @property
+    def mode(self) -> str:
+        """The MODE_LAUNCHES entry of this plan."""
+        if self.consume == "comp":
+            return "comp_in"
+        return "comp_out" if self.emit == "comp" else "u8"
 
 
 def smem_bytes(halo: int, n_stencils: int) -> int:
@@ -94,41 +156,57 @@ def smem_bytes(halo: int, n_stencils: int) -> int:
 
 
 def _encode(chain_spec, n_tracks: int, H: int, W: int, rows_key, source,
-            sink):
+            sink, *, emit: str = "u8", consume: str | None = None,
+            idx_base: int = 0, stateful: bool = False):
     """The eligibility rule and the op table, host side: (ops, slot_rows,
-    slot_vals, taps, halo, n_stencils) numpy arrays, or None when the
-    chain, source or sink is outside the kernel's contract
-    (`lives_tpu/graph/pallas_composite.py:302-369`)."""
+    slot_vals, taps, halo, n_stencils, state_steps) numpy arrays and
+    counts, or None when the chain, source or sink is outside the kernel's
+    contract (`lives_tpu/graph/pallas_composite.py:302-369`; with
+    `stateful`, the fused stateful sweep's, `pallas_stateful.py:106-160`)."""
     from .nodemodel import _STATIC_KINDS
     key = source.source_key() if hasattr(source, "source_key") else None
     if key is None or key[0] != "synthetic" or source.alpha:
         return None
     if (source.h, source.w) != (H, W) or n_tracks < 1:
         return None
-    if sink.palette != Palette.RGB24 or sink.letterbox:
-        return None
-    if sink.width not in (0, W) or sink.height not in (0, H):
-        return None
-    if sink.gamma != Gamma.SRGB:  # synthetic layers are SRGB-tagged
-        return None
+    if emit != "comp":
+        # the kernel writes quantised RGB24 with no sink convert step
+        if sink.palette != Palette.RGB24 or sink.letterbox:
+            return None
+        if sink.width not in (0, W) or sink.height not in (0, H):
+            return None
+        if sink.gamma != Gamma.SRGB:  # synthetic layers are SRGB-tagged
+            return None
     row_of = {k: r for r, k in enumerate(rows_key)}
-    ops, slot_rows, slot_vals, taps = [], [], [], []
+    ops, slot_rows, slot_vals, taps, state_steps = [], [], [], [], []
     halo = n_stencils = 0
     for idx, (filt, static, in_tr, out_tr, enabled) in enumerate(chain_spec):
         if not enabled:
             continue
-        if filt.flags & FILTER_STATEFUL or tuple(out_tr) != (0,):
+        if tuple(out_tr) != (0,):
             return None
         name = filt.name
-        if name not in VOCABULARY:
+        step = STATEFUL_STEPS.get(name) if stateful else None
+        if filt.flags & FILTER_STATEFUL and (step is None
+                                             or tuple(in_tr[:1]) != (0,)):
+            return None
+        if step is None and name not in VOCABULARY:
             return None
         slot = len(slot_rows)
         for p in filt.params:
             if p.kind not in _STATIC_KINDS:
-                slot_rows.append(row_of.get((idx, p.name), -1))
+                slot_rows.append(row_of.get((idx + idx_base, p.name), -1))
                 slot_vals.append((static.get(p.name, p.default),
                                   p.min, p.max))
+        if step is not None:
+            code, step_halo, kind = step
+            ops.append((code, 0, 0, len(state_steps), 0, 0, slot))
+            state_steps.append((idx + idx_base, name, kind))
+            halo += step_halo
+            continue
         if name in _STENCILS:
+            if consume == "comp":
+                return None  # the comp carries no stencil halo
             kern_fn, sharpen = _STENCILS[name]
             rp = filt.param("radius")
             r = min(max(1, int(static.get("radius", rp.default))),
@@ -145,30 +223,43 @@ def _encode(chain_spec, n_tracks: int, H: int, W: int, rows_key, source,
         used = tuple(in_tr[: filt.n_in])
         if len(used) != filt.n_in or max(used) >= n_tracks:
             return None
-        if n_stencils and used != (0,):
-            return None  # after a stencil only track 0 has a halo
+        if n_stencils and used != (0,) and not stateful:
+            # after a stencil only track 0 has a halo; the stateful sweep
+            # generates the other tracks at the halo left
+            return None
         ops.append((_POINT_OPS[name], used[0], used[-1],
                     _BLEND_INDEX.get(name, 0), 0, 0, slot))
     if len(slot_rows) > MAX_SLOTS:
         return None
-    if smem_bytes(halo, n_stencils) + STATIC_SMEM > SMEM_LIMIT:
+    if smem_bytes(halo, n_stencils or len(state_steps)) + STATIC_SMEM \
+            > SMEM_LIMIT:
         return None
     return (np.asarray(ops, np.int32).reshape(-1, OP_FIELDS),
             np.asarray(slot_rows, np.int32),
             np.asarray(slot_vals, np.float32).reshape(-1, 3),
-            np.asarray(taps, np.float32), halo, n_stencils)
+            np.asarray(taps, np.float32), halo, n_stencils,
+            tuple(state_steps))
 
 
 def build_fused_sweep(chain_spec, n_tracks: int, H: int, W: int, rows_key,
                       fps: float, source, sink,
-                      device: torch.device | str) -> SweepPlan | None:
+                      device: torch.device | str, *, emit: str = "u8",
+                      consume: str | None = None, idx_base: int = 0,
+                      stateful: bool = False) -> SweepPlan | None:
     """Encode a chain for the kernel on `device`, or None when it does not
     qualify. `chain_spec`: (filter, static values, in_tracks, out_tracks,
-    enabled) tuples; `rows_key`: the (instance, param) of each packed row."""
-    enc = _encode(chain_spec, n_tracks, H, W, rows_key, source, sink)
+    enabled) tuples; `rows_key`: the (instance, param) of each packed row,
+    instances numbered from `idx_base` for chain_spec[0]. `stateful`
+    encodes for the fused stateful sweep instead
+    (`stateful_sweep.build_stateful_sweep`)."""
+    if emit == "comp" and consume == "comp":
+        raise ValueError("a sweep reads a comp or writes one, not both")
+    enc = _encode(chain_spec, n_tracks, H, W, rows_key, source, sink,
+                  emit=emit, consume=consume, idx_base=idx_base,
+                  stateful=stateful)
     if enc is None:
         return None
-    ops, slot_rows, slot_vals, taps, halo, n_stencils = enc
+    ops, slot_rows, slot_vals, taps, halo, n_stencils, state_steps = enc
     dev = torch.device(device)
     return SweepPlan(
         chain_spec=tuple(chain_spec), n_tracks=n_tracks, height=H, width=W,
@@ -177,31 +268,43 @@ def build_fused_sweep(chain_spec, n_tracks: int, H: int, W: int, rows_key,
         ops=torch.from_numpy(ops).to(dev),
         slot_rows=torch.from_numpy(slot_rows).to(dev),
         slot_vals=torch.from_numpy(slot_vals).to(dev),
-        taps=torch.from_numpy(taps).to(dev))
+        taps=torch.from_numpy(taps).to(dev), emit=emit, consume=consume,
+        idx_base=idx_base, state_steps=state_steps)
 
 
 def plain_sweep(plan: SweepPlan, src_ids: torch.Tensor,
-                packed: torch.Tensor) -> torch.Tensor:
+                packed: torch.Tensor,
+                comp: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's plain PyTorch version: generate the tracks with the
     source and run the ported effect functions (FrameGraph's plain route).
-    src_ids (2,T,B) int32, packed (P+2,B) f32 -> (B,3,H,W) u8."""
+    src_ids (2,T,B) int32, packed (P+2,B) f32, comp (B,3,H,W) f32 in
+    comp-in mode -> (B,3,H,W) u8, or the f32 comp in comp-out mode."""
     from .nodemodel import run_chain
     layers = [plan.source.traced_layer(src_ids[0, t], src_ids[1, t])
               for t in range(plan.n_tracks)]
+    if plan.consume == "comp":
+        layers[0] = Layer(planes=(comp,), palette=int(Palette.RGBFLOAT))
+    emit_comp = plan.emit == "comp"
     out = run_chain(plan.chain_spec, layers, packed, plan.rows_key,
-                    plan.fps, plan.sink)
+                    plan.fps, plan.sink, idx_base=plan.idx_base,
+                    float_chain=emit_comp or None, emit_comp=emit_comp)
     return out.planes[0]
 
 
 def fused_sweep(plan: SweepPlan, src_ids: torch.Tensor,
-                packed: torch.Tensor) -> torch.Tensor:
+                packed: torch.Tensor,
+                comp: torch.Tensor | None = None) -> torch.Tensor:
     """Run the plan on one chunk: the kernel for CUDA tensors, the plain
-    version for CPU tensors (where the kernel cannot run)."""
+    version for CPU tensors (where the kernel cannot run). `comp`: the
+    (B,3,H,W) f32 comp a comp-in plan reads."""
+    if (comp is not None) != (plan.consume == "comp"):
+        raise ValueError("fused_sweep: a comp-in plan takes a comp, and "
+                         "only it")
     if src_ids.device.type == "cpu":
-        return plain_sweep(plan, src_ids, packed)
+        return plain_sweep(plan, src_ids, packed, comp)
     if src_ids.device.type != "cuda":
         raise ValueError(f"fused_sweep: no kernel for {src_ids.device}")
-    return _launch(plan, src_ids, packed)
+    return _launch(plan, src_ids, packed, comp)
 
 
 def build():
@@ -213,7 +316,7 @@ def build():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # every pointer and the stream as c_void_p: ctypes would pass a bare
     # Python int as a 32-bit int and cut it
-    lib.lives_fused_sweep.argtypes = [p, p, p, i, p, p, i, p, p,
+    lib.lives_fused_sweep.argtypes = [p, p, p, i, p, p, i, p, p, p, p,
                                       i, i, i, i, i, i, f, f, p]
     lib.lives_fused_sweep.restype = i
     lib.lives_cuda_error_string.argtypes = [i]
@@ -221,42 +324,69 @@ def build():
     return built
 
 
-def _launch(plan: SweepPlan, src_ids: torch.Tensor,
-            packed: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES
+def check_inputs(plan: SweepPlan, src_ids: torch.Tensor,
+                 packed: torch.Tensor, who: str):
+    """Raise on what the kernel does not take; returns the contiguous
+    (src_ids, packed) and the chunk's frame count B."""
     dev = plan.ops.device
     T = plan.n_tracks
     if src_ids.dtype != torch.int32 or packed.dtype != torch.float32:
-        raise TypeError("fused_sweep: src_ids must be int32, packed float32")
+        raise TypeError(f"{who}: src_ids must be int32, packed float32")
     if src_ids.ndim != 3 or src_ids.shape[:2] != (2, T):
-        raise ValueError(f"fused_sweep: src_ids {tuple(src_ids.shape)}, "
+        raise ValueError(f"{who}: src_ids {tuple(src_ids.shape)}, "
                          f"want (2, {T}, B)")
     B = src_ids.shape[2]
     if packed.shape != (len(plan.rows_key) + 2, B):
-        raise ValueError(f"fused_sweep: packed {tuple(packed.shape)}, want "
+        raise ValueError(f"{who}: packed {tuple(packed.shape)}, want "
                          f"({len(plan.rows_key) + 2}, {B})")
     if src_ids.device != dev or packed.device != dev:
-        raise ValueError(f"fused_sweep: tensors must be on {dev}")
-    src_ids = src_ids.contiguous()
-    packed = packed.contiguous()
+        raise ValueError(f"{who}: tensors must be on {dev}")
+    return src_ids.contiguous(), packed.contiguous(), B
+
+
+def grid_scales(plan: SweepPlan) -> tuple[float, float]:
+    """float32(2 / max(W-1, 1)) and the same for H: the centred grid's
+    scales of `effects.util._normalise`."""
+    return (float(np.float32(2.0 / max(plan.width - 1, 1))),
+            float(np.float32(2.0 / max(plan.height - 1, 1))))
+
+
+def _launch(plan: SweepPlan, src_ids: torch.Tensor, packed: torch.Tensor,
+            comp: torch.Tensor | None) -> torch.Tensor:
+    global LAUNCHES
+    src_ids, packed, B = check_inputs(plan, src_ids, packed, "fused_sweep")
+    dev = plan.ops.device
     H, W = plan.height, plan.width
-    out = torch.empty((B, 3, H, W), dtype=torch.uint8, device=dev)
+    if comp is not None:
+        if comp.dtype != torch.float32 or comp.shape != (B, 3, H, W) \
+                or comp.device != dev:
+            raise ValueError(f"fused_sweep: comp {tuple(comp.shape)} "
+                             f"{comp.dtype} on {comp.device}, want "
+                             f"({B}, 3, {H}, {W}) float32 on {dev}")
+        comp = comp.contiguous()
+    emit_comp = plan.emit == "comp"
+    out = torch.empty((B, 3, H, W), device=dev,
+                      dtype=torch.float32 if emit_comp else torch.uint8)
     if B == 0:
         return out
     lib = build().lib
-    sx = float(np.float32(2.0 / max(W - 1, 1)))
-    sy = float(np.float32(2.0 / max(H - 1, 1)))
+    sx, sy = grid_scales(plan)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.lives_fused_sweep(
             packed.data_ptr(), src_ids.data_ptr(), plan.ops.data_ptr(),
             plan.ops.shape[0], plan.slot_rows.data_ptr(),
             plan.slot_vals.data_ptr(), plan.slot_rows.shape[0],
-            plan.taps.data_ptr(), out.data_ptr(), T, B, H, W, plan.halo,
-            plan.n_stencils, sx, sy, stream)
+            plan.taps.data_ptr(),
+            comp.data_ptr() if comp is not None else None,
+            None if emit_comp else out.data_ptr(),
+            out.data_ptr() if emit_comp else None,
+            plan.n_tracks, B, H, W, plan.halo, plan.n_stencils, sx, sy,
+            stream)
     if err != 0:
         msg = lib.lives_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_sweep launch failed: CUDA error {err} "
                            f"({msg})")
     LAUNCHES += 1
+    MODE_LAUNCHES[plan.mode] += 1
     return out

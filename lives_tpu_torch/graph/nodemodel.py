@@ -1,25 +1,40 @@
 """Plan compiler, batch form: `SinkSpec` and `FrameGraph.run_batch`.
 
-Counterpart of `lives_tpu/graph/nodemodel.py:53` (`SinkSpec`) and `:363`
-(`FrameGraph.run_batch`), for stateless chains. A chunk of frames arrives
-as one packed ``(P+2, B)`` float32 upload (every traced parameter row in
-the order of `nodemodel.py:402-407`, then timecodes and frame numbers) and
-takes one of two routes on the source's device:
+Counterpart of `lives_tpu/graph/nodemodel.py:53` (`SinkSpec`) and
+`:363-860` (`FrameGraph.run_batch`, `_make_frame_fn`). A chunk of frames
+arrives as one packed ``(P+2, B)`` float32 upload (every traced parameter
+row in the order of `nodemodel.py:402-407`, then timecodes and frame
+numbers) and takes one of these routes on the source's device:
 
 (a) the fused sweep kernel (`graph/fused_sweep.py`), when the source is the
-    synthetic source and the chain and sink are inside the kernel's
-    contract;
+    synthetic source and a stateless chain and the sink are inside the
+    kernel's contract;
 (b) the plain batched chain (`run_chain`): tracks are generated as
     ``(B, C, H, W)`` tensors and every effect runs in float32 over the
-    whole chunk, which mirrors the JAX package's XLA path.
+    whole chunk, which mirrors the JAX package's XLA path;
+(c) a stateful chain (`nodemodel.py:409-485,611-719`): three phases, a
+    prefix sweep (the kernel in comp-out mode over the leading stateless
+    run) -> a Python frame loop over the stateful middle at B=1, standing
+    in for `lax.scan` (without a prefix, each frame's tracks are generated
+    inside the loop) -> a suffix sweep (the kernel in comp-in mode over the
+    trailing point ops, then the sink quantise). Under
+    `pref("fused_stateful") == "1"` a chain the fused stateful sweep holds
+    runs that kernel instead (`graph/stateful_sweep.py`), one launch a
+    frame. A materialised source runs the frame loop over the whole chain.
+
+State lives on the graph (`FrameGraph.states`, one entry per instance, in
+the JAX package's state contract), made at the frame geometry on the first
+chunk and written back to each `inst.state` after every chunk;
+`states_from_numpy`/`states_to_numpy` carry it between the packages.
 
 PyTorch runs eagerly, so the JAX package's jitted plan template becomes a
 cached plan: `_PLANS` maps the template key of `nodemodel.py:507` to the
-sweep kernel's op table on the device (route a) or to None (route b). The
+sweep kernel's op table on the device (route a), to None (route b), or to
+a `StatefulRoute` of op tables (route c). A plan never holds state. The
 inter-stage comps are float32 (the JAX package's bf16 comp is a TPU
-bandwidth choice). Stateful chains, cconx wiring and the single-frame
-`FrameGraph.run` raise `NotImplementedError` naming the ROADMAP item that
-brings them; nothing quietly runs another path.
+bandwidth choice). cconx wiring and the single-frame `FrameGraph.run`
+raise `NotImplementedError` naming the ROADMAP item that brings them;
+nothing quietly runs another path.
 """
 
 from __future__ import annotations
@@ -36,13 +51,33 @@ from ..effects.host import (FILTER_STATEFUL, FrameContext, Instance,
                             apply_instance)
 from ..layer import Layer
 from ..ops.colorspace import convert_layer
-from . import fused_sweep
+from ..prefs import pref
+from . import fused_sweep, stateful_sweep
 
 _STATIC_KINDS = ("int", "string", "string_list", "bool", "color")
 
 #: process-wide plans, keyed like the JAX package's plan templates:
-#: the sweep kernel's SweepPlan (route a) or None (route b)
+#: the sweep kernel's SweepPlan (route a), None (route b) or a
+#: StatefulRoute (route c)
 _PLANS: dict = {}
+
+
+@dataclass(frozen=True)
+class StatefulRoute:
+    """Route (c) of a stateful chain: the fused stateful sweep's plan, or
+    the prefix and suffix sweeps around the frame loop (None where the
+    route has no such phase)."""
+    sf: Any = None
+    pre: Any = None
+    suf: Any = None
+
+    @property
+    def npre(self) -> int:
+        return len(self.pre.chain_spec) if self.pre is not None else 0
+
+    @property
+    def nsuf(self) -> int:
+        return len(self.suf.chain_spec) if self.suf is not None else 0
 
 
 @dataclass(frozen=True)
@@ -121,35 +156,119 @@ def _to_sink(out: Layer, sink: SinkSpec) -> Layer:
     return out
 
 
-def run_chain(chain_spec: Sequence[tuple], layers: Sequence[Layer],
+def run_chain(chain_spec: Sequence[tuple], layers: Sequence[Layer | None],
               packed: torch.Tensor, rows_key: Sequence[tuple], fps: float,
-              sink: SinkSpec) -> Layer:
-    """Route (b): a stateless chain over batched track layers.
+              sink: SinkSpec, *, idx_base: int = 0,
+              states: list | None = None, float_chain: bool | None = None,
+              emit_comp: bool = False) -> Layer:
+    """Route (b): a chain over batched track layers.
 
     `packed` (P+2, B) float32 holds the traced rows named by `rows_key`
-    ((instance index, param name) each), then timecodes and frame numbers.
-    Chains of two or more effects run on float32 layers, converted once at
-    entry and quantised once at the sink (`nodemodel.py:785-807`)."""
+    ((instance index, param name) each, chain_spec[0] being instance
+    `idx_base`), then timecodes and frame numbers. Chains of two or more
+    effects run on float32 layers (`float_chain` overrides), converted once
+    at entry and quantised once at the sink (`nodemodel.py:785-807`);
+    `emit_comp` returns the f32 comp instead of the sink's frames
+    (`:831-840`). `states` (one entry per instance) is updated in place
+    with each stateful instance's new state."""
     tps: list[dict[str, Any]] = [dict() for _ in chain_spec]
     for r, (i, k) in enumerate(rows_key):
-        tps[i][k] = packed[r]
+        if 0 <= i - idx_base < len(chain_spec):
+            tps[i - idx_base][k] = packed[r]
     tc, frame = packed[-2], packed[-1].to(torch.int32)
-    w0 = layers[0].width if layers else sink.width
-    h0 = layers[0].height if layers else sink.height
+    lead = next((l for l in layers if l is not None), None)
+    w0 = lead.width if lead is not None else sink.width
+    h0 = lead.height if lead is not None else sink.height
     ctx = FrameContext(tc=tc, frame=frame, fps=fps, width=w0 or sink.width,
                        height=h0 or sink.height)
     layers = list(layers)
-    if len(chain_spec) >= 2:
+    if float_chain is None:
+        float_chain = len(chain_spec) >= 2
+    if float_chain:
         layers = [convert_layer(l, Palette.RGBAFLOAT if has_alpha(l.palette)
                                 else Palette.RGBFLOAT)
-                  if is_rgb_palette(l.palette) else l for l in layers]
+                  if l is not None and is_rgb_palette(l.palette) else l
+                  for l in layers]
     if not layers:
         layers = [None]
-    for (filt, static, in_tr, out_tr, enabled), tp in zip(chain_spec, tps):
+    for j, ((filt, static, in_tr, out_tr, enabled), tp) in enumerate(
+            zip(chain_spec, tps)):
         inst = Instance(filter=filt, values={**static, **tp}, enabled=enabled,
-                        in_tracks=in_tr, out_tracks=out_tr)
+                        in_tracks=in_tr, out_tracks=out_tr,
+                        state=states[j] if states is not None else None)
         layers = apply_instance(inst, layers, ctx)
+        if states is not None:
+            states[j] = inst.state
+    if emit_comp:
+        return convert_layer(layers[0], Palette.RGBFLOAT)
     return _to_sink(layers[0], sink)
+
+
+def source_frames(source, src_ids: torch.Tensor, chain_spec):
+    """frame b -> the track layers of frame b, generated inside the frame
+    loop (`nodemodel.py:685-709`): (1, C, H, W) each, only the tracks the
+    chain reads (track 0 always), None for the rest."""
+    used = {0} | {t for (filt, _, in_tr, _, enabled) in chain_spec
+                  if enabled for t in in_tr[: filt.n_in]}
+
+    def frame(b):
+        return [source.traced_layer(src_ids[0, t, b:b + 1],
+                                    src_ids[1, t, b:b + 1])
+                if t in used else None for t in range(src_ids.shape[1])]
+    return frame
+
+
+def frame_loop(chain_spec, start: int, stop: int, frame_layers, B: int,
+               packed: torch.Tensor, rows_key, fps: float, sink: SinkSpec,
+               states: list, emit_comp: bool = False):
+    """The stateful middle, frame by frame: instances [start, stop) of the
+    chain run at B=1 on `frame_layers(b)`, with frame b's columns of
+    `packed`, threading `states` (one entry per chain instance) from frame
+    to frame, as `lax.scan` does in the JAX package (`nodemodel.py:
+    644-719`). Returns (the chunk's Layer, new states list)."""
+    sub = list(chain_spec[start:stop])
+    st = list(states[start:stop])
+    outs = [run_chain(sub, frame_layers(b), packed[:, b:b + 1], rows_key,
+                      fps, sink, idx_base=start, states=st,
+                      emit_comp=emit_comp) for b in range(B)]
+    planes = tuple(torch.cat([o.planes[i] for o in outs])
+                   for i in range(len(outs[0].planes)))
+    return (outs[0].replace(planes=planes),
+            list(states[:start]) + st + list(states[stop:]))
+
+
+def states_from_numpy(chain: Sequence[Instance], states: Sequence,
+                      device: torch.device | str) -> list:
+    """The JAX package's `FrameGraph.states` (per instance: None, an
+    array, or rgb_delay's {"ring", "head"}) as host numpy arrays -> the
+    port's, on `device`."""
+    if len(states) != len(chain):
+        raise ValueError(f"{len(states)} states for {len(chain)} instances")
+
+    def conv(v):
+        if v is None:
+            return None
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        return torch.from_numpy(np.array(v)).to(device)
+    out = []
+    for inst, st in zip(chain, states):
+        if st is not None and not inst.filter.flags & FILTER_STATEFUL:
+            raise ValueError(f"{inst.filter.name} holds no state")
+        out.append(conv(st))
+    return out
+
+
+def states_to_numpy(states: Sequence) -> list:
+    """The port's states -> host numpy arrays, in the JAX package's
+    contract (the inverse of `states_from_numpy`)."""
+    def conv(v):
+        if v is None:
+            return None
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        return v.detach().cpu().numpy()
+    return [conv(st) for st in states]
 
 
 class FrameGraph:
@@ -170,6 +289,7 @@ class FrameGraph:
         self.chain = list(chain)
         self.sink = sink or SinkSpec()
         self.fps = fps
+        self.states: list[Any] = [inst.state for inst in self.chain]
 
     @property
     def has_stateful(self) -> bool:
@@ -181,6 +301,38 @@ class FrameGraph:
             "FrameGraph.run (single-frame live path) is not ported yet "
             "(ROADMAP Queue 1 item 12)")
 
+    def _route(self, n_tracks: int) -> tuple[int, int, bool]:
+        """(pre_n, suf_n, sf_eligible) of a stateful chain over a
+        traceable source (`nodemodel.py:444-485`)."""
+        chain = self.chain
+        pre_n = suf_n = 0
+        cand_s = fused_sweep.sweep_suffix_len(chain)
+        if cand_s >= 2:
+            suf_n = cand_s
+        cand = fused_sweep.sweep_prefix_len(chain)
+        # after a fused prefix the loop sees ONLY the comp layer, so the
+        # middle must read track 0 alone; the suffix regenerates its other
+        # tracks in the kernel
+        mid_hi = len(chain) - suf_n
+        tail_ok = all(
+            tuple(inst.in_tracks[: inst.filter.n_in]) in ((), (0,))
+            for inst in chain[cand:mid_hi] if inst.enabled)
+        if cand >= 1 and tail_ok:
+            pre_n = cand
+        elif suf_n:
+            # no prefix: the in-loop generation middle still needs its
+            # multi-track reads inside the track count
+            mid_ok = all(
+                max(inst.in_tracks[: inst.filter.n_in], default=0)
+                < n_tracks for inst in chain[:mid_hi] if inst.enabled)
+            if not mid_ok:
+                suf_n = 0
+        if pre_n + suf_n > len(chain):
+            suf_n = len(chain) - pre_n
+        sf = (pref("fused_stateful") == "1"
+              and stateful_sweep.stateful_sweep_len(chain))
+        return pre_n, suf_n, sf
+
     def run_batch(self, layers: Sequence[Layer], tcs, frames,
                   traced_params: list[dict] | None = None,
                   source=None, src_args=None) -> Layer:
@@ -191,11 +343,8 @@ class FrameGraph:
         host arrays, when generation is the plan's LOAD step. `tcs`/`frames`:
         (B,) host arrays. `traced_params`: per-instance dicts of (B,) host
         arrays; default: instance values broadcast over B. The result lies
-        on the device of the source or of the layers."""
-        if self.has_stateful:
-            raise NotImplementedError(
-                "stateful chains are not ported yet (ROADMAP Queue 1 "
-                "items 15-17)")
+        on the device of the source or of the layers; a stateful chain's
+        state carries over to the next call."""
         layers = list(layers)
         if source is not None and layers:
             raise ValueError("run_batch: pass layers or a source, not both")
@@ -205,8 +354,8 @@ class FrameGraph:
             device = layers[0].device
         else:
             raise ValueError("run_batch: no layers and no source")
+        B = len(tcs)
         if traced_params is None:
-            B = len(tcs)
             traced_params = [
                 {k: np.broadcast_to(np.float32(v), (B,))
                  for k, v in _split_params(inst)[1].items()}
@@ -219,13 +368,16 @@ class FrameGraph:
             # int64 clip ids wrap to int32, as in the JAX package
             src_dev = torch.from_numpy(
                 np.stack(src_args).astype(np.int32)).to(device)
+        spec = chain_spec_of(self.chain)
+        if self.has_stateful:
+            return self._run_stateful(spec, layers, packed, rows_key, source,
+                                      src_dev, device)
         key = ("batch", _chain_static_key(self.chain),
                tuple(l.config for l in layers), self.sink.key(), self.fps,
                rows_key,
                source.source_key() if source is not None else None,
                tuple(src_dev.shape[:2]) if src_dev is not None else None,
                str(device))
-        spec = chain_spec_of(self.chain)
         if key not in _PLANS:
             plan = None
             if source is not None:
@@ -243,3 +395,80 @@ class FrameGraph:
                       for t in range(src_dev.shape[1])]
         return run_chain(spec, layers, packed, rows_key, self.fps, self.sink)
 
+    def _run_stateful(self, spec, layers, packed, rows_key, source, src_dev,
+                      device) -> Layer:
+        """Route (c) (`nodemodel.py:409-485,611-741`)."""
+        B = packed.shape[1]
+        # states at the FRAME geometry (source dims for in-template tracks:
+        # the default SinkSpec is 0x0 and may differ from the source)
+        if layers:
+            w0, h0, pal0 = layers[0].width, layers[0].height, \
+                layers[0].palette
+        else:
+            w0 = getattr(source, "w", 0) or self.sink.width
+            h0 = getattr(source, "h", 0) or self.sink.height
+            pal0 = None
+        for i, inst in enumerate(self.chain):
+            if (inst.filter.flags & FILTER_STATEFUL and self.states[i] is None
+                    and inst.filter.init_state is not None):
+                self.states[i] = inst.filter.init_state(w0, h0, pal0, device)
+        route = (0, 0, False)
+        if source is not None:
+            route = self._route(src_dev.shape[1])
+        key = ("batch", _chain_static_key(self.chain),
+               tuple(l.config for l in layers), self.sink.key(), self.fps,
+               rows_key,
+               source.source_key() if source is not None else None,
+               tuple(src_dev.shape[:2]) if src_dev is not None else None,
+               str(device), route)
+        if key not in _PLANS:
+            pre_n, suf_n, sf = route
+            plans = {}
+            if source is not None:
+                args = (src_dev.shape[1], source.h, source.w, rows_key,
+                        self.fps, source, self.sink, device)
+                if sf:
+                    plans["sf"] = stateful_sweep.build_stateful_sweep(
+                        spec, *args)
+                if plans.get("sf") is None and pre_n:
+                    plans["pre"] = fused_sweep.build_fused_sweep(
+                        spec[:pre_n], *args, emit="comp")
+                if plans.get("sf") is None and suf_n:
+                    plans["suf"] = fused_sweep.build_fused_sweep(
+                        spec[-suf_n:], *args, consume="comp",
+                        idx_base=len(spec) - suf_n)
+            _PLANS[key] = StatefulRoute(**plans)
+        route = _PLANS[key]
+        if route.sf is not None:
+            u8, self.states = stateful_sweep.stateful_sweep(
+                route.sf, src_dev, packed, self.states)
+            out = Layer(planes=(u8,), palette=int(Palette.RGB24),
+                        gamma=self.sink.gamma)
+        else:
+            start, stop = route.npre, len(spec) - route.nsuf
+            if route.pre is not None:
+                # generation + the stateless prefix: one kernel, f32 comp
+                comp = fused_sweep.fused_sweep(route.pre, src_dev, packed)
+                frame_layers = lambda b: [Layer(  # noqa: E731
+                    planes=(comp[b:b + 1],), palette=int(Palette.RGBFLOAT))]
+            elif source is not None:
+                frame_layers = source_frames(source, src_dev,
+                                             spec[start:stop])
+            else:
+                frame_layers = lambda b: [l.replace(  # noqa: E731
+                    planes=tuple(p[b:b + 1] for p in l.planes))
+                    for l in layers]
+            out, self.states = frame_loop(
+                spec, start, stop, frame_layers, B, packed, rows_key,
+                self.fps, self.sink, self.states,
+                emit_comp=route.suf is not None)
+            if route.suf is not None:
+                # the suffix: the other tracks regenerated in the kernel,
+                # the trailing point ops, the sink quantise
+                u8 = fused_sweep.fused_sweep(route.suf, src_dev, packed,
+                                             out.planes[0])
+                out = Layer(planes=(u8,), palette=int(Palette.RGB24),
+                            gamma=self.sink.gamma)
+        for inst, st in zip(self.chain, self.states):
+            inst.state = st
+        return out

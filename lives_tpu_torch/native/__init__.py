@@ -4,9 +4,10 @@ Counterpart of `lives_tpu/native/__init__.py` (host C++ built with g++ on
 first use, bound with ctypes), for the port's hand-written CUDA sources in
 `lives_tpu_torch/csrc/`. A source is compiled with nvcc for the H100
 (`sm_90a`) into a shared library with a plain C interface, under `build/`
-at the root of the checkout, named by a hash of the source and the flags,
-so an edited kernel is rebuilt and an unchanged one is reused. A build
-that fails raises with nvcc's stderr; nothing falls back.
+at the root of the checkout, named by a hash of the source, the shared
+headers (`csrc/*.cuh`) and the flags, so an edited kernel is rebuilt and an
+unchanged one is reused. A build that fails raises with nvcc's stderr;
+nothing falls back. `EXTRA_FLAGS` adds a source's own flags.
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lives_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+#: per-source flags: the stateful sweep rounds every multiply and add on its
+#: own, as PyTorch's eager ops do (csrc/stateful_sweep.cu, "Numerics")
+EXTRA_FLAGS = {"stateful_sweep": ("-fmad=false",)}
 
 
 class Built:
@@ -50,24 +54,40 @@ def _nvcc() -> str:
 
 def load(name: str) -> Built:
     """Build (if needed) and load `csrc/<name>.cu`."""
-    if name in _LOADED:
-        return _LOADED[name]
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{name}-{digest}.so"
-    log, seconds = "", 0.0
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                           capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{r.stderr}")
-        os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
-        log = r.stderr
-    built = Built(ctypes.CDLL(str(so)), so, log, seconds)
-    _LOADED[name] = built
-    return built
+    return load_all([name])[name]
+
+
+def load_all(names) -> dict[str, Built]:
+    """Build (if needed) and load several sources, one nvcc process each,
+    all started together."""
+    todo = {}
+    for name in names:
+        if name in _LOADED or name in todo:
+            continue
+        src = CSRC / f"{name}.cu"
+        flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+        text = src.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        digest = hashlib.sha256(
+            text + " ".join(flags).encode()).hexdigest()[:16]
+        so = BUILD_DIR / f"lib{name}-{digest}.so"
+        proc = tmp = None
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [_nvcc(), *flags, "-o", str(tmp), str(src)],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        todo[name] = (src, so, tmp, proc, time.perf_counter())
+    done = {}  # wait for every build before any failure raises
+    for name, (src, so, tmp, proc, t0) in todo.items():
+        log = proc.communicate()[1] if proc is not None else ""
+        done[name] = (log, time.perf_counter() - t0 if proc else 0.0)
+    for name, (src, so, tmp, proc, t0) in todo.items():
+        log, seconds = done[name]
+        if proc is not None:
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+            os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
+        _LOADED[name] = Built(ctypes.CDLL(str(so)), so, log, seconds)
+    return {name: _LOADED[name] for name in names}

@@ -1,4 +1,5 @@
-"""The fused sweep's CUDA kernel against its plain version, on a GPU.
+"""The CUDA kernels against their plain versions, on a GPU: the fused
+sweep in its three modes and the fused stateful sweep.
 
 These tests need an NVIDIA GPU and skip without one. They import neither
 jax nor lives_tpu, so they also run where only PyTorch is installed:
@@ -7,8 +8,9 @@ jax nor lives_tpu, so they also run where only PyTorch is installed:
 
 (tests/conftest.py configures jax for the rest of the suite.) Kernel and
 plain version get the same inputs on the card and agree to +/-1 LSB:
-both compute in float32, the kernel with fused multiply-adds and CUDA's
-own expf."""
+both compute in float32, the fused sweep with fused multiply-adds and
+CUDA's own expf; an f32 comp within 1/255; the stateful sweep's states
+within 1e-5 (f32) or exactly (life's u8 cells)."""
 
 import random
 
@@ -22,10 +24,73 @@ from lives_tpu_torch.events.event_list import TICKS_PER_SECOND
 from lives_tpu_torch.events.renderer import (_chain_for, _interp_arrays,
                                              render_to_arrays,
                                              segment_events)
-from lives_tpu_torch.graph import SinkSpec, fused_sweep
+from lives_tpu_torch.graph import SinkSpec, fused_sweep, stateful_sweep
 from lives_tpu_torch.graph.nodemodel import (_split_params, chain_spec_of,
                                              pack_params)
 from lives_tpu_torch.scenes import DeviceSyntheticSource, multitrack_timeline
+
+TRANSITIONS = ["crossfade", "blend_screen", "blend_overlay", "blend_add",
+               "blend_multiply", "blend_lighten", "blend_difference",
+               "blend_darken", "crossfade"]
+
+
+def config_chain(make, cfg, n_tracks=3):
+    """The chains of configs A, B and C (benchmarks/render_stateful_led.py
+    :43-60, benchmarks/render_stateful.py:34-40) at `n_tracks` tracks, and
+    the chains of tests/test_stateful_fused.py:18-65 that lie inside the
+    port's vocabulary (life with saturation for brightness_contrast)."""
+    def inst(name, tracks=None, enabled=True, **vals):
+        i = make(name, **vals)
+        i.enabled = enabled
+        if tracks:
+            i.in_tracks = tracks
+        return i
+    if cfg == "B":
+        return [inst("crossfade", (0, 1), amount=0.6),
+                inst("vignette", amount=0.5),
+                inst("rgb_delay", delay_r=0.0, delay_g=1.0, delay_b=2.0),
+                inst("fire", threshold=0.6),
+                inst("saturation", saturation=1.2)]
+    if cfg in ("A", "C"):
+        chain = [inst("fire", threshold=0.6),
+                 inst("alien_overlay") if cfg == "C" else
+                 inst("rgb_delay", delay_r=0.0, delay_g=1.0, delay_b=2.0)]
+        chain += [inst(TRANSITIONS[(t - 1) % 9], (0, t), amount=0.5)
+                  for t in range(1, n_tracks)]
+        return chain + [inst("saturation", saturation=1.2),
+                        inst("vignette", amount=0.5)]
+    return {
+        "fire_led": lambda: [inst("fire", threshold=0.4, cooling=0.2),
+                             inst("crossfade", (0, 1), amount=0.6),
+                             inst("saturation", saturation=1.2),
+                             inst("vignette", amount=0.5)],
+        "alien": lambda: [inst("alien_overlay"),
+                          inst("crossfade", (0, 1), amount=0.4),
+                          inst("saturation", saturation=1.1)],
+        "life": lambda: [inst("life", threshold=0.15, amount=0.5),
+                         inst("saturation", saturation=1.2)],
+        "multi": lambda: [inst("fire", threshold=0.5),
+                          inst("alien_overlay"),
+                          inst("crossfade", (0, 1), amount=0.5),
+                          inst("vignette", amount=0.4)],
+        "stencil_after": lambda: [inst("fire", threshold=0.5),
+                                  inst("gaussian_blur", radius=2.0),
+                                  inst("saturation", saturation=1.2)],
+        "life_blur": lambda: [inst("life", threshold=0.15, amount=0.5),
+                              inst("gaussian_blur", radius=2.0)],
+        "alien_blur": lambda: [inst("alien_overlay"),
+                               inst("box_blur", radius=2.0)],
+        "stencil_before": lambda: [inst("gaussian_blur", radius=2.0),
+                                   inst("fire", threshold=0.5),
+                                   inst("saturation", saturation=1.2)],
+        "sandwich": lambda: [inst("gaussian_blur", radius=2.0),
+                             inst("life", threshold=0.15, amount=0.5),
+                             inst("box_blur", radius=1.0)],
+        # a disabled stateful step: the prefix takes the whole chain
+        "disabled": lambda: [inst("crossfade", (0, 1), amount=0.6),
+                             inst("fire", enabled=False),
+                             inst("saturation", saturation=1.2)],
+    }[cfg]()
 
 
 @pytest.fixture
@@ -197,3 +262,136 @@ def test_random_chain_kernel_matches_plain(cuda, seed):
     assert plan is not None
     _check(plan, torch.from_numpy(RANDOM_IDS).to(cuda),
            torch.from_numpy(packed).to(cuda))
+
+
+def _main_chunk(w, h, n_tracks, B, device):
+    """The benchmark timeline's chain and frames 3..3+B on `device`."""
+    el = multitrack_timeline(n_tracks=n_tracks, n_frames=B + 5, width=w,
+                             height=h, fps=30.0)
+    seg = segment_events(el)[0]
+    inits, chain = _chain_for(seg.inits, el, seg.frames[0].tc)
+    frames = seg.frames[3:3 + B]
+    tcs = [f.tc for f in frames]
+    packed, rows = pack_params(_interp_arrays(el, inits, chain, tcs),
+                               np.asarray(tcs) / TICKS_PER_SECOND,
+                               np.arange(3, 3 + B))
+    ids = np.stack([np.array([f.clips for f in frames]).T,
+                    np.array([f.frames for f in frames]).T]).astype(np.int32)
+    return (chain_spec_of(chain), rows, torch.from_numpy(ids).to(device),
+            torch.from_numpy(packed).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["comp_out", "comp_in"])
+@pytest.mark.parametrize("w,h,n_tracks,B", [
+    (256, 48, 4, 4), (100, 37, 3, 3), (1920, 1080, 10, 2), (33, 7, 10, 2)])
+def test_comp_modes_match_plain(cuda, mode, w, h, n_tracks, B):
+    """comp-out over the whole 13-effect chain (its f32 comp within
+    1/255); comp-in over its point ops (the chain less the blur) reading a
+    random comp (u8 within 1 LSB)."""
+    spec, rows, ids, packed = _main_chunk(w, h, n_tracks, B, cuda)
+    src = DeviceSyntheticSource(h, w, device=cuda)
+    comp = None
+    if mode == "comp_in":
+        spec = [s for s in spec if s[0].name != "gaussian_blur"]
+        comp = torch.rand((B, 3, h, w), device=cuda,
+                          generator=torch.Generator(cuda).manual_seed(w))
+    plan = fused_sweep.build_fused_sweep(
+        spec, n_tracks, h, w, rows, 30.0, src, SinkSpec(w, h), cuda,
+        emit="comp" if mode == "comp_out" else "u8",
+        consume="comp" if mode == "comp_in" else None)
+    assert plan is not None and plan.mode == mode
+    before = fused_sweep.MODE_LAUNCHES[mode]
+    got = fused_sweep.fused_sweep(plan, ids, packed, comp)
+    torch.cuda.synchronize()
+    assert fused_sweep.MODE_LAUNCHES[mode] == before + 1
+    ref = fused_sweep.plain_sweep(plan, ids, packed, comp)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    diff = (got.double() - ref.double()).abs().max().item()
+    assert diff <= (1 / 255 if mode == "comp_out" else 1), diff
+
+
+STATEFUL_KINDS = ["C", "fire_led", "alien", "life", "multi",
+                  "stencil_after", "life_blur", "alien_blur",
+                  "stencil_before", "sandwich"]
+
+
+def _stateful_inputs(chain, n_tracks, B, k, rng, device):
+    """Chunk k: clip ids (one blank track), frame numbers, and per-frame
+    parameters drawn inside their ranges."""
+    ids = np.zeros((2, n_tracks, B), np.int32)
+    for t in range(n_tracks):
+        ids[0, t] = t + 1
+    ids[0, n_tracks - 1, 1] = -1
+    ids[1] = np.arange(B) + k * B
+    params = [{n: rng.uniform(inst.filter.param(n).min,
+                              inst.filter.param(n).max, B).astype(np.float32)
+               for n in _split_params(inst)[1]} for inst in chain]
+    packed, rows = pack_params(params, (np.arange(B) + k * B) / 30.0,
+                               np.arange(B) + k * B)
+    return (torch.from_numpy(ids).to(device),
+            torch.from_numpy(packed).to(device), rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h", [(128, 32), (45, 37)])
+@pytest.mark.parametrize("kind", STATEFUL_KINDS)
+def test_stateful_kernel_matches_plain(cuda, kind, w, h):
+    """Two chunks of 4 frames from the filters' initial states: frames
+    within 1 LSB, the carried states within 1e-5 (f32) or exact (u8)."""
+    chain = config_chain(instantiate, kind)
+    rng = np.random.default_rng(7)
+    src = DeviceSyntheticSource(h, w, device=cuda)
+    ids, packed, rows = _stateful_inputs(chain, 3, 4, 0, rng, cuda)
+    plan = stateful_sweep.build_stateful_sweep(
+        chain_spec_of(chain), 3, h, w, rows, 30.0, src, SinkSpec(w, h), cuda)
+    assert plan is not None
+    st_k = [i.filter.init_state(w, h, None, cuda) if i.filter.init_state
+            else None for i in chain]
+    st_p = list(st_k)
+    for k in range(2):
+        if k:
+            ids, packed, _ = _stateful_inputs(chain, 3, 4, k, rng, cuda)
+        before = stateful_sweep.LAUNCHES
+        got, st_k = stateful_sweep.stateful_sweep(plan, ids, packed, st_k)
+        torch.cuda.synchronize()
+        assert stateful_sweep.LAUNCHES == before + 4
+        ref, st_p = stateful_sweep.plain_stateful_sweep(plan, ids, packed,
+                                                        st_p)
+        assert (got.int() - ref.int()).abs().max().item() <= 1
+        for i, _, kind_ in plan.state_steps:
+            d = (st_k[i].double() - st_p[i].double()).abs().max().item()
+            assert d <= (0 if kind_ == "u8hw" else 1e-5), (i, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_stateful,want", [
+    ("0", {"comp_in": 2, "stateful": 0}),
+    ("1", {"comp_in": 0, "stateful": 10})])
+def test_stateful_render_routes(cuda, monkeypatch, fused_stateful, want):
+    """Config C through render_events: the 3-phase route launches the
+    comp-in sweep once a chunk; under the pref the stateful sweep launches
+    once a frame and no fused sweep runs."""
+    from lives_tpu_torch.events.event_list import (EventList,
+                                                   filter_init_event,
+                                                   filter_map_event,
+                                                   frame_event)
+    monkeypatch.setenv("LIVES_TPU_FUSED_STATEFUL", fused_stateful)
+    el = EventList(fps=30.0, width=64, height=24)
+    inits = [filter_init_event(0, i.filter.name, in_tracks=list(i.in_tracks),
+                               values=dict(i.values))
+             for i in config_chain(instantiate, "C")]
+    for e in inits:
+        el.insert(e)
+    el.insert(filter_map_event(0, [e.event_id for e in inits]))
+    for i in range(10):
+        el.insert(frame_event(i * int(TICKS_PER_SECOND / 30), [1, 2, 3],
+                               [i] * 3))
+    before = (dict(fused_sweep.MODE_LAUNCHES), stateful_sweep.LAUNCHES)
+    arr, _ = render_to_arrays(el, DeviceSyntheticSource(24, 64, device=cuda),
+                              SinkSpec(64, 24), batch_size=5)
+    assert arr.shape == (10, 3, 24, 64)
+    assert {"comp_in": fused_sweep.MODE_LAUNCHES["comp_in"]
+            - before[0]["comp_in"],
+            "stateful": stateful_sweep.LAUNCHES - before[1]} == want
+    assert fused_sweep.MODE_LAUNCHES["u8"] == before[0]["u8"]

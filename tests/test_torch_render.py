@@ -145,16 +145,20 @@ def test_golden_reproduced_by_both_packages(jax_f32_path):
 
 
 def test_run_batch_refuses_what_is_not_ported():
-    from lives_tpu_torch.effects.host import (FILTER_STATEFUL, Filter,
-                                              Instance)
+    """A timeline holding an EffecTV filter the port does not hold yet
+    raises naming its ROADMAP item; so do cconx wiring and the
+    single-frame path."""
+    from lives_tpu_torch.events.event_list import (filter_init_event,
+                                                   filter_map_event,
+                                                   frame_event)
     from lives_tpu_torch.graph import FrameGraph
-    stateful = Filter(name="probe_stateful", process=lambda i, p, c: i[0],
-                      flags=FILTER_STATEFUL)
-    g = FrameGraph([Instance(filter=stateful)], TSink(16, 8))
-    with pytest.raises(NotImplementedError, match="Queue 1 items 15-17"):
-        g.run_batch([], np.zeros(2), np.zeros(2),
-                    source=TSource(8, 16, device="cpu"),
-                    src_args=(np.ones((1, 2)), np.zeros((1, 2))))
+    el = TEventList(fps=25.0, width=16, height=8)
+    init = filter_init_event(0, "blurzoom")
+    el.insert(init)
+    el.insert(filter_map_event(0, [init.event_id]))
+    el.insert(frame_event(0, [1], [0]))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        list(tr.render_events(el, TSource(8, 16, device="cpu")))
     with pytest.raises(NotImplementedError, match="item 21"):
         FrameGraph([], cconx=[(0, "mask", 1, 0)])
     with pytest.raises(NotImplementedError, match="item 12"):
@@ -165,7 +169,8 @@ def test_port_never_imports_jax():
     code = ("import sys, lives_tpu_torch, lives_tpu_torch.scenes, "
             "lives_tpu_torch.events.renderer, lives_tpu_torch.graph, "
             "lives_tpu_torch.graph.fused_sweep, lives_tpu_torch.native, "
-            "lives_tpu_torch.effects.builtin; "
+            "lives_tpu_torch.graph.stateful_sweep, lives_tpu_torch.prefs, "
+            "lives_tpu_torch.effects.builtin.effectv; "
             "from lives_tpu_torch.effects.host import list_filters; "
             "list_filters(); "
             "assert 'jax' not in sys.modules, sorted("
