@@ -3,9 +3,10 @@
 
 Drives the port's paths through the entry points a user calls
 (`events.renderer.render_events` -> `graph.nodemodel.FrameGraph.run_batch`
--> the kernels) at 1920x1080, 30 fps, in 96-frame chunks, after building
-both kernel libraries from `lives_tpu_torch/csrc/` and holding every kernel
-against its plain PyTorch version:
+-> the kernels, and `transcode.render_to_encoder` over decoded clips) at
+1920x1080, 30 fps, in 96-frame chunks, after building the four kernel
+libraries from `lives_tpu_torch/csrc/` and holding every kernel against its
+plain PyTorch version:
 
 - the main path, the 10-track multitrack timeline (`scenes.
   multitrack_timeline`) through the fused sweep kernel;
@@ -15,13 +16,18 @@ against its plain PyTorch version:
   (benchmarks/render_stateful.py:33-40; its prefix runs the sweep in
   comp-out mode) and C "alien" (render_stateful_led.py:43-47; the fused
   stateful sweep under LIVES_TPU_FUSED_STATEFUL=1, the 3-phase route
-  without it).
+  without it);
+- config D, "decoded clips": 10 YUV4MPEG clips (C420jpeg, clamped BT.601)
+  rendered through the main path's 13-effect chain into a YUV4MPEG file:
+  K2 converts each track's chunk, K4 runs the 9 transitions, the eager
+  tail the rest, K3 converts each frame in the encoder.
 
     python3 chip_smoke.py
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
-2. build both kernels (one nvcc each, started together), build times;
+2. build the four kernel libraries (one nvcc each, started together),
+   build times;
 3. the sweep vs `plain_sweep` on the card, max |diff| <= 1 LSB: the
    13-effect chain at 1920x1080 with 10 tracks (B=4), and a ragged 1000x562
    frame with 3 tracks;
@@ -41,14 +47,37 @@ Phases, one line each:
    `render_events`, 192 frames in 96-frame chunks: the launch counts of each
    path, its first 4 frames against the plain route (<= 1 LSB), a warm
    timed pass, and kernel vs plain ms on one 96-frame chunk for each new
-   kernel.
-Then a JSON line of the kernels and, last, the JSON result line.
+   kernel;
+9. the colour kernels K2 (`yuv420_to_rgb`) and K3 (`rgb_to_yuv420`) vs
+   their plain versions at 1920x1080 (B=4) and 1000x562, clamped and full
+   range, BT.601 and BT.709: K2 within 1 LSB, K3 integer-identical, with
+   the share of differing values;
+10. the composite kernel K4 vs `plain_composite`: config D's 9-transition
+   prefix at 1920x1080 over 10 tracks (B=4), a 3-track prefix at 1000x562,
+   within 1 LSB;
+11. config D, decoded clips: 10 YUV4MPEG clips of 24 frames (synthetic
+   frames through K3, written to a temporary directory removed at exit),
+   opened with `open_clip`, rendered by `transcode.render_to_encoder(...,
+   encoder="yuv4mpeg")` through `ClipFrameSource` under
+   LIVES_TPU_PALLAS_COMPOSITE=1, 192 frames in 96-frame chunks: the launch
+   counts (K2 10 a chunk, K4 1 a chunk, K3 one a frame), the written file
+   reopened (192 frames at 1920x1080) and holding the route's first 4
+   frames, which match the route on the plain versions (<= 1 LSB) and the
+   route without the pref as closely as the JAX package's own two routes
+   do (<= 6 LSB, at most 300 values above 2 LSB; it shows 6 and 281,
+   tests/test_torch_routes.py), a warm timed pass with the host time in `get_batch` split from the
+   rest, a profiled pass (device busy share), and K2, K3 and K4 vs plain ms
+   on one 96-frame chunk.
+Then a JSON line of the kernels (with each one's bound: the larger of its
+bytes over 3.35 TB/s and its float operations over 67 TFLOP/s, the H100
+SXM's device memory and float32 rates) and, last, the JSON result line.
 """
 
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -119,6 +148,25 @@ def timeline(name, n_frames, width=W, height=H):
     return el
 
 
+def config_d_timeline(n_frames):
+    """Config D's timeline: the main path's 13-effect chain over 10 tracks
+    (`scenes.multitrack_timeline`), track t playing clip t+1 at frame
+    i % CLIP_FRAMES."""
+    from lives_tpu_torch.scenes import multitrack_timeline
+    el = multitrack_timeline(n_tracks=TRACKS, n_frames=n_frames, width=W,
+                             height=H, fps=FPS)
+    for e in el.frame_events():
+        e.props["frames"] = [f % CLIP_FRAMES for f in e.frames]
+    return el
+
+
+def _chain(el):
+    """The instances of the timeline's first segment."""
+    from lives_tpu_torch.events.renderer import _chain_for, segment_events
+    seg = segment_events(el)[0]
+    return _chain_for(seg.inits, el, seg.frames[0].tc)[1]
+
+
 def chunk_of(el, device, n: int, k: int = 0):
     """Frames [k*n, (k+1)*n) of the timeline's first segment, as the
     renderer hands them to FrameGraph.run_batch: (chain spec, src ids,
@@ -185,6 +233,64 @@ def in_turns(plain, kern, plain_reps=2, kern_reps=5):
 KERNEL_OF = {"u8": "fused_sweep", "comp_out": "fused_sweep_comp_out",
              "comp_in": "fused_sweep_comp_in", "stateful": "stateful_sweep"}
 
+#: each kernel of the kernels line: its source and the TPU kernel it
+#: replaces
+SOURCES = {
+    "fused_sweep": ("lives_tpu_torch/csrc/fused_sweep.cu",
+                    "lives_tpu/graph/pallas_composite.py:240"),
+    "fused_sweep_comp_out": ("lives_tpu_torch/csrc/fused_sweep.cu",
+                             "lives_tpu/graph/pallas_composite.py:240"),
+    "fused_sweep_comp_in": ("lives_tpu_torch/csrc/fused_sweep.cu",
+                            "lives_tpu/graph/pallas_composite.py:240"),
+    "stateful_sweep": ("lives_tpu_torch/csrc/stateful_sweep.cu",
+                       "lives_tpu/graph/pallas_stateful.py:94"),
+    "yuv420_to_rgb": ("lives_tpu_torch/csrc/yuv420.cu",
+                      "lives_tpu/ops/pallas_kernels.py:114"),
+    "rgb_to_yuv420": ("lives_tpu_torch/csrc/yuv420.cu",
+                      "lives_tpu/ops/pallas_kernels.py:185"),
+    "composite": ("lives_tpu_torch/csrc/composite.cu",
+                  "lives_tpu/graph/pallas_composite.py:120"),
+}
+NAMES = tuple(SOURCES)
+#: config D's clips: 24 frames each, played at frame i % 24
+CLIP_FRAMES = 24
+
+#: the H100 SXM's device memory and float32 (non-tensor-core) rates
+#: (NVIDIA's data sheet), for each kernel's bound
+HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
+#: float operations a pixel of each opcode (graph/fused_sweep.py), counted
+#: from csrc/sweep_common.cuh and csrc/stateful_sweep.cu: a multiply, add,
+#: min, max, divide, sqrt, exp or floor counts one; the synthetic source's
+#: integer formulas are not counted. A blend adds its mode's cost a channel
+#: (_BLEND_MODES order), a stencil of radius r two passes of 2r+1 taps.
+BLEND_COST = (1, 1, 1, 4, 1, 1, 2, 4, 5, 5, 3, 4, 2, 2)
+OP_FLOPS = {0: lambda a: 16, 1: lambda a: 16 + 3 * BLEND_COST[a],
+            2: lambda a: 25, 3: lambda a: 31, 4: lambda a: 9,
+            5: lambda a: 20, 6: lambda a: 23,
+            7: lambda r: 12 * (2 * r + 1) + 15,
+            8: lambda a: 43, 9: lambda a: 30, 10: lambda a: 24}
+
+
+def table_flops(ops, u8_stages=False) -> int:
+    """Float operations a pixel of an op table: each op, 3 to bring in each
+    track it reads besides track 0 and 3 for track 0, and with `u8_stages`
+    (the composite kernel) a quantise (15) and a re-read (3) after each
+    op."""
+    n = 3
+    for code, in0, in1, arg, *_ in ops.cpu().tolist():
+        n += OP_FLOPS[code](arg) + 3 * (in0 != 0)
+        n += 3 * (code <= 3 and in1 not in (0, in0))
+        n += 18 * u8_stages
+    return n
+
+
+def bound(nbytes, flops):
+    """(bound ms, "bytes" or "operations"): the least time the card could
+    take for `nbytes` of device memory traffic and `flops` float32
+    operations."""
+    tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / F32_OPS_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
 
 def render_path(el, src, sink, check=True):
     """One pass of `render_events` over `el`, every launch count set to 0
@@ -227,7 +333,9 @@ def main() -> int:
     from lives_tpu_torch.events.event_list import EventList
     from lives_tpu_torch.events.renderer import (render_events,
                                                  render_to_arrays)
-    from lives_tpu_torch.graph import SinkSpec, fused_sweep, stateful_sweep
+    from lives_tpu_torch.graph import (SinkSpec, composite, fused_sweep,
+                                       stateful_sweep)
+    from lives_tpu_torch.ops import yuv_kernels
     from lives_tpu_torch.scenes import (DeviceSyntheticSource,
                                         multitrack_timeline)
 
@@ -242,11 +350,11 @@ def main() -> int:
          name=repr(torch.cuda.get_device_name(0)),
          count=torch.cuda.device_count())
 
-    # 2. build both libraries, one nvcc each, started together
+    # 2. build the four libraries, one nvcc each, started together
     t0 = time.perf_counter()
-    native.load_all(["fused_sweep", "stateful_sweep"])
+    native.load_all(["fused_sweep", "stateful_sweep", "yuv420", "composite"])
     wall = time.perf_counter() - t0
-    for mod in (fused_sweep, stateful_sweep):
+    for mod in (fused_sweep, stateful_sweep, yuv_kernels, composite):
         built = mod.build()
         ptxas = [ln.strip() for ln in built.log.splitlines()
                  if "registers" in ln or "spill" in ln or "smem" in ln]
@@ -254,8 +362,9 @@ def main() -> int:
              seconds=f"{built.seconds:.2f}", ptxas=repr(" | ".join(ptxas)))
     line("2 build", wall_s=f"{wall:.2f}")
 
-    err = {"fused_sweep": 0.0, "fused_sweep_comp_out": 0.0,
-           "fused_sweep_comp_in": 0.0, "stateful_sweep": 0.0}
+    err = dict.fromkeys(NAMES, 0.0)
+    bounds = {}
+    px = CHUNK * H * W  # pixels of a timed 96-frame chunk
 
     def held(name, what, got, ref, tol, **kw):
         worst, share = diff_stats(got, ref)
@@ -325,6 +434,8 @@ def main() -> int:
     ms["fused_sweep"] = in_turns(
         lambda: fused_sweep.plain_sweep(plan, ids, packed),
         lambda: fused_sweep._launch(plan, ids, packed, None))
+    # the u8 write; the op table's float work with the sink quantise
+    bounds["fused_sweep"] = bound(px * 3, px * (table_flops(plan.ops) + 15))
     line("5 chunk_ms", card=repr(card), frames=CHUNK,
          times=ms["fused_sweep"][2],
          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
@@ -412,6 +523,8 @@ def main() -> int:
     ms["fused_sweep_comp_out"] = in_turns(
         lambda: fused_sweep.plain_sweep(plan, ids, packed),
         lambda: fused_sweep._launch(plan, ids, packed, None))
+    bounds["fused_sweep_comp_out"] = bound(px * 12,
+                                           px * table_flops(plan.ops))
     spec, ids, packed, rows = chunk_of(timeline("A", CHUNK), dev, CHUNK)
     plan = sweep_plan(timeline("A", 1), spec[2:], rows, dev, 10,
                       consume="comp", idx_base=2)
@@ -419,6 +532,8 @@ def main() -> int:
     ms["fused_sweep_comp_in"] = in_turns(
         lambda: fused_sweep.plain_sweep(plan, ids, packed, comp),
         lambda: fused_sweep._launch(plan, ids, packed, comp))
+    bounds["fused_sweep_comp_in"] = bound(
+        px * 15, px * (table_flops(plan.ops) + 15))
     spec, ids, packed, rows = chunk_of(timeline("C", CHUNK), dev, CHUNK)
     plan = stateful_sweep.build_stateful_sweep(spec, 10, H, W, rows, FPS,
                                                src, sink, dev)
@@ -429,26 +544,237 @@ def main() -> int:
                                                     states),
         lambda: stateful_sweep._launch(plan, ids, packed, states),
         plain_reps=1, kern_reps=3)
+    # the u8 write, and each state plane read and written once a frame
+    state_bytes = {"f32hw": 4, "u8hw": 1, "f32chw": 12}
+    bounds["stateful_sweep"] = bound(
+        px * (3 + sum(2 * state_bytes[k] for *_, k in plan.state_steps)),
+        px * (table_flops(plan.ops) + 15))
     for name in ("fused_sweep_comp_out", "fused_sweep_comp_in",
                  "stateful_sweep"):
         line("8 chunk_ms", card=repr(card), kernel=name, frames=CHUNK,
              times=ms[name][2])
     line("8 peak", gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
 
-    sources = {"fused_sweep": ("lives_tpu_torch/csrc/fused_sweep.cu",
-                               "lives_tpu/graph/pallas_composite.py:240"),
-               "stateful_sweep": ("lives_tpu_torch/csrc/stateful_sweep.cu",
-                                  "lives_tpu/graph/pallas_stateful.py:94")}
+    # 9. the colour kernels vs their plain versions on the card
+    def rand(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                             generator=gen)
+    for b, h, w in ((4, H, W), (2, 562, 1000)):
+        for clamping in (0, 1):
+            for subspace in (1, 2):
+                case = dict(size=f"{w}x{h}", frames=b, clamping=clamping,
+                            subspace=subspace)
+                y, u, v = rand(b, h, w), rand(b, h // 2, w // 2), \
+                    rand(b, h // 2, w // 2)
+                got = yuv_kernels.yuv420_to_rgb(y, u, v, subspace, clamping)
+                torch.cuda.synchronize()
+                held("yuv420_to_rgb", "9 k2_vs_plain", got,
+                     yuv_kernels.plain_yuv420_to_rgb(y, u, v, subspace,
+                                                     clamping), 1, **case)
+                rgb = rand(b, 3, h, w)
+                got = yuv_kernels.rgb_to_yuv420(rgb, subspace, clamping)
+                torch.cuda.synchronize()
+                ref = yuv_kernels.plain_rgb_to_yuv420(rgb, subspace, clamping)
+                for plane, g, r in zip("yuv", got, ref):
+                    held("rgb_to_yuv420", "9 k3_vs_plain", g, r, 0,
+                         plane=plane, **case)
+
+    # 10. the composite kernel vs plain_composite on the card
+    from lives_tpu_torch.graph.nodemodel import composite_prefix
+    for w, h, tracks, n_pre in ((W, H, TRACKS, 9), (1000, 562, 4, 3)):
+        tel = multitrack_timeline(n_tracks=tracks, n_frames=8, width=w,
+                                  height=h, fps=FPS)
+        spec, ids, packed, rows = chunk_of(tel, dev, 4)
+        assert composite.splittable_prefix(_chain(tel)) == n_pre
+        prefix, n_t = composite_prefix(spec[:n_pre], tracks)
+        plan = composite.build_composite(prefix, n_t, rows, FPS, dev)
+        tsrc = DeviceSyntheticSource(h, w, device=dev)
+        trk = [tsrc.traced_layer(ids[0, t], ids[1, t]).planes[0]
+               for t in range(n_t)]
+        got = composite.composite(plan, trk, packed)
+        torch.cuda.synchronize()
+        held("composite", "10 k4_vs_plain", got,
+             composite.plain_composite(plan, trk, packed), 1,
+             prefix=n_pre, tracks=n_t, size=f"{w}x{h}", frames=4)
+
+    # 11. config D: decoded clips through render_to_encoder
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.events.renderer import ClipFrameSource
+    from lives_tpu_torch.io.clips import open_clip
+    from lives_tpu_torch.io.decoders import try_decoders, write_y4m
+    from lives_tpu_torch.ops.colorspace import convert_layer
+    from lives_tpu_torch.transcode import render_to_encoder
+
+    class TimedSource(ClipFrameSource):
+        """ClipFrameSource whose get_batch (host read, upload, K2) is timed
+        on the host clock, ended by a synchronise."""
+        host_s = 0.0
+
+        def get_batch(self, clip_ids, frame_nums):
+            t0 = time.perf_counter()
+            out = super().get_batch(clip_ids, frame_nums)
+            torch.cuda.synchronize()
+            self.host_s += time.perf_counter() - t0
+            return out
+
+    def decoded_pass(clips, el, out_path):
+        """One render of `el` into `out_path`, every launch count set to 0
+        just before it and read just after: (non-zero counts, wall s,
+        get_batch s)."""
+        fused_sweep.MODE_LAUNCHES.update(
+            dict.fromkeys(fused_sweep.MODE_LAUNCHES, 0))
+        stateful_sweep.LAUNCHES = 0
+        yuv_kernels.LAUNCHES.update(dict.fromkeys(yuv_kernels.LAUNCHES, 0))
+        composite.LAUNCHES = 0
+        tsrc = TimedSource(clips, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        assert render_to_encoder(el, tsrc, out_path, encoder="yuv4mpeg",
+                                 batch_size=CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {**fused_sweep.MODE_LAUNCHES,
+                  "stateful": stateful_sweep.LAUNCHES,
+                  **yuv_kernels.LAUNCHES, "composite": composite.LAUNCHES}
+        return {k: v for k, v in counts.items() if v}, wall, tsrc.host_s
+
+    def yuv_head(lay):
+        """The first 4 frames of an RGB24 layer as host YUV420P planes, as
+        the encoder converts them."""
+        return [p[:4].cpu() for p in
+                convert_layer(lay, Palette.YUV420P).planes]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        clips, size = {}, 0
+        for c in range(1, TRACKS + 1):
+            yuv = [p.cpu().numpy() for p in convert_layer(
+                src.get_batch([c] * CLIP_FRAMES, range(CLIP_FRAMES)),
+                Palette.YUV420P).planes]
+            path = os.path.join(tmp, f"clip{c}.y4m")
+            write_y4m(path, [tuple(p[i] for p in yuv)
+                             for i in range(CLIP_FRAMES)], FPS)
+            size += os.path.getsize(path)
+            clips[c] = open_clip(path, os.path.join(tmp, "work"))
+            clips[c].unique_id = c  # the timeline's clip ids
+        line("11 clips", clips=TRACKS, frames=CLIP_FRAMES,
+             mb=f"{size / 1e6:.1f}", seconds=f"{time.perf_counter() - t0:.2f}")
+        el = config_d_timeline(N_FRAMES)
+        out_path = os.path.join(tmp, "render.y4m")
+        os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "1"
+        counts, first_s, _ = decoded_pass(clips, el, out_path)
+        want = {"yuv420_to_rgb": TRACKS * n_chunks, "composite": n_chunks,
+                "rgb_to_yuv420": N_FRAMES}
+        line("11 config_d", frames=N_FRAMES, chunks=n_chunks,
+             launches=counts, first_pass_s=f"{first_s:.3f}")
+        assert counts == want, counts
+        launches.update(counts)
+        cd = try_decoders(out_path)
+        assert (cd.nframes, cd.width, cd.height) == (N_FRAMES, W, H), \
+            (cd.nframes, cd.width, cd.height)
+        head = [torch.stack([cd.decoder.get_frame(n).planes[i]
+                             for n in range(4)]) for i in range(3)]
+        cd.decoder.close()
+        line("11 reopened", frames=cd.nframes, size=f"{cd.width}x{cd.height}")
+        # the first 4 frames of the route as RGB; the file holds them
+        _, lay = next(iter(render_events(
+            el, ClipFrameSource(clips, device=dev), batch_size=4)))
+        for plane, g, r in zip("yuv", head, yuv_head(lay)):
+            worst, share = diff_stats(g, r)
+            line("11 file_vs_route", plane=plane, frames=4,
+                 max_abs_err=f"{worst:.6g}", differing_share=f"{share:.3g}")
+            assert worst == 0, ("file", plane, worst)
+        rgb = lay.planes[0].cpu()
+        # the same route on the plain versions (CPU tensors)
+        _, plain_lay = next(iter(render_events(
+            el, ClipFrameSource(clips, device="cpu"), batch_size=4)))
+        worst, share = diff_stats(rgb, plain_lay.planes[0])
+        line("11 head_vs_plain_route", frames=4, max_abs_err=f"{worst:.6g}",
+             differing_share=f"{share:.3g}")
+        assert worst <= 1, ("plain route", worst)
+        # the route without the pref (the whole chain in float32): on these
+        # 4 frames the JAX package's own two routes differ by up to 6 LSB,
+        # in 281 values above 2 LSB (tests/test_torch_routes.py); the bound
+        # leaves room for the float route's own 1-LSB noise
+        os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "0"
+        _, float_lay = next(iter(render_events(
+            el, ClipFrameSource(clips, device=dev), batch_size=4)))
+        d = (rgb.int() - float_lay.planes[0].cpu().int()).abs()
+        over2 = int((d > 2).sum())
+        line("11 head_vs_no_pref_route", frames=4,
+             max_abs_err=int(d.max()), over_2_lsb=over2,
+             differing_share=f"{float((d > 0).float().mean()):.3g}")
+        assert int(d.max()) <= 6 and over2 <= 300, (int(d.max()), over2)
+        os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "1"
+        # a warm timed pass, then a profiled one
+        counts, wall_s, host_s = decoded_pass(clips, el, out_path)
+        assert counts == want, counts
+        rates["D"] = N_FRAMES / wall_s
+        line("11 timed", card=repr(card), frames=N_FRAMES,
+             wall_s=f"{wall_s:.4f}", get_batch_s=f"{host_s:.4f}",
+             rest_s=f"{wall_s - host_s:.4f}",
+             frames_per_s=f"{rates['D']:.1f}",
+             x_realtime=f"{rates['D'] / FPS:.2f}")
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, prof_wall, _ = decoded_pass(clips, el, out_path)
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + \
+                    e.time_range.elapsed_us() / 1e3
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        line("11 profiled", card=repr(card), wall_ms=f"{prof_wall * 1e3:.1f}",
+             device_busy_ms=f"{busy:.1f}",
+             idle_share=f"{1 - busy / (prof_wall * 1e3):.3f}",
+             top=repr("; ".join(f"{n[:48]} {t:.1f}" for n, t in top)))
+        for c in clips.values():
+            c.close()
+
+    # kernel vs plain ms on one 96-frame chunk for K2, K3 and K4
+    torch.cuda.reset_peak_memory_stats()
+    rgb = src.get_batch([1] * CHUNK, range(CHUNK)).planes[0]
+    y, u, v = yuv_kernels.plain_rgb_to_yuv420(rgb)
+    ms["yuv420_to_rgb"] = in_turns(
+        lambda: yuv_kernels.plain_yuv420_to_rgb(y, u, v),
+        lambda: yuv_kernels._launch_k2(y, u, v, 1, 0))
+    bounds["yuv420_to_rgb"] = bound(px * 4.5, px * 21)
+    ms["rgb_to_yuv420"] = in_turns(
+        lambda: yuv_kernels.plain_rgb_to_yuv420(rgb),
+        lambda: yuv_kernels._launch_k3(rgb, 1, 0))
+    bounds["rgb_to_yuv420"] = bound(px * 4.5, px * 30)
+    del rgb, y, u, v
+    spec, ids, packed, rows = chunk_of(el, dev, CHUNK)
+    prefix, n_t = composite_prefix(spec[:9], TRACKS)
+    plan = composite.build_composite(prefix, n_t, rows, FPS, dev)
+    trk = [src.traced_layer(ids[0, t], ids[1, t]).planes[0]
+           for t in range(n_t)]
+    ms["composite"] = in_turns(
+        lambda: composite.plain_composite(plan, trk, packed),
+        lambda: composite._launch(plan, trk, packed, CHUNK, H, W),
+        plain_reps=1, kern_reps=5)
+    bounds["composite"] = bound(px * 3 * (n_t + 1),
+                                px * table_flops(plan.ops, u8_stages=True))
+    for name in ("yuv420_to_rgb", "rgb_to_yuv420", "composite"):
+        line("11 chunk_ms", card=repr(card), kernel=name, frames=CHUNK,
+             times=ms[name][2],
+             bound_ms=f"{bounds[name][0]:.4f} ({bounds[name][1]})")
+    line("11 peak", gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
+    del trk
+
+    for name in NAMES:
+        line("bound", kernel=name, ms=f"{ms[name][0]:.4f}",
+             bound_ms=f"{bounds[name][0]:.4f}", bound_by=bounds[name][1])
     print(card, flush=True)
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda",
-        "source": sources[name.split("_comp")[0]][0],
-        "replaces": sources[name.split("_comp")[0]][1],
-        "launches": launches[name], "max_abs_err": err[name],
-        "ms": round(ms[name][0], 4), "plain_ms": round(ms[name][1], 4)}
-        for name in ("fused_sweep", "fused_sweep_comp_out",
-                     "fused_sweep_comp_in", "stateful_sweep")]}),
-        flush=True)
+        "name": name, "route": "cuda", "source": SOURCES[name][0],
+        "replaces": SOURCES[name][1], "launches": launches[name],
+        "max_abs_err": err[name], "ms": round(ms[name][0], 4),
+        "plain_ms": round(ms[name][1], 4),
+        "bound_ms": round(bounds[name][0], 4), "bound_by": bounds[name][1],
+        "library_ms": None} for name in NAMES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

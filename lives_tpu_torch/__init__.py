@@ -11,12 +11,16 @@ and `graph.nodemodel.FrameGraph.run_batch` to the fused sweep kernel,
 hand-written in CUDA C++ for sm_90a (`csrc/fused_sweep.cu`), and stateful
 chains of the EffecTV filters (Slice 4): the sweep's comp-out and comp-in
 modes around a frame loop, or the fused stateful sweep
-(`csrc/stateful_sweep.cu`). Every entry point takes its device
-explicitly; nothing picks a device on its own.
+(`csrc/stateful_sweep.cu`), and decoded-clip rendering (Slice 2): the
+colour engine (`ops/colorspace.py`, `gamma.py`, `resize.py`, with the
+colour kernels of `csrc/yuv420.cu`), YUV4MPEG clip I/O (`io/`),
+`events.renderer.ClipFrameSource` and `transcode.render_to_encoder`, with
+the composite kernel (`csrc/composite.cu`). Every entry point takes its
+device explicitly; nothing picks a device on its own.
 """
 
 from .constants import (Gamma, Palette, YUVClamping, YUVSampling,
                         YUVSubspace)
-from .layer import Layer, layer_blank
+from .layer import Layer, layer_blank, layer_from_bytes, layer_to_bytes
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"

@@ -1,12 +1,12 @@
-// Device code shared by the two sweep kernels: the op table's opcodes, the
-// synthetic source, the point ops and the separable stencil passes over
-// shared memory.
+// Device code shared by the sweep kernels and the composite kernel: the op
+// table's opcodes, the synthetic source, the point ops and the separable
+// stencil passes over shared memory.
 //
-// fused_sweep.cu (the JAX package's build_fused_sweep) and
-// stateful_sweep.cu (build_fused_stateful_sweep) include it, so both
-// kernels evaluate one definition of every op. The op table is encoded by
-// lives_tpu_torch/graph/fused_sweep.py (_encode); keep the constants in
-// step with it.
+// fused_sweep.cu (the JAX package's build_fused_sweep), stateful_sweep.cu
+// (build_fused_stateful_sweep) and composite.cu (build_composite) include
+// it, so the kernels evaluate one definition of every op. The op table is
+// encoded by lives_tpu_torch/graph/fused_sweep.py (_encode, `point_op_row`);
+// keep the constants in step with it.
 
 #pragma once
 
@@ -114,50 +114,62 @@ __device__ __forceinline__ Rgb key(Rgb fg, Rgb bg, float al) {
           fg.b * al + bg.b * (1.0f - al)};
 }
 
+// One point op (op-table row `o`, its parameter slots `p`) on track-0 value
+// `v` at frame pixel (x, y); `track(t)` gives another track's value there.
+// The centred-grid scales sx, sy serve vignette. The sweeps generate a
+// track where the composite kernel (composite.cu) loads it.
+template <class Track>
+__device__ __forceinline__ Rgb point_op(const int* o, const float* p, Rgb v,
+                                        const Track& track, float sx,
+                                        float sy, int x, int y) {
+  const int code = o[F_CODE];
+  const Rgb a = o[F_IN0] == 0 ? v : track(o[F_IN0]);
+  if (code <= OP_CHROMA_KEY) {  // transitions: fg a over bg
+    const Rgb bg = o[F_IN1] == 0 ? v : track(o[F_IN1]);
+    if (code == OP_CROSSFADE) {
+      v = mix(a, bg, p[0]);
+    } else if (code == OP_BLEND) {
+      const int m = o[F_ARG];
+      v = mix({blend(m, a.r, bg.r), blend(m, a.g, bg.g),
+               blend(m, a.b, bg.b)}, bg, p[0]);
+    } else if (code == OP_LUMA_KEY) {
+      // threshold, softness, invert
+      float al = clip01((luma(a) - p[0]) / (p[1] + 1e-4f));
+      al = al * (1.0f - p[2]) + (1.0f - al) * p[2];
+      v = key(a, bg, al);
+    } else {
+      // red, green, blue, tolerance, softness
+      const float s = a.r + a.g + a.b + 1e-4f;
+      const float r = a.r / s, g = a.g / s;
+      const float ks = p[0] + p[1] + p[2] + 1e-4f;
+      const float kr = p[0] / ks, kg = p[1] / ks;
+      const float d = sqrtf((r - kr) * (r - kr) + (g - kg) * (g - kg));
+      v = key(a, bg, clip01((d - p[3]) / (p[4] + 1e-4f)));
+    }
+  } else if (code == OP_COLOUR_BALANCE) {
+    v = clip01({a.r * p[0], a.g * p[1], a.b * p[2]});
+  } else if (code == OP_SATURATION) {
+    const float g = luma(a);
+    v = clip01({g + (a.r - g) * p[0], g + (a.g - g) * p[0],
+                g + (a.b - g) * p[0]});
+  } else {  // OP_VIGNETTE: amount, strength
+    const float xf = (float)x * sx - 1.0f;
+    const float yf = (float)y * sy - 1.0f;
+    const float r2 = xf * xf + yf * yf;
+    const float m = 1.0f - p[0] * (1.0f - expf(-r2 * p[1] * 2.0f));
+    v = clip01({a.r * m, a.g * m, a.b * m});
+  }
+  return v;
+}
+
 // Point ops [from, to) of the chain on track-0 value `v` at frame pixel
 // (x, y); another track is generated at the op that reads it.
 __device__ Rgb apply_ops(const int* ops, int from, int to, const float* sp,
                          Rgb v, const Frame& fr, int x, int y) {
+  const auto track = [&](int t) { return gen(fr, t, x, y); };
   for (int i = from; i < to; ++i) {
     const int* o = ops + i * OP_FIELDS;
-    const float* p = sp + o[F_SLOT];
-    const int code = o[F_CODE];
-    const Rgb a = o[F_IN0] == 0 ? v : gen(fr, o[F_IN0], x, y);
-    if (code <= OP_CHROMA_KEY) {  // transitions: fg a over bg
-      const Rgb bg = o[F_IN1] == 0 ? v : gen(fr, o[F_IN1], x, y);
-      if (code == OP_CROSSFADE) {
-        v = mix(a, bg, p[0]);
-      } else if (code == OP_BLEND) {
-        const int m = o[F_ARG];
-        v = mix({blend(m, a.r, bg.r), blend(m, a.g, bg.g),
-                 blend(m, a.b, bg.b)}, bg, p[0]);
-      } else if (code == OP_LUMA_KEY) {
-        // threshold, softness, invert
-        float al = clip01((luma(a) - p[0]) / (p[1] + 1e-4f));
-        al = al * (1.0f - p[2]) + (1.0f - al) * p[2];
-        v = key(a, bg, al);
-      } else {
-        // red, green, blue, tolerance, softness
-        const float s = a.r + a.g + a.b + 1e-4f;
-        const float r = a.r / s, g = a.g / s;
-        const float ks = p[0] + p[1] + p[2] + 1e-4f;
-        const float kr = p[0] / ks, kg = p[1] / ks;
-        const float d = sqrtf((r - kr) * (r - kr) + (g - kg) * (g - kg));
-        v = key(a, bg, clip01((d - p[3]) / (p[4] + 1e-4f)));
-      }
-    } else if (code == OP_COLOUR_BALANCE) {
-      v = clip01({a.r * p[0], a.g * p[1], a.b * p[2]});
-    } else if (code == OP_SATURATION) {
-      const float g = luma(a);
-      v = clip01({g + (a.r - g) * p[0], g + (a.g - g) * p[0],
-                  g + (a.b - g) * p[0]});
-    } else {  // OP_VIGNETTE: amount, strength
-      const float xf = (float)x * fr.sx - 1.0f;
-      const float yf = (float)y * fr.sy - 1.0f;
-      const float r2 = xf * xf + yf * yf;
-      const float m = 1.0f - p[0] * (1.0f - expf(-r2 * p[1] * 2.0f));
-      v = clip01({a.r * m, a.g * m, a.b * m});
-    }
+    v = point_op(o, sp + o[F_SLOT], v, track, fr.sx, fr.sy, x, y);
   }
   return v;
 }

@@ -40,7 +40,8 @@ MAX_DELAY = 16
 
 #: EffecTV filters of the JAX package the port does not hold yet
 DEFERRED = {
-    "blurzoom": "ROADMAP Queue 1 item 11: it needs ops/resize.resize_plane",
+    "blurzoom": "ROADMAP Queue 1 item 15: its zoom runs "
+                "ops/resize.resize_plane, which the port holds",
     "feedback": "ROADMAP Queue 1 item 15: it needs bilinear "
                 "map_coordinates",
     "vertigo": "ROADMAP Queue 1 item 15: it needs bilinear map_coordinates",

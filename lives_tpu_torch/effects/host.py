@@ -7,8 +7,8 @@ batched layers: planes are ``(B, C, H, W)`` and a per-frame parameter is a
 JAX package vmaps a single-frame function.
 
 Ported for the render slice: `Param` (with `clamp`), `Filter`, `Instance`,
-`FrameContext`, the registry, `negotiate_layer` for RGB-family and float
-layers, and `apply_instance` with the short-stack rule of `host.py:283-288`.
+`FrameContext`, the registry, `negotiate_layer` (palette, size, gamma),
+and `apply_instance` with the short-stack rule of `host.py:283-288`.
 Stateful filters (`host.py:80-91,136-140,319-331`) take one frame at a
 time, ``(1, C, H, W)``: `FrameGraph.run_batch` loops a chunk's frames and
 threads the state, where the JAX package scans. A stateful filter's
@@ -25,9 +25,12 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-from ..constants import Palette, has_alpha, is_float_palette, is_rgb_palette
+from ..constants import (Palette, has_alpha, is_float_palette,
+                         is_rgb_palette, is_yuv_palette)
 from ..layer import Layer
 from ..ops.colorspace import convert_layer
+from ..ops.gamma import gamma_convert_layer
+from ..ops.resize import resize_layer
 
 # Filter flags (semantic parity with weed-effects.h:105-114)
 FILTER_NON_REALTIME = 1 << 0
@@ -196,10 +199,12 @@ def instantiate(name_or_filter, **values) -> Instance:
 def negotiate_layer(layer: Layer, tmpl: ChannelTemplate,
                     width: int | None = None, height: int | None = None,
                     gamma: int | None = None) -> Layer:
-    """Convert a layer to a palette the template accepts
-    (`lives_tpu/effects/host.py:228`). Float RGB layers satisfy integer RGB
-    templates directly (a precision superset), which keeps the chain in
-    float between effects."""
+    """Convert a layer to a palette the template accepts, then to the
+    size and gamma asked for (`lives_tpu/effects/host.py:228-262`). Float
+    RGB layers satisfy integer RGB templates directly (a precision
+    superset), which keeps the chain in float between effects; otherwise
+    the target stays in the layer's colour family where the template
+    allows."""
     if (tmpl.palettes and is_float_palette(layer.palette)
             and is_rgb_palette(layer.palette)
             and any(is_rgb_palette(p) for p in tmpl.palettes)):
@@ -208,21 +213,18 @@ def negotiate_layer(layer: Layer, tmpl: ChannelTemplate,
         if need_alpha and not has_alpha(layer.palette):
             layer = convert_layer(layer, Palette.RGBAFLOAT)
     elif tmpl.palettes and layer.palette not in tmpl.palettes:
-        if not is_rgb_palette(layer.palette):
-            raise NotImplementedError(
-                f"negotiate_layer: {Palette(layer.palette).name} input is "
-                "not ported yet (ROADMAP Queue 1 item 11)")
-        target = next((p for p in tmpl.palettes if is_rgb_palette(p)),
-                      tmpl.palettes[0])
+        pals = tmpl.palettes
+        if is_rgb_palette(layer.palette):
+            target = next((p for p in pals if is_rgb_palette(p)), pals[0])
+        elif is_yuv_palette(layer.palette):
+            target = next((p for p in pals if is_yuv_palette(p)), pals[0])
+        else:
+            target = pals[0]
         layer = convert_layer(layer, target)
     if width and height and (layer.width, layer.height) != (width, height):
-        raise NotImplementedError(
-            "negotiate_layer: resizing inputs is not ported yet "
-            "(ROADMAP Queue 1 item 11)")
+        layer = resize_layer(layer, width, height)
     if gamma is not None and layer.gamma != gamma:
-        raise NotImplementedError(
-            "negotiate_layer: gamma conversion is not ported yet "
-            "(ROADMAP Queue 1 item 11)")
+        layer = gamma_convert_layer(layer, gamma)
     return layer
 
 

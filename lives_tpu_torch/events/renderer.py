@@ -8,8 +8,11 @@ parameter values interpolated on the host into ``(B,)`` arrays.
 
 A segment's `FrameGraph` lives across its chunks, so a stateful chain's
 state carries from one chunk to the next, as in the JAX package.
-`ClipFrameSource`/`render_recording` (decoded clips) and the cconx wiring
-of recorded init events are not ported yet (ROADMAP Queue 1 items 20-21).
+`ClipFrameSource` and `render_recording` (`renderer.py:304-346`) render
+decoded clips: each track's chunk of frames is read on the host, uploaded
+once and converted on the source's device (K2 for YUV420P clips). The
+cconx wiring of recorded init events is not ported yet (ROADMAP Queue 1
+item 21).
 """
 
 from __future__ import annotations
@@ -18,10 +21,12 @@ from dataclasses import dataclass
 from typing import Iterator, Protocol, Sequence
 
 import numpy as np
+import torch
 
 from ..effects.host import Instance, get_filter
 from ..graph.nodemodel import _STATIC_KINDS, FrameGraph, SinkSpec
-from ..layer import Layer
+from ..layer import Layer, _plane_shapes, layer_blank
+from ..ops.colorspace import convert_layer
 from .event_list import (Event, EventList, EventType, TICKS_PER_SECOND,
                          is_audio_terminator)
 
@@ -261,3 +266,93 @@ def render_to_arrays(el: EventList, source, sink: SinkSpec | None = None,
         if progress_cb is not None:
             progress_cb(len(all_tcs))
     return np.concatenate(outs, 0), all_tcs
+
+
+class ClipFrameSource:
+    """FrameSource over decoded clips keyed by the unique_ids that live
+    recordings store in FRAME events (`renderer.py:304`; reference
+    deal_with_render_choice, events.c:5955). Frames come out in `palette`
+    (RGB24 by default) on `device`.
+
+    `get_batch` reads a track's chunk on the host straight into one stacked
+    array a plane, uploads each plane once and converts the chunk once on
+    the device: one K2 launch a track a chunk for YUV420P clips on a CUDA
+    device. A chunk whose frames differ in palette or geometry converts
+    frame by frame, still on the device. A clip id the source lacks gives a
+    blank frame (`layer_blank`) at the first clip's geometry. Clip ids are
+    compared as Python ints (63-bit unique_ids)."""
+
+    def __init__(self, clips_by_uid: dict, palette: int | None = None, *,
+                 device: torch.device | str):
+        from ..constants import Palette
+        self.clips = {int(k): c for k, c in clips_by_uid.items()}
+        self.palette = palette or int(Palette.RGB24)
+        self.device = torch.device(device)
+
+    def _blank(self) -> Layer:
+        ref = next(iter(self.clips.values()), None)
+        return layer_blank(getattr(ref, "width", 64),
+                           getattr(ref, "height", 64), self.palette,
+                           device=self.device)
+
+    def get_batch(self, clip_ids, frame_nums) -> Layer:
+        clips = [self.clips.get(int(c)) for c in clip_ids]
+        nums = [int(f) for f in frame_nums]
+        configs = {c.frame_config(f) for c, f in zip(clips, nums)
+                   if c is not None}
+        if len(configs) == 1 and None not in configs:
+            out = self._chunk(clips, nums, *configs.pop())
+            if out is not None:
+                return out
+        return self._frame_by_frame(clips, nums)
+
+    def _chunk(self, clips, nums, pal, w, h, clamping, subspace, gamma):
+        """The chunk read into stacked host planes, one upload a plane, one
+        conversion; None when the blank frames' planes do not fit it."""
+        B = len(clips)
+        host = [np.zeros((B,) + s, np.uint8) for s in _plane_shapes(pal, w, h)]
+        for j, (c, f) in enumerate(zip(clips, nums)):
+            if c is not None:
+                c.get_frame(f, out=tuple(p[j] for p in host))
+        lay = Layer(planes=tuple(torch.from_numpy(p).to(self.device)
+                                 for p in host),
+                    palette=pal, clamping=clamping, subspace=subspace,
+                    gamma=gamma)
+        planes = convert_layer(lay, self.palette).planes
+        blank_rows = [j for j, c in enumerate(clips) if c is None]
+        if blank_rows:
+            blank = self._blank().planes
+            if [tuple(b.shape) for b in blank] != \
+                    [tuple(p.shape[1:]) for p in planes]:
+                return None
+            for p, b in zip(planes, blank):
+                p[blank_rows] = b
+        return Layer(planes=planes, palette=self.palette)
+
+    def _frame_by_frame(self, clips, nums) -> Layer:
+        """Each frame uploaded and converted on its own (`renderer.py:
+        324-336`), then stacked on the device."""
+        frames = []
+        for c, f in zip(clips, nums):
+            if c is None:
+                frames.append(self._blank())
+                continue
+            lay = c.get_frame(f)
+            lay = lay.replace(planes=tuple(p.to(self.device)
+                                           for p in lay.planes))
+            frames.append(convert_layer(lay, self.palette))
+        return Layer(planes=tuple(torch.stack([fr.planes[i] for fr in frames])
+                                  for i in range(len(frames[0].planes))),
+                     palette=self.palette)
+
+
+def render_recording(el: EventList, clips_by_uid: dict,
+                     sink: SinkSpec | None = None, fps: float | None = None,
+                     batch_size: int = 32, *,
+                     device: torch.device | str):
+    """Render a recorded performance (quantised to its fps grid) against
+    the clips it referenced, on `device` (`renderer.py:339`). Returns
+    (host frames array, tcs)."""
+    q = el.quantise(fps or el.fps or 25.0)
+    src = ClipFrameSource(clips_by_uid, device=device)
+    return render_to_arrays(q, src, sink, batch_size)

@@ -155,6 +155,28 @@ def smem_bytes(halo: int, n_stencils: int) -> int:
     return 2 * 3 * (TILE_H + 2 * halo) * (TILE_W + 2 * halo) * 4
 
 
+def add_slots(filt, static, idx: int, row_of: dict, slot_rows: list,
+              slot_vals: list) -> int:
+    """Append the parameter slots of instance `idx` (its traced kinds, in
+    the filter's order) to the op table's slot lists: each slot's packed
+    row (-1 = the constant), constant, min and max. Returns its first
+    slot."""
+    from .nodemodel import _STATIC_KINDS
+    slot = len(slot_rows)
+    for p in filt.params:
+        if p.kind not in _STATIC_KINDS:
+            slot_rows.append(row_of.get((idx, p.name), -1))
+            slot_vals.append((static.get(p.name, p.default), p.min, p.max))
+    return slot
+
+
+def point_op_row(name: str, used: tuple, slot: int) -> tuple:
+    """The op-table row of point op `name` reading tracks `used`, its
+    parameters from `slot` (csrc/sweep_common.cuh `point_op`)."""
+    return (_POINT_OPS[name], used[0], used[-1], _BLEND_INDEX.get(name, 0),
+            0, 0, slot)
+
+
 def _encode(chain_spec, n_tracks: int, H: int, W: int, rows_key, source,
             sink, *, emit: str = "u8", consume: str | None = None,
             idx_base: int = 0, stateful: bool = False):
@@ -163,7 +185,6 @@ def _encode(chain_spec, n_tracks: int, H: int, W: int, rows_key, source,
     counts, or None when the chain, source or sink is outside the kernel's
     contract (`lives_tpu/graph/pallas_composite.py:302-369`; with
     `stateful`, the fused stateful sweep's, `pallas_stateful.py:106-160`)."""
-    from .nodemodel import _STATIC_KINDS
     key = source.source_key() if hasattr(source, "source_key") else None
     if key is None or key[0] != "synthetic" or source.alpha:
         return None
@@ -192,12 +213,8 @@ def _encode(chain_spec, n_tracks: int, H: int, W: int, rows_key, source,
             return None
         if step is None and name not in VOCABULARY:
             return None
-        slot = len(slot_rows)
-        for p in filt.params:
-            if p.kind not in _STATIC_KINDS:
-                slot_rows.append(row_of.get((idx + idx_base, p.name), -1))
-                slot_vals.append((static.get(p.name, p.default),
-                                  p.min, p.max))
+        slot = add_slots(filt, static, idx + idx_base, row_of, slot_rows,
+                         slot_vals)
         if step is not None:
             code, step_halo, kind = step
             ops.append((code, 0, 0, len(state_steps), 0, 0, slot))
@@ -227,8 +244,7 @@ def _encode(chain_spec, n_tracks: int, H: int, W: int, rows_key, source,
             # after a stencil only track 0 has a halo; the stateful sweep
             # generates the other tracks at the halo left
             return None
-        ops.append((_POINT_OPS[name], used[0], used[-1],
-                    _BLEND_INDEX.get(name, 0), 0, 0, slot))
+        ops.append(point_op_row(name, used, slot))
     if len(slot_rows) > MAX_SLOTS:
         return None
     if smem_bytes(halo, n_stencils or len(state_steps)) + STATIC_SMEM \

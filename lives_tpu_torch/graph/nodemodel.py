@@ -10,8 +10,14 @@ numbers) and takes one of these routes on the source's device:
     synthetic source and a stateless chain and the sink are inside the
     kernel's contract;
 (b) the plain batched chain (`run_chain`): tracks are generated as
-    ``(B, C, H, W)`` tensors and every effect runs in float32 over the
-    whole chunk, which mirrors the JAX package's XLA path;
+    ``(B, C, H, W)`` tensors (or arrive as decoded layers) and every effect
+    runs in float32 over the whole chunk, which mirrors the JAX package's
+    XLA path. Over decoded RGB24 layers, under
+    `pref("pallas_composite") == "1"`, the chain's leading point effects
+    first run as the composite kernel (`graph/composite.py`, u8 after every
+    stage, `nodemodel.py:486-506,588-610,723-736`) and the rest of the chain
+    reads its comp as track 0; the sink step resizes or letterboxes,
+    converts gamma and palette (`_to_sink`);
 (c) a stateful chain (`nodemodel.py:409-485,611-719`): three phases, a
     prefix sweep (the kernel in comp-out mode over the leading stateless
     run) -> a Python frame loop over the stateful middle at B=1, standing
@@ -29,8 +35,9 @@ chunk and written back to each `inst.state` after every chunk;
 
 PyTorch runs eagerly, so the JAX package's jitted plan template becomes a
 cached plan: `_PLANS` maps the template key of `nodemodel.py:507` to the
-sweep kernel's op table on the device (route a), to None (route b), or to
-a `StatefulRoute` of op tables (route c). A plan never holds state. The
+sweep kernel's op table on the device (route a), to None or the composite
+kernel's `CompositePlan` (route b), or to a `StatefulRoute` of op tables
+(route c). A plan never holds state. The
 inter-stage comps are float32 (the JAX package's bf16 comp is a TPU
 bandwidth choice). cconx wiring and the single-frame `FrameGraph.run`
 raise `NotImplementedError` naming the ROADMAP item that brings them;
@@ -51,8 +58,10 @@ from ..effects.host import (FILTER_STATEFUL, FrameContext, Instance,
                             apply_instance)
 from ..layer import Layer
 from ..ops.colorspace import convert_layer
+from ..ops.gamma import gamma_convert_layer
+from ..ops.resize import letterbox_layer, resize_layer
 from ..prefs import pref
-from . import fused_sweep, stateful_sweep
+from . import composite, fused_sweep, stateful_sweep
 
 _STATIC_KINDS = ("int", "string", "string_list", "bool", "color")
 
@@ -140,17 +149,18 @@ def pack_params(traced_params: Sequence[dict], tcs, frames):
 
 
 def _to_sink(out: Layer, sink: SinkSpec) -> Layer:
-    """The sink step (`lives_tpu/graph/nodemodel.py:247`): geometry, gamma,
-    palette. Only the palette step is ported."""
+    """The sink step (`lives_tpu/graph/nodemodel.py:247-261`): letterbox or
+    resize to the sink's geometry, then gamma, then palette."""
     if sink.width and sink.height and \
             (out.width, out.height) != (sink.width, sink.height):
-        raise NotImplementedError(
-            "sink resize/letterbox is not ported yet (ROADMAP Queue 1 "
-            "item 11)")
+        if sink.letterbox:
+            out = letterbox_layer(out, sink.width, sink.height,
+                                  method=sink.method)
+        else:
+            out = resize_layer(out, sink.width, sink.height,
+                               method=sink.method)
     if out.gamma != sink.gamma:
-        raise NotImplementedError(
-            "sink gamma conversion is not ported yet (ROADMAP Queue 1 "
-            "item 11)")
+        out = gamma_convert_layer(out, sink.gamma)
     if out.palette != sink.palette:
         out = convert_layer(out, sink.palette)
     return out
@@ -271,6 +281,19 @@ def states_to_numpy(states: Sequence) -> list:
     return [conv(st) for st in states]
 
 
+def composite_prefix(prefix_spec, n_avail: int):
+    """(prefix, comp_tracks) for the composite kernel: a track the stack
+    lacks clamps to track 0, as `apply_instance`'s short-stack rule reads
+    it, and comp_tracks is the highest track read, plus one
+    (`nodemodel.py:591-605`)."""
+    out, maxtrack = [], 0
+    for filt, static, in_tr, out_tr, enabled in prefix_spec:
+        in_tr = tuple(t if t < n_avail else 0 for t in in_tr)
+        out.append((filt, static, in_tr, out_tr, enabled))
+        maxtrack = max([maxtrack, *in_tr])
+    return out, maxtrack + 1
+
+
 class FrameGraph:
     """A (chain, sink) configuration rendered over frame batches.
 
@@ -372,28 +395,59 @@ class FrameGraph:
         if self.has_stateful:
             return self._run_stateful(spec, layers, packed, rows_key, source,
                                       src_dev, device)
+        comp_n = self._composite_len(layers) if source is None else 0
         key = ("batch", _chain_static_key(self.chain),
                tuple(l.config for l in layers), self.sink.key(), self.fps,
                rows_key,
                source.source_key() if source is not None else None,
                tuple(src_dev.shape[:2]) if src_dev is not None else None,
-               str(device))
+               str(device), comp_n)
         if key not in _PLANS:
             plan = None
             if source is not None:
                 plan = fused_sweep.build_fused_sweep(
                     spec, src_dev.shape[1], source.h, source.w, rows_key,
                     self.fps, source, self.sink, device)
+            elif comp_n:
+                plan = composite.build_composite(
+                    *composite_prefix(spec[:comp_n], len(layers)), rows_key,
+                    self.fps, device)
             _PLANS[key] = plan
         plan = _PLANS[key]
-        if plan is not None:
+        if isinstance(plan, fused_sweep.SweepPlan):
             u8 = fused_sweep.fused_sweep(plan, src_dev, packed)
             return Layer(planes=(u8,), palette=int(Palette.RGB24),
                          gamma=self.sink.gamma)
         if source is not None:
             layers = [source.traced_layer(src_dev[0, t], src_dev[1, t])
                       for t in range(src_dev.shape[1])]
-        return run_chain(spec, layers, packed, rows_key, self.fps, self.sink)
+        start = 0
+        if plan is not None:
+            # the prefix as one kernel over the decoded tracks; its u8 comp
+            # replaces track 0 and the chain goes on from instance comp_n
+            # (`nodemodel.py:723-736`)
+            comp = composite.composite(
+                plan, [l.planes[0] for l in layers[:plan.n_tracks]], packed)
+            layers = [Layer(planes=(comp,), palette=int(Palette.RGB24))] \
+                + layers[1:]
+            start = comp_n
+        return run_chain(spec[start:], layers, packed, rows_key, self.fps,
+                         self.sink, idx_base=start)
+
+    def _composite_len(self, layers: Sequence[Layer]) -> int:
+        """comp_n, the prefix the composite kernel takes over decoded
+        layers, or 0 (`nodemodel.py:486-506`): a stateless chain without
+        cconx under `pref("pallas_composite") == "1"`, every layer RGB24
+        u8 (B, 3, H, W), a splittable prefix of three or more."""
+        if pref("pallas_composite") != "1" or not layers:
+            return 0
+        if not all(l.palette == Palette.RGB24 and l.dtype == torch.uint8
+                   and l.planes[0].ndim == 4 for l in layers):
+            return 0
+        if not composite.supported(layers[0].height, layers[0].width):
+            return 0
+        n = composite.splittable_prefix(self.chain)
+        return n if n >= 3 else 0
 
     def _run_stateful(self, spec, layers, packed, rows_key, source, src_dev,
                       device) -> Layer:

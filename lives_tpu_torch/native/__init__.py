@@ -25,9 +25,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lives_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-#: per-source flags: the stateful sweep rounds every multiply and add on its
-#: own, as PyTorch's eager ops do (csrc/stateful_sweep.cu, "Numerics")
-EXTRA_FLAGS = {"stateful_sweep": ("-fmad=false",)}
+#: per-source flags: these kernels round every multiply and add on its own,
+#: as PyTorch's eager ops do (each source's note, "Numerics")
+EXTRA_FLAGS = {name: ("-fmad=false",)
+               for name in ("stateful_sweep", "yuv420", "composite")}
 
 
 class Built:

@@ -10,11 +10,14 @@ future()` is the "restart").
 A copy of `lives_tpu/prefs.py:1-221`, which is framework-neutral (the JAX
 package cannot be imported without jax, so the port copies it), less
 `REFERENCE_PREF_KEYS` (`:105-167`), the reference's pref-key namespace,
-which only the web UI reads (ROADMAP Slice 8). The port reads exactly one
-knob, `fused_stateful` (`LIVES_TPU_FUSED_STATEFUL`, default "0"): "1"
-renders a qualifying stateful chain with the fused stateful sweep kernel
-(`graph/stateful_sweep.py`). Every other entry of `ENV_KNOBS` is a TPU or
-XLA knob of the JAX package that the port leaves unread.
+which only the web UI reads (ROADMAP Slice 8). The port reads two knobs,
+both default "0" as in the JAX package: `fused_stateful`
+(`LIVES_TPU_FUSED_STATEFUL`), "1" renders a qualifying stateful chain with
+the fused stateful sweep kernel (`graph/stateful_sweep.py`); and
+`pallas_composite` (`LIVES_TPU_PALLAS_COMPOSITE`), "1" runs the leading
+point effects of a chain over decoded layers as the composite kernel
+(`graph/composite.py`). Every other entry of `ENV_KNOBS` is a TPU or XLA
+knob of the JAX package that the port leaves unread.
 """
 
 from __future__ import annotations

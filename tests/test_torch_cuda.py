@@ -395,3 +395,177 @@ def test_stateful_render_routes(cuda, monkeypatch, fused_stateful, want):
             - before[0]["comp_in"],
             "stateful": stateful_sweep.LAUNCHES - before[1]} == want
     assert fused_sweep.MODE_LAUNCHES["u8"] == before[0]["u8"]
+
+
+# -- the colour kernels K2 and K3, the composite kernel K4 ---------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subspace", [1, 2])   # BT.601, BT.709
+@pytest.mark.parametrize("clamping", [0, 1])   # clamped, full range
+@pytest.mark.parametrize("B,h,w", [(2, 1080, 1920), (3, 562, 1000),
+                                   (1, 2, 2), (2, 34, 66)])
+def test_colour_kernels_match_plain(cuda, B, h, w, clamping, subspace):
+    """K2 within 1 LSB of `plain_yuv420_to_rgb` (both round every multiply
+    and add alone, so it is 0 in practice), K3 integer-identical to
+    `plain_rgb_to_yuv420`, RGBA input and odd geometry included; each
+    launch counted once."""
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    g = torch.Generator(cuda).manual_seed(h * w + clamping)
+
+    def rand(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=cuda,
+                             generator=g)
+    y, u, v = rand(B, h, w), rand(B, h // 2, w // 2), rand(B, h // 2, w // 2)
+    before = dict(yk.LAUNCHES)
+    got = yk.yuv420_to_rgb(y, u, v, subspace, clamping)
+    torch.cuda.synchronize()
+    assert yk.LAUNCHES["yuv420_to_rgb"] == before["yuv420_to_rgb"] + 1
+    ref = yk.plain_yuv420_to_rgb(y, u, v, subspace, clamping)
+    assert got.shape == (B, 3, h, w)
+    assert (got.int() - ref.int()).abs().max().item() <= 1
+    for C, hh, ww in ((3, h, w), (4, h + 1, w + 1)):
+        rgb = rand(B, C, hh, ww)
+        got = yk.rgb_to_yuv420(rgb, subspace, clamping)
+        torch.cuda.synchronize()
+        ref = yk.plain_rgb_to_yuv420(rgb, subspace, clamping)
+        for a, b in zip(got, ref):
+            assert a.shape == b.shape and torch.equal(a, b)
+    assert yk.LAUNCHES["rgb_to_yuv420"] == before["rgb_to_yuv420"] + 2
+
+
+@pytest.mark.cuda
+def test_yuv_kernel_reads_strided_planes(cuda):
+    """Planes that are views of one (B, frame bytes) upload, as a decoded
+    chunk could be: K2 reads them in place; unbatched planes too."""
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    B, h, w = 3, 36, 50
+    fs = h * w * 3 // 2
+    buf = torch.randint(0, 256, (B, fs + 7), dtype=torch.uint8, device=cuda)
+    y = buf[:, :h * w].view(B, h, w)
+    u = buf[:, h * w:h * w + fs // 6].view(B, h // 2, w // 2)
+    v = buf[:, h * w + fs // 6:fs].view(B, h // 2, w // 2)
+    got = yk.yuv420_to_rgb(y, u, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, yk.plain_yuv420_to_rgb(
+        y.contiguous(), u.contiguous(), v.contiguous()))
+    assert torch.equal(yk.yuv420_to_rgb(y[1], u[1], v[1]), got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,h,w,n_tracks", [(4, 1080, 1920, 10),
+                                            (3, 37, 100, 3), (2, 1, 1, 2)])
+@pytest.mark.parametrize("seed", range(3))
+def test_composite_kernel_matches_plain(cuda, B, h, w, n_tracks, seed):
+    """K4 against `plain_composite` on random prefixes of its vocabulary
+    (per-frame parameters drawn past their max, which both clamp): within
+    1 LSB; one launch counted."""
+    from lives_tpu_torch.graph import composite
+    rng = np.random.default_rng(seed)
+    names = sorted(composite.VOCABULARY)
+    chain = []
+    for _ in range(9):
+        inst = instantiate(names[rng.integers(len(names))])
+        inst.in_tracks = tuple(int(t) for t in
+                               rng.integers(0, n_tracks, inst.filter.n_in))
+        chain.append(inst)
+    chain[2].enabled = False
+    params = [{k: rng.uniform(i.filter.param(k).min,
+                              i.filter.param(k).max * 1.2, B)
+               .astype(np.float32) for k in _split_params(i)[1]}
+              for i in chain]
+    packed, rows = pack_params(params, np.arange(B) / 30.0, np.arange(B))
+    plan = composite.build_composite(chain_spec_of(chain), n_tracks, rows,
+                                     30.0, cuda)
+    g = torch.Generator(cuda).manual_seed(seed)
+    tracks = [torch.randint(0, 256, (B, 3, h, w), dtype=torch.uint8,
+                            device=cuda, generator=g)
+              for _ in range(n_tracks)]
+    packed = torch.from_numpy(packed).to(cuda)
+    before = composite.LAUNCHES
+    got = composite.composite(plan, tracks, packed)
+    torch.cuda.synchronize()
+    assert composite.LAUNCHES == before + 1
+    ref = composite.plain_composite(plan, tracks, packed)
+    assert (got.int() - ref.int()).abs().max().item() <= 1
+
+
+def _decoded_clips(tmp_path, n_clips, n_frames, h, w):
+    """Y4M clips of synthetic-source frames, opened, unique_id = 1.."""
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.io.clips import open_clip
+    from lives_tpu_torch.io.decoders import write_y4m
+    from lives_tpu_torch.ops.colorspace import convert_layer
+    src = DeviceSyntheticSource(h, w, device="cpu")
+    clips = {}
+    for c in range(1, n_clips + 1):
+        yuv = convert_layer(src.get_batch([c] * n_frames, range(n_frames)),
+                            Palette.YUV420P).planes
+        path = tmp_path / f"c{c}.y4m"
+        write_y4m(str(path), [tuple(p[i].numpy() for p in yuv)
+                              for i in range(n_frames)], 30.0)
+        clips[c] = open_clip(str(path), tmp_path / "work")
+        clips[c].unique_id = c
+    return clips
+
+
+@pytest.mark.cuda
+def test_clip_source_converts_on_the_card(cuda, tmp_path, monkeypatch):
+    """`ClipFrameSource` on a CUDA device: every conversion sees CUDA
+    planes (none on the host), one K2 launch a track chunk, and the frames
+    equal the CPU source's (the plain version)."""
+    from lives_tpu_torch.events import renderer
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    clips = _decoded_clips(tmp_path, 3, 6, 36, 50)
+    seen = []
+    real = renderer.convert_layer
+    monkeypatch.setattr(renderer, "convert_layer", lambda l, p: (
+        seen.append(l.device.type), real(l, p))[1])
+    src = renderer.ClipFrameSource(clips, device=cuda)
+    before = yk.LAUNCHES["yuv420_to_rgb"]
+    got = src.get_batch([1, 2, 3, 99], [0, 5, 2, 0])
+    torch.cuda.synchronize()
+    assert seen == ["cuda"] and got.device.type == "cuda"
+    assert yk.LAUNCHES["yuv420_to_rgb"] == before + 1
+    ref = renderer.ClipFrameSource(clips, device="cpu").get_batch(
+        [1, 2, 3, 99], [0, 5, 2, 0])
+    assert torch.equal(got.planes[0].cpu(), ref.planes[0])
+    assert not ref.planes[0][3].any()  # the missing clip: a blank frame
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pref,k4", [("1", 2), ("0", 0)])
+def test_decoded_render_to_encoder_launches(cuda, tmp_path, monkeypatch,
+                                            pref, k4):
+    """Config D at 4 tracks from decoded clips into a YUV4MPEG file on the
+    card: K2 once a track a chunk, K4 once a chunk under the pref, K3 once a
+    frame; the file's frames match the same render on the CPU (plain
+    versions) within 1 LSB."""
+    from lives_tpu_torch.events.renderer import ClipFrameSource
+    from lives_tpu_torch.graph import composite
+    from lives_tpu_torch.io.decoders import try_decoders
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.transcode import render_to_encoder
+    monkeypatch.setenv("LIVES_TPU_PALLAS_COMPOSITE", pref)
+    h, w = 36, 50
+    clips = _decoded_clips(tmp_path, 4, 6, h, w)
+    el = multitrack_timeline(n_tracks=4, n_frames=8, width=w, height=h,
+                             fps=30.0)
+    for e in el.frame_events():
+        e.props["frames"] = [f % 6 for f in e.frames]
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        before = (dict(yk.LAUNCHES), composite.LAUNCHES)
+        path = tmp_path / f"out_{dev.type}.y4m"
+        render_to_encoder(el, ClipFrameSource(clips, device=dev), str(path),
+                          encoder="yuv4mpeg", batch_size=4)
+        counts = (yk.LAUNCHES["yuv420_to_rgb"] - before[0]["yuv420_to_rgb"],
+                  composite.LAUNCHES - before[1],
+                  yk.LAUNCHES["rgb_to_yuv420"] - before[0]["rgb_to_yuv420"])
+        assert counts == ((4 * 2, k4, 8) if dev.type == "cuda"
+                          else (0, 0, 0)), counts
+        cd = try_decoders(str(path))
+        outs[dev.type] = [cd.decoder.get_frame(n).planes for n in range(8)]
+        cd.decoder.close()
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        for p, q in zip(a, b):
+            assert (p.int() - q.int()).abs().max().item() <= 1

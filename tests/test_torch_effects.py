@@ -157,11 +157,21 @@ def test_convert_layer_rgb_family_matches_jax(src, dst):
 
 
 def test_conversions_outside_the_slice_raise():
+    """RGB24 -> YUV420P is ported now (tests/test_torch_colour.py holds
+    every pair); a batch converts as the JAX package converts its frame,
+    and a target with no conversion still raises."""
+    from lives_tpu.ops.colorspace import convert_layer as j_convert
     from lives_tpu_torch.ops.colorspace import convert_layer as t_convert
-    lay = TLayer(planes=(torch.zeros(1, 3, 8, 8, dtype=torch.uint8),),
-                 palette=int(Palette.RGB24))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        t_convert(lay, Palette.YUV420P)
+    arr = np.random.default_rng(3).integers(0, 256, (1, 3, 8, 8),
+                                            dtype=np.uint8)
+    lay = TLayer(planes=(torch.from_numpy(arr),), palette=int(Palette.RGB24))
+    got = t_convert(lay, Palette.YUV420P)
+    ref = j_convert(JLayer(planes=(jnp.asarray(arr[0]),),
+                           palette=int(Palette.RGB24)), Palette.YUV420P)
+    for g, r in zip(got.planes, ref.planes):
+        np.testing.assert_array_equal(g[0].numpy(), np.asarray(r))
+    with pytest.raises(NotImplementedError, match="RGB24 -> NONE"):
+        t_convert(lay, Palette.NONE)
 
 
 @pytest.mark.parametrize("pal", [Palette.RGB24, Palette.RGBA32,

@@ -157,7 +157,7 @@ def test_run_batch_refuses_what_is_not_ported():
     el.insert(init)
     el.insert(filter_map_event(0, [init.event_id]))
     el.insert(frame_event(0, [1], [0]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         list(tr.render_events(el, TSource(8, 16, device="cpu")))
     with pytest.raises(NotImplementedError, match="item 21"):
         FrameGraph([], cconx=[(0, "mask", 1, 0)])
@@ -170,7 +170,11 @@ def test_port_never_imports_jax():
             "lives_tpu_torch.events.renderer, lives_tpu_torch.graph, "
             "lives_tpu_torch.graph.fused_sweep, lives_tpu_torch.native, "
             "lives_tpu_torch.graph.stateful_sweep, lives_tpu_torch.prefs, "
-            "lives_tpu_torch.effects.builtin.effectv; "
+            "lives_tpu_torch.effects.builtin.effectv, "
+            "lives_tpu_torch.graph.composite, lives_tpu_torch.ops.yuv_kernels, "
+            "lives_tpu_torch.ops.gamma, lives_tpu_torch.ops.resize, "
+            "lives_tpu_torch.io.clips, lives_tpu_torch.io.encoders, "
+            "lives_tpu_torch.transcode; "
             "from lives_tpu_torch.effects.host import list_filters; "
             "list_filters(); "
             "assert 'jax' not in sys.modules, sorted("
