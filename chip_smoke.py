@@ -67,7 +67,27 @@ Phases, one line each:
    do (<= 6 LSB, at most 300 values above 2 LSB; it shows 6 and 281,
    tests/test_torch_routes.py), a warm timed pass with the host time in `get_batch` split from the
    rest, a profiled pass (device busy share), and K2, K3 and K4 vs plain ms
-   on one 96-frame chunk.
+   on one 96-frame chunk;
+12. the multi-device layer (`lives_tpu_torch.parallel`) on one card, as a
+   4-entry mesh on cuda:0 (every band at its true rows):
+   a. K1's band mode vs the whole-frame kernel over the main path's chain
+      (B=4) at 1920x1080 in bands of 270, 540 and 1080 rows, and at a
+      ragged 1000x562 with 3 tracks in bands of 281: every band bit for bit
+      the whole frame's rows, and within 1 LSB of `plain_band_sweep`;
+   b. `spatial_sweep_fn` over the main path's timeline, 192 frames in
+      96-frame chunks (`chunk_of`): 4 band launches a chunk and no
+      whole-frame launch, frames bit for bit those of `render_events`; a
+      timed pass beside the main path's (in turns), and the 4 band launches
+      of a chunk, one band launch and their plain version vs K1's launch;
+   c. `sharded_batch_fn` (DP) equal to `run_batch`, and `spatial_batch_fn`
+      (SP) within 1 LSB, over 10 RGB24 (8,3,1080,1920) tracks;
+   d. `spatial_stateful_fn` on config A's chain over 10 layers at 1080p,
+      two calls of 8 frames: frames within 1 LSB of `run_batch`, states
+      within 1e-5 (f32) or exact (u8);
+   e. `pipeline_chain_fn`, 4 stages of point filters over (8,3,1080,1920)
+      f32 frames, within 1e-5 of the sequential chain;
+   f. `dryrun_multichip` on the 4 entries (every path at a small size,
+      each against the DP render).
 Then a JSON line of the kernels (with each one's bound: the larger of its
 bytes over 3.35 TB/s and its float operations over 67 TFLOP/s, the H100
 SXM's device memory and float32 rates) and, last, the JSON result line.
@@ -231,7 +251,8 @@ def in_turns(plain, kern, plain_reps=2, kern_reps=5):
 
 #: a launch count (MODE_LAUNCHES entry, or the stateful sweep's) -> kernel
 KERNEL_OF = {"u8": "fused_sweep", "comp_out": "fused_sweep_comp_out",
-             "comp_in": "fused_sweep_comp_in", "stateful": "stateful_sweep"}
+             "comp_in": "fused_sweep_comp_in", "stateful": "stateful_sweep",
+             "band": "fused_sweep_band"}
 
 #: each kernel of the kernels line: its source and the TPU kernel it
 #: replaces
@@ -250,6 +271,8 @@ SOURCES = {
                       "lives_tpu/ops/pallas_kernels.py:185"),
     "composite": ("lives_tpu_torch/csrc/composite.cu",
                   "lives_tpu/graph/pallas_composite.py:120"),
+    "fused_sweep_band": ("lives_tpu_torch/csrc/fused_sweep.cu",
+                         "lives_tpu/graph/pallas_composite.py:240"),
 }
 NAMES = tuple(SOURCES)
 #: config D's clips: 24 frames each, played at frame i % 24
@@ -318,6 +341,213 @@ def render_path(el, src, sink, check=True):
     wall = time.perf_counter() - t0
     counts = {**fused_sweep.MODE_LAUNCHES, "stateful": stateful_sweep.LAUNCHES}
     return rendered, head, {k: v for k, v in counts.items() if v}, wall
+
+
+def phase12(dev, card0, card, el, src, sink, held, ms, bounds, launches):
+    """12. the multi-device layer on one card: a 4-entry mesh on `card0`
+    (cuda:0)."""
+    import numpy as np
+    import torch
+
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.effects.host import FrameContext, instantiate
+    from lives_tpu_torch.layer import Layer
+    from lives_tpu_torch.graph import FrameGraph, fused_sweep, stateful_sweep
+    from lives_tpu_torch.parallel import (dryrun_multichip, frame_mesh,
+                                          pipeline_chain_fn,
+                                          sharded_batch_fn, spatial_batch_fn,
+                                          spatial_stateful_fn,
+                                          spatial_sweep_fn)
+    from lives_tpu_torch.scenes import multitrack_timeline
+
+    os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "0"  # the float route
+    mesh4 = frame_mesh([card0] * 4)
+    n_chunks = -(-N_FRAMES // CHUNK)
+
+    # 12a. the band kernel vs the whole-frame kernel and plain_band_sweep
+    for w, h, tracks, bands in ((W, H, TRACKS, (270, 540, 1080)),
+                                (1000, 562, 3, (281,))):
+        tel = multitrack_timeline(n_tracks=tracks, n_frames=8, width=w,
+                                  height=h, fps=FPS)
+        spec, ids, packed, rows = chunk_of(tel, dev, 4)
+        whole = fused_sweep.fused_sweep(
+            sweep_plan(tel, spec, rows, dev, tracks), ids, packed)
+        for band_h in bands:
+            plan = sweep_plan(tel, spec, rows, card0, tracks, band_h=band_h)
+            for y0 in range(0, h, band_h):
+                got = fused_sweep.fused_sweep(plan, ids, packed, y0=y0)
+                torch.cuda.synchronize()
+                same = torch.equal(got, whole[:, :, y0:y0 + band_h])
+                line("12a band_vs_whole", size=f"{w}x{h}", band_h=band_h,
+                     y0=y0, bit_identical=same)
+                assert same, ("band", w, h, band_h, y0)
+                held("fused_sweep_band", "12a band_vs_plain", got,
+                     fused_sweep.plain_band_sweep(plan, ids, packed, y0), 1,
+                     size=f"{w}x{h}", band_h=band_h, y0=y0, frames=4)
+        del whole
+
+    # 12b. the band sweep over the main path's timeline
+    graph = FrameGraph(_chain(el), sink, fps=FPS)
+    sweep = spatial_sweep_fn(graph, frame_mesh([card0] * 4, axis="s"), src,
+                             CHUNK, H, W, axis="s")
+    assert sweep is not None, "the main path must qualify for the band sweep"
+    main = [lay.planes[0].clone() for _, lay in
+            render_events_of(el, src, sink)]
+
+    def band_pass():
+        """The timeline's chunks as the renderer builds them, each through
+        the band sweep."""
+        return [sweep(ids, packed) for _, ids, packed, _ in
+                (chunk_of(el, dev, CHUNK, k) for k in range(n_chunks))]
+
+    fused_sweep.MODE_LAUNCHES.update(dict.fromkeys(fused_sweep.MODE_LAUNCHES,
+                                                   0))
+    stateful_sweep.LAUNCHES = 0
+    outs = band_pass()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in fused_sweep.MODE_LAUNCHES.items() if v}
+    counts.update({"stateful": stateful_sweep.LAUNCHES} if
+                  stateful_sweep.LAUNCHES else {})
+    line("12b band_sweep", frames=sum(o.shape[0] for o in outs),
+         chunks=n_chunks, launches=counts)
+    assert counts == {"band": 4 * n_chunks}, counts
+    launches["fused_sweep_band"] = counts["band"]
+    for k, (o, m) in enumerate(zip(outs, main)):
+        same = torch.equal(o, m)
+        line("12b band_sweep_vs_main_path", chunk=k, bit_identical=same)
+        assert same, ("band sweep vs main path", k)
+    del outs, main
+    walls = {"main": [], "band": []}
+    for kind in ("main", "band", "band", "main"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "main":
+            for _ in render_events_of(el, src, sink):
+                pass
+        else:
+            band_pass()
+        torch.cuda.synchronize()
+        walls[kind].append(time.perf_counter() - t0)
+    rate = {k: N_FRAMES / (sum(v) / len(v)) for k, v in walls.items()}
+    line("12b timed", card=repr(card), frames=N_FRAMES,
+         band_wall_s=",".join(f"{x:.4f}" for x in walls["band"]),
+         main_wall_s=",".join(f"{x:.4f}" for x in walls["main"]),
+         band_frames_per_s=f"{rate['band']:.1f}",
+         main_frames_per_s=f"{rate['main']:.1f}",
+         band_over_main=f"{rate['band'] / rate['main']:.3f}")
+    spec, ids, packed, rows = chunk_of(el, dev, CHUNK)
+    whole_plan = sweep_plan(el, spec, rows, dev, TRACKS)
+    band_h = H // 4
+    band_plan = sweep_plan(el, spec, rows, card0, TRACKS, band_h=band_h)
+
+    def four_bands():
+        for i in range(4):
+            fused_sweep._launch(band_plan, ids, packed, None, i * band_h)
+
+    def four_plain():
+        for i in range(4):
+            fused_sweep.plain_band_sweep(band_plan, ids, packed, i * band_h)
+    k1 = [time_ms(lambda: fused_sweep._launch(whole_plan, ids, packed,
+                                               None), 5)]
+    four = [time_ms(four_bands, 5), time_ms(four_bands, 5)]
+    k1.append(time_ms(lambda: fused_sweep._launch(whole_plan, ids, packed,
+                                                   None), 5))
+    one = time_ms(lambda: fused_sweep._launch(band_plan, ids, packed, None,
+                                              band_h), 5)
+    plain = [time_ms(four_plain, 1), time_ms(four_plain, 1)]
+    ms["fused_sweep_band"] = (sum(four) / 2, sum(plain) / 2, "")
+    px = CHUNK * H * W
+    # the 4 bands write the chunk's frames once: K1's bytes and operations
+    bounds["fused_sweep_band"] = bound(
+        px * 3, px * (table_flops(band_plan.ops) + 15))
+    line("12b chunk_ms", card=repr(card), frames=CHUNK,
+         four_bands=",".join(f"{x:.3f}" for x in four),
+         whole_frame_k1=",".join(f"{x:.3f}" for x in k1),
+         one_band=f"{one:.3f}",
+         plain_four_bands=",".join(f"{x:.3f}" for x in plain),
+         bound_ms=f"{bounds['fused_sweep_band'][0]:.4f}")
+
+    # 12c. DP and SP over decoded-style layers
+    B8 = 8
+    tcs, frames = np.arange(B8) / FPS, np.arange(B8)
+    layers = [src.get_batch([t + 1] * B8, range(B8)) for t in range(TRACKS)]
+    ref = graph.run_batch(layers, tcs, frames).planes[0]
+    dp = sharded_batch_fn(graph, mesh4)(layers, tcs, frames).planes[0]
+    worst, share = diff_stats(dp, ref)
+    line("12c dp_vs_run_batch", frames=B8, max_abs_err=f"{worst:.6g}",
+         differing_share=f"{share:.3g}")
+    assert worst == 0, ("DP", worst)
+    sp = spatial_batch_fn(graph, mesh4)(layers, tcs, frames).planes[0]
+    worst, share = diff_stats(sp, ref)
+    line("12c sp_vs_run_batch", frames=B8, max_abs_err=f"{worst:.6g}",
+         differing_share=f"{share:.3g}")
+    assert worst <= 1, ("SP", worst)
+    del layers, ref, dp, sp
+
+    # 12d. stateful bands on config A's chain, two calls of 8 frames
+    def config_a():
+        chain = []
+        for name, vals, tr in CONFIGS["A"][1]:
+            inst = instantiate(name, **vals)
+            inst.in_tracks = tuple(tr)
+            chain.append(inst)
+        return FrameGraph(chain, sink, fps=FPS)
+    g_band, g_ref = config_a(), config_a()
+    run = spatial_stateful_fn(g_band, mesh4)
+    for k in range(2):
+        fr = range(k * B8, (k + 1) * B8)
+        layers = [src.get_batch([t + 1] * B8, fr) for t in range(TRACKS)]
+        tcs, frames = np.asarray(fr) / FPS, np.asarray(fr)
+        got = run(layers, tcs, frames).planes[0]
+        ref = g_ref.run_batch(layers, tcs, frames).planes[0]
+        worst, share = diff_stats(got, ref)
+        line("12d stateful_bands_vs_run_batch", call=k, frames=B8,
+             max_abs_err=f"{worst:.6g}", differing_share=f"{share:.3g}")
+        assert worst <= 1, ("stateful bands", k, worst)
+    for i, (a, b) in enumerate(zip(g_band.states, g_ref.states)):
+        for key in (sorted(a) if isinstance(a, dict) else [None]):
+            x, y = (a[key], b[key]) if key else (a, b)
+            if x is None:
+                continue
+            worst, _ = diff_stats(x, y)
+            tol = 1e-5 if x.is_floating_point() else 0
+            line("12d state", step=g_band.chain[i].filter.name,
+                 leaf=key or "-", dtype=str(x.dtype).split(".")[-1],
+                 max_abs_err=f"{worst:.3g}")
+            assert worst <= tol, (i, key, worst)
+    del layers, got, ref
+
+    # 12e. the pipeline over 4 point filters
+    insts = [instantiate("colour_balance", red=1.1, blue=0.9),
+             instantiate("saturation", saturation=1.3),
+             instantiate("vignette", amount=0.7),
+             instantiate("saturation", saturation=0.8)]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    batch = torch.rand((B8, 3, H, W), generator=gen, device=dev)
+    tcs = np.arange(B8, dtype=np.float32) / FPS
+    got = pipeline_chain_fn(insts, mesh4)(batch, tcs)
+    seq = batch
+    for inst in insts:
+        seq = inst.filter.process([Layer(planes=(seq,), palette=int(
+            Palette.RGBFLOAT))], inst.param_values(), FrameContext(
+                tc=0.0, frame=0, fps=25.0, width=W, height=H)).planes[0]
+    worst, _ = diff_stats(got, seq)
+    line("12e pipeline_vs_sequential", stages=len(insts), frames=B8,
+         max_abs_err=f"{worst:.3g}")
+    assert worst <= 1e-5, ("pipeline", worst)
+
+    # 12f. the dry run of every path at a small size
+    t0 = time.perf_counter()
+    dryrun_multichip([card0] * 4)
+    line("12f dryrun_multichip", entries=4,
+         seconds=f"{time.perf_counter() - t0:.2f}")
+    os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "1"
+
+
+def render_events_of(el, src, sink):
+    """The main path's chunks through the user's entry point."""
+    from lives_tpu_torch.events.renderer import render_events
+    return render_events(el, src, sink, batch_size=CHUNK)
 
 
 def main() -> int:
@@ -427,6 +657,7 @@ def main() -> int:
     line("5 timed", card=repr(card), frames=rendered, wall_s=f"{wall_s:.4f}",
          frames_per_s=f"{rendered / wall_s:.1f}",
          x_realtime=f"{rendered / wall_s / FPS:.2f}")
+    main_el = el
     spec, ids, packed, rows = chunk_of(el, dev, CHUNK)
     plan = sweep_plan(el, spec, rows, dev, TRACKS)
     torch.cuda.reset_peak_memory_stats()
@@ -763,6 +994,9 @@ def main() -> int:
              bound_ms=f"{bounds[name][0]:.4f} ({bounds[name][1]})")
     line("11 peak", gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
     del trk
+
+    phase12(dev, torch.device("cuda", 0), card, main_el, src, sink, held,
+            ms, bounds, launches)
 
     for name in NAMES:
         line("bound", kernel=name, ms=f"{ms[name][0]:.4f}",

@@ -15,12 +15,15 @@ modes around a frame loop, or the fused stateful sweep
 colour engine (`ops/colorspace.py`, `gamma.py`, `resize.py`, with the
 colour kernels of `csrc/yuv420.cu`), YUV4MPEG clip I/O (`io/`),
 `events.renderer.ClipFrameSource` and `transcode.render_to_encoder`, with
-the composite kernel (`csrc/composite.cu`). Every entry point takes its
-device explicitly; nothing picks a device on its own.
+the composite kernel (`csrc/composite.cu`), and the multi-device layer
+(Slice 7, `parallel/`): a mesh of explicit devices for frame-batch DP,
+bands, a pipeline, stateful bands and the band sweep (the fused sweep's
+band mode). Every entry point takes its device explicitly; nothing picks
+a device on its own.
 """
 
 from .constants import (Gamma, Palette, YUVClamping, YUVSampling,
                         YUVSubspace)
 from .layer import Layer, layer_blank, layer_from_bytes, layer_to_bytes
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"

@@ -2,10 +2,11 @@
 // RGB24 sink quantise, one kernel per frame chunk.
 //
 // Replaces the TPU kernel lives_tpu/graph/pallas_composite.py:
-// build_fused_sweep in its three single-device modes: the default
-// (emit="u8"), the prefix sweep (emit="comp", an f32 comp out instead of
-// the sink quantise) and the suffix sweep (consume="comp", track 0 read
-// from an f32 comp instead of generated). It computes what that kernel
+// build_fused_sweep in its four modes: the default (emit="u8"), the prefix
+// sweep (emit="comp", an f32 comp out instead of the sink quantise), the
+// suffix sweep (consume="comp", track 0 read from an f32 comp instead of
+// generated) and the band sweep (band_h: u8 rows [y0, y0+band_h) of the
+// frame, the multi-device layer's kernel). It computes what that kernel
 // computes, not block by block what it does.
 //
 // What bounds it on an H100: f32 (and int32) ALU work on the halo'd fold.
@@ -28,15 +29,18 @@
 // the round-half-up quantise stay IEEE for the +/-1 LSB contract.
 //
 // Layout of one launch:
-//   grid (ceil(W/TILE_W), ceil(H/TILE_H), B), NTHREADS threads a block;
+//   grid (ceil(W/TILE_W), ceil(band_h/TILE_H), B), NTHREADS threads a
+//   block, tile rows starting at frame row y0 (y0 = 0, band_h = H for a
+//   whole frame);
 //   packed (P+2, B) f32 per-frame parameters, rows as the plan encodes them;
 //   ids (2, T, B) int32 clip ids then frame numbers of each track;
 //   ops (n_ops, OP_FIELDS) int32, the chain as encoded by
 //   lives_tpu_torch/graph/fused_sweep.py (_encode); slot_rows/slot_vals map
 //   each parameter slot to its packed row (or a constant) and its clamp;
 //   taps hold each stencil's renormalised f32 taps;
-//   comp_in (B, 3, H, W) f32 or null; out (B, 3, H, W) u8, or comp_out
-//   (B, 3, H, W) f32 when that is not null.
+//   comp_in (B, 3, H, W) f32 or null; out (B, 3, band_h, W) u8, or
+//   comp_out (B, 3, H, W) f32 when that is not null (the plan refuses a
+//   band in the comp modes).
 // Phase 1 evaluates, for every pixel of the tile and its halo R (the sum of
 // the stencil radii), at coordinates clamped to the frame: track 0 (from
 // comp_in, or generated), then the ops before the first stencil,
@@ -47,6 +51,17 @@
 // outward over the halo again, as the plain chain pads each stencil's
 // input. The last pass writes the tile, masking the ragged frame edge. The
 // plan refuses stencils in comp_in mode: the comp carries no halo.
+//
+// A band is the same computation over fewer rows. H stays the frame's
+// height everywhere a coordinate is clamped, generated or fixed up at the
+// edge, so a tile's halo past the band's edge holds real frame rows (each
+// band makes its own halo, and a multi-device sweep needs no exchange) and
+// only the frame's own edges replicate. Only the stores see the band: a
+// pixel is written when its row lies in [y0, y0+band_h), at row gy - y0 of
+// the band's output; the band's last tile is ragged when band_h is not a
+// multiple of TILE_H. Every pixel runs the same arithmetic on the same
+// values as in a whole-frame launch, so a band is bit-identical to those
+// rows of the whole frame.
 
 #include "sweep_common.cuh"
 
@@ -54,7 +69,8 @@ namespace {
 
 using namespace lives;
 
-// The chain's result at frame pixel `at`: quantised to u8, or the f32 comp.
+// The chain's result at output pixel `at`: quantised to u8, or the f32
+// comp.
 __device__ __forceinline__ void store(unsigned char* ob, float* cb,
                                       size_t plane, size_t at, Rgb v) {
   if (cb != nullptr) {
@@ -74,20 +90,22 @@ __global__ void __launch_bounds__(NTHREADS) fused_sweep_kernel(
     const int* __restrict__ slot_rows, const float* __restrict__ slot_vals,
     int n_slots, const float* __restrict__ taps,
     const float* __restrict__ comp_in, unsigned char* __restrict__ out,
-    float* __restrict__ comp_out, int T, int B, int H, int W, int R,
-    float sx, float sy) {
+    float* __restrict__ comp_out, int T, int B, int H, int W, int y0,
+    int band_h, int R, float sx, float sy) {
   __shared__ float sp[MAX_SLOTS];
   extern __shared__ float smem[];
   const int b = blockIdx.z;
-  const int ty0 = blockIdx.y * TILE_H;
+  const int ty0 = y0 + blockIdx.y * TILE_H;
   const int tx0 = blockIdx.x * TILE_W;
+  const int y_end = y0 + band_h;  // the band's rows: [y0, y_end)
   load_slots(sp, packed, slot_rows, slot_vals, n_slots, B, b);
   __syncthreads();
 
   const Frame fr{ids, T, B, b, sx, sy};
-  const size_t plane = (size_t)H * W;
-  unsigned char* ob = out + (size_t)b * 3 * plane;
-  float* cb = comp_out != nullptr ? comp_out + (size_t)b * 3 * plane
+  const size_t plane = (size_t)H * W;        // a frame's channel
+  const size_t oplane = (size_t)band_h * W;  // an output channel
+  unsigned char* ob = out + (size_t)b * 3 * oplane;
+  float* cb = comp_out != nullptr ? comp_out + (size_t)b * 3 * oplane
                                   : nullptr;
   const float* ci = comp_in != nullptr ? comp_in + (size_t)b * 3 * plane
                                        : nullptr;
@@ -108,7 +126,9 @@ __global__ void __launch_bounds__(NTHREADS) fused_sweep_kernel(
         : gen(fr, 0, x, y);
     const Rgb v = apply_ops(ops, 0, first, sp, v0, fr, x, y);
     if (first == n_ops) {
-      if (gy < H && gx < W) store(ob, cb, plane, (size_t)gy * W + gx, v);
+      if (gy >= y0 && gy < y_end && gx >= 0 && gx < W) {
+        store(ob, cb, oplane, (size_t)(gy - y0) * W + gx, v);
+      }
     } else {
       put(A, ch, idx, v);
     }
@@ -134,8 +154,9 @@ __global__ void __launch_bounds__(NTHREADS) fused_sweep_kernel(
     for (int idx = threadIdx.x; idx < vh * hw; idx += NTHREADS) {
       const int ly = R - after + idx / hw, lx = R - after + idx % hw;
       const int gy = ty0 - R + ly, gx = tx0 - R + lx;
+      // inside the frame: cells outside it are replicated from its edge
       const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      if (!inside && !last) continue;  // replicated from the edge below
+      if (!inside && !last) continue;
       const int at = ly * WA + lx;
       const Rgb v = apply_ops(ops, si + 1, next, sp,
                               horizontal_mix(A, V, ch, at, r, kw, sharpen,
@@ -143,7 +164,10 @@ __global__ void __launch_bounds__(NTHREADS) fused_sweep_kernel(
                               fr, min(max(gx, 0), W - 1),
                               min(max(gy, 0), H - 1));
       if (last) {
-        if (inside) store(ob, cb, plane, (size_t)gy * W + gx, v);
+        // inside the band
+        if (gy >= y0 && gy < y_end && gx >= 0 && gx < W) {
+          store(ob, cb, oplane, (size_t)(gy - y0) * W + gx, v);
+        }
       } else {
         put(A, ch, at, v);
       }
@@ -163,13 +187,16 @@ extern "C" {
 
 // Launch one sweep on `stream`; returns cudaGetLastError() (0 = launched).
 // comp_in and comp_out may be null; out is unused when comp_out is set.
+// Output rows [y0, y0+band_h) of the H-row frame (0 and H for all of it).
 int lives_fused_sweep(const float* packed, const int* ids, const int* ops,
                       int n_ops, const int* slot_rows,
                       const float* slot_vals, int n_slots, const float* taps,
                       const float* comp_in, unsigned char* out,
-                      float* comp_out, int T, int B, int H, int W, int R,
-                      int n_stencils, float sx, float sy, void* stream) {
-  if (n_slots > MAX_SLOTS || B > 65535 || T < 1) {
+                      float* comp_out, int T, int B, int H, int W, int y0,
+                      int band_h, int R, int n_stencils, float sx, float sy,
+                      void* stream) {
+  if (n_slots > MAX_SLOTS || B > 65535 || T < 1 || band_h < 1 || y0 < 0 ||
+      y0 + band_h > H) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = n_stencils
@@ -181,10 +208,11 @@ int lives_fused_sweep(const float* packed, const int* ids, const int* ops,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H, B);
+  const dim3 grid((W + TILE_W - 1) / TILE_W, (band_h + TILE_H - 1) / TILE_H,
+                  B);
   fused_sweep_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
       packed, ids, ops, n_ops, slot_rows, slot_vals, n_slots, taps, comp_in,
-      out, comp_out, T, B, H, W, R, sx, sy);
+      out, comp_out, T, B, H, W, y0, band_h, R, sx, sy);
   return (int)cudaGetLastError();
 }
 

@@ -32,8 +32,18 @@ serve stateful chains (`nodemodel.FrameGraph.run_batch`):
 - `build()` compiles the kernel with nvcc on first use (`native.load`) and
   binds it with ctypes; `fused_sweep` calls it on its first launch.
 
-The JAX kernel's `band_h` mode serves the multi-device path and is not
-ported yet (ROADMAP Queue 2, K1).
+Band mode (`band_h`, `pallas_composite.py:242,286-297,302-311,332,367,
+390-393,452,490`) serves the multi-device layer
+(`parallel/mesh.spatial_sweep_fn`): the u8 mode over output rows
+``[y0, y0+band_h)`` of the H-row frame, ``(B, 3, band_h, W)``. The plan
+keeps H as the frame's height (the grid's scales and the clamps need it),
+and `fused_sweep(plan, src_ids, packed, y0=...)` takes the band's first
+row as a launch argument, where the JAX kernel reads it from a packed row.
+Every band generates its own halo at global rows, so bands need no
+exchange, and a band is bit-identical to those rows of the whole frame.
+`plain_band_sweep` is its plain version. Eligibility is the u8 mode's; the
+JAX package's `W % 128` lane rule is a TPU layout rule and is dropped, as
+for the whole-frame kernel.
 """
 
 from __future__ import annotations
@@ -54,7 +64,7 @@ from ..layer import Layer
 #: launches of the sweep kernel since the count was last set to 0, all
 #: modes, and by mode
 LAUNCHES = 0
-MODE_LAUNCHES = {"u8": 0, "comp_out": 0, "comp_in": 0}
+MODE_LAUNCHES = {"u8": 0, "comp_out": 0, "comp_in": 0, "band": 0}
 
 # kernel geometry and limits: keep in step with csrc/fused_sweep.cu
 TILE_H = TILE_W = 32
@@ -81,6 +91,28 @@ _STENCILS = {"gaussian_blur": (_gauss_kernel, False),
              "sharpen": (_gauss_kernel, True)}
 #: the kernel's vocabulary
 VOCABULARY = frozenset(_POINT_OPS) | frozenset(_STENCILS)
+#: the JAX package's band-safe filter names (`pallas_composite.py:51-84`),
+#: as data: coordinate-free, reduction-free, gather-free per-pixel filters,
+#: and pointwise filters that read their frame coordinates through
+#: `effects.util.ctx_grid`. The multi-device layer's band paths take these
+#: and the separable stencils (`parallel.mesh.chain_band_halo`); a name
+#: the port has not registered cannot be instantiated.
+PALLAS_SAFE = frozenset({
+    "crossfade", "blend_add", "blend_subtract", "blend_multiply",
+    "blend_screen", "blend_darken", "blend_lighten", "blend_difference",
+    "blend_exclusion", "blend_overlay", "blend_hardlight", "blend_dodge",
+    "blend_burn", "blend_grain_extract", "blend_grain_merge",
+    "luma_key", "chroma_key", "alpha_over", "mask_overlay",
+    "negate", "brightness_contrast", "gamma_adjust", "saturation",
+    "colour_balance", "levels", "greyscale", "sepia", "posterize",
+    "solarize", "threshold", "softlight", "tint",
+    "chroma_blend", "luma_overlay", "luma_underlay",
+    "negative_luma_overlay", "hue_rotate", "modulate", "colour_replace",
+})
+COORD_SAFE = frozenset({"vignette", "wipe", "iris_circle", "iris_rectangle",
+                        "dissolve", "rand_replace"})
+#: the separable stencils' names
+STENCILS = frozenset(_STENCILS)
 #: the stateful steps of the fused stateful sweep (csrc/stateful_sweep.cu):
 #: name -> (opcode, halo, state kind in the JAX state contract)
 #: (`lives_tpu/graph/pallas_stateful.py:54-63`)
@@ -138,10 +170,14 @@ class SweepPlan:
     idx_base: int = 0        # rows_key index of chain_spec[0]
     #: the stateful sweep's steps: (chain index, name, state kind) each
     state_steps: tuple = ()
+    #: band mode: the rows of one launch's output (None: the whole frame)
+    band_h: int | None = None
 
     @property
     def mode(self) -> str:
         """The MODE_LAUNCHES entry of this plan."""
+        if self.band_h is not None:
+            return "band"
         if self.consume == "comp":
             return "comp_in"
         return "comp_out" if self.emit == "comp" else "u8"
@@ -261,15 +297,23 @@ def build_fused_sweep(chain_spec, n_tracks: int, H: int, W: int, rows_key,
                       fps: float, source, sink,
                       device: torch.device | str, *, emit: str = "u8",
                       consume: str | None = None, idx_base: int = 0,
-                      stateful: bool = False) -> SweepPlan | None:
+                      stateful: bool = False,
+                      band_h: int | None = None) -> SweepPlan | None:
     """Encode a chain for the kernel on `device`, or None when it does not
     qualify. `chain_spec`: (filter, static values, in_tracks, out_tracks,
     enabled) tuples; `rows_key`: the (instance, param) of each packed row,
     instances numbered from `idx_base` for chain_spec[0]. `stateful`
     encodes for the fused stateful sweep instead
-    (`stateful_sweep.build_stateful_sweep`)."""
+    (`stateful_sweep.build_stateful_sweep`). `band_h` plans the band mode:
+    u8 output rows [y0, y0+band_h) of the H-row frame, y0 given at each
+    launch."""
     if emit == "comp" and consume == "comp":
         raise ValueError("a sweep reads a comp or writes one, not both")
+    if band_h is not None:
+        if emit == "comp" or consume == "comp" or stateful:
+            raise ValueError("a band sweep writes u8 frames only")
+        if not 1 <= band_h <= H:
+            raise ValueError(f"band of {band_h} rows in a {H}-row frame")
     enc = _encode(chain_spec, n_tracks, H, W, rows_key, source, sink,
                   emit=emit, consume=consume, idx_base=idx_base,
                   stateful=stateful)
@@ -285,7 +329,7 @@ def build_fused_sweep(chain_spec, n_tracks: int, H: int, W: int, rows_key,
         slot_rows=torch.from_numpy(slot_rows).to(dev),
         slot_vals=torch.from_numpy(slot_vals).to(dev),
         taps=torch.from_numpy(taps).to(dev), emit=emit, consume=consume,
-        idx_base=idx_base, state_steps=state_steps)
+        idx_base=idx_base, state_steps=state_steps, band_h=band_h)
 
 
 def plain_sweep(plan: SweepPlan, src_ids: torch.Tensor,
@@ -307,20 +351,59 @@ def plain_sweep(plan: SweepPlan, src_ids: torch.Tensor,
     return out.planes[0]
 
 
+def plain_band_sweep(plan: SweepPlan, src_ids: torch.Tensor,
+                     packed: torch.Tensor, y0: int) -> torch.Tensor:
+    """The band kernel's plain PyTorch version: rows [y0, y0+band_h) of
+    what `plain_sweep` computes for the whole frame, (B,3,band_h,W) u8.
+
+    Each track is generated over the band and R rows of halo on either
+    side (R, the chain's summed stencil radii), at global rows and cut at
+    the frame's edges, and the chain runs over that with its frame origin
+    (`run_chain(origin=...)`); the halo is then cropped. Past a frame edge
+    every stencil pads its input with the edge, as it does over the whole
+    frame, so the band's rows agree with the whole frame's for any number
+    of stencils."""
+    from .nodemodel import run_chain
+    H, R = plan.height, plan.halo
+    check_band(plan, y0, "plain_band_sweep")
+    lo, hi = max(y0 - R, 0), min(y0 + plan.band_h + R, H)
+    layers = [plan.source.traced_rows(src_ids[0, t], src_ids[1, t], lo, hi)
+              for t in range(plan.n_tracks)]
+    out = run_chain(plan.chain_spec, layers, packed, plan.rows_key,
+                    plan.fps, plan.sink, origin=(lo, H, plan.width))
+    return out.planes[0][:, :, y0 - lo:y0 - lo + plan.band_h]
+
+
+def check_band(plan: SweepPlan, y0: int | None, who: str):
+    """Raise unless a band plan gets a first row y0 that keeps its band
+    inside the frame, or a whole-frame plan gets none."""
+    if plan.band_h is None:
+        if y0 is not None:
+            raise ValueError(f"{who}: y0 is for a band plan")
+        return
+    if y0 is None or not 0 <= y0 <= plan.height - plan.band_h:
+        raise ValueError(f"{who}: band of {plan.band_h} rows at y0={y0} "
+                         f"in a {plan.height}-row frame")
+
+
 def fused_sweep(plan: SweepPlan, src_ids: torch.Tensor,
-                packed: torch.Tensor,
-                comp: torch.Tensor | None = None) -> torch.Tensor:
+                packed: torch.Tensor, comp: torch.Tensor | None = None,
+                y0: int | None = None) -> torch.Tensor:
     """Run the plan on one chunk: the kernel for CUDA tensors, the plain
     version for CPU tensors (where the kernel cannot run). `comp`: the
-    (B,3,H,W) f32 comp a comp-in plan reads."""
+    (B,3,H,W) f32 comp a comp-in plan reads; `y0`: a band plan's first
+    output row."""
     if (comp is not None) != (plan.consume == "comp"):
         raise ValueError("fused_sweep: a comp-in plan takes a comp, and "
                          "only it")
+    check_band(plan, y0, "fused_sweep")
     if src_ids.device.type == "cpu":
+        if plan.band_h is not None:
+            return plain_band_sweep(plan, src_ids, packed, y0)
         return plain_sweep(plan, src_ids, packed, comp)
     if src_ids.device.type != "cuda":
         raise ValueError(f"fused_sweep: no kernel for {src_ids.device}")
-    return _launch(plan, src_ids, packed, comp)
+    return _launch(plan, src_ids, packed, comp, y0 or 0)
 
 
 def build():
@@ -333,7 +416,7 @@ def build():
     # every pointer and the stream as c_void_p: ctypes would pass a bare
     # Python int as a 32-bit int and cut it
     lib.lives_fused_sweep.argtypes = [p, p, p, i, p, p, i, p, p, p, p,
-                                      i, i, i, i, i, i, f, f, p]
+                                      i, i, i, i, i, i, i, i, f, f, p]
     lib.lives_fused_sweep.restype = i
     lib.lives_cuda_error_string.argtypes = [i]
     lib.lives_cuda_error_string.restype = ctypes.c_char_p
@@ -368,11 +451,12 @@ def grid_scales(plan: SweepPlan) -> tuple[float, float]:
 
 
 def _launch(plan: SweepPlan, src_ids: torch.Tensor, packed: torch.Tensor,
-            comp: torch.Tensor | None) -> torch.Tensor:
+            comp: torch.Tensor | None, y0: int = 0) -> torch.Tensor:
     global LAUNCHES
     src_ids, packed, B = check_inputs(plan, src_ids, packed, "fused_sweep")
     dev = plan.ops.device
     H, W = plan.height, plan.width
+    band_h = plan.band_h if plan.band_h is not None else H
     if comp is not None:
         if comp.dtype != torch.float32 or comp.shape != (B, 3, H, W) \
                 or comp.device != dev:
@@ -381,7 +465,7 @@ def _launch(plan: SweepPlan, src_ids: torch.Tensor, packed: torch.Tensor,
                              f"({B}, 3, {H}, {W}) float32 on {dev}")
         comp = comp.contiguous()
     emit_comp = plan.emit == "comp"
-    out = torch.empty((B, 3, H, W), device=dev,
+    out = torch.empty((B, 3, band_h, W), device=dev,
                       dtype=torch.float32 if emit_comp else torch.uint8)
     if B == 0:
         return out
@@ -397,8 +481,8 @@ def _launch(plan: SweepPlan, src_ids: torch.Tensor, packed: torch.Tensor,
             comp.data_ptr() if comp is not None else None,
             None if emit_comp else out.data_ptr(),
             out.data_ptr() if emit_comp else None,
-            plan.n_tracks, B, H, W, plan.halo, plan.n_stencils, sx, sy,
-            stream)
+            plan.n_tracks, B, H, W, y0, band_h, plan.halo,
+            plan.n_stencils, sx, sy, stream)
     if err != 0:
         msg = lib.lives_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_sweep launch failed: CUDA error {err} "

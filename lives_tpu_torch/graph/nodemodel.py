@@ -148,10 +148,11 @@ def pack_params(traced_params: Sequence[dict], tcs, frames):
     return packed, tuple(rows)
 
 
-def _to_sink(out: Layer, sink: SinkSpec) -> Layer:
+def _to_sink(out: Layer, sink: SinkSpec, geometry: bool = True) -> Layer:
     """The sink step (`lives_tpu/graph/nodemodel.py:247-261`): letterbox or
-    resize to the sink's geometry, then gamma, then palette."""
-    if sink.width and sink.height and \
+    resize to the sink's geometry (unless `geometry` is False), then gamma,
+    then palette."""
+    if geometry and sink.width and sink.height and \
             (out.width, out.height) != (sink.width, sink.height):
         if sink.letterbox:
             out = letterbox_layer(out, sink.width, sink.height,
@@ -170,7 +171,7 @@ def run_chain(chain_spec: Sequence[tuple], layers: Sequence[Layer | None],
               packed: torch.Tensor, rows_key: Sequence[tuple], fps: float,
               sink: SinkSpec, *, idx_base: int = 0,
               states: list | None = None, float_chain: bool | None = None,
-              emit_comp: bool = False) -> Layer:
+              emit_comp: bool = False, origin: tuple | None = None) -> Layer:
     """Route (b): a chain over batched track layers.
 
     `packed` (P+2, B) float32 holds the traced rows named by `rows_key`
@@ -180,7 +181,12 @@ def run_chain(chain_spec: Sequence[tuple], layers: Sequence[Layer | None],
     at entry and quantised once at the sink (`nodemodel.py:785-807`);
     `emit_comp` returns the f32 comp instead of the sink's frames
     (`:831-840`). `states` (one entry per instance) is updated in place
-    with each stateful instance's new state."""
+    with each stateful instance's new state. `origin=(y0, full_h, full_w)`
+    says the layers are rows [y0, y0 + h) of a full_h x full_w frame (a
+    band, with its halo): the effects see the frame's geometry and their
+    rows' place in it, and the sink step is pointwise only (gamma,
+    palette), since the frame's geometry belongs to the caller
+    (`nodemodel.py:773-783,841-847`)."""
     tps: list[dict[str, Any]] = [dict() for _ in chain_spec]
     for r, (i, k) in enumerate(rows_key):
         if 0 <= i - idx_base < len(chain_spec):
@@ -189,8 +195,13 @@ def run_chain(chain_spec: Sequence[tuple], layers: Sequence[Layer | None],
     lead = next((l for l in layers if l is not None), None)
     w0 = lead.width if lead is not None else sink.width
     h0 = lead.height if lead is not None else sink.height
-    ctx = FrameContext(tc=tc, frame=frame, fps=fps, width=w0 or sink.width,
-                       height=h0 or sink.height)
+    if origin is not None:
+        y0, full_h, full_w = origin
+        ctx = FrameContext(tc=tc, frame=frame, fps=fps, width=full_w,
+                           height=full_h, y0=y0)
+    else:
+        ctx = FrameContext(tc=tc, frame=frame, fps=fps,
+                           width=w0 or sink.width, height=h0 or sink.height)
     layers = list(layers)
     if float_chain is None:
         float_chain = len(chain_spec) >= 2
@@ -211,7 +222,7 @@ def run_chain(chain_spec: Sequence[tuple], layers: Sequence[Layer | None],
             states[j] = inst.state
     if emit_comp:
         return convert_layer(layers[0], Palette.RGBFLOAT)
-    return _to_sink(layers[0], sink)
+    return _to_sink(layers[0], sink, geometry=origin is None)
 
 
 def source_frames(source, src_ids: torch.Tensor, chain_spec):

@@ -4,6 +4,9 @@ Counterpart of `lives_tpu/scenes.py:22-142` (`DeviceSyntheticSource`,
 `multitrack_timeline`, BASELINE.md config 4). The source's content formulas
 are integer-exact with the JAX package's; the fused sweep kernel
 (`csrc/fused_sweep.cu`, `gen`) evaluates the same formulas per pixel.
+`traced_rows` generates a band of rows at clamped global rows, the
+counterpart of `traced_tile` (`scenes.py:67`) for the band sweep's plain
+version.
 """
 
 from __future__ import annotations
@@ -46,14 +49,20 @@ class DeviceSyntheticSource:
         b = chan((x + y) // 8 + phase * 5)
         return r, g, b
 
-    def _make(self, clip_ids: torch.Tensor,
-              frame_nums: torch.Tensor) -> torch.Tensor:
-        """(B,) clip ids and frame numbers -> (B, C, H, W) u8 frames."""
-        h, w = self.h, self.w
+    def _make(self, clip_ids: torch.Tensor, frame_nums: torch.Tensor,
+              y_lo: int = 0, y_hi: int | None = None) -> torch.Tensor:
+        """(B,) clip ids and frame numbers -> (B, C, y_hi - y_lo, W) u8
+        frames: rows [y_lo, y_hi) (all of them by default), each row index
+        clamped to the frame."""
+        w = self.w
+        y_hi = self.h if y_hi is None else y_hi
+        h = y_hi - y_lo
         B = clip_ids.shape[0]
         x = torch.arange(w, dtype=torch.int32, device=self.device)[None, None]
-        y = torch.arange(h, dtype=torch.int32, device=self.device)[None, :,
-                                                                   None]
+        y = torch.arange(y_lo, y_hi, dtype=torch.int32, device=self.device)
+        if y_lo < 0 or y_hi > self.h:
+            y = torch.clamp(y, 0, self.h - 1)
+        y = y[None, :, None]
         c = clip_ids.to(device=self.device, dtype=torch.int32)[:, None, None]
         f = frame_nums.to(device=self.device, dtype=torch.int32)[:, None,
                                                                  None]
@@ -83,6 +92,16 @@ class DeviceSyntheticSource:
         """The plan's LOAD step: one track's batched Layer from device
         tensors (FrameGraph.run_batch source=...)."""
         return Layer(planes=(self._make(clip_ids, frame_nums),),
+                     palette=self._palette())
+
+    def traced_rows(self, clip_ids: torch.Tensor, frame_nums: torch.Tensor,
+                    y_lo: int, y_hi: int) -> Layer:
+        """Rows [y_lo, y_hi) of one track's frames as a batched Layer,
+        (B, C, y_hi - y_lo, W); a row past the frame's edge repeats the
+        edge row, as `traced_tile`'s clamped coordinates do."""
+        if y_hi <= y_lo:
+            raise ValueError(f"traced_rows: empty rows [{y_lo}, {y_hi})")
+        return Layer(planes=(self._make(clip_ids, frame_nums, y_lo, y_hi),),
                      palette=self._palette())
 
 

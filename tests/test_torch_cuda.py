@@ -569,3 +569,63 @@ def test_decoded_render_to_encoder_launches(cuda, tmp_path, monkeypatch,
     for a, b in zip(outs["cuda"], outs["cpu"]):
         for p, q in zip(a, b):
             assert (p.int() - q.int()).abs().max().item() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h,n_tracks,band_h", [
+    (70, 45, 4, 15), (100, 90, 3, 30), (100, 90, 3, 45), (64, 61, 2, 13)])
+def test_band_kernel_matches_whole_frame(cuda, w, h, n_tracks, band_h):
+    """K1's band mode at every y0 (a ragged last band when band_h does not
+    divide h) bit for bit against the same rows of the whole-frame kernel,
+    and within 1 LSB of plain_band_sweep; the main chain holds a stencil
+    and a coordinate effect."""
+    spec, rows, ids, packed = _main_chunk(w, h, n_tracks, 3, cuda)
+    args = (spec, n_tracks, h, w, rows, 30.0,
+            DeviceSyntheticSource(h, w, device=cuda), SinkSpec(w, h), cuda)
+    whole = fused_sweep.fused_sweep(fused_sweep.build_fused_sweep(*args),
+                                    ids, packed)
+    plan = fused_sweep.build_fused_sweep(*args, band_h=band_h)
+    y0s = list(range(0, h - band_h + 1, band_h)) + [h - band_h]
+    before = fused_sweep.MODE_LAUNCHES["band"]
+    for y0 in y0s:
+        band = fused_sweep.fused_sweep(plan, ids, packed, y0=y0)
+        torch.cuda.synchronize()
+        assert torch.equal(band, whole[:, :, y0:y0 + band_h]), y0
+        ref = fused_sweep.plain_band_sweep(plan, ids, packed, y0)
+        assert (band.int() - ref.int()).abs().max().item() <= 1
+    assert fused_sweep.MODE_LAUNCHES["band"] == before + len(y0s)
+
+
+@pytest.mark.cuda
+def test_band_sweep_on_one_card_matches_run_batch(cuda):
+    """spatial_sweep_fn on a 4-entry mesh of one card: one band launch a
+    band, no whole-frame launch, frames bit for bit those of run_batch
+    (the whole-frame kernel) on the same chunk."""
+    from lives_tpu_torch.graph import FrameGraph
+    from lives_tpu_torch.parallel import frame_mesh, spatial_sweep_fn
+    w, h, n_tracks, B = 96, 68, 3, 3
+    el = multitrack_timeline(n_tracks=n_tracks, n_frames=B, width=w,
+                             height=h, fps=30.0)
+    seg = segment_events(el)[0]
+    inits, chain = _chain_for(seg.inits, el, seg.frames[0].tc)
+    tcs = [f.tc for f in seg.frames[:B]]
+    params = _interp_arrays(el, inits, chain, tcs)
+    tc_s, fnum = np.asarray(tcs) / TICKS_PER_SECOND, np.arange(B)
+    packed, _ = pack_params(params, tc_s, fnum)
+    ids = np.stack([np.array([f.clips for f in seg.frames[:B]]).T,
+                    np.array([f.frames for f in seg.frames[:B]]).T]
+                   ).astype(np.int32)
+    graph = FrameGraph(chain, SinkSpec(w, h), fps=30.0)
+    src = DeviceSyntheticSource(h, w, device=cuda)
+    run = spatial_sweep_fn(graph, frame_mesh([cuda] * 4, axis="s"), src, B,
+                           h, w, axis="s")
+    before = dict(fused_sweep.MODE_LAUNCHES)
+    out = run(torch.from_numpy(ids).to(cuda),
+              torch.from_numpy(packed).to(cuda))
+    torch.cuda.synchronize()
+    assert fused_sweep.MODE_LAUNCHES["band"] == before["band"] + 4
+    assert fused_sweep.MODE_LAUNCHES["u8"] == before["u8"]
+    ref = graph.run_batch([], tc_s, fnum, params, source=src,
+                          src_args=(ids[0], ids[1]))
+    assert fused_sweep.MODE_LAUNCHES["u8"] == before["u8"] + 1
+    assert torch.equal(out, ref.planes[0])

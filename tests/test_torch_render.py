@@ -174,7 +174,8 @@ def test_port_never_imports_jax():
             "lives_tpu_torch.graph.composite, lives_tpu_torch.ops.yuv_kernels, "
             "lives_tpu_torch.ops.gamma, lives_tpu_torch.ops.resize, "
             "lives_tpu_torch.io.clips, lives_tpu_torch.io.encoders, "
-            "lives_tpu_torch.transcode; "
+            "lives_tpu_torch.transcode, lives_tpu_torch.parallel, "
+            "lives_tpu_torch.parallel.mesh, lives_tpu_torch.parallel.dryrun; "
             "from lives_tpu_torch.effects.host import list_filters; "
             "list_filters(); "
             "assert 'jax' not in sys.modules, sorted("
