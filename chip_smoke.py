@@ -36,7 +36,12 @@ Phases, one line each:
 5. the main path through `render_events`: 192 frames in 96-frame chunks;
    the kernel must launch once a chunk, its first frames must match the
    plain route; then a timed pass (frames/s, x realtime), and the kernel's
-   and `plain_sweep`'s time on one 96-frame chunk;
+   and `plain_sweep`'s time on one 96-frame chunk; the geometry K1's
+   launch chooses and K1's time at every tile (`fused_sweep.TILES`), and
+   on crossfade alone and with one blur of r = 1, 3, 8, 16 at its chosen
+   geometry and every tile; K1 on the chain without its blur (R = 0) in
+   turns with the whole chain, which shows what the halo costs; a
+   profiled pass of the main path (device busy and idle share);
 6. the sweep's comp-out and comp-in modes vs their plain versions at
    1920x1080 (B=4) and 1000x562: the f32 comp within 1/255, u8 within
    1 LSB;
@@ -313,6 +318,74 @@ def bound(nbytes, flops):
     operations."""
     tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / F32_OPS_S * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def device_busy(prof):
+    """(device ms, the 8 largest by name as text) of a torch.profiler
+    trace."""
+    import torch
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return (sum(by_name.values()),
+            repr("; ".join(f"{n[:48]} {t:.1f}" for n, t in top)))
+
+
+def main_geometry(plan, ids, packed, card):
+    """K1 on the main chain's chunk at the geometry its launch chooses, then
+    at every tile of `fused_sweep.TILES`: ms each."""
+    from lives_tpu_torch.graph import fused_sweep
+    B = ids.shape[2]
+    chosen = fused_sweep.plan_geometry(plan, B)
+    line("5 geometry", tile=f"{chosen.tile_h}x{chosen.tile_w}",
+         run=chosen.run, margin=chosen.margin, grid=chosen.grid,
+         smem=chosen.smem, blocks_per_sm=fused_sweep.blocks_per_sm(chosen),
+         phase1_cells_per_px=f"{fused_sweep.phase1_cells(chosen, plan.halo) / (B * plan.height * plan.width):.3f}")
+    for tile in fused_sweep.TILES:
+        geom = fused_sweep.plan_geometry(plan, B, tile)
+        got = [time_ms(lambda: fused_sweep._launch(plan, ids, packed,
+                                                   None, 0, geom), 3)
+               for _ in range(2)]
+        line("5 geometry_ms", card=repr(card), tile=f"{tile[0]}x{tile[1]}",
+             run=geom.run, blocks_per_sm=fused_sweep.blocks_per_sm(geom),
+             ms=",".join(f"{x:.3f}" for x in got))
+
+
+def blur_geometry(el, ids, card):
+    """K1 on crossfade alone (r = 0) and with one gaussian blur of radius
+    1, 3, 8 and 16 (a cheap phase 1, the stencil's cost growing with r):
+    ms at the geometry its launch chooses (runs of 8, of 4 from r = 8 on)
+    and at every tile."""
+    import torch
+
+    from lives_tpu_torch.effects.host import instantiate
+    from lives_tpu_torch.graph import fused_sweep
+    from lives_tpu_torch.graph.nodemodel import chain_spec_of
+    B = ids.shape[2]
+    packed = torch.zeros((2, B), device=ids.device)
+    for r in (0, 1, 3, 8, 16):
+        fade = instantiate("crossfade", amount=0.5)
+        fade.in_tracks = (0, 1)
+        chain = [fade, instantiate("gaussian_blur", radius=r, amount=0.6)]
+        plan = sweep_plan(el, chain_spec_of(chain[:1 + (r > 0)]), (),
+                          ids.device, ids.shape[1])
+        chosen = fused_sweep.plan_geometry(plan, B)
+        ms = {}
+        for tile in (None, *fused_sweep.TILES):
+            try:
+                geom = fused_sweep.plan_geometry(plan, B, tile)
+            except ValueError:  # over a block's shared memory
+                continue
+            key = "chosen" if tile is None else f"{tile[0]}x{tile[1]}"
+            ms[key] = time_ms(lambda: fused_sweep._launch(
+                plan, ids, packed, None, 0, geom), 3)
+        line("5 blur_ms", card=repr(card), radius=r,
+             tile=f"{chosen.tile_h}x{chosen.tile_w}", run=chosen.run,
+             blocks_per_sm=fused_sweep.blocks_per_sm(chosen),
+             ms=" ".join(f"{k}:{v:.3f}" for k, v in ms.items()))
 
 
 def render_path(el, src, sink, check=True):
@@ -670,6 +743,32 @@ def main() -> int:
     line("5 chunk_ms", card=repr(card), frames=CHUNK,
          times=ms["fused_sweep"][2],
          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
+    main_geometry(plan, ids, packed, card)
+    blur_geometry(el, ids, card)
+    # what the halo costs: the chain without its blur (R = 0), in turns
+    flat = sweep_plan(el, [s for s in spec if s[0].name not in
+                           fused_sweep.STENCILS], rows, dev, TRACKS)
+    times = {id(plan): [], id(flat): []}
+    for p in (plan, flat, flat, plan):
+        times[id(p)].append(time_ms(
+            lambda: fused_sweep._launch(p, ids, packed, None), 5))
+    full, r0 = times[id(plan)], times[id(flat)]
+    line("5 no_blur", card=repr(card), frames=CHUNK,
+         r0_ms=",".join(f"{x:.3f}" for x in r0),
+         full_ms=",".join(f"{x:.3f}" for x in full),
+         r0_over_full=f"{sum(r0) / sum(full):.3f}",
+         r0_bound_ms=f"{bound(px * 3, px * (table_flops(flat.ops) + 15))[0]:.4f}",
+         r0_tile=fused_sweep.plan_geometry(flat, CHUNK).tile_h)
+    del flat
+    # the main path under the profiler: device busy and idle share
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, _, prof_wall = render_path(el, src, sink, check=False)
+    busy, top = device_busy(prof)
+    line("5 profiled", card=repr(card), wall_ms=f"{prof_wall * 1e3:.1f}",
+         device_busy_ms=f"{busy:.1f}",
+         idle_share=f"{1 - busy / (prof_wall * 1e3):.3f}", top=top)
 
     # 6. the comp modes vs their plain versions
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -946,21 +1045,13 @@ def main() -> int:
              rest_s=f"{wall_s - host_s:.4f}",
              frames_per_s=f"{rates['D']:.1f}",
              x_realtime=f"{rates['D'] / FPS:.2f}")
-        from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, prof_wall, _ = decoded_pass(clips, el, out_path)
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + \
-                    e.time_range.elapsed_us() / 1e3
-        busy = sum(by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        busy, top = device_busy(prof)
         line("11 profiled", card=repr(card), wall_ms=f"{prof_wall * 1e3:.1f}",
              device_busy_ms=f"{busy:.1f}",
-             idle_share=f"{1 - busy / (prof_wall * 1e3):.3f}",
-             top=repr("; ".join(f"{n[:48]} {t:.1f}" for n, t in top)))
+             idle_share=f"{1 - busy / (prof_wall * 1e3):.3f}", top=top)
         for c in clips.values():
             c.close()
 

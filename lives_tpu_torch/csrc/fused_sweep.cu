@@ -9,29 +9,51 @@
 // frame, the multi-device layer's kernel). It computes what that kernel
 // computes, not block by block what it does.
 //
-// What bounds it on an H100: f32 (and int32) ALU work on the halo'd fold.
-// Every track is generated from integer formulas inside the kernel, so the
-// only device-memory traffic of the default mode is the u8 write, 3 bytes a
+// What bounds it on an H100: issue slots, not bytes. Every track is
+// generated from integer formulas inside the kernel, so the only
+// device-memory traffic of the default mode is the u8 write, 3 bytes a
 // pixel (597 MB for a 96-frame 1080p chunk, 0.18 ms at 3.35 TB/s), while
-// each output pixel costs hundreds of ALU instructions (10 generated
-// tracks, 9 transitions with IEEE divisions and a square root, a 7+7-tap
-// stencil, expf). The comp modes add 12 bytes a pixel of f32 comp traffic
-// (2.39 GB a chunk, 0.7 ms). The design keeps everything in registers and
-// shared memory and spends its effort on not repeating the fold: the
-// pre-stencil composite of a tile plus its halo is computed once, staged in
-// shared memory, and read there by every tap. Making it fast (tile shape,
-// op specialisation instead of the interpreted op loop, register blocking)
-// is later work.
+// each output pixel costs hundreds of instructions (10 generated tracks, 9
+// transitions, a 7+7-tap stencil, expf). The comp modes add 12 bytes a
+// pixel of f32 comp traffic. The design spends no slot twice:
+//
+// - Runs. A thread computes a horizontal run of P adjacent pixels, P = 8,
+//   or 4 for a summed stencil radius of 8 or more (a template parameter;
+//   graph/fused_sweep.py sweep_run picks it from the plan). The op loop is
+//   outside and the run inside (sweep_common.cuh point_run), so each op is
+//   decoded once a run, and the P independent chains hide each other's
+//   latency. A whole run of a row whose width is a multiple of 4 stores
+//   32-bit words of 4 pixels a channel (an f32 comp, float4s); a run at a
+//   ragged right edge stores byte by byte.
+// - Block set-up. Once a block, shared memory gets the clamped parameter
+//   slots, one OpRec a chain op (sweep_common.cuh make_rec: its fields; the
+//   3 + c % 5, 2 + c % 3, phase and blank flag of each track it reads; its
+//   frame-uniform values, computed by the same float expressions as a pixel
+//   would compute them) and the stencil taps. The cell loops read only
+//   shared memory and their own coordinates.
+// - A 2-D mapping. A thread owns a (row, run) of a span and steps to the
+//   next by a fixed (rows, runs) stride, so no cell loop divides by a
+//   runtime width.
+// - A tile chosen per plan (graph/fused_sweep.py sweep_geometry): the
+//   least halo work among a few shapes, a block that fills an SM alone
+//   weighing more. Phase 1 evaluates the pre-stencil chain over the tile
+//   and its halo R (the sum of the stencil radii) once, into shared
+//   memory, and every tap reads it there. A stencil runs one channel at a
+//   time: a vertical pass A -> V of that channel, then the horizontal pass
+//   and the mix by `amount` written back into that channel of A. So V
+//   holds one channel, and two blocks of the main chain's tile fit an SM.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
-// -shared -Xcompiler -fPIC and loaded with ctypes (lives_tpu_torch/native).
-// No --use_fast_math: vignette's expf, chroma_key's sqrtf and divisions and
-// the round-half-up quantise stay IEEE for the +/-1 LSB contract.
+// -shared -Xcompiler -fPIC and loaded with ctypes (lives_tpu_torch/native),
+// with fused multiply-adds. No --use_fast_math: vignette's expf,
+// chroma_key's sqrtf and divisions and the round-half-up quantise stay
+// IEEE for the +/-1 LSB contract. The integer-to-float conversions of the
+// source and the quantise's float-to-integer step go through a float's
+// mantissa and one rounding conversion, exactly.
 //
 // Layout of one launch:
-//   grid (ceil(W/TILE_W), ceil(band_h/TILE_H), B), NTHREADS threads a
-//   block, tile rows starting at frame row y0 (y0 = 0, band_h = H for a
-//   whole frame);
+//   grid (ceil(W/TW), ceil(band_h/TH), B), THREADS threads a block, tile
+//   rows starting at frame row y0 (y0 = 0, band_h = H for a whole frame);
 //   packed (P+2, B) f32 per-frame parameters, rows as the plan encodes them;
 //   ids (2, T, B) int32 clip ids then frame numbers of each track;
 //   ops (n_ops, OP_FIELDS) int32, the chain as encoded by
@@ -41,16 +63,25 @@
 //   comp_in (B, 3, H, W) f32 or null; out (B, 3, band_h, W) u8, or
 //   comp_out (B, 3, H, W) f32 when that is not null (the plan refuses a
 //   band in the comp modes).
-// Phase 1 evaluates, for every pixel of the tile and its halo R (the sum of
-// the stencil radii), at coordinates clamped to the frame: track 0 (from
-// comp_in, or generated), then the ops before the first stencil,
-// generating another track only at the op that reads it (only track 0 is
-// ever written). Phase 2, per stencil: a vertical then a horizontal pass in
-// shared memory, the mix by `amount`, the clip, and the ops up to the next
-// stencil (track 0 only); before a further stencil the frame edge is copied
-// outward over the halo again, as the plain chain pads each stencil's
-// input. The last pass writes the tile, masking the ragged frame edge. The
-// plan refuses stencils in comp_in mode: the comp carries no halo.
+// Shared memory: A, the composite, 3 channels of (TH + 2R) rows by
+// WS = TW + 2M columns, and V, one channel in skewed rows (v_stride); then
+// the op records and the taps. Halo row 0 is frame row ty0 - R; column M
+// is frame column tx0. The margin M (a multiple of P, at least R + P - 1)
+// lets every run start on a multiple of P and keeps every tap of a run
+// inside the row.
+//
+// Phase 1 evaluates, for every run covering the tile and its halo, at
+// coordinates clamped to the frame: track 0 (from comp_in, or generated),
+// then the ops before the first stencil, generating another track only at
+// the op that reads it (only track 0 is ever written). Phase 2, per
+// stencil: per channel, the vertical and then the horizontal pass and the
+// mix and clip; then the ops up to the next stencil over all three
+// channels; before a further stencil the frame edge is copied outward over
+// the halo again, as the plain chain pads each stencil's input. The last
+// pass writes the tile, masking the ragged frame edge. Runs that overlap
+// the valid span only in part also compute cells outside it; those cells
+// are never read. The plan refuses stencils in comp_in mode: the comp
+// carries no halo.
 //
 // A band is the same computation over fewer rows. H stays the frame's
 // height everywhere a coordinate is clamped, generated or fixed up at the
@@ -58,10 +89,11 @@
 // band makes its own halo, and a multi-device sweep needs no exchange) and
 // only the frame's own edges replicate. Only the stores see the band: a
 // pixel is written when its row lies in [y0, y0+band_h), at row gy - y0 of
-// the band's output; the band's last tile is ragged when band_h is not a
-// multiple of TILE_H. Every pixel runs the same arithmetic on the same
-// values as in a whole-frame launch, so a band is bit-identical to those
-// rows of the whole frame.
+// the band's output. Columns and runs are the same in every band, and a
+// pixel's arithmetic does not depend on its tile row, so a band is
+// bit-identical to those rows of the whole frame.
+
+#include <stdint.h>
 
 #include "sweep_common.cuh"
 
@@ -69,39 +101,211 @@ namespace {
 
 using namespace lives;
 
-// The chain's result at output pixel `at`: quantised to u8, or the f32
-// comp.
-__device__ __forceinline__ void store(unsigned char* ob, float* cb,
-                                      size_t plane, size_t at, Rgb v) {
-  if (cb != nullptr) {
-    cb[at] = v.r;
-    cb[plane + at] = v.g;
-    cb[2 * plane + at] = v.b;
-  } else {
-    ob[at] = q8(v.r);
-    ob[plane + at] = q8(v.g);
-    ob[2 * plane + at] = q8(v.b);
+constexpr int THREADS = NTHREADS;  // threads a block (load_slots strides so)
+constexpr int MIN_BLOCKS = 2;      // blocks an SM holds: at most 128 registers
+constexpr int MAX_OPS = MAX_SLOTS; // every op of the vocabulary has a slot
+
+// V, the vertical pass of one channel, skews its rows: column c sits at
+// c + c / 32, so the lanes of a warp, each reading the window of its own
+// run (P columns apart), hit 32 different banks. Rows of VS floats, a
+// multiple of 4.
+__host__ __device__ __forceinline__ int v_stride(int WS) {
+  return (WS + (WS >> 5) + 3) & ~3;
+}
+
+__device__ __forceinline__ int vcol(int c) { return c + (c >> 5); }
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return min(max(v, lo), hi);
+}
+
+// The first op at or after i that is not a point op (n_ops if none).
+__device__ __forceinline__ int next_step(const OpRec* rec, int i, int n_ops) {
+  while (i < n_ops && rec[i].code < OP_STENCIL) ++i;
+  return i;
+}
+
+// Call f(row, run) for every (row, run) of a rows x runs span, each thread
+// starting at its own index and stepping THREADS cells in (row, run)
+// order: one division a span, none a cell.
+template <class F>
+__device__ __forceinline__ void for_runs(int rows, int runs, F&& f) {
+  if (rows <= 0 || runs <= 0) return;
+  const int dq = THREADS / runs, dr = THREADS - dq * runs;
+  int row = (int)threadIdx.x / runs;
+  int run = (int)threadIdx.x - row * runs;
+  while (row < rows) {
+    f(row, run);
+    run += dr;
+    row += dq;
+    if (run >= runs) {
+      run -= runs;
+      ++row;
+    }
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS) fused_sweep_kernel(
+// The P floats of a run of A at float f (a multiple of P), as vectors
+template <int P>
+__device__ __forceinline__ void lda(const float* A, int f, float (&o)[P]) {
+  static_assert(P % 4 == 0, "a run is whole float4s");
+#pragma unroll
+  for (int h = 0; h < P; h += 4) {
+    const float4 t = *reinterpret_cast<const float4*>(A + f + h);
+    o[h] = t.x;
+    o[h + 1] = t.y;
+    o[h + 2] = t.z;
+    o[h + 3] = t.w;
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void sta(float* A, int f, const float (&v)[P]) {
+#pragma unroll
+  for (int h = 0; h < P; h += 4) {
+    *reinterpret_cast<float4*>(A + f + h) =
+        make_float4(v[h], v[h + 1], v[h + 2], v[h + 3]);
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void get_run(const float* A, int ch, int at,
+                                        Rgb (&v)[P]) {
+  float r[P], g[P], b[P];
+  lda<P>(A, at, r);
+  lda<P>(A + ch, at, g);
+  lda<P>(A + 2 * ch, at, b);
+#pragma unroll
+  for (int j = 0; j < P; ++j) v[j] = {r[j], g[j], b[j]};
+}
+
+template <int P>
+__device__ __forceinline__ void put_run(float* A, int ch, int at,
+                                        const Rgb (&v)[P]) {
+  float r[P], g[P], b[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    r[j] = v[j].r;
+    g[j] = v[j].g;
+    b[j] = v[j].b;
+  }
+  sta<P>(A, at, r);
+  sta<P>(A + ch, at, g);
+  sta<P>(A + 2 * ch, at, b);
+}
+
+// Point ops [from, to) of the chain (records `rec`) on track-0 values v
+// of a run at frame columns x and row y
+template <int P>
+__device__ __forceinline__ void apply_run(const OpRec* rec, int from, int to,
+                                          Rgb (&v)[P], const int (&x)[P],
+                                          int y, float sx, float sy) {
+  for (int i = from; i < to; ++i) gen_point_run<P>(rec[i], v, x, y, sx, sy);
+}
+
+// Track 0 of a run from the f32 comp (row y, columns x; the run starts at
+// frame column gx >= 0): vectors along a whole run of an aligned row.
+template <int P>
+__device__ __forceinline__ void load_comp(const float* ci, size_t plane,
+                                          int W, bool vec, int y, int gx,
+                                          const int (&x)[P], Rgb (&v)[P]) {
+  const float* row = ci + (size_t)y * W;
+  if (vec && gx + P <= W) {
+    float r[P], g[P], b[P];
+    lda<P>(row, gx, r);
+    lda<P>(row + plane, gx, g);
+    lda<P>(row + 2 * plane, gx, b);
+#pragma unroll
+    for (int j = 0; j < P; ++j) v[j] = {r[j], g[j], b[j]};
+  } else {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      v[j] = {row[x[j]], row[plane + x[j]], row[2 * plane + x[j]]};
+    }
+  }
+}
+
+// The chain's result for a run at output offset `at` (frame column gx, a
+// multiple of P): quantised to u8 or the f32 comp. A whole run of a row
+// whose width is a multiple of 4 stores 32-bit words of 4 bytes (float4s
+// of a comp); a ragged run stores the pixels inside the frame one by one.
+template <int P>
+__device__ __forceinline__ void store_run(unsigned char* ob, float* cb,
+                                          size_t plane, int W, size_t at,
+                                          int gx, const Rgb (&v)[P]) {
+  const bool whole = gx + P <= W && W % 4 == 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float c[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) c[j] = k == 0 ? v[j].r : k == 1 ? v[j].g : v[j].b;
+    if (cb != nullptr) {
+      float* d = cb + k * plane + at;
+      if (whole) {
+        sta<P>(d, 0, c);
+      } else {
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          if (gx + j < W) d[j] = c[j];
+        }
+      }
+      continue;
+    }
+    unsigned q[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) q[j] = q8(c[j]);
+    unsigned char* d = ob + k * plane + at;
+    if (whole) {
+#pragma unroll
+      for (int w = 0; w < P / 4; ++w) {
+        reinterpret_cast<unsigned*>(d)[w] =
+            q[4 * w] | q[4 * w + 1] << 8 | q[4 * w + 2] << 16 |
+            q[4 * w + 3] << 24;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        if (gx + j < W) d[j] = (unsigned char)q[j];
+      }
+    }
+  }
+}
+
+template <int P>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_sweep_kernel(
     const float* __restrict__ packed, const int* __restrict__ ids,
     const int* __restrict__ ops, int n_ops,
     const int* __restrict__ slot_rows, const float* __restrict__ slot_vals,
-    int n_slots, const float* __restrict__ taps,
-    const float* __restrict__ comp_in, unsigned char* __restrict__ out,
-    float* __restrict__ comp_out, int T, int B, int H, int W, int y0,
-    int band_h, int R, float sx, float sy) {
+    int n_slots, const float* __restrict__ taps, int n_taps,
+    const float* __restrict__ comp_in, int in_vec,
+    unsigned char* __restrict__ out, float* __restrict__ comp_out, int T,
+    int B, int H, int W, int y0, int band_h, int R, float sx, float sy,
+    int TH, int TW, int M) {
   __shared__ float sp[MAX_SLOTS];
-  extern __shared__ float smem[];
+  __shared__ TrackRec t0;
+  extern __shared__ float4 smem4[];
   const int b = blockIdx.z;
-  const int ty0 = y0 + blockIdx.y * TILE_H;
-  const int tx0 = blockIdx.x * TILE_W;
+  const int ty0 = y0 + blockIdx.y * TH;
+  const int tx0 = blockIdx.x * TW;
   const int y_end = y0 + band_h;  // the band's rows: [y0, y_end)
-  load_slots(sp, packed, slot_rows, slot_vals, n_slots, B, b);
-  __syncthreads();
+  const int HA = TH + 2 * R, WS = TW + 2 * M, VS = v_stride(WS);
+  const int ch = R > 0 ? HA * WS : 0;  // one channel of A
+  float* const A = reinterpret_cast<float*>(smem4);
+  float* const V = A + 3 * ch;
+  OpRec* const rec = reinterpret_cast<OpRec*>(V + (R > 0 ? HA * VS : 0));
+  float* const kw_all = reinterpret_cast<float*>(rec + n_ops);
 
   const Frame fr{ids, T, B, b, sx, sy};
+  load_slots(sp, packed, slot_rows, slot_vals, n_slots, B, b);
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_ops; i += THREADS) {
+    const int* o = ops + i * OP_FIELDS;
+    rec[i] = make_rec(o, sp + o[F_SLOT], &fr);
+  }
+  for (int i = threadIdx.x; i < n_taps; i += THREADS) kw_all[i] = taps[i];
+  if (threadIdx.x == 0) t0 = track_rec(fr, 0);
+  __syncthreads();
+
   const size_t plane = (size_t)H * W;        // a frame's channel
   const size_t oplane = (size_t)band_h * W;  // an output channel
   unsigned char* ob = out + (size_t)b * 3 * oplane;
@@ -109,76 +313,173 @@ __global__ void __launch_bounds__(NTHREADS) fused_sweep_kernel(
                                   : nullptr;
   const float* ci = comp_in != nullptr ? comp_in + (size_t)b * 3 * plane
                                        : nullptr;
-  const int HA = TILE_H + 2 * R, WA = TILE_W + 2 * R;
-  const int ch = HA * WA;  // one channel of a staging buffer
-  float* A = smem;         // the composite, indexed by halo coordinates
-  float* V = smem + 3 * ch;  // a stencil's vertical pass
-  const int first = next_step(ops, 0, n_ops);
+  const int first = next_step(rec, 0, n_ops);
 
   // phase 1: track 0 + pre-stencil ops over the tile and its halo
-  for (int idx = threadIdx.x; idx < ch; idx += NTHREADS) {
-    const int ly = idx / WA, lx = idx - (idx / WA) * WA;
-    const int gy = ty0 - R + ly, gx = tx0 - R + lx;
-    const int y = min(max(gy, 0), H - 1), x = min(max(gx, 0), W - 1);
-    const size_t px = (size_t)y * W + x;
-    const Rgb v0 = ci != nullptr
-        ? Rgb{ci[px], ci[plane + px], ci[2 * plane + px]}
-        : gen(fr, 0, x, y);
-    const Rgb v = apply_ops(ops, 0, first, sp, v0, fr, x, y);
-    if (first == n_ops) {
-      if (gy >= y0 && gy < y_end && gx >= 0 && gx < W) {
-        store(ob, cb, oplane, (size_t)(gy - y0) * W + gx, v);
+  {
+    const int lo = (M - R) / P, hi = (M + TW + R + P - 1) / P;
+    for_runs(HA, hi - lo, [&](int row, int run) {
+      const int col = (lo + run) * P;
+      const int gy = ty0 - R + row, gx = tx0 - M + col;
+      const int y = clampi(gy, 0, H - 1);
+      int x[P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) x[j] = clampi(gx + j, 0, W - 1);
+      Rgb v[P];
+      if (ci != nullptr) {
+        load_comp<P>(ci, plane, W, in_vec != 0, y, gx, x, v);
+      } else {
+        gen_run<P>(t0, x, y, v);
       }
-    } else {
-      put(A, ch, idx, v);
-    }
+      apply_run<P>(rec, 0, first, v, x, y, sx, sy);
+      if (first == n_ops) {  // no stencil: R = M = 0, the tile itself
+        if (gy < y_end) {
+          store_run<P>(ob, cb, oplane, W, (size_t)(gy - y0) * W + gx, gx, v);
+        }
+      } else {
+        put_run<P>(A, ch, row * WS + col, v);
+      }
+    });
   }
 
   // phase 2: each stencil, then the ops up to the next one
   int cur = R;  // halo still valid in A
   for (int si = first; si < n_ops;) {
-    const int* o = ops + si * OP_FIELDS;
-    const int r = o[F_ARG];
-    const float* kw = taps + o[F_TAPS];
-    const bool sharpen = o[F_SHARPEN] != 0;
-    const float amount = sp[o[F_SLOT]];
-    const int next = next_step(ops, si + 1, n_ops);
+    const OpRec& o = rec[si];
+    const int r = o.arg;
+    const float* kw = kw_all + o.taps;
+    const bool sharpen = o.sharpen != 0;
+    const float amount = o.k[0];
+    const int next = next_step(rec, si + 1, n_ops);
+    const bool last = next == n_ops;  // then after = 0: the tile itself
     const int after = cur - r;
-    __syncthreads();
-    vertical_pass(A, V, WA, ch, R, cur, after, r, kw);
-    __syncthreads();
-    // horizontal + mix + clip + the following ops; each thread reads and
-    // writes only its own A cells here, so no barrier is needed inside
-    const bool last = next == n_ops;
-    const int vh = TILE_H + 2 * after, hw = TILE_W + 2 * after;
-    for (int idx = threadIdx.x; idx < vh * hw; idx += NTHREADS) {
-      const int ly = R - after + idx / hw, lx = R - after + idx % hw;
-      const int gy = ty0 - R + ly, gx = tx0 - R + lx;
-      // inside the frame: cells outside it are replicated from its edge
-      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      if (!inside && !last) continue;
-      const int at = ly * WA + lx;
-      const Rgb v = apply_ops(ops, si + 1, next, sp,
-                              horizontal_mix(A, V, ch, at, r, kw, sharpen,
-                                             amount),
-                              fr, min(max(gx, 0), W - 1),
-                              min(max(gy, 0), H - 1));
-      if (last) {
-        // inside the band
-        if (gy >= y0 && gy < y_end && gx >= 0 && gx < W) {
-          store(ob, cb, oplane, (size_t)(gy - y0) * W + gx, v);
-        }
-      } else {
-        put(A, ch, at, v);
-      }
-    }
-    if (!last) {
+    const int row0 = R - after, rows = TH + 2 * after;
+    // runs covering the columns read ([M-cur, M+TW+cur)) and written
+    const int vlo = (M - cur) / P, vhi = (M + TW + cur + P - 1) / P;
+    const int hlo = (M - after) / P, hhi = (M + TW + after + P - 1) / P;
+    for (int c = 0; c < 3; ++c) {
+      float* Ac = A + c * ch;
       __syncthreads();
-      edge_fixup(A, WA, ch, R, after, ty0, tx0, H, W);
+      for_runs(rows, vhi - vlo, [&](int i, int run) {
+        const int row = row0 + i, col = (vlo + run) * P;
+        const int at = (row - r) * WS + col;
+        float s[P];
+#pragma unroll
+        for (int j = 0; j < P; ++j) s[j] = 0.0f;
+#pragma unroll 4
+        for (int k = 0; k <= 2 * r; ++k) {
+          float w[P];
+          lda<P>(Ac, at + k * WS, w);
+          const float t = kw[k];
+#pragma unroll
+          for (int j = 0; j < P; ++j) s[j] += t * w[j];
+        }
+        float* d = V + row * VS + col + (col >> 5);  // a run in one bank row
+#pragma unroll
+        for (int j = 0; j < P; ++j) d[j] = s[j];
+      });
+      __syncthreads();
+      // each thread reads V and rewrites only its own cells of Ac
+      for_runs(rows, hhi - hlo, [&](int i, int run) {
+        const int row = row0 + i, col = (hlo + run) * P;
+        const float* vrow = V + row * VS;
+        const int c0 = col - r;  // the window's first column
+        float s[P], w[P];
+#pragma unroll
+        for (int j = 0; j < P; ++j) s[j] = 0.0f;
+#pragma unroll
+        for (int j = 1; j < P; ++j) w[j] = vrow[vcol(c0 + j - 1)];
+#pragma unroll 4
+        for (int k = 0; k <= 2 * r; ++k) {
+#pragma unroll
+          for (int j = 0; j + 1 < P; ++j) w[j] = w[j + 1];
+          w[P - 1] = vrow[vcol(c0 + k + P - 1)];
+          const float t = kw[k];
+#pragma unroll
+          for (int j = 0; j < P; ++j) s[j] += t * w[j];
+        }
+        float base[P];
+        lda<P>(Ac, row * WS + col, base);
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          base[j] = clip01(sharpen ? base[j] + (base[j] - s[j]) * amount
+                                   : base[j] + (s[j] - base[j]) * amount);
+        }
+        sta<P>(Ac, row * WS + col, base);
+      });
+    }
+    if (last || next > si + 1) {
+      __syncthreads();
+      for_runs(rows, hhi - hlo, [&](int i, int run) {
+        const int row = row0 + i, col = (hlo + run) * P;
+        const int gy = ty0 - R + row, gx = tx0 - M + col;
+        const int y = clampi(gy, 0, H - 1);
+        int x[P];
+#pragma unroll
+        for (int j = 0; j < P; ++j) x[j] = clampi(gx + j, 0, W - 1);
+        Rgb v[P];
+        get_run<P>(A, ch, row * WS + col, v);
+        apply_run<P>(rec, si + 1, next, v, x, y, sx, sy);
+        if (last) {
+          if (gy < y_end) {  // inside the band
+            store_run<P>(ob, cb, oplane, W, (size_t)(gy - y0) * W + gx, gx,
+                         v);
+          }
+        } else {
+          put_run<P>(A, ch, row * WS + col, v);
+        }
+      });
+    }
+    // before a further stencil: outside the frame, the plain chain pads
+    // every stencil's input with its edge value, so copy each outside cell
+    // of the span from the nearest frame cell (which lies in the span)
+    if (!last && (ty0 - after < 0 || ty0 + TH + after > H ||
+                  tx0 - after < 0 || tx0 + TW + after > W)) {
+      __syncthreads();
+      const int cols = TW + 2 * after, col0 = M - after;
+      for_runs(rows, cols, [&](int i, int j) {
+        const int row = row0 + i, col = col0 + j;
+        const int gy = ty0 - R + row, gx = tx0 - M + col;
+        if (gy >= 0 && gy < H && gx >= 0 && gx < W) return;
+        const int at = row * WS + col;
+        const int from = (clampi(gy, 0, H - 1) - ty0 + R) * WS
+                         + (clampi(gx, 0, W - 1) - tx0 + M);
+        for (int c = 0; c < 3; ++c) A[c * ch + at] = A[c * ch + from];
+      });
     }
     cur = after;
     si = next;
   }
+}
+
+// Bytes of dynamic shared memory a launch needs: A and V, the op records,
+// the taps (graph/fused_sweep.py sweep_geometry computes the same).
+size_t smem_need(int TH, int TW, int M, int R, int n_ops, int n_taps) {
+  const size_t rows = R > 0 ? TH + 2 * R : 0, WS = TW + 2 * M;
+  return rows * (3 * WS + v_stride(WS)) * sizeof(float) +
+         (size_t)n_ops * sizeof(OpRec) + (size_t)n_taps * sizeof(float);
+}
+
+template <int P>
+int launch(dim3 grid, size_t smem, cudaStream_t stream, const float* packed,
+           const int* ids, const int* ops, int n_ops, const int* slot_rows,
+           const float* slot_vals, int n_slots, const float* taps, int n_taps,
+           const float* comp_in, unsigned char* out, float* comp_out, int T,
+           int B, int H, int W, int y0, int band_h, int R, float sx, float sy,
+           int TH, int TW, int M) {
+  const int in_vec = comp_in != nullptr && W % 4 == 0 &&
+                     (uintptr_t)comp_in % 16 == 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_sweep_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fused_sweep_kernel<P><<<grid, THREADS, smem, stream>>>(
+      packed, ids, ops, n_ops, slot_rows, slot_vals, n_slots, taps, n_taps,
+      comp_in, in_vec, out, comp_out, T, B, H, W, y0, band_h, R, sx, sy, TH,
+      TW, M);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -188,32 +489,38 @@ extern "C" {
 // Launch one sweep on `stream`; returns cudaGetLastError() (0 = launched).
 // comp_in and comp_out may be null; out is unused when comp_out is set.
 // Output rows [y0, y0+band_h) of the H-row frame (0 and H for all of it).
+// The geometry (tile TH x TW, run P, margin M, `smem` bytes) comes from
+// graph/fused_sweep.py sweep_geometry; a launch it does not fit is refused.
 int lives_fused_sweep(const float* packed, const int* ids, const int* ops,
                       int n_ops, const int* slot_rows,
                       const float* slot_vals, int n_slots, const float* taps,
-                      const float* comp_in, unsigned char* out,
+                      int n_taps, const float* comp_in, unsigned char* out,
                       float* comp_out, int T, int B, int H, int W, int y0,
-                      int band_h, int R, int n_stencils, float sx, float sy,
-                      void* stream) {
-  if (n_slots > MAX_SLOTS || B > 65535 || T < 1 || band_h < 1 || y0 < 0 ||
-      y0 + band_h > H) {
+                      int band_h, int R, float sx, float sy, int TH, int TW,
+                      int P, int M, int smem, void* stream) {
+  if (n_slots > MAX_SLOTS || n_ops > MAX_OPS || n_ops < 0 || n_taps < 0 ||
+      B > 65535 || T < 1 || band_h < 1 || y0 < 0 || y0 + band_h > H ||
+      W < 1 || R < 0 || TH < 1 || TW < P || TW % P != 0 || M % P != 0 ||
+      (R > 0 ? M < R + P - 1 : M != 0) || (band_h + TH - 1) / TH > 65535 ||
+      smem < 0 || (size_t)smem < smem_need(TH, TW, M, R, n_ops, n_taps)) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = n_stencils
-      ? (size_t)2 * 3 * (TILE_H + 2 * R) * (TILE_W + 2 * R) * sizeof(float)
-      : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const dim3 grid((W + TW - 1) / TW, (band_h + TH - 1) / TH, B);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (P) {
+    case 4:
+      return launch<4>(grid, smem, s, packed, ids, ops, n_ops, slot_rows,
+                       slot_vals, n_slots, taps, n_taps, comp_in, out,
+                       comp_out, T, B, H, W, y0, band_h, R, sx, sy, TH, TW,
+                       M);
+    case 8:
+      return launch<8>(grid, smem, s, packed, ids, ops, n_ops, slot_rows,
+                       slot_vals, n_slots, taps, n_taps, comp_in, out,
+                       comp_out, T, B, H, W, y0, band_h, R, sx, sy, TH, TW,
+                       M);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((W + TILE_W - 1) / TILE_W, (band_h + TILE_H - 1) / TILE_H,
-                  B);
-  fused_sweep_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      packed, ids, ops, n_ops, slot_rows, slot_vals, n_slots, taps, comp_in,
-      out, comp_out, T, B, H, W, y0, band_h, R, sx, sy);
-  return (int)cudaGetLastError();
 }
 
 const char* lives_cuda_error_string(int err) {

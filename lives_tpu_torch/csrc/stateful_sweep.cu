@@ -58,6 +58,8 @@ namespace {
 using namespace lives;
 
 constexpr int MAX_STATES = 8;
+// blocks an SM holds by registers: 5, at most 48 registers a thread
+constexpr int MIN_BLOCKS = 5;
 
 struct States {
   const void* prev[MAX_STATES];
@@ -70,7 +72,7 @@ __device__ __forceinline__ float spark(const float* A, int ch, int at,
   return g > threshold ? g : 0.0f;
 }
 
-__global__ void __launch_bounds__(NTHREADS) stateful_sweep_kernel(
+__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) stateful_sweep_kernel(
     const float* __restrict__ packed, const int* __restrict__ ids,
     const int* __restrict__ ops, int n_ops,
     const int* __restrict__ slot_rows, const float* __restrict__ slot_vals,
@@ -96,11 +98,14 @@ __global__ void __launch_bounds__(NTHREADS) stateful_sweep_kernel(
   // local (halo) index of frame cell (y, x)
   auto cell = [&](int y, int x) { return (y - ty0 + R) * WA + (x - tx0 + R); };
 
+  const TrackRec t0 = track_rec(fr, 0);
   for (int idx = threadIdx.x; idx < ch; idx += NTHREADS) {
     const int ly = idx / WA, lx = idx - (idx / WA) * WA;
     const int y = min(max(ty0 - R + ly, 0), H - 1);
-    const int x = min(max(tx0 - R + lx, 0), W - 1);
-    put(A, ch, idx, apply_ops(ops, 0, first, sp, gen(fr, 0, x, y), fr, x, y));
+    const int xs[1] = {min(max(tx0 - R + lx, 0), W - 1)};
+    Rgb v[1];
+    gen_run<1>(t0, xs, y, v);
+    put(A, ch, idx, apply_ops(ops, 0, first, sp, v[0], fr, xs[0], y));
   }
 
   int cur = R;  // halo still valid in A

@@ -1,12 +1,14 @@
 // Device code shared by the sweep kernels and the composite kernel: the op
-// table's opcodes, the synthetic source, the point ops and the separable
-// stencil passes over shared memory.
+// table's opcodes, the op records, the synthetic source, the point ops and
+// the separable stencil passes over shared memory.
 //
 // fused_sweep.cu (the JAX package's build_fused_sweep), stateful_sweep.cu
 // (build_fused_stateful_sweep) and composite.cu (build_composite) include
-// it, so the kernels evaluate one definition of every op. The op table is
-// encoded by lives_tpu_torch/graph/fused_sweep.py (_encode, `point_op_row`);
-// keep the constants in step with it.
+// it, so the kernels evaluate one definition of every op: `point_run` over
+// a run of P adjacent pixels, P = 1 in the stateful sweep and the
+// composite kernel. The op table is encoded by
+// lives_tpu_torch/graph/fused_sweep.py (_encode, `point_op_row`); keep the
+// constants in step with it.
 
 #pragma once
 
@@ -14,7 +16,7 @@
 
 namespace lives {
 
-constexpr int TILE_H = 32;
+constexpr int TILE_H = 32;  // the stateful sweep's tile
 constexpr int TILE_W = 32;
 constexpr int NTHREADS = 256;
 constexpr int MAX_SLOTS = 256;
@@ -61,51 +63,156 @@ __device__ __forceinline__ float luma(Rgb v) {
   return 0.299f * v.r + 0.587f * v.g + 0.114f * v.b;
 }
 
-// float32(1/255), the u8 -> float factor of the reference
-__device__ __forceinline__ float chan(unsigned v) {
-  return (float)(v & 0xFFu) * __int_as_float(0x3b808081);
+// float(v) for 0 <= v < 2^23, exactly, through the mantissa of 2^23
+__device__ __forceinline__ float exact_float(unsigned v) {
+  return __int_as_float(0x4B000000 | v) - 8388608.0f;
 }
 
-// DeviceSyntheticSource._channels (lives_tpu/scenes.py:34). Unsigned
-// arithmetic wraps as the reference's int32 does; the divisions and
-// remainders only see non-negative operands for a non-blank clip, where C's
-// truncation equals the reference's floor. A negative clip id is blank.
-__device__ Rgb gen(const Frame& fr, int t, int x, int y) {
+// the low byte times float32(1/255), the u8 -> float factor of the reference
+__device__ __forceinline__ float chan(unsigned v) {
+  return exact_float(v & 0xFFu) * __int_as_float(0x3b808081);
+}
+
+// clip(floor(x*255 + 0.5)) to u8, rounded in two steps as the reference
+// does (no fused multiply-add), with one rounding conversion: floor to int,
+// then the clip (NaN gives 0)
+__device__ __forceinline__ unsigned q8(float v) {
+  const int q = __float2int_rd(__fadd_rn(__fmul_rn(v, 255.0f), 0.5f));
+  return (unsigned)min(max(q, 0), 255);
+}
+
+// One track of the synthetic source for a frame: what
+// DeviceSyntheticSource._channels (lives_tpu/scenes.py:34) derives from the
+// clip id c and frame number f alone.
+struct alignas(16) TrackRec {
+  int m5, m3;      // 3 + c % 5, 2 + c % 3
+  unsigned phase;  // c * 37 + f * 3 (wrapping as int32)
+  int blank;       // c < 0
+};
+
+__device__ __forceinline__ TrackRec track_rec(const Frame& fr, int t) {
   const int c = fr.ids[t * fr.B + fr.b];
   const int f = fr.ids[(fr.T + t) * fr.B + fr.b];
-  if (c < 0) return {0.0f, 0.0f, 0.0f};
-  const unsigned phase = (unsigned)c * 37u + (unsigned)f * 3u;
-  const unsigned r = (unsigned)(x * (3 + c % 5) / 16) + phase;
-  const unsigned g = (unsigned)(y * (2 + c % 3) / 8) - phase * 2u;
-  const unsigned b = (unsigned)((x + y) / 8) + phase * 5u;
-  return {chan(r), chan(g), chan(b)};
+  TrackRec r;
+  r.blank = c < 0;
+  r.m5 = c < 0 ? 0 : 3 + c % 5;
+  r.m3 = c < 0 ? 0 : 2 + c % 3;
+  r.phase = (unsigned)c * 37u + (unsigned)f * 3u;
+  return r;
 }
 
-// _BLEND_MODES of effects/builtin/blends.py, in its order
-__device__ __forceinline__ float blend(int mode, float a, float b) {
-  switch (mode) {
-    case 0: return a + b;                                  // add
-    case 1: return b - a;                                  // subtract
-    case 2: return a * b;                                  // multiply
-    case 3: return 1.0f - (1.0f - a) * (1.0f - b);         // screen
-    case 4: return fminf(a, b);                            // darken
-    case 5: return fmaxf(a, b);                            // lighten
-    case 6: return fabsf(a - b);                           // difference
-    case 7: return a + b - 2.0f * a * b;                   // exclusion
-    case 8: return b <= 0.5f ? 2.0f * a * b                // overlay
-                             : 1.0f - 2.0f * (1.0f - a) * (1.0f - b);
-    case 9: return a <= 0.5f ? 2.0f * a * b                // hardlight
-                             : 1.0f - 2.0f * (1.0f - a) * (1.0f - b);
-    case 10: return b / fmaxf(1.0f - a, 1e-3f);            // dodge
-    case 11: return 1.0f - (1.0f - b) / fmaxf(a, 1e-3f);   // burn
-    case 12: return b - a + 0.5f;                          // grain extract
-    default: return b + a - 0.5f;                          // grain merge
+// The source over a run of P pixels at columns x (>= 0), row y: only the x-
+// and y-dependent integer work (green depends on y alone). Unsigned
+// arithmetic wraps as the reference's int32 does; for a non-blank clip the
+// operands are non-negative, where a shift equals the reference's floor
+// division.
+template <int P>
+__device__ __forceinline__ void gen_run(const TrackRec& tr, const int (&x)[P],
+                                        int y, Rgb (&o)[P]) {
+  const TrackRec t = tr;
+  if (t.blank) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) o[j] = {0.0f, 0.0f, 0.0f};
+    return;
+  }
+  const float g = chan(((unsigned)y * (unsigned)t.m3 >> 3) - t.phase * 2u);
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    o[j] = {chan(((unsigned)x[j] * (unsigned)t.m5 >> 4) + t.phase), g,
+            chan(((unsigned)(x[j] + y) >> 3) + t.phase * 5u)};
   }
 }
 
-__device__ __forceinline__ Rgb mix(Rgb e, Rgb bg, float t) {
-  return clip01({e.r * t + bg.r * (1.0f - t), e.g * t + bg.g * (1.0f - t),
-                 e.b * t + bg.b * (1.0f - t)});
+// One op of the chain with what it reads besides the pixels: its fields,
+// the tracks in0 and in1 (when not track 0) and its frame-uniform values,
+// which point_run reads in place of the parameter slots. The fused sweep
+// keeps one a chain op in shared memory.
+struct alignas(16) OpRec {
+  int code, in0, in1, arg;  // arg: a blend's mode, a stencil's radius
+  int taps, sharpen, pad0, pad1;
+  TrackRec a, b;            // tracks in0 and in1
+  float k[4];               // frame-uniform values (make_rec)
+};
+static_assert(sizeof(OpRec) == 80, "graph/fused_sweep.py OP_REC_BYTES");
+
+// Op row `o` with its clamped parameters `p` (this frame's slots); `fr`
+// gives the TrackRecs of the tracks it reads (null where the caller makes
+// a track at the op that reads it). Each value is computed by the float
+// expression a pixel would compute it by.
+__device__ __forceinline__ OpRec make_rec(const int* o, const float* p,
+                                          const Frame* fr) {
+  OpRec e;
+  e.code = o[F_CODE];
+  e.in0 = o[F_IN0];
+  e.in1 = o[F_IN1];
+  e.arg = o[F_ARG];
+  e.taps = o[F_TAPS];
+  e.sharpen = o[F_SHARPEN];
+  e.pad0 = e.pad1 = 0;
+  e.a = e.b = TrackRec{0, 0, 0u, 1};
+  if (fr != nullptr && e.in0 != 0) e.a = track_rec(*fr, e.in0);
+  if (fr != nullptr && e.in1 != 0) e.b = track_rec(*fr, e.in1);
+  float k[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  switch (e.code) {
+    case OP_CROSSFADE:
+    case OP_BLEND:  // amount and the weight of the background
+      k[0] = p[0];
+      k[1] = 1.0f - p[0];
+      break;
+    case OP_LUMA_KEY:  // threshold, softness divisor, invert, 1 - invert
+      k[0] = p[0];
+      k[1] = p[1] + 1e-4f;
+      k[2] = p[2];
+      k[3] = 1.0f - p[2];
+      break;
+    case OP_CHROMA_KEY: {  // kr, kg, tolerance, softness divisor
+      const float ks = p[0] + p[1] + p[2] + 1e-4f;
+      k[0] = p[0] / ks;
+      k[1] = p[1] / ks;
+      k[2] = p[3];
+      k[3] = p[4] + 1e-4f;
+      break;
+    }
+    case OP_COLOUR_BALANCE:
+      k[0] = p[0];
+      k[1] = p[1];
+      k[2] = p[2];
+      break;
+    case OP_VIGNETTE:  // amount, strength
+      k[0] = p[0];
+      k[1] = p[1];
+      break;
+    default:  // saturation; a stencil's amount
+      k[0] = p[0];
+  }
+  for (int i = 0; i < 4; ++i) e.k[i] = k[i];
+  return e;
+}
+
+// _BLEND_MODES of effects/builtin/blends.py, in its order
+template <int M>
+__device__ __forceinline__ float blend_op(float a, float b) {
+  if constexpr (M == 0) return a + b;                          // add
+  else if constexpr (M == 1) return b - a;                     // subtract
+  else if constexpr (M == 2) return a * b;                     // multiply
+  else if constexpr (M == 3) return 1.0f - (1.0f - a) * (1.0f - b);  // screen
+  else if constexpr (M == 4) return fminf(a, b);               // darken
+  else if constexpr (M == 5) return fmaxf(a, b);               // lighten
+  else if constexpr (M == 6) return fabsf(a - b);              // difference
+  else if constexpr (M == 7) return a + b - 2.0f * a * b;      // exclusion
+  else if constexpr (M == 8)                                   // overlay
+    return b <= 0.5f ? 2.0f * a * b : 1.0f - 2.0f * (1.0f - a) * (1.0f - b);
+  else if constexpr (M == 9)                                   // hardlight
+    return a <= 0.5f ? 2.0f * a * b : 1.0f - 2.0f * (1.0f - a) * (1.0f - b);
+  else if constexpr (M == 10) return b / fmaxf(1.0f - a, 1e-3f);          // dodge
+  else if constexpr (M == 11) return 1.0f - (1.0f - b) / fmaxf(a, 1e-3f);  // burn
+  else if constexpr (M == 12) return b - a + 0.5f;             // grain extract
+  else return b + a - 0.5f;                                    // grain merge
+}
+
+// e at weight t over bg at weight w = 1 - t, clipped
+__device__ __forceinline__ Rgb mix(Rgb e, Rgb bg, float t, float w) {
+  return clip01({e.r * t + bg.r * w, e.g * t + bg.g * w, e.b * t + bg.b * w});
 }
 
 // key fg over bg with a per-pixel alpha (keying.py: no clip)
@@ -114,71 +221,143 @@ __device__ __forceinline__ Rgb key(Rgb fg, Rgb bg, float al) {
           fg.b * al + bg.b * (1.0f - al)};
 }
 
-// One point op (op-table row `o`, its parameter slots `p`) on track-0 value
-// `v` at frame pixel (x, y); `track(t)` gives another track's value there.
-// The centred-grid scales sx, sy serve vignette. The sweeps generate a
-// track where the composite kernel (composite.cu) loads it.
-template <class Track>
-__device__ __forceinline__ Rgb point_op(const int* o, const float* p, Rgb v,
-                                        const Track& track, float sx,
-                                        float sy, int x, int y) {
-  const int code = o[F_CODE];
-  const Rgb a = o[F_IN0] == 0 ? v : track(o[F_IN0]);
+template <int M, int P>
+__device__ __forceinline__ void blend_run(const Rgb (&a)[P],
+                                          const Rgb (&bg)[P], float t,
+                                          float w, Rgb (&v)[P]) {
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    v[j] = mix({blend_op<M>(a[j].r, bg[j].r), blend_op<M>(a[j].g, bg[j].g),
+                blend_op<M>(a[j].b, bg[j].b)}, bg[j], t, w);
+  }
+}
+
+// blend mode m of a over bg, mixed by t (w = 1 - t), over a run
+template <int P>
+__device__ __forceinline__ void blend_mode(int m, const Rgb (&a)[P],
+                                           const Rgb (&bg)[P], float t,
+                                           float w, Rgb (&v)[P]) {
+  switch (m) {
+    case 0: blend_run<0>(a, bg, t, w, v); break;
+    case 1: blend_run<1>(a, bg, t, w, v); break;
+    case 2: blend_run<2>(a, bg, t, w, v); break;
+    case 3: blend_run<3>(a, bg, t, w, v); break;
+    case 4: blend_run<4>(a, bg, t, w, v); break;
+    case 5: blend_run<5>(a, bg, t, w, v); break;
+    case 6: blend_run<6>(a, bg, t, w, v); break;
+    case 7: blend_run<7>(a, bg, t, w, v); break;
+    case 8: blend_run<8>(a, bg, t, w, v); break;
+    case 9: blend_run<9>(a, bg, t, w, v); break;
+    case 10: blend_run<10>(a, bg, t, w, v); break;
+    case 11: blend_run<11>(a, bg, t, w, v); break;
+    case 12: blend_run<12>(a, bg, t, w, v); break;
+    default: blend_run<13>(a, bg, t, w, v);
+  }
+}
+
+// One point op (record `o`) on the track-0 values v of a run of P pixels
+// at frame columns x, row y, the op decoded once for the run.
+// `track(rec, t, out)` gives track t's values over the run (`rec`, its
+// TrackRec): the sweeps generate a track where the composite kernel
+// (composite.cu) loads it. The centred-grid scales sx, sy serve vignette.
+template <int P, class Track>
+__device__ __forceinline__ void point_run(const OpRec& o, Rgb (&v)[P],
+                                          const Track& track,
+                                          const int (&x)[P], int y, float sx,
+                                          float sy) {
+  const int code = o.code, in0 = o.in0, in1 = o.in1;
+  const float k0 = o.k[0], k1 = o.k[1], k2 = o.k[2], k3 = o.k[3];
+  Rgb a[P];
+  if (in0 == 0) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) a[j] = v[j];
+  } else {
+    track(o.a, in0, a);
+  }
   if (code <= OP_CHROMA_KEY) {  // transitions: fg a over bg
-    const Rgb bg = o[F_IN1] == 0 ? v : track(o[F_IN1]);
-    if (code == OP_CROSSFADE) {
-      v = mix(a, bg, p[0]);
-    } else if (code == OP_BLEND) {
-      const int m = o[F_ARG];
-      v = mix({blend(m, a.r, bg.r), blend(m, a.g, bg.g),
-               blend(m, a.b, bg.b)}, bg, p[0]);
-    } else if (code == OP_LUMA_KEY) {
-      // threshold, softness, invert
-      float al = clip01((luma(a) - p[0]) / (p[1] + 1e-4f));
-      al = al * (1.0f - p[2]) + (1.0f - al) * p[2];
-      v = key(a, bg, al);
+    Rgb bg[P];
+    if (in1 == 0) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) bg[j] = v[j];
+    } else if (in1 == in0) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) bg[j] = a[j];
     } else {
-      // red, green, blue, tolerance, softness
-      const float s = a.r + a.g + a.b + 1e-4f;
-      const float r = a.r / s, g = a.g / s;
-      const float ks = p[0] + p[1] + p[2] + 1e-4f;
-      const float kr = p[0] / ks, kg = p[1] / ks;
-      const float d = sqrtf((r - kr) * (r - kr) + (g - kg) * (g - kg));
-      v = key(a, bg, clip01((d - p[3]) / (p[4] + 1e-4f)));
+      track(o.b, in1, bg);
+    }
+    if (code == OP_CROSSFADE) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) v[j] = mix(a[j], bg[j], k0, k1);
+    } else if (code == OP_BLEND) {
+      blend_mode<P>(o.arg, a, bg, k0, k1, v);
+    } else if (code == OP_LUMA_KEY) {  // threshold, softness, invert
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        float al = clip01((luma(a[j]) - k0) / k1);
+        al = al * k3 + (1.0f - al) * k2;
+        v[j] = key(a[j], bg[j], al);
+      }
+    } else {  // red, green, blue -> kr, kg; tolerance, softness
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float s = a[j].r + a[j].g + a[j].b + 1e-4f;
+        const float r = a[j].r / s, g = a[j].g / s;
+        const float d = sqrtf((r - k0) * (r - k0) + (g - k1) * (g - k1));
+        v[j] = key(a[j], bg[j], clip01((d - k2) / k3));
+      }
     }
   } else if (code == OP_COLOUR_BALANCE) {
-    v = clip01({a.r * p[0], a.g * p[1], a.b * p[2]});
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      v[j] = clip01({a[j].r * k0, a[j].g * k1, a[j].b * k2});
+    }
   } else if (code == OP_SATURATION) {
-    const float g = luma(a);
-    v = clip01({g + (a.r - g) * p[0], g + (a.g - g) * p[0],
-                g + (a.b - g) * p[0]});
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const float g = luma(a[j]);
+      v[j] = clip01({g + (a[j].r - g) * k0, g + (a[j].g - g) * k0,
+                     g + (a[j].b - g) * k0});
+    }
   } else {  // OP_VIGNETTE: amount, strength
-    const float xf = (float)x * sx - 1.0f;
-    const float yf = (float)y * sy - 1.0f;
-    const float r2 = xf * xf + yf * yf;
-    const float m = 1.0f - p[0] * (1.0f - expf(-r2 * p[1] * 2.0f));
-    v = clip01({a.r * m, a.g * m, a.b * m});
+    const float yf = exact_float((unsigned)y) * sy - 1.0f;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const float xf = exact_float((unsigned)x[j]) * sx - 1.0f;
+      const float r2 = xf * xf + yf * yf;
+      const float m = 1.0f - k0 * (1.0f - expf(-r2 * k1 * 2.0f));
+      v[j] = clip01({a[j].r * m, a[j].g * m, a[j].b * m});
+    }
   }
-  return v;
+}
+
+// point_run with the other tracks generated from the synthetic source
+template <int P>
+__device__ __forceinline__ void gen_point_run(const OpRec& o, Rgb (&v)[P],
+                                              const int (&x)[P], int y,
+                                              float sx, float sy) {
+  const auto track = [&](const TrackRec& t, int, Rgb (&out)[P]) {
+    gen_run<P>(t, x, y, out);
+  };
+  point_run<P>(o, v, track, x, y, sx, sy);
 }
 
 // Point ops [from, to) of the chain on track-0 value `v` at frame pixel
-// (x, y); another track is generated at the op that reads it.
-__device__ Rgb apply_ops(const int* ops, int from, int to, const float* sp,
-                         Rgb v, const Frame& fr, int x, int y) {
-  const auto track = [&](int t) { return gen(fr, t, x, y); };
+// (x, y), each op's record made at the pixel; another track is generated,
+// its TrackRec with it, at the op that reads it.
+__device__ __forceinline__ Rgb apply_ops(const int* ops, int from, int to,
+                                         const float* sp, Rgb v,
+                                         const Frame& fr, int x, int y) {
+  Rgb run[1] = {v};
+  const int xs[1] = {x};
+  const auto track = [&](const TrackRec&, int t, Rgb (&out)[1]) {
+    gen_run<1>(track_rec(fr, t), xs, y, out);
+  };
   for (int i = from; i < to; ++i) {
     const int* o = ops + i * OP_FIELDS;
-    v = point_op(o, sp + o[F_SLOT], v, track, fr.sx, fr.sy, x, y);
+    point_run<1>(make_rec(o, sp + o[F_SLOT], nullptr), run, track, xs, y,
+                 fr.sx, fr.sy);
   }
-  return v;
-}
-
-// clip(floor(x*255 + 0.5)) to u8, rounded in two steps as the reference
-// does (no fused multiply-add)
-__device__ __forceinline__ unsigned char q8(float v) {
-  const float q = floorf(__fadd_rn(__fmul_rn(v, 255.0f), 0.5f));
-  return (unsigned char)fminf(fmaxf(q, 0.0f), 255.0f);
+  return run[0];
 }
 
 // The first op at or after i that is not a point op (n_ops if none).
@@ -199,6 +378,9 @@ __device__ __forceinline__ void load_slots(float* sp, const float* packed,
     sp[j] = fminf(fmaxf(v, slot_vals[3 * j + 1]), slot_vals[3 * j + 2]);
   }
 }
+
+// The stateful sweep's stencil passes and staging below work on a
+// TILE_H x TILE_W tile; the fused sweep has its own (fused_sweep.cu).
 
 // One channel-interleaved staging buffer: channel c of cell `at` of a
 // (TILE_H + 2R) x (TILE_W + 2R) tile with halo, `ch` cells a channel.

@@ -118,7 +118,8 @@ def build_composite(prefix: Sequence[tuple], n_tracks: int, rows_key,
         slot = fused_sweep.add_slots(filt, static, idx, row_of, slot_rows,
                                      slot_vals)
         ops.append(fused_sweep.point_op_row(filt.name, used, slot))
-    if len(slot_rows) > fused_sweep.MAX_SLOTS:
+    # the kernel keeps one record an op in shared memory
+    if max(len(slot_rows), len(ops)) > fused_sweep.MAX_SLOTS:
         return None
     dev = torch.device(device)
     return CompositePlan(

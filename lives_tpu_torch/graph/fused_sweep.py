@@ -31,6 +31,11 @@ serve stateful chains (`nodemodel.FrameGraph.run_batch`):
   with the ported effect functions (FrameGraph's plain route).
 - `build()` compiles the kernel with nvcc on first use (`native.load`) and
   binds it with ctypes; `fused_sweep` calls it on its first launch.
+- `sweep_geometry(rows, W, halo, n_ops, n_taps, B)` is a launch's
+  geometry: the run of pixels a thread computes (`sweep_run`, from the
+  halo), the tile (the least halo work among `TILES`, a block that fills
+  an SM alone weighing more), the shared row's margin, the grid and the
+  shared memory.
 
 Band mode (`band_h`, `pallas_composite.py:242,286-297,302-311,332,367,
 390-393,452,490`) serves the multi-device layer
@@ -49,6 +54,7 @@ for the whole-frame kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Any
 
@@ -67,11 +73,32 @@ LAUNCHES = 0
 MODE_LAUNCHES = {"u8": 0, "comp_out": 0, "comp_in": 0, "band": 0}
 
 # kernel geometry and limits: keep in step with csrc/fused_sweep.cu
-TILE_H = TILE_W = 32
 MAX_SLOTS = 256
 MAX_RADIUS = 16          # the JAX sweep's limit (pallas_composite.py:349)
+#: the largest summed stencil radius the sweep takes: the limit of its
+#: first design (a 32x32 tile, two 3-channel buffers in 227 KB), kept so
+#: that the chains it takes stay the same
+MAX_HALO = 33
 SMEM_LIMIT = 232448      # 227 KB of shared memory a block can use
-STATIC_SMEM = 4 * MAX_SLOTS
+SM_SMEM = 233472         # 228 KB of shared memory an SM holds
+BLOCK_RESERVED = 1024    # shared memory the system keeps for each block
+STATIC_SMEM = 4 * MAX_SLOTS + 16  # the parameter slots and track 0
+OP_REC_BYTES = 80        # one op's record in shared memory (OpRec)
+#: a thread computes a run of 8 adjacent pixels, or of 4 from this summed
+#: stencil radius on (`sweep_run`): in chip_smoke.py phase 5 on an H100,
+#: runs of 8 were the fastest on the main chain (R = 3; runs of 4 took
+#: 1.09x, of 2 1.44x), runs of 4 12-22 % faster with one blur of r = 8
+#: and 16
+WIDE_HALO = 8
+#: the tile shapes (rows, columns) a launch chooses from, in the order
+#: that breaks a tie; the last fits any plan's halo
+TILES = ((64, 128), (64, 64), (32, 128), (32, 64), (32, 32))
+#: a phase-1 cell's cost when one block fills an SM, against two or more:
+#: K1 on the main chain at 64x128 (one block, 1.24 cells a pixel) against
+#: 32x128 (two, 1.346), 1.22-1.34 in chip_smoke.py phase 5 on an H100
+ONE_BLOCK_COST = 1.3
+#: the fused stateful sweep's tile (csrc/stateful_sweep.cu)
+STATEFUL_TILE = 32
 
 # opcodes and op fields: keep in step with csrc/sweep_common.cuh
 (OP_CROSSFADE, OP_BLEND, OP_LUMA_KEY, OP_CHROMA_KEY, OP_COLOUR_BALANCE,
@@ -183,12 +210,94 @@ class SweepPlan:
         return "comp_out" if self.emit == "comp" else "u8"
 
 
-def smem_bytes(halo: int, n_stencils: int) -> int:
-    """Dynamic shared memory of one block: the composite and a vertical
-    pass, 3 channels each, over the tile plus its halo."""
-    if not n_stencils:
+def stateful_smem_bytes(halo: int, n_steps: int) -> int:
+    """Dynamic shared memory of one block of the fused stateful sweep: the
+    composite and a second buffer, 3 channels each, over its tile plus
+    the halo."""
+    if not n_steps:
         return 0
-    return 2 * 3 * (TILE_H + 2 * halo) * (TILE_W + 2 * halo) * 4
+    return 2 * 3 * (STATEFUL_TILE + 2 * halo) ** 2 * 4
+
+
+@dataclass(frozen=True)
+class SweepGeometry:
+    """One launch of the sweep kernel (csrc/fused_sweep.cu): a tile of
+    `tile_h` x `tile_w` output pixels a block, `run` pixels a thread (4 or
+    8),
+    shared rows of tile_w + 2 * margin columns, the grid (column tiles,
+    row tiles, frames) and the dynamic shared memory in bytes."""
+    tile_h: int
+    tile_w: int
+    run: int
+    margin: int
+    grid: tuple
+    smem: int
+
+
+def _geometry(tile, run, rows, W, halo, n_ops, n_taps, B) -> SweepGeometry:
+    th, tw = tile
+    margin = -(-(halo + run - 1) // run) * run if halo else 0
+    ws = tw + 2 * margin
+    # A (3 channels) and V (one, in skewed rows) over the tile and its halo
+    floats = (th + 2 * halo) * (3 * ws + v_stride(ws)) if halo else 0
+    return SweepGeometry(th, tw, run, margin,
+                         (-(-W // tw), -(-rows // th), B),
+                         4 * floats + OP_REC_BYTES * n_ops + 4 * n_taps)
+
+
+def v_stride(ws: int) -> int:
+    """Floats a row of V takes: column c sits at c + c // 32 (the kernel's
+    v_stride), rounded up to 4."""
+    return (ws + (ws >> 5) + 3) & ~3
+
+
+def blocks_per_sm(geom: SweepGeometry) -> int:
+    """Blocks of `geom` one SM's shared memory holds."""
+    return SM_SMEM // (geom.smem + STATIC_SMEM + BLOCK_RESERVED)
+
+
+def phase1_cells(geom: SweepGeometry, halo: int) -> int:
+    """Cells the launch evaluates in phase 1: the runs covering every tile
+    and its halo, ragged tiles counted whole."""
+    lo = (geom.margin - halo) // geom.run
+    hi = -(-(geom.margin + geom.tile_w + halo) // geom.run)
+    return (geom.grid[0] * geom.grid[1] * geom.grid[2]
+            * (geom.tile_h + 2 * halo) * (hi - lo) * geom.run)
+
+
+def sweep_run(halo: int) -> int:
+    """The run of adjacent pixels a thread computes for a plan of summed
+    stencil radius `halo`. It depends on the plan alone, so a band and the
+    whole frame run the same arithmetic."""
+    return 4 if halo >= WIDE_HALO else 8
+
+
+@functools.lru_cache(maxsize=256)
+def sweep_geometry(rows: int, W: int, halo: int, n_ops: int, n_taps: int,
+                   B: int = 1, tile: tuple | None = None) -> SweepGeometry:
+    """The geometry of a launch over `rows` output rows (a band's, or the
+    frame's) of a W-column frame for a plan of summed stencil radius
+    `halo`, `n_ops` ops and `n_taps` taps: runs of `sweep_run(halo)`
+    pixels, and the tile of `TILES` that fits a block and evaluates the
+    fewest phase-1 cells, a cell weighing ONE_BLOCK_COST where one block
+    fills an SM; or `tile` when given (for measurements). Raises when the
+    launch does not fit a block's shared memory."""
+    run = sweep_run(halo)
+    args = (run, rows, W, halo, n_ops, n_taps, B)
+    if tile is not None:
+        geom = _geometry(tile, *args)
+        if geom.tile_w % run:
+            raise ValueError(f"sweep_geometry: tile {tile} for runs of {run}")
+    else:
+        fits = [g for g in (_geometry(t, *args) for t in TILES)
+                if g.smem + STATIC_SMEM <= SMEM_LIMIT] or [
+                    _geometry(TILES[-1], *args)]
+        geom = min(fits, key=lambda g: phase1_cells(g, halo) * (
+            ONE_BLOCK_COST if blocks_per_sm(g) < 2 else 1))
+    if geom.smem + STATIC_SMEM > SMEM_LIMIT:
+        raise ValueError(f"sweep_geometry: {geom} needs more than "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    return geom
 
 
 def add_slots(filt, static, idx: int, row_of: dict, slot_rows: list,
@@ -208,7 +317,7 @@ def add_slots(filt, static, idx: int, row_of: dict, slot_rows: list,
 
 def point_op_row(name: str, used: tuple, slot: int) -> tuple:
     """The op-table row of point op `name` reading tracks `used`, its
-    parameters from `slot` (csrc/sweep_common.cuh `point_op`)."""
+    parameters from `slot` (csrc/sweep_common.cuh `make_rec`, `point_run`)."""
     return (_POINT_OPS[name], used[0], used[-1], _BLEND_INDEX.get(name, 0),
             0, 0, slot)
 
@@ -283,8 +392,11 @@ def _encode(chain_spec, n_tracks: int, H: int, W: int, rows_key, source,
         ops.append(point_op_row(name, used, slot))
     if len(slot_rows) > MAX_SLOTS:
         return None
-    if smem_bytes(halo, n_stencils or len(state_steps)) + STATIC_SMEM \
-            > SMEM_LIMIT:
+    if stateful:
+        if stateful_smem_bytes(halo, n_stencils or len(state_steps)) \
+                + 4 * MAX_SLOTS > SMEM_LIMIT:
+            return None
+    elif halo > MAX_HALO:
         return None
     return (np.asarray(ops, np.int32).reshape(-1, OP_FIELDS),
             np.asarray(slot_rows, np.int32),
@@ -415,8 +527,9 @@ def build():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # every pointer and the stream as c_void_p: ctypes would pass a bare
     # Python int as a 32-bit int and cut it
-    lib.lives_fused_sweep.argtypes = [p, p, p, i, p, p, i, p, p, p, p,
-                                      i, i, i, i, i, i, i, i, f, f, p]
+    lib.lives_fused_sweep.argtypes = [p, p, p, i, p, p, i, p, i, p, p, p,
+                                      i, i, i, i, i, i, i, f, f,
+                                      i, i, i, i, i, p]
     lib.lives_fused_sweep.restype = i
     lib.lives_cuda_error_string.argtypes = [i]
     lib.lives_cuda_error_string.restype = ctypes.c_char_p
@@ -450,8 +563,18 @@ def grid_scales(plan: SweepPlan) -> tuple[float, float]:
             float(np.float32(2.0 / max(plan.height - 1, 1))))
 
 
+def plan_geometry(plan: SweepPlan, B: int,
+                  tile: tuple | None = None) -> SweepGeometry:
+    """The geometry of a launch of `plan` over B frames (`tile` overrides
+    the choice, for measurements)."""
+    rows = plan.band_h if plan.band_h is not None else plan.height
+    return sweep_geometry(rows, plan.width, plan.halo, plan.ops.shape[0],
+                          plan.taps.shape[0], B, tile)
+
+
 def _launch(plan: SweepPlan, src_ids: torch.Tensor, packed: torch.Tensor,
-            comp: torch.Tensor | None, y0: int = 0) -> torch.Tensor:
+            comp: torch.Tensor | None, y0: int = 0,
+            geom: SweepGeometry | None = None) -> torch.Tensor:
     global LAUNCHES
     src_ids, packed, B = check_inputs(plan, src_ids, packed, "fused_sweep")
     dev = plan.ops.device
@@ -469,6 +592,7 @@ def _launch(plan: SweepPlan, src_ids: torch.Tensor, packed: torch.Tensor,
                       dtype=torch.float32 if emit_comp else torch.uint8)
     if B == 0:
         return out
+    geom = geom or plan_geometry(plan, B)
     lib = build().lib
     sx, sy = grid_scales(plan)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -477,12 +601,13 @@ def _launch(plan: SweepPlan, src_ids: torch.Tensor, packed: torch.Tensor,
             packed.data_ptr(), src_ids.data_ptr(), plan.ops.data_ptr(),
             plan.ops.shape[0], plan.slot_rows.data_ptr(),
             plan.slot_vals.data_ptr(), plan.slot_rows.shape[0],
-            plan.taps.data_ptr(),
+            plan.taps.data_ptr(), plan.taps.shape[0],
             comp.data_ptr() if comp is not None else None,
             None if emit_comp else out.data_ptr(),
             out.data_ptr() if emit_comp else None,
-            plan.n_tracks, B, H, W, y0, band_h, plan.halo,
-            plan.n_stencils, sx, sy, stream)
+            plan.n_tracks, B, H, W, y0, band_h, plan.halo, sx, sy,
+            geom.tile_h, geom.tile_w, geom.run, geom.margin, geom.smem,
+            stream)
     if err != 0:
         msg = lib.lives_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_sweep launch failed: CUDA error {err} "

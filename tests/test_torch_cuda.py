@@ -629,3 +629,111 @@ def test_band_sweep_on_one_card_matches_run_batch(cuda):
                           src_args=(ids[0], ids[1]))
     assert fused_sweep.MODE_LAUNCHES["u8"] == before["u8"] + 1
     assert torch.equal(out, ref.planes[0])
+
+
+# -- K1's geometry: tiles, runs of pixels, ragged edges -------------------------
+
+#: stencil radii of a chain of summed radius R > 3: two and three stencils
+STACKS = {16: [8, 8], 33: [16, 16, 1]}
+
+
+def _halo_case(halo, w, h, device, B=2):
+    """(plan, ids, packed) of summed stencil radius `halo`: the main chain
+    (R = 3) and the same without its blur (R = 0) at 4 tracks, or
+    crossfade + stencils of `STACKS[halo]` with a vignette after the first
+    (one track blank)."""
+    src = DeviceSyntheticSource(h, w, device=device)
+    if halo <= 3:
+        spec, rows, ids, packed = _main_chunk(w, h, 4, B, device)
+        if halo == 0:
+            spec = [s for s in spec if s[0].name not in fused_sweep.STENCILS]
+        plan = fused_sweep.build_fused_sweep(spec, 4, h, w, rows, 30.0, src,
+                                             SinkSpec(w, h), device)
+    else:
+        items = [("crossfade", {"amount": 0.4}, (0, 1))]
+        for i, r in enumerate(STACKS[halo]):
+            items.append((("gaussian_blur", "sharpen", "box_blur")[i % 3],
+                          {"radius": r, "amount": 0.7}, (0,)))
+            if i == 0:
+                items.append(("vignette", {"amount": 0.5}, (0,)))
+        plan = fused_sweep.build_fused_sweep(
+            chain_spec_of(instances(items)), 2, h, w, (), 30.0, src,
+            SinkSpec(w, h), device)
+        ids = torch.tensor([[[1, 2], [4, -1]], [[0, 1], [3, 4]]],
+                           dtype=torch.int32, device=device)
+        packed = torch.tensor([[0.0, 0.05], [0.0, 1.0]], device=device)
+    assert plan is not None and plan.halo == halo
+    return plan, ids, packed
+
+
+def _geometries(plan, B):
+    """The launch's own geometry, then every tile of TILES that fits a
+    block's shared memory."""
+    yield fused_sweep.plan_geometry(plan, B)
+    for tile in fused_sweep.TILES:
+        try:
+            yield fused_sweep.plan_geometry(plan, B, tile)
+        except ValueError:  # the tile's halo is over shared memory
+            pass
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halo", [0, 3, 16, 33])
+@pytest.mark.parametrize("w,h", [(1000, 37), (1001, 70), (70, 45), (45, 70)])
+def test_sweep_geometry_edges_match_plain(cuda, halo, w, h):
+    """K1 at every tile on widths that are no multiple of a run or a tile
+    and heights no multiple of a tile, summed R of 0, 3 (runs of 8), 16
+    and 33 (runs of 4): within 1 LSB of plain_sweep, one launch counted
+    each."""
+    plan, ids, packed = _halo_case(halo, w, h, cuda)
+    ref = fused_sweep.plain_sweep(plan, ids, packed)
+    for geom in _geometries(plan, 2):
+        before = fused_sweep.LAUNCHES
+        got = fused_sweep._launch(plan, ids, packed, None, 0, geom)
+        torch.cuda.synchronize()
+        assert fused_sweep.LAUNCHES == before + 1
+        diff = (got.int() - ref.int()).abs().max().item()
+        assert diff <= 1, (geom, diff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halo", [3, 33])
+@pytest.mark.parametrize("w,h,band_h", [(1001, 75, 27), (1000, 130, 70),
+                                        (45, 70, 33)])
+def test_band_geometry_matches_whole_frame(cuda, halo, w, h, band_h):
+    """Bands at first rows and heights that are no multiple of a tile's
+    height, at every tile: bit for bit the rows of the whole frame at the
+    launch's own geometry."""
+    plan, ids, packed = _halo_case(halo, w, h, cuda)
+    whole = fused_sweep.fused_sweep(plan, ids, packed)
+    band = fused_sweep.build_fused_sweep(
+        plan.chain_spec, plan.n_tracks, h, w, plan.rows_key, 30.0,
+        plan.source, plan.sink, cuda, band_h=band_h)
+    for geom in _geometries(band, 2):
+        for y0 in (0, 5, (h - band_h) // 2, h - band_h):
+            got = fused_sweep._launch(band, ids, packed, None, y0, geom)
+            torch.cuda.synchronize()
+            assert torch.equal(got, whole[:, :, y0:y0 + band_h]), (geom, y0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1001, 1000, 70, 45])
+def test_comp_in_ragged_width_matches_plain(cuda, w):
+    """Comp-in over the main chain's point ops at every tile: a
+    comp whose rows are 16-byte aligned (vector reads) or not (scalar),
+    and a comp that is a view at an odd offset: within 1 LSB."""
+    h, B = 37, 2
+    spec, rows, ids, packed = _main_chunk(w, h, 4, B, cuda)
+    spec = [s for s in spec if s[0].name not in fused_sweep.STENCILS]
+    plan = fused_sweep.build_fused_sweep(
+        spec, 4, h, w, rows, 30.0, DeviceSyntheticSource(h, w, device=cuda),
+        SinkSpec(w, h), cuda, consume="comp")
+    g = torch.Generator(cuda).manual_seed(w)
+    flat = torch.rand((B * 3 * h * w + 1,), device=cuda, generator=g)
+    for comp in (flat[:-1].view(B, 3, h, w), flat[1:].view(B, 3, h, w)):
+        ref = fused_sweep.plain_sweep(plan, ids, packed, comp)
+        for geom in _geometries(plan, B):
+            got = fused_sweep._launch(plan, ids, packed, comp, 0, geom)
+            torch.cuda.synchronize()
+            diff = (got.int() - ref.int()).abs().max().item()
+            assert diff <= 1, (geom, diff)
