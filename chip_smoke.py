@@ -22,12 +22,14 @@ plain PyTorch version:
   K2 converts each track's chunk, K4 runs the 9 transitions, the eager
   tail the rest, K3 converts each frame in the encoder.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase below
+    python3 chip_smoke.py --config-d   # config D alone (phase 11's render
+                                       # and K4's time), no result line
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
 2. build the four kernel libraries (one nvcc each, started together),
-   build times;
+   build times, and each kernel entry's ptxas registers and spills;
 3. the sweep vs `plain_sweep` on the card, max |diff| <= 1 LSB: the
    13-effect chain at 1920x1080 with 10 tracks (B=4), and a ragged 1000x562
    frame with 3 tracks;
@@ -46,20 +48,26 @@ Phases, one line each:
    1920x1080 (B=4) and 1000x562: the f32 comp within 1/255, u8 within
    1 LSB;
 7. the fused stateful sweep vs `plain_stateful_sweep` over two chunks on
-   config C, on life + gaussian_blur r=2 and on gaussian_blur r=2 + fire:
-   frames within 1 LSB, final states within 1e-5 (f32) or exact (u8);
+   config C, on life + gaussian_blur r=2, on gaussian_blur r=2 + fire and
+   on the largest summed halo it takes (blur r=16 + fire + blur r=16,
+   R = 33): frames within 1 LSB, final states within 1e-5 (f32) or exact
+   (u8);
 8. configs A, B and C (C with and without the pref) through
    `render_events`, 192 frames in 96-frame chunks: the launch counts of each
-   path, its first 4 frames against the plain route (<= 1 LSB), a warm
-   timed pass, and kernel vs plain ms on one 96-frame chunk for each new
-   kernel;
+   path (C under the pref: one cooperative K5 launch a chunk), its first
+   4 frames against the plain route (<= 1 LSB), a warm timed pass, and
+   kernel vs plain ms on one 96-frame chunk for each new kernel; K5's
+   chosen geometry (tile, run, blocks an SM, grid, rounds of tiles a frame)
+   and its time at every tile and run, and on config C's chain with steps
+   disabled (where its time goes);
 9. the colour kernels K2 (`yuv420_to_rgb`) and K3 (`rgb_to_yuv420`) vs
    their plain versions at 1920x1080 (B=4) and 1000x562, clamped and full
    range, BT.601 and BT.709: K2 within 1 LSB, K3 integer-identical, with
    the share of differing values;
 10. the composite kernel K4 vs `plain_composite`: config D's 9-transition
    prefix at 1920x1080 over 10 tracks (B=4), a 3-track prefix at 1000x562,
-   within 1 LSB;
+   and at 45x37 (H*W no multiple of 16) on tracks that are views at byte
+   offsets 0-3 with a prefix that reads one track twice: within 1 LSB;
 11. config D, decoded clips: 10 YUV4MPEG clips of 24 frames (synthetic
    frames through K3, written to a temporary directory removed at exit),
    opened with `open_clip`, rendered by `transcode.render_to_encoder(...,
@@ -72,7 +80,9 @@ Phases, one line each:
    do (<= 6 LSB, at most 300 values above 2 LSB; it shows 6 and 281,
    tests/test_torch_routes.py), a warm timed pass with the host time in `get_batch` split from the
    rest, a profiled pass (device busy share), and K2, K3 and K4 vs plain ms
-   on one 96-frame chunk;
+   on one 96-frame chunk; K4's geometry (span, staged bytes, blocks an SM),
+   its time over the first 1, 3, 5 and 9 transitions beside their bytes,
+   and over 9 crossfades (what bounds it);
 12. the multi-device layer (`lives_tpu_torch.parallel`) on one card, as a
    4-entry mesh on cuda:0 (every band at its true rows):
    a. K1's band mode vs the whole-frame kernel over the main path's chain
@@ -93,9 +103,11 @@ Phases, one line each:
       f32 frames, within 1e-5 of the sequential chain;
    f. `dryrun_multichip` on the 4 entries (every path at a small size,
       each against the DP render).
-Then a JSON line of the kernels (with each one's bound: the larger of its
-bytes over 3.35 TB/s and its float operations over 67 TFLOP/s, the H100
-SXM's device memory and float32 rates) and, last, the JSON result line.
+Then a `resources` line for K1, K4 and K5 (the main path's entry: ptxas
+registers and spills, blocks an SM), a JSON line of the kernels (with each
+one's bound: the larger of its bytes over 3.35 TB/s and its float
+operations over 67 TFLOP/s, the H100 SXM's device memory and float32
+rates) and, last, the JSON result line.
 """
 
 import json
@@ -137,6 +149,12 @@ CONFIGS = {
     "blur_fire": (1, [("gaussian_blur", {"radius": 2}, [0]),
                       ("fire", {"threshold": 0.5}, [0]),
                       ("saturation", {"saturation": 1.2}, [0])]),
+    # the largest summed halo the stateful sweep takes: 16 + 1 + 16 = 33
+    "r33": (2, [("crossfade", {"amount": 0.4}, [0, 1]),
+                ("gaussian_blur", {"radius": 16}, [0]),
+                ("fire", {"threshold": 0.5}, [0]),
+                ("box_blur", {"radius": 16}, [0]),
+                ("saturation", {"saturation": 1.2}, [0])]),
 }
 
 
@@ -310,6 +328,28 @@ def table_flops(ops, u8_stages=False) -> int:
         n += 3 * (code <= 3 and in1 not in (0, in0))
         n += 18 * u8_stages
     return n
+
+
+def ptxas_entries(log):
+    """{kernel entry (mangled, namespace dropped): {registers, spill_stores,
+    spill_loads}} from `nvcc -Xptxas -v` output."""
+    import re
+    out, entry = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)", ln)
+        if m:
+            entry = m.group(1).replace("_ZN12_GLOBAL__N_1", "")
+            out.setdefault(entry, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and entry:
+            out[entry].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            out[entry]["registers"] = int(m.group(1))
+    return {k: v for k, v in out.items() if "registers" in v}
 
 
 def bound(nbytes, flops):
@@ -617,13 +657,123 @@ def phase12(dev, card0, card, el, src, sink, held, ms, bounds, launches):
     os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "1"
 
 
+def write_clips(tmp, src):
+    """Config D's clips in directory `tmp`: TRACKS YUV4MPEG clips of
+    CLIP_FRAMES synthetic frames of `src` each (clip c is the source's clip
+    c, through K3), opened with `open_clip`: ({c: Clip}, bytes, s)."""
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.io.clips import open_clip
+    from lives_tpu_torch.io.decoders import write_y4m
+    from lives_tpu_torch.ops.colorspace import convert_layer
+    t0 = time.perf_counter()
+    clips, size = {}, 0
+    for c in range(1, TRACKS + 1):
+        yuv = [p.cpu().numpy() for p in convert_layer(
+            src.get_batch([c] * CLIP_FRAMES, range(CLIP_FRAMES)),
+            Palette.YUV420P).planes]
+        path = os.path.join(tmp, f"clip{c}.y4m")
+        write_y4m(path, [tuple(p[i] for p in yuv)
+                         for i in range(CLIP_FRAMES)], FPS)
+        size += os.path.getsize(path)
+        clips[c] = open_clip(path, os.path.join(tmp, "work"))
+        clips[c].unique_id = c  # the timeline's clip ids
+    return clips, size, time.perf_counter() - t0
+
+
+def decoded_pass(clips, el, out_path, dev):
+    """One render of `el` from `clips` into `out_path` through
+    `render_to_encoder`, every launch count set to 0 just before it and
+    read just after: (non-zero counts, wall s, s in get_batch: the host
+    read, upload and K2, on the host clock ended by a synchronise)."""
+    import torch
+
+    from lives_tpu_torch.events.renderer import ClipFrameSource
+    from lives_tpu_torch.graph import composite, fused_sweep, stateful_sweep
+    from lives_tpu_torch.ops import yuv_kernels
+    from lives_tpu_torch.transcode import render_to_encoder
+
+    class TimedSource(ClipFrameSource):
+        host_s = 0.0
+
+        def get_batch(self, clip_ids, frame_nums):
+            t0 = time.perf_counter()
+            out = super().get_batch(clip_ids, frame_nums)
+            torch.cuda.synchronize()
+            self.host_s += time.perf_counter() - t0
+            return out
+
+    fused_sweep.MODE_LAUNCHES.update(
+        dict.fromkeys(fused_sweep.MODE_LAUNCHES, 0))
+    stateful_sweep.LAUNCHES = 0
+    yuv_kernels.LAUNCHES.update(dict.fromkeys(yuv_kernels.LAUNCHES, 0))
+    composite.LAUNCHES = 0
+    tsrc = TimedSource(clips, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    assert render_to_encoder(el, tsrc, out_path, encoder="yuv4mpeg",
+                             batch_size=CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**fused_sweep.MODE_LAUNCHES,
+              "stateful": stateful_sweep.LAUNCHES,
+              **yuv_kernels.LAUNCHES, "composite": composite.LAUNCHES}
+    return {k: v for k, v in counts.items() if v}, wall, tsrc.host_s
+
+
+def config_d_alone(dev, card, passes=3):
+    """`--config-d`: config D alone, as phase 11 renders it (its clips,
+    timeline and warm timed passes under LIVES_TPU_PALLAS_COMPOSITE=1),
+    then K4 on one 96-frame chunk against `plain_composite` and its time.
+    It calls only entry points that every version of the port with config
+    D has, so a copy of this script placed at the root of another checkout
+    times that checkout's package."""
+    from lives_tpu_torch import native
+    from lives_tpu_torch.graph import composite
+    from lives_tpu_torch.graph.nodemodel import composite_prefix
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+    native.load_all(["yuv420", "composite"])
+    src = DeviceSyntheticSource(H, W, device=dev)
+    os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "1"
+    n_chunks = -(-N_FRAMES // CHUNK)
+    want = {"yuv420_to_rgb": TRACKS * n_chunks, "composite": n_chunks,
+            "rgb_to_yuv420": N_FRAMES}
+    el = config_d_timeline(N_FRAMES)
+    with tempfile.TemporaryDirectory() as tmp:
+        clips, size, secs = write_clips(tmp, src)
+        line("d clips", clips=TRACKS, frames=CLIP_FRAMES,
+             mb=f"{size / 1e6:.1f}", seconds=f"{secs:.2f}")
+        out_path = os.path.join(tmp, "render.y4m")
+        for k in range(passes + 1):  # the first pass builds and warms
+            counts, wall_s, host_s = decoded_pass(clips, el, out_path, dev)
+            assert counts == want, counts
+            line("d timed", card=repr(card), root=ROOT.name, run=k,
+                 frames=N_FRAMES, wall_s=f"{wall_s:.4f}",
+                 get_batch_s=f"{host_s:.4f}",
+                 rest_s=f"{wall_s - host_s:.4f}",
+                 frames_per_s=f"{N_FRAMES / wall_s:.1f}")
+        for c in clips.values():
+            c.close()
+    spec, ids, packed, rows = chunk_of(el, dev, CHUNK)
+    prefix, n_t = composite_prefix(spec[:9], TRACKS)
+    plan = composite.build_composite(prefix, n_t, rows, FPS, dev)
+    trk = [src.traced_layer(ids[0, t], ids[1, t]).planes[0]
+           for t in range(n_t)]
+    worst, _ = diff_stats(composite._launch(plan, trk, packed, CHUNK, H, W),
+                          composite.plain_composite(plan, trk, packed))
+    assert worst <= 1, worst
+    got = [time_ms(lambda: composite._launch(plan, trk, packed, CHUNK, H, W),
+                   5) for _ in range(2)]
+    line("d k4", card=repr(card), root=ROOT.name, frames=CHUNK,
+         max_abs_err=f"{worst:.6g}", ms=",".join(f"{x:.3f}" for x in got))
+
+
 def render_events_of(el, src, sink):
     """The main path's chunks through the user's entry point."""
     from lives_tpu_torch.events.renderer import render_events
     return render_events(el, src, sink, batch_size=CHUNK)
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -638,6 +788,7 @@ def main() -> int:
                                                  render_to_arrays)
     from lives_tpu_torch.graph import (SinkSpec, composite, fused_sweep,
                                        stateful_sweep)
+    from lives_tpu_torch.effects.host import FILTER_STATEFUL
     from lives_tpu_torch.ops import yuv_kernels
     from lives_tpu_torch.scenes import (DeviceSyntheticSource,
                                         multitrack_timeline)
@@ -652,18 +803,28 @@ def main() -> int:
     line("1 device", torch=torch.__version__, cuda=torch.version.cuda,
          name=repr(torch.cuda.get_device_name(0)),
          count=torch.cuda.device_count())
+    if argv == ["--config-d"]:
+        config_d_alone(dev, card)
+        return 0
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
 
     # 2. build the four libraries, one nvcc each, started together
     t0 = time.perf_counter()
     native.load_all(["fused_sweep", "stateful_sweep", "yuv420", "composite"])
     wall = time.perf_counter() - t0
+    ptxas = {}
     for mod in (fused_sweep, stateful_sweep, yuv_kernels, composite):
         built = mod.build()
-        ptxas = [ln.strip() for ln in built.log.splitlines()
-                 if "registers" in ln or "spill" in ln or "smem" in ln]
         line("2 build", lib=built.path.name,
-             seconds=f"{built.seconds:.2f}", ptxas=repr(" | ".join(ptxas)))
+             seconds=f"{built.seconds:.2f}")
+        for entry, res in ptxas_entries(built.log).items():
+            ptxas[entry] = res
+            line("2 ptxas", lib=built.path.name.split("-")[0], entry=entry,
+                 **res)
     line("2 build", wall_s=f"{wall:.2f}")
+    resources = {}  # kernel -> its main-path entry's ptxas and blocks an SM
 
     err = dict.fromkeys(NAMES, 0.0)
     bounds = {}
@@ -744,6 +905,9 @@ def main() -> int:
          times=ms["fused_sweep"][2],
          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
     main_geometry(plan, ids, packed, card)
+    geom = fused_sweep.plan_geometry(plan, CHUNK)
+    resources["fused_sweep"] = (f"fused_sweep_kernelILi{geom.run}E",
+                                fused_sweep.blocks_per_sm(geom))
     blur_geometry(el, ids, card)
     # what the halo costs: the chain without its blur (R = 0), in turns
     flat = sweep_plan(el, [s for s in spec if s[0].name not in
@@ -797,12 +961,16 @@ def main() -> int:
              chain="A[2:]", size=f"{w}x{h}", frames=4)
 
     # 7. the fused stateful sweep vs its plain version, two chunks
-    for name in ("C", "life_blur", "blur_fire"):
+    for name in ("C", "life_blur", "blur_fire", "r33"):
         tel = timeline(name, 8)
         spec, _, _, rows = chunk_of(tel, dev, 4)
         plan = stateful_sweep.build_stateful_sweep(
             spec, CONFIGS[name][0], H, W, rows, FPS, src, sink, dev)
         assert plan is not None, f"{name} must qualify for the kernel"
+        geom = stateful_sweep.plan_geometry(plan, 4)
+        line("7 geometry", chain=name, halo=plan.halo,
+             tile=f"{geom.tile_h}x{geom.tile_w}", run=geom.run,
+             smem=geom.smem, blocks_per_sm=stateful_sweep.blocks_per_sm(geom))
         st_k = [f.init_state(W, H, None, dev) if f.init_state else None
                 for f, *_ in spec]
         st_p = list(st_k)
@@ -823,7 +991,7 @@ def main() -> int:
 
     # 8. configs A, B and C through render_events
     want = {"A": {"comp_in": n_chunks}, "B": {"comp_out": n_chunks},
-            "C": {"comp_in": n_chunks}, "C+sf": {"stateful": N_FRAMES}}
+            "C": {"comp_in": n_chunks}, "C+sf": {"stateful": n_chunks}}
     rates = {}
     for path, kinds in want.items():
         os.environ["LIVES_TPU_FUSED_STATEFUL"] = "1" if "sf" in path else "0"
@@ -874,6 +1042,45 @@ def main() -> int:
                                                     states),
         lambda: stateful_sweep._launch(plan, ids, packed, states),
         plain_reps=1, kern_reps=3)
+    geom = stateful_sweep.plan_geometry(plan, CHUNK)
+    per_sm = stateful_sweep.blocks_per_sm(geom)
+    resident = stateful_sweep.resident_blocks(geom)
+    tiles = geom.grid[0] * geom.grid[1]
+    line("8 k5_geometry", tile=f"{geom.tile_h}x{geom.tile_w}", run=geom.run,
+         margin=geom.margin, smem=geom.smem, blocks_per_sm=per_sm,
+         tiles_per_frame=tiles, grid=min(resident, tiles),
+         rounds=fused_sweep.stateful_rounds(geom, resident))
+    resources["stateful_sweep"] = (f"stateful_sweep_kernelILi{geom.run}E",
+                                   per_sm)
+    for tile in fused_sweep.TILES:
+        for run in (8, 4):
+            try:
+                g = stateful_sweep.plan_geometry(plan, CHUNK, tile, run)
+            except ValueError:  # over a block's shared memory
+                continue
+            got = [time_ms(lambda: stateful_sweep._launch(
+                plan, ids, packed, states, g), 2) for _ in range(2)]
+            cost = fused_sweep.stateful_cost(
+                g, plan.halo, stateful_sweep.resident_blocks(g))
+            line("8 k5_geometry_ms", card=repr(card),
+                 tile=f"{tile[0]}x{tile[1]}", run=run,
+                 blocks_per_sm=stateful_sweep.blocks_per_sm(g),
+                 model_cost=f"{cost:.0f}",
+                 ms=",".join(f"{x:.3f}" for x in got))
+    # where K5's time goes: config C's chain with steps disabled, at the
+    # launch's own geometry (K1 comp-in runs its 11-op tail alone)
+    for keep in (("fire", "alien_overlay"), ("fire",), ("alien_overlay",),
+                 ("fire", "alien_overlay", "tail"), ("fire", "tail"),
+                 ("alien_overlay", "tail")):
+        sub = [(f, st_, i_, o_, en and (f.name in keep or (
+            "tail" in keep and not f.flags & FILTER_STATEFUL)))
+               for f, st_, i_, o_, en in spec]
+        sp_ = stateful_sweep.build_stateful_sweep(sub, 10, H, W, rows, FPS,
+                                                  src, sink, dev)
+        got = time_ms(lambda: stateful_sweep._launch(sp_, ids, packed,
+                                                     states), 3)
+        line("8 k5_by_steps", card=repr(card), steps="+".join(keep),
+             ops=sp_.ops.shape[0], halo=sp_.halo, ms=f"{got:.3f}")
     # the u8 write, and each state plane read and written once a frame
     state_bytes = {"f32hw": 4, "u8hw": 1, "f32chw": 12}
     bounds["stateful_sweep"] = bound(
@@ -927,46 +1134,43 @@ def main() -> int:
              composite.plain_composite(plan, trk, packed), 1,
              prefix=n_pre, tracks=n_t, size=f"{w}x{h}", frames=4)
 
+    # at 45x37 (H*W = 1665, no multiple of 16) on tracks that are views at
+    # byte offsets 0-3, a prefix that reads track 1 three times
+    from lives_tpu_torch.effects.host import instantiate
+    from lives_tpu_torch.graph.nodemodel import (_split_params,
+                                                 chain_spec_of, pack_params)
+    w, h, b4 = 45, 37, 4
+    chain = []
+    for name, tr in (("crossfade", (0, 1)), ("blend_screen", (0, 1)),
+                     ("chroma_key", (2, 0)), ("luma_key", (1, 2)),
+                     ("saturation", (0,))):
+        inst = instantiate(name)
+        inst.in_tracks = tr
+        chain.append(inst)
+    rng = np.random.default_rng(10)
+    packed4, rows4 = pack_params(
+        [{k: rng.uniform(i.filter.param(k).min, i.filter.param(k).max,
+                         b4).astype(np.float32) for k in _split_params(i)[1]}
+         for i in chain], np.arange(b4) / FPS, np.arange(b4))
+    plan = composite.build_composite(chain_spec_of(chain), 3, rows4, FPS, dev)
+    packed4 = torch.from_numpy(packed4).to(dev)
+    flat = [torch.randint(0, 256, (b4 * 3 * h * w + 3,), dtype=torch.uint8,
+                          device=dev, generator=gen) for _ in range(3)]
+    for off in range(4):
+        trk = [f[off:off + b4 * 3 * h * w].view(b4, 3, h, w) for f in flat]
+        got = composite._launch(plan, trk, packed4, b4, h, w)
+        torch.cuda.synchronize()
+        held("composite", "10 k4_vs_plain", got,
+             composite.plain_composite(plan, trk, packed4), 1,
+             size=f"{w}x{h}", offset=off, read=len(plan.tracks_read),
+             ops=plan.ops.shape[0], frames=b4)
+    del flat, trk
+
     # 11. config D: decoded clips through render_to_encoder
     from lives_tpu_torch.constants import Palette
     from lives_tpu_torch.events.renderer import ClipFrameSource
-    from lives_tpu_torch.io.clips import open_clip
-    from lives_tpu_torch.io.decoders import try_decoders, write_y4m
+    from lives_tpu_torch.io.decoders import try_decoders
     from lives_tpu_torch.ops.colorspace import convert_layer
-    from lives_tpu_torch.transcode import render_to_encoder
-
-    class TimedSource(ClipFrameSource):
-        """ClipFrameSource whose get_batch (host read, upload, K2) is timed
-        on the host clock, ended by a synchronise."""
-        host_s = 0.0
-
-        def get_batch(self, clip_ids, frame_nums):
-            t0 = time.perf_counter()
-            out = super().get_batch(clip_ids, frame_nums)
-            torch.cuda.synchronize()
-            self.host_s += time.perf_counter() - t0
-            return out
-
-    def decoded_pass(clips, el, out_path):
-        """One render of `el` into `out_path`, every launch count set to 0
-        just before it and read just after: (non-zero counts, wall s,
-        get_batch s)."""
-        fused_sweep.MODE_LAUNCHES.update(
-            dict.fromkeys(fused_sweep.MODE_LAUNCHES, 0))
-        stateful_sweep.LAUNCHES = 0
-        yuv_kernels.LAUNCHES.update(dict.fromkeys(yuv_kernels.LAUNCHES, 0))
-        composite.LAUNCHES = 0
-        tsrc = TimedSource(clips, device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        assert render_to_encoder(el, tsrc, out_path, encoder="yuv4mpeg",
-                                 batch_size=CHUNK)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {**fused_sweep.MODE_LAUNCHES,
-                  "stateful": stateful_sweep.LAUNCHES,
-                  **yuv_kernels.LAUNCHES, "composite": composite.LAUNCHES}
-        return {k: v for k, v in counts.items() if v}, wall, tsrc.host_s
 
     def yuv_head(lay):
         """The first 4 frames of an RGB24 layer as host YUV420P planes, as
@@ -975,24 +1179,13 @@ def main() -> int:
                 convert_layer(lay, Palette.YUV420P).planes]
 
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        clips, size = {}, 0
-        for c in range(1, TRACKS + 1):
-            yuv = [p.cpu().numpy() for p in convert_layer(
-                src.get_batch([c] * CLIP_FRAMES, range(CLIP_FRAMES)),
-                Palette.YUV420P).planes]
-            path = os.path.join(tmp, f"clip{c}.y4m")
-            write_y4m(path, [tuple(p[i] for p in yuv)
-                             for i in range(CLIP_FRAMES)], FPS)
-            size += os.path.getsize(path)
-            clips[c] = open_clip(path, os.path.join(tmp, "work"))
-            clips[c].unique_id = c  # the timeline's clip ids
+        clips, size, secs = write_clips(tmp, src)
         line("11 clips", clips=TRACKS, frames=CLIP_FRAMES,
-             mb=f"{size / 1e6:.1f}", seconds=f"{time.perf_counter() - t0:.2f}")
+             mb=f"{size / 1e6:.1f}", seconds=f"{secs:.2f}")
         el = config_d_timeline(N_FRAMES)
         out_path = os.path.join(tmp, "render.y4m")
         os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "1"
-        counts, first_s, _ = decoded_pass(clips, el, out_path)
+        counts, first_s, _ = decoded_pass(clips, el, out_path, dev)
         want = {"yuv420_to_rgb": TRACKS * n_chunks, "composite": n_chunks,
                 "rgb_to_yuv420": N_FRAMES}
         line("11 config_d", frames=N_FRAMES, chunks=n_chunks,
@@ -1037,7 +1230,7 @@ def main() -> int:
         assert int(d.max()) <= 6 and over2 <= 300, (int(d.max()), over2)
         os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "1"
         # a warm timed pass, then a profiled one
-        counts, wall_s, host_s = decoded_pass(clips, el, out_path)
+        counts, wall_s, host_s = decoded_pass(clips, el, out_path, dev)
         assert counts == want, counts
         rates["D"] = N_FRAMES / wall_s
         line("11 timed", card=repr(card), frames=N_FRAMES,
@@ -1047,7 +1240,7 @@ def main() -> int:
              x_realtime=f"{rates['D'] / FPS:.2f}")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _, prof_wall, _ = decoded_pass(clips, el, out_path)
+            _, prof_wall, _ = decoded_pass(clips, el, out_path, dev)
         busy, top = device_busy(prof)
         line("11 profiled", card=repr(card), wall_ms=f"{prof_wall * 1e3:.1f}",
              device_busy_ms=f"{busy:.1f}",
@@ -1079,6 +1272,33 @@ def main() -> int:
         plain_reps=1, kern_reps=5)
     bounds["composite"] = bound(px * 3 * (n_t + 1),
                                 px * table_flops(plan.ops, u8_stages=True))
+    geom = composite.plan_geometry(plan, CHUNK, H, W)
+    line("11 k4_geometry", span=geom.span,
+         tracks_read=len(plan.tracks_read), smem=geom.smem, grid=geom.grid,
+         blocks_per_sm=composite.blocks_per_sm(geom))
+    resources["composite"] = ("composite_kernel",
+                              composite.blocks_per_sm(geom))
+    # the same 10 tracks through 9 crossfades: one op body in the loop
+    xf = composite.build_composite(
+        [(spec[0][0], {"amount": 0.5}, (0, t), (0,), True)
+         for t in range(1, 10)], TRACKS, (), FPS, dev)
+    assert spec[0][0].name == "crossfade"
+    no_rows = torch.zeros((2, CHUNK), device=dev)
+    got = time_ms(lambda: composite._launch(xf, trk, no_rows, CHUNK, H, W),
+                  5)
+    line("11 k4_crossfades", card=repr(card), ops=9, ms=f"{got:.3f}")
+    # what bounds K4: its time over the first 1, 3, 5 and 9 transitions
+    # (2 to 10 tracks staged) beside the bytes each moves
+    for k in (1, 3, 5, 9):
+        pre, nk = composite_prefix(spec[:k], TRACKS)
+        pk = composite.build_composite(pre, nk, rows, FPS, dev)
+        got = time_ms(lambda: composite._launch(pk, trk[:nk], packed, CHUNK,
+                                                H, W), 5)
+        nb = px * 3 * (len(pk.tracks_read) + 1)
+        line("11 k4_by_ops", card=repr(card), ops=k,
+             tracks_read=len(pk.tracks_read), ms=f"{got:.3f}",
+             bytes_bound_ms=f"{bound(nb, 0)[0]:.3f}",
+             tb_per_s=f"{nb / got / 1e9:.2f}")
     for name in ("yuv420_to_rgb", "rgb_to_yuv420", "composite"):
         line("11 chunk_ms", card=repr(card), kernel=name, frames=CHUNK,
              times=ms[name][2],
@@ -1089,6 +1309,11 @@ def main() -> int:
     phase12(dev, torch.device("cuda", 0), card, main_el, src, sink, held,
             ms, bounds, launches)
 
+    for name, (entry, per_sm) in resources.items():
+        res = next((v for k, v in ptxas.items() if entry in k),
+                   {"ptxas": "not in the build log"})
+        line("resources", kernel=name, entry=entry, **res,
+             blocks_per_sm=per_sm)
     for name in NAMES:
         line("bound", kernel=name, ms=f"{ms[name][0]:.4f}",
              bound_ms=f"{bounds[name][0]:.4f}", bound_by=bounds[name][1])
@@ -1107,4 +1332,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -42,6 +42,8 @@
 //   time: a vertical pass A -> V of that channel, then the horizontal pass
 //   and the mix by `amount` written back into that channel of A. So V
 //   holds one channel, and two blocks of the main chain's tile fit an SM.
+//   The runs, the mapping, the stencil pass and the edge fix-up are
+//   sweep_common.cuh's, which stateful_sweep.cu instantiates too.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
 // -shared -Xcompiler -fPIC and loaded with ctypes (lives_tpu_torch/native),
@@ -105,104 +107,6 @@ constexpr int THREADS = NTHREADS;  // threads a block (load_slots strides so)
 constexpr int MIN_BLOCKS = 2;      // blocks an SM holds: at most 128 registers
 constexpr int MAX_OPS = MAX_SLOTS; // every op of the vocabulary has a slot
 
-// V, the vertical pass of one channel, skews its rows: column c sits at
-// c + c / 32, so the lanes of a warp, each reading the window of its own
-// run (P columns apart), hit 32 different banks. Rows of VS floats, a
-// multiple of 4.
-__host__ __device__ __forceinline__ int v_stride(int WS) {
-  return (WS + (WS >> 5) + 3) & ~3;
-}
-
-__device__ __forceinline__ int vcol(int c) { return c + (c >> 5); }
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return min(max(v, lo), hi);
-}
-
-// The first op at or after i that is not a point op (n_ops if none).
-__device__ __forceinline__ int next_step(const OpRec* rec, int i, int n_ops) {
-  while (i < n_ops && rec[i].code < OP_STENCIL) ++i;
-  return i;
-}
-
-// Call f(row, run) for every (row, run) of a rows x runs span, each thread
-// starting at its own index and stepping THREADS cells in (row, run)
-// order: one division a span, none a cell.
-template <class F>
-__device__ __forceinline__ void for_runs(int rows, int runs, F&& f) {
-  if (rows <= 0 || runs <= 0) return;
-  const int dq = THREADS / runs, dr = THREADS - dq * runs;
-  int row = (int)threadIdx.x / runs;
-  int run = (int)threadIdx.x - row * runs;
-  while (row < rows) {
-    f(row, run);
-    run += dr;
-    row += dq;
-    if (run >= runs) {
-      run -= runs;
-      ++row;
-    }
-  }
-}
-
-// The P floats of a run of A at float f (a multiple of P), as vectors
-template <int P>
-__device__ __forceinline__ void lda(const float* A, int f, float (&o)[P]) {
-  static_assert(P % 4 == 0, "a run is whole float4s");
-#pragma unroll
-  for (int h = 0; h < P; h += 4) {
-    const float4 t = *reinterpret_cast<const float4*>(A + f + h);
-    o[h] = t.x;
-    o[h + 1] = t.y;
-    o[h + 2] = t.z;
-    o[h + 3] = t.w;
-  }
-}
-
-template <int P>
-__device__ __forceinline__ void sta(float* A, int f, const float (&v)[P]) {
-#pragma unroll
-  for (int h = 0; h < P; h += 4) {
-    *reinterpret_cast<float4*>(A + f + h) =
-        make_float4(v[h], v[h + 1], v[h + 2], v[h + 3]);
-  }
-}
-
-template <int P>
-__device__ __forceinline__ void get_run(const float* A, int ch, int at,
-                                        Rgb (&v)[P]) {
-  float r[P], g[P], b[P];
-  lda<P>(A, at, r);
-  lda<P>(A + ch, at, g);
-  lda<P>(A + 2 * ch, at, b);
-#pragma unroll
-  for (int j = 0; j < P; ++j) v[j] = {r[j], g[j], b[j]};
-}
-
-template <int P>
-__device__ __forceinline__ void put_run(float* A, int ch, int at,
-                                        const Rgb (&v)[P]) {
-  float r[P], g[P], b[P];
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    r[j] = v[j].r;
-    g[j] = v[j].g;
-    b[j] = v[j].b;
-  }
-  sta<P>(A, at, r);
-  sta<P>(A + ch, at, g);
-  sta<P>(A + 2 * ch, at, b);
-}
-
-// Point ops [from, to) of the chain (records `rec`) on track-0 values v
-// of a run at frame columns x and row y
-template <int P>
-__device__ __forceinline__ void apply_run(const OpRec* rec, int from, int to,
-                                          Rgb (&v)[P], const int (&x)[P],
-                                          int y, float sx, float sy) {
-  for (int i = from; i < to; ++i) gen_point_run<P>(rec[i], v, x, y, sx, sy);
-}
-
 // Track 0 of a run from the f32 comp (row y, columns x; the run starts at
 // frame column gx >= 0): vectors along a whole run of an aligned row.
 template <int P>
@@ -221,52 +125,6 @@ __device__ __forceinline__ void load_comp(const float* ci, size_t plane,
 #pragma unroll
     for (int j = 0; j < P; ++j) {
       v[j] = {row[x[j]], row[plane + x[j]], row[2 * plane + x[j]]};
-    }
-  }
-}
-
-// The chain's result for a run at output offset `at` (frame column gx, a
-// multiple of P): quantised to u8 or the f32 comp. A whole run of a row
-// whose width is a multiple of 4 stores 32-bit words of 4 bytes (float4s
-// of a comp); a ragged run stores the pixels inside the frame one by one.
-template <int P>
-__device__ __forceinline__ void store_run(unsigned char* ob, float* cb,
-                                          size_t plane, int W, size_t at,
-                                          int gx, const Rgb (&v)[P]) {
-  const bool whole = gx + P <= W && W % 4 == 0;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    float c[P];
-#pragma unroll
-    for (int j = 0; j < P; ++j) c[j] = k == 0 ? v[j].r : k == 1 ? v[j].g : v[j].b;
-    if (cb != nullptr) {
-      float* d = cb + k * plane + at;
-      if (whole) {
-        sta<P>(d, 0, c);
-      } else {
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-          if (gx + j < W) d[j] = c[j];
-        }
-      }
-      continue;
-    }
-    unsigned q[P];
-#pragma unroll
-    for (int j = 0; j < P; ++j) q[j] = q8(c[j]);
-    unsigned char* d = ob + k * plane + at;
-    if (whole) {
-#pragma unroll
-      for (int w = 0; w < P / 4; ++w) {
-        reinterpret_cast<unsigned*>(d)[w] =
-            q[4 * w] | q[4 * w + 1] << 8 | q[4 * w + 2] << 16 |
-            q[4 * w + 3] << 24;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        if (gx + j < W) d[j] = (unsigned char)q[j];
-      }
     }
   }
 }
@@ -357,57 +215,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_sweep_kernel(
     // runs covering the columns read ([M-cur, M+TW+cur)) and written
     const int vlo = (M - cur) / P, vhi = (M + TW + cur + P - 1) / P;
     const int hlo = (M - after) / P, hhi = (M + TW + after + P - 1) / P;
-    for (int c = 0; c < 3; ++c) {
-      float* Ac = A + c * ch;
-      __syncthreads();
-      for_runs(rows, vhi - vlo, [&](int i, int run) {
-        const int row = row0 + i, col = (vlo + run) * P;
-        const int at = (row - r) * WS + col;
-        float s[P];
-#pragma unroll
-        for (int j = 0; j < P; ++j) s[j] = 0.0f;
-#pragma unroll 4
-        for (int k = 0; k <= 2 * r; ++k) {
-          float w[P];
-          lda<P>(Ac, at + k * WS, w);
-          const float t = kw[k];
-#pragma unroll
-          for (int j = 0; j < P; ++j) s[j] += t * w[j];
-        }
-        float* d = V + row * VS + col + (col >> 5);  // a run in one bank row
-#pragma unroll
-        for (int j = 0; j < P; ++j) d[j] = s[j];
-      });
-      __syncthreads();
-      // each thread reads V and rewrites only its own cells of Ac
-      for_runs(rows, hhi - hlo, [&](int i, int run) {
-        const int row = row0 + i, col = (hlo + run) * P;
-        const float* vrow = V + row * VS;
-        const int c0 = col - r;  // the window's first column
-        float s[P], w[P];
-#pragma unroll
-        for (int j = 0; j < P; ++j) s[j] = 0.0f;
-#pragma unroll
-        for (int j = 1; j < P; ++j) w[j] = vrow[vcol(c0 + j - 1)];
-#pragma unroll 4
-        for (int k = 0; k <= 2 * r; ++k) {
-#pragma unroll
-          for (int j = 0; j + 1 < P; ++j) w[j] = w[j + 1];
-          w[P - 1] = vrow[vcol(c0 + k + P - 1)];
-          const float t = kw[k];
-#pragma unroll
-          for (int j = 0; j < P; ++j) s[j] += t * w[j];
-        }
-        float base[P];
-        lda<P>(Ac, row * WS + col, base);
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-          base[j] = clip01(sharpen ? base[j] + (base[j] - s[j]) * amount
-                                   : base[j] + (s[j] - base[j]) * amount);
-        }
-        sta<P>(Ac, row * WS + col, base);
-      });
-    }
+    stencil_pass<P>(A, V, ch, WS, VS, row0, rows, vlo, vhi, hlo, hhi, r, kw,
+                    sharpen, amount);
     if (last || next > si + 1) {
       __syncthreads();
       for_runs(rows, hhi - hlo, [&](int i, int run) {
@@ -430,23 +239,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_sweep_kernel(
         }
       });
     }
-    // before a further stencil: outside the frame, the plain chain pads
-    // every stencil's input with its edge value, so copy each outside cell
-    // of the span from the nearest frame cell (which lies in the span)
-    if (!last && (ty0 - after < 0 || ty0 + TH + after > H ||
-                  tx0 - after < 0 || tx0 + TW + after > W)) {
-      __syncthreads();
-      const int cols = TW + 2 * after, col0 = M - after;
-      for_runs(rows, cols, [&](int i, int j) {
-        const int row = row0 + i, col = col0 + j;
-        const int gy = ty0 - R + row, gx = tx0 - M + col;
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W) return;
-        const int at = row * WS + col;
-        const int from = (clampi(gy, 0, H - 1) - ty0 + R) * WS
-                         + (clampi(gx, 0, W - 1) - tx0 + M);
-        for (int c = 0; c < 3; ++c) A[c * ch + at] = A[c * ch + from];
-      });
-    }
+    // before a further stencil: the frame edge copied outward
+    if (!last) edge_fixup(A, ch, WS, R, M, TH, TW, after, ty0, tx0, H, W);
     cur = after;
     si = next;
   }

@@ -1,12 +1,15 @@
 // Device code shared by the sweep kernels and the composite kernel: the op
-// table's opcodes, the op records, the synthetic source, the point ops and
-// the separable stencil passes over shared memory.
+// table's opcodes, the op records, the synthetic source, the point ops, and
+// the tile machinery of the two sweeps.
 //
 // fused_sweep.cu (the JAX package's build_fused_sweep), stateful_sweep.cu
 // (build_fused_stateful_sweep) and composite.cu (build_composite) include
 // it, so the kernels evaluate one definition of every op: `point_run` over
-// a run of P adjacent pixels, P = 1 in the stateful sweep and the
-// composite kernel. The op table is encoded by
+// a run of P adjacent pixels. The two sweeps also share one tile: runs of P
+// pixels starting on multiples of P, shared rows of TW + 2M columns (the
+// margin M), a (row, run) mapping with no division a cell (`for_runs`), the
+// one-channel stencil buffer V in skewed rows (`stencil_pass`) and the edge
+// fix-up between steps. The op table is encoded by
 // lives_tpu_torch/graph/fused_sweep.py (_encode, `point_op_row`); keep the
 // constants in step with it.
 
@@ -16,8 +19,6 @@
 
 namespace lives {
 
-constexpr int TILE_H = 32;  // the stateful sweep's tile
-constexpr int TILE_W = 32;
 constexpr int NTHREADS = 256;
 constexpr int MAX_SLOTS = 256;
 constexpr int OP_FIELDS = 7;
@@ -129,7 +130,7 @@ __device__ __forceinline__ void gen_run(const TrackRec& tr, const int (&x)[P],
 // keeps one a chain op in shared memory.
 struct alignas(16) OpRec {
   int code, in0, in1, arg;  // arg: a blend's mode, a stencil's radius
-  int taps, sharpen, pad0, pad1;
+  int taps, sharpen, slot, pad;  // slot: the op's first parameter slot
   TrackRec a, b;            // tracks in0 and in1
   float k[4];               // frame-uniform values (make_rec)
 };
@@ -148,7 +149,8 @@ __device__ __forceinline__ OpRec make_rec(const int* o, const float* p,
   e.arg = o[F_ARG];
   e.taps = o[F_TAPS];
   e.sharpen = o[F_SHARPEN];
-  e.pad0 = e.pad1 = 0;
+  e.slot = o[F_SLOT];
+  e.pad = 0;
   e.a = e.b = TrackRec{0, 0, 0u, 1};
   if (fr != nullptr && e.in0 != 0) e.a = track_rec(*fr, e.in0);
   if (fr != nullptr && e.in1 != 0) e.b = track_rec(*fr, e.in1);
@@ -341,31 +343,6 @@ __device__ __forceinline__ void gen_point_run(const OpRec& o, Rgb (&v)[P],
   point_run<P>(o, v, track, x, y, sx, sy);
 }
 
-// Point ops [from, to) of the chain on track-0 value `v` at frame pixel
-// (x, y), each op's record made at the pixel; another track is generated,
-// its TrackRec with it, at the op that reads it.
-__device__ __forceinline__ Rgb apply_ops(const int* ops, int from, int to,
-                                         const float* sp, Rgb v,
-                                         const Frame& fr, int x, int y) {
-  Rgb run[1] = {v};
-  const int xs[1] = {x};
-  const auto track = [&](const TrackRec&, int t, Rgb (&out)[1]) {
-    gen_run<1>(track_rec(fr, t), xs, y, out);
-  };
-  for (int i = from; i < to; ++i) {
-    const int* o = ops + i * OP_FIELDS;
-    point_run<1>(make_rec(o, sp + o[F_SLOT], nullptr), run, track, xs, y,
-                 fr.sx, fr.sy);
-  }
-  return run[0];
-}
-
-// The first op at or after i that is not a point op (n_ops if none).
-__device__ __forceinline__ int next_step(const int* ops, int i, int n_ops) {
-  while (i < n_ops && ops[i * OP_FIELDS + F_CODE] < OP_STENCIL) ++i;
-  return i;
-}
-
 // This frame's parameter slots, clamped as Param.clamp does.
 __device__ __forceinline__ void load_slots(float* sp, const float* packed,
                                            const int* slot_rows,
@@ -379,77 +356,254 @@ __device__ __forceinline__ void load_slots(float* sp, const float* packed,
   }
 }
 
-// The stateful sweep's stencil passes and staging below work on a
-// TILE_H x TILE_W tile; the fused sweep has its own (fused_sweep.cu).
+// ---- The tile of the two sweeps ---------------------------------------------
+//
+// A block owns a TH x TW tile of output pixels and keeps in shared memory
+// the composite A over the tile and its halo R: 3 channels of TH + 2R rows
+// by WS = TW + 2M columns, `ch` floats a channel. Halo row 0 is frame row
+// ty0 - R; column M is frame column tx0. A thread computes runs of P
+// adjacent pixels that start on multiples of P; the margin M (a multiple of
+// P, at least R + P - 1 when R > 0) lets every run start so and keeps every
+// tap of a run inside the row. Runs that overlap the valid span only in
+// part also compute cells outside it; those cells are never read for a
+// valid output.
 
-// One channel-interleaved staging buffer: channel c of cell `at` of a
-// (TILE_H + 2R) x (TILE_W + 2R) tile with halo, `ch` cells a channel.
-__device__ __forceinline__ Rgb get(const float* S, int ch, int at) {
-  return {S[at], S[ch + at], S[2 * ch + at]};
+// V, one channel in skewed rows: column c sits at c + c / 32, so the lanes
+// of a warp, each reading the window of its own run (P columns apart), hit
+// 32 different banks. Rows of VS floats, a multiple of 4.
+__host__ __device__ __forceinline__ int v_stride(int WS) {
+  return (WS + (WS >> 5) + 3) & ~3;
 }
 
-__device__ __forceinline__ void put(float* S, int ch, int at, Rgb v) {
-  S[at] = v.r;
-  S[ch + at] = v.g;
-  S[2 * ch + at] = v.b;
+__device__ __forceinline__ int vcol(int c) { return c + (c >> 5); }
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return min(max(v, lo), hi);
 }
 
-// A stencil's vertical pass, A -> V, over rows [R-after, R+TILE_H+after)
-// and columns [R-cur, R+TILE_W+cur) in halo coordinates: the taps summed in
-// order, as _sep_conv_shifts sums them.
-__device__ __forceinline__ void vertical_pass(const float* A, float* V,
-                                              int WA, int ch, int R,
-                                              int cur, int after, int r,
-                                              const float* kw) {
-  const int vh = TILE_H + 2 * after, vw = TILE_W + 2 * cur;
-  const int n = 2 * r + 1;
-  for (int idx = threadIdx.x; idx < vh * vw; idx += NTHREADS) {
-    const int ly = R - after + idx / vw, lx = R - cur + idx % vw;
-    for (int c = 0; c < 3; ++c) {
-      const float* src = A + c * ch + (ly - r) * WA + lx;
-      float s = 0.0f;
-      for (int k = 0; k < n; ++k) s += kw[k] * src[k * WA];
-      V[c * ch + ly * WA + lx] = s;
+// The first op at or after i that is not a point op (n_ops if none).
+__device__ __forceinline__ int next_step(const OpRec* rec, int i, int n_ops) {
+  while (i < n_ops && rec[i].code < OP_STENCIL) ++i;
+  return i;
+}
+
+// Call f(row, run) for every (row, run) of a rows x runs span, each thread
+// starting at its own index and stepping NTHREADS cells in (row, run)
+// order: one division a span, none a cell.
+template <class F>
+__device__ __forceinline__ void for_runs(int rows, int runs, F&& f) {
+  if (rows <= 0 || runs <= 0) return;
+  const int dq = NTHREADS / runs, dr = NTHREADS - dq * runs;
+  int row = (int)threadIdx.x / runs;
+  int run = (int)threadIdx.x - row * runs;
+  while (row < rows) {
+    f(row, run);
+    run += dr;
+    row += dq;
+    if (run >= runs) {
+      run -= runs;
+      ++row;
     }
   }
 }
 
-// A stencil's horizontal pass at cell `at` (V -> blurred), then the mix by
-// `amount` with the stencil's input A and the clip.
-__device__ __forceinline__ Rgb horizontal_mix(const float* A, const float* V,
-                                              int ch, int at, int r,
-                                              const float* kw, bool sharpen,
-                                              float amount) {
-  float res[3];
-  const int n = 2 * r + 1;
-  for (int c = 0; c < 3; ++c) {
-    const float* src = V + c * ch + at - r;
-    float s = 0.0f;
-    for (int k = 0; k < n; ++k) s += kw[k] * src[k];
-    const float base = A[c * ch + at];
-    res[c] = clip01(sharpen ? base + (base - s) * amount
-                            : base + (s - base) * amount);
+// The P floats of a run of A at float f (a multiple of P), as vectors
+template <int P>
+__device__ __forceinline__ void lda(const float* A, int f, float (&o)[P]) {
+  static_assert(P % 4 == 0, "a run is whole float4s");
+#pragma unroll
+  for (int h = 0; h < P; h += 4) {
+    const float4 t = *reinterpret_cast<const float4*>(A + f + h);
+    o[h] = t.x;
+    o[h + 1] = t.y;
+    o[h + 2] = t.z;
+    o[h + 3] = t.w;
   }
-  return {res[0], res[1], res[2]};
 }
 
-// After a stencil with halo `after` still to be read: outside the frame the
-// plain chain pads every stencil's input with its edge value, so copy each
-// outside cell of the span from the nearest frame cell (which lies in the
-// span) instead of keeping a stencil evaluated off the frame.
-__device__ __forceinline__ void edge_fixup(float* A, int WA, int ch, int R,
-                                           int after, int ty0, int tx0,
-                                           int H, int W) {
-  const int vh = TILE_H + 2 * after, hw = TILE_W + 2 * after;
-  for (int idx = threadIdx.x; idx < vh * hw; idx += NTHREADS) {
-    const int ly = R - after + idx / hw, lx = R - after + idx % hw;
-    const int gy = ty0 - R + ly, gx = tx0 - R + lx;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) continue;
-    const int at = ly * WA + lx;
-    const int from = (min(max(gy, 0), H - 1) - ty0 + R) * WA
-                     + (min(max(gx, 0), W - 1) - tx0 + R);
-    for (int c = 0; c < 3; ++c) A[c * ch + at] = A[c * ch + from];
+template <int P>
+__device__ __forceinline__ void sta(float* A, int f, const float (&v)[P]) {
+#pragma unroll
+  for (int h = 0; h < P; h += 4) {
+    *reinterpret_cast<float4*>(A + f + h) =
+        make_float4(v[h], v[h + 1], v[h + 2], v[h + 3]);
   }
+}
+
+template <int P>
+__device__ __forceinline__ void get_run(const float* A, int ch, int at,
+                                        Rgb (&v)[P]) {
+  float r[P], g[P], b[P];
+  lda<P>(A, at, r);
+  lda<P>(A + ch, at, g);
+  lda<P>(A + 2 * ch, at, b);
+#pragma unroll
+  for (int j = 0; j < P; ++j) v[j] = {r[j], g[j], b[j]};
+}
+
+template <int P>
+__device__ __forceinline__ void put_run(float* A, int ch, int at,
+                                        const Rgb (&v)[P]) {
+  float r[P], g[P], b[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    r[j] = v[j].r;
+    g[j] = v[j].g;
+    b[j] = v[j].b;
+  }
+  sta<P>(A, at, r);
+  sta<P>(A + ch, at, g);
+  sta<P>(A + 2 * ch, at, b);
+}
+
+// Point ops [from, to) of the chain (records `rec`) on track-0 values v
+// of a run at frame columns x and row y
+template <int P>
+__device__ __forceinline__ void apply_run(const OpRec* rec, int from, int to,
+                                          Rgb (&v)[P], const int (&x)[P],
+                                          int y, float sx, float sy) {
+  for (int i = from; i < to; ++i) gen_point_run<P>(rec[i], v, x, y, sx, sy);
+}
+
+// The chain's result for a run at output offset `at` (frame column gx, a
+// multiple of P): quantised to u8, or the f32 comp when cb is not null. A
+// whole run of a row whose width is a multiple of 4 stores 32-bit words of
+// 4 bytes (float4s of a comp); a ragged run stores the pixels inside the
+// frame one by one.
+template <int P>
+__device__ __forceinline__ void store_run(unsigned char* ob, float* cb,
+                                          size_t plane, int W, size_t at,
+                                          int gx, const Rgb (&v)[P]) {
+  const bool whole = gx + P <= W && W % 4 == 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float c[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) c[j] = k == 0 ? v[j].r : k == 1 ? v[j].g : v[j].b;
+    if (cb != nullptr) {
+      float* d = cb + k * plane + at;
+      if (whole) {
+        sta<P>(d, 0, c);
+      } else {
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          if (gx + j < W) d[j] = c[j];
+        }
+      }
+      continue;
+    }
+    unsigned q[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) q[j] = q8(c[j]);
+    unsigned char* d = ob + k * plane + at;
+    if (whole) {
+#pragma unroll
+      for (int w = 0; w < P / 4; ++w) {
+        reinterpret_cast<unsigned*>(d)[w] =
+            q[4 * w] | q[4 * w + 1] << 8 | q[4 * w + 2] << 16 |
+            q[4 * w + 3] << 24;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        if (gx + j < W) d[j] = (unsigned char)q[j];
+      }
+    }
+  }
+}
+
+// One separable stencil (radius r, taps kw) over rows [row0, row0 + rows)
+// of the tile, one channel at a time: the vertical pass of that channel of
+// A into V over the runs [vlo, vhi) that cover the columns read, then the
+// horizontal pass, the mix by `amount` with the stencil's input and the
+// clip, written back into that channel of A over the runs [hlo, hhi) that
+// cover the columns written. The taps are summed in order, as
+// _sep_conv_shifts sums them. Each thread reads V and rewrites only its
+// own cells of A.
+template <int P>
+__device__ __forceinline__ void stencil_pass(float* A, float* V, int ch,
+                                             int WS, int VS, int row0,
+                                             int rows, int vlo, int vhi,
+                                             int hlo, int hhi, int r,
+                                             const float* kw, bool sharpen,
+                                             float amount) {
+  for (int c = 0; c < 3; ++c) {
+    float* Ac = A + c * ch;
+    __syncthreads();
+    for_runs(rows, vhi - vlo, [&](int i, int run) {
+      const int row = row0 + i, col = (vlo + run) * P;
+      const int at = (row - r) * WS + col;
+      float s[P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) s[j] = 0.0f;
+#pragma unroll 4
+      for (int k = 0; k <= 2 * r; ++k) {
+        float w[P];
+        lda<P>(Ac, at + k * WS, w);
+        const float t = kw[k];
+#pragma unroll
+        for (int j = 0; j < P; ++j) s[j] += t * w[j];
+      }
+      float* d = V + row * VS + col + (col >> 5);  // a run in one bank row
+#pragma unroll
+      for (int j = 0; j < P; ++j) d[j] = s[j];
+    });
+    __syncthreads();
+    for_runs(rows, hhi - hlo, [&](int i, int run) {
+      const int row = row0 + i, col = (hlo + run) * P;
+      const float* vrow = V + row * VS;
+      const int c0 = col - r;  // the window's first column
+      float s[P], w[P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) s[j] = 0.0f;
+#pragma unroll
+      for (int j = 1; j < P; ++j) w[j] = vrow[vcol(c0 + j - 1)];
+#pragma unroll 4
+      for (int k = 0; k <= 2 * r; ++k) {
+#pragma unroll
+        for (int j = 0; j + 1 < P; ++j) w[j] = w[j + 1];
+        w[P - 1] = vrow[vcol(c0 + k + P - 1)];
+        const float t = kw[k];
+#pragma unroll
+        for (int j = 0; j < P; ++j) s[j] += t * w[j];
+      }
+      float base[P];
+      lda<P>(Ac, row * WS + col, base);
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        base[j] = clip01(sharpen ? base[j] + (base[j] - s[j]) * amount
+                                 : base[j] + (s[j] - base[j]) * amount);
+      }
+      sta<P>(Ac, row * WS + col, base);
+    });
+  }
+}
+
+// After a step that leaves halo `after` for a later step: outside the
+// frame the plain chain pads every stencil's input with its edge value (and
+// a stateful step reads the frame at clamped coordinates), so copy each
+// outside cell of the span from the nearest frame cell (which lies in the
+// span). Nothing to do, and no barrier, for a tile whose span lies inside
+// the frame (the test is uniform over the block).
+__device__ __forceinline__ void edge_fixup(float* A, int ch, int WS, int R,
+                                           int M, int TH, int TW, int after,
+                                           int ty0, int tx0, int H, int W) {
+  if (!(ty0 - after < 0 || ty0 + TH + after > H || tx0 - after < 0 ||
+        tx0 + TW + after > W)) {
+    return;
+  }
+  __syncthreads();
+  const int rows = TH + 2 * after, row0 = R - after;
+  const int cols = TW + 2 * after, col0 = M - after;
+  for_runs(rows, cols, [&](int i, int j) {
+    const int row = row0 + i, col = col0 + j;
+    const int gy = ty0 - R + row, gx = tx0 - M + col;
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W) return;
+    const int at = row * WS + col;
+    const int from = (clampi(gy, 0, H - 1) - ty0 + R) * WS
+                     + (clampi(gx, 0, W - 1) - tx0 + M);
+    for (int c = 0; c < 3; ++c) A[c * ch + at] = A[c * ch + from];
+  });
 }
 
 }  // namespace lives

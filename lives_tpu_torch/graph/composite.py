@@ -20,7 +20,10 @@ for the H100 (`csrc/composite.cu`); its note says what bounds it.
   outside the kernel's vocabulary.
 - `composite(plan, tracks, packed)` launches the kernel on CUDA tensors,
   counting it in `LAUNCHES`, and returns `plain_composite` on CPU tensors;
-  any other device raises.
+  any other device raises. The kernel stages every byte it reads in shared
+  memory first: `tracks_read` (each distinct track the prefix reads, track
+  0 first) and `composite_geometry` (the span of pixels a block owns,
+  within a staging budget) size that.
 - `plain_composite(plan, tracks, packed)` is `run_chain` over the prefix
   with `float_chain=False`: each filter's process on u8 layers, u8 after
   every stage, as the JAX kernel traces them.
@@ -43,6 +46,12 @@ from . import fused_sweep
 LAUNCHES = 0
 
 MAX_TRACKS = 64  # keep in step with csrc/composite.cu
+#: spans of pixels a block may own, largest first (multiples of 16 and of
+#: the kernel's run of 4 pixels a thread)
+SPANS = (4096, 2048, 1024, 512, 256)
+#: the most bytes a block stages: with the largest op table (MAX_SLOTS
+#: records) and the static and reserved shared memory, two blocks fit an SM
+STAGE_BUDGET = 90112
 
 #: coordinate-free, reduction-free, gather-free per-pixel filters
 #: (`pallas_composite.py:51`, a copy)
@@ -96,6 +105,7 @@ class CompositePlan:
     ops: torch.Tensor        # (n_ops, OP_FIELDS) int32
     slot_rows: torch.Tensor  # (n_slots,) int32 packed row, -1 = constant
     slot_vals: torch.Tensor  # (n_slots, 3) f32: constant, min, max
+    tracks_read: tuple = (0,)  # the tracks the kernel stages, track 0 first
 
 
 def build_composite(prefix: Sequence[tuple], n_tracks: int, rows_key,
@@ -124,12 +134,46 @@ def build_composite(prefix: Sequence[tuple], n_tracks: int, rows_key,
     dev = torch.device(device)
     return CompositePlan(
         prefix=tuple(prefix), n_tracks=n_tracks, rows_key=tuple(rows_key),
-        fps=fps,
+        fps=fps, tracks_read=tracks_read(ops),
         ops=torch.from_numpy(np.asarray(ops, np.int32).reshape(
             -1, fused_sweep.OP_FIELDS)).to(dev),
         slot_rows=torch.from_numpy(np.asarray(slot_rows, np.int32)).to(dev),
         slot_vals=torch.from_numpy(np.asarray(
             slot_vals, np.float32).reshape(-1, 3)).to(dev))
+
+
+def tracks_read(ops) -> tuple:
+    """The distinct tracks an op table reads, track 0 first (it is read
+    even by an empty prefix), each once however many ops read it."""
+    used = {0}
+    for _, in0, in1, *_ in ops:
+        used.update((int(in0), int(in1)))
+    return tuple(sorted(used))
+
+
+@dataclass(frozen=True)
+class CompositeGeometry:
+    """One launch of K4 (csrc/composite.cu): `span` pixels of a frame's
+    plane a block, the grid (spans, frames) and the dynamic shared memory in
+    bytes (the op records and 3 staged planes of span + 16 bytes each track
+    read)."""
+    span: int
+    grid: tuple
+    smem: int
+
+
+def composite_geometry(n_read: int, n_ops: int, plane: int,
+                       B: int) -> CompositeGeometry:
+    """The launch of a prefix reading `n_read` distinct tracks with `n_ops`
+    ops over B frames of `plane` pixels: the largest span of SPANS whose
+    staged bytes stay within STAGE_BUDGET."""
+    if not 1 <= n_read <= MAX_TRACKS:
+        raise ValueError(f"composite_geometry: {n_read} tracks read, the "
+                         f"kernel stages 1 to {MAX_TRACKS}")
+    span = next(s for s in SPANS if 3 * n_read * (s + 16) <= STAGE_BUDGET)
+    return CompositeGeometry(
+        span, (-(-plane // span), B),
+        fused_sweep.OP_REC_BYTES * n_ops + 3 * n_read * (span + 16))
 
 
 def _check(plan: CompositePlan, tracks, packed: torch.Tensor):
@@ -184,11 +228,38 @@ def build():
     built = load("composite")
     lib = built.lib
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lives_composite.argtypes = [p, p, i, p, i, p, p, i, p, i, i, i, p]
+    lib.lives_composite.argtypes = [p, p, i, p, i, p, i, p, p, i, p, i, i, i,
+                                    i, i, p]
     lib.lives_composite.restype = i
+    lib.lives_composite_blocks_per_sm.argtypes = [i, p]
+    lib.lives_composite_blocks_per_sm.restype = i
     lib.lives_cuda_error_string.argtypes = [i]
     lib.lives_cuda_error_string.restype = ctypes.c_char_p
     return built
+
+
+def _raise(lib, err: int, what: str):
+    if err != 0:
+        msg = lib.lives_cuda_error_string(err).decode()
+        raise RuntimeError(f"composite {what} failed: CUDA error {err} "
+                           f"({msg})")
+
+
+def plan_geometry(plan: CompositePlan, B: int, H: int,
+                  W: int) -> CompositeGeometry:
+    """The geometry of a launch of `plan` over B frames of H x W."""
+    return composite_geometry(len(plan.tracks_read), plan.ops.shape[0],
+                              H * W, B)
+
+
+def blocks_per_sm(geom: CompositeGeometry) -> int:
+    """Blocks of a launch at `geom` one SM of the current card holds (the
+    CUDA occupancy query)."""
+    lib = build().lib
+    n = ctypes.c_int(0)
+    _raise(lib, lib.lives_composite_blocks_per_sm(geom.smem, ctypes.byref(n)),
+           "occupancy query")
+    return n.value
 
 
 def _launch(plan: CompositePlan, tracks, packed, B: int, H: int, W: int):
@@ -201,18 +272,22 @@ def _launch(plan: CompositePlan, tracks, packed, B: int, H: int, W: int):
     out = torch.empty((B, 3, H, W), dtype=torch.uint8, device=dev)
     if B == 0 or H == 0 or W == 0:
         return out
+    geom = plan_geometry(plan, B, H, W)
     lib = build().lib
-    table = (ctypes.c_void_p * len(tracks))(*[t.data_ptr() for t in tracks])
+    read = plan.tracks_read
+    table = (ctypes.c_void_p * len(read))(*[tracks[t].data_ptr()
+                                            for t in read])
+    slot = [-1] * len(tracks)
+    for k, t in enumerate(read):
+        slot[t] = k
+    slots = (ctypes.c_int * len(slot))(*slot)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.lives_composite(
-            packed.data_ptr(), table, len(tracks), plan.ops.data_ptr(),
-            plan.ops.shape[0], plan.slot_rows.data_ptr(),
+            packed.data_ptr(), table, len(read), slots, len(tracks),
+            plan.ops.data_ptr(), plan.ops.shape[0], plan.slot_rows.data_ptr(),
             plan.slot_vals.data_ptr(), plan.slot_rows.shape[0],
-            out.data_ptr(), B, H, W, stream)
-    if err != 0:
-        msg = lib.lives_cuda_error_string(err).decode()
-        raise RuntimeError(f"composite launch failed: CUDA error {err} "
-                           f"({msg})")
+            out.data_ptr(), B, H, W, geom.span, geom.smem, stream)
+    _raise(lib, err, "launch")
     LAUNCHES += 1
     return out

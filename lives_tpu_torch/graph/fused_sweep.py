@@ -97,8 +97,13 @@ TILES = ((64, 128), (64, 64), (32, 128), (32, 64), (32, 32))
 #: K1 on the main chain at 64x128 (one block, 1.24 cells a pixel) against
 #: 32x128 (two, 1.346), 1.22-1.34 in chip_smoke.py phase 5 on an H100
 ONE_BLOCK_COST = 1.3
-#: the fused stateful sweep's tile (csrc/stateful_sweep.cu)
-STATEFUL_TILE = 32
+#: a phase-1 cell of the stateful sweep in runs of 8 against runs of 4: on
+#: config C (R = 1) K5 took 0.88x with runs of 8 (chip_smoke.py phase 8 on
+#: an H100, 7.19-7.29 ms against 8.24-8.30 at 32x128; PERF.md)
+STATEFUL_RUN8_COST = 0.88
+#: the stateful sweep's op table: every op but alien_overlay has a slot
+MAX_STATES = 8
+MAX_STATEFUL_OPS = MAX_SLOTS + MAX_STATES
 
 # opcodes and op fields: keep in step with csrc/sweep_common.cuh
 (OP_CROSSFADE, OP_BLEND, OP_LUMA_KEY, OP_CHROMA_KEY, OP_COLOUR_BALANCE,
@@ -211,12 +216,21 @@ class SweepPlan:
 
 
 def stateful_smem_bytes(halo: int, n_steps: int) -> int:
-    """Dynamic shared memory of one block of the fused stateful sweep: the
-    composite and a second buffer, 3 channels each, over its tile plus
-    the halo."""
+    """The first design's limit, kept as the eligibility rule of the fused
+    stateful sweep: the dynamic shared memory of one block of that design,
+    the composite and a second buffer, 3 channels each, over a 32x32 tile
+    plus the halo. A chain whose bytes and the parameter slots exceed a
+    block's shared memory (a summed halo over 33) is refused, so the kernel
+    takes the chains it took before; its launch geometry is
+    `stateful_geometry`'s."""
     if not n_steps:
         return 0
-    return 2 * 3 * (STATEFUL_TILE + 2 * halo) ** 2 * 4
+    return 2 * 3 * (32 + 2 * halo) ** 2 * 4
+
+
+def stateful_eligible(halo: int, n_steps: int) -> bool:
+    """The eligibility rule of the fused stateful sweep (`_encode`)."""
+    return stateful_smem_bytes(halo, n_steps) + 4 * MAX_SLOTS <= SMEM_LIMIT
 
 
 @dataclass(frozen=True)
@@ -298,6 +312,63 @@ def sweep_geometry(rows: int, W: int, halo: int, n_ops: int, n_taps: int,
         raise ValueError(f"sweep_geometry: {geom} needs more than "
                          f"{SMEM_LIMIT} bytes of shared memory")
     return geom
+
+
+def _stateful_geometry(tile, run, H, W, halo, n_ops, n_taps,
+                       B) -> SweepGeometry:
+    th, tw = tile
+    margin = -(-(halo + run - 1) // run) * run if halo else 0
+    ws = tw + 2 * margin
+    # A (3 channels) and S (one, in skewed rows) over the tile and its halo
+    floats = (th + 2 * halo) * (3 * ws + v_stride(ws))
+    return SweepGeometry(th, tw, run, margin, (-(-W // tw), -(-H // th), B),
+                         4 * floats + OP_REC_BYTES * n_ops + 4 * n_taps)
+
+
+def stateful_rounds(geom: SweepGeometry, resident: int) -> int:
+    """Rounds of tiles a frame takes when the card holds `resident` blocks
+    of the launch at once: the grid (at most one block a tile) walks the
+    frame's tiles in a strided loop, so the slowest block computes this
+    many tiles a frame."""
+    return -(-geom.grid[0] * geom.grid[1] // resident)
+
+
+def stateful_cost(geom: SweepGeometry, halo: int, resident: int) -> float:
+    """The tile cost model of the stateful sweep: the rounds of a frame
+    times the phase-1 cells of one tile, a cell of a run of 8 weighing
+    STATEFUL_RUN8_COST."""
+    tiles = geom.grid[0] * geom.grid[1] * geom.grid[2]
+    weight = STATEFUL_RUN8_COST if geom.run == 8 else 1.0
+    return (stateful_rounds(geom, resident) * phase1_cells(geom, halo)
+            / tiles * weight)
+
+
+def stateful_geometry(H: int, W: int, halo: int, n_ops: int, n_taps: int,
+                      resident, B: int = 1, tile: tuple | None = None,
+                      run: int | None = None) -> SweepGeometry:
+    """The geometry of a fused stateful sweep launch over an H x W frame for
+    a plan of summed halo `halo`, `n_ops` ops and `n_taps` taps, on a card
+    that holds `resident(geom)` blocks of a launch at `geom` at once (its
+    SMs times the occupancy query's blocks an SM, the grid the launch
+    takes): the tile of `TILES` and the run (8 or 4) of least
+    `stateful_cost` that fit a block's shared memory and the card, or
+    `tile` and `run` when given (for measurements). Raises for a plan the
+    eligibility rule refuses, and when the launch does not fit."""
+    if not stateful_eligible(halo, 1):
+        raise ValueError(f"stateful_geometry: summed halo {halo} is over "
+                         f"the fused stateful sweep's limit")
+    fits = [(g, resident(g))
+            for g in (_stateful_geometry(t, r, H, W, halo, n_ops, n_taps, B)
+                      for t in ((tile,) if tile else TILES)
+                      for r in ((run,) if run else (8, 4)))
+            if g.tile_w % g.run == 0
+            and g.smem + STATIC_SMEM <= SMEM_LIMIT]
+    fits = [(g, n) for g, n in fits if n >= 1]
+    if not fits:
+        raise ValueError(f"stateful_geometry: no launch of tile {tile}, run "
+                         f"{run} fits {SMEM_LIMIT} bytes of shared memory "
+                         f"and the card")
+    return min(fits, key=lambda gn: stateful_cost(gn[0], halo, gn[1]))[0]
 
 
 def add_slots(filt, static, idx: int, row_of: dict, slot_rows: list,
@@ -393,8 +464,7 @@ def _encode(chain_spec, n_tracks: int, H: int, W: int, rows_key, source,
     if len(slot_rows) > MAX_SLOTS:
         return None
     if stateful:
-        if stateful_smem_bytes(halo, n_stencils or len(state_steps)) \
-                + 4 * MAX_SLOTS > SMEM_LIMIT:
+        if not stateful_eligible(halo, n_stencils or len(state_steps)):
             return None
     elif halo > MAX_HALO:
         return None

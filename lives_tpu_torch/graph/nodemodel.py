@@ -26,7 +26,7 @@ numbers) and takes one of these routes on the source's device:
     trailing point ops, then the sink quantise). Under
     `pref("fused_stateful") == "1"` a chain the fused stateful sweep holds
     runs that kernel instead (`graph/stateful_sweep.py`), one launch a
-    frame. A materialised source runs the frame loop over the whole chain.
+    chunk. A materialised source runs the frame loop over the whole chain.
 
 State lives on the graph (`FrameGraph.states`, one entry per instance, in
 the JAX package's state contract), made at the frame geometry on the first

@@ -7,12 +7,14 @@ for a stateful chain over the synthetic source whose every step the kernel
 holds (the fused sweep's vocabulary plus fire, life and alien_overlay), the
 kernel generates the tracks, runs the whole chain with its state planes and
 writes the RGB24 sink's u8 frames. The kernel is CUDA C++ for the H100
-(`csrc/stateful_sweep.cu`), launched once a frame: CUDA runs a grid's
-blocks in no order, so the order of frames comes from the stream, and each
-launch reads the previous frame's state planes and writes the other plane
-of each pair. `_state_reads_above` (`pallas_stateful.py:66`) decides the
-JAX kernel's in-place versus ping-pong planes; this kernel always
-ping-pongs, so it has no counterpart here.
+(`csrc/stateful_sweep.cu`), one cooperative launch a chunk: CUDA runs a
+grid's blocks in no order, so the kernel's blocks are all resident and meet
+at a grid barrier between frames; frame b reads the previous frame's state
+planes and writes the other plane of each pair. A card that cannot hold
+the grid at once refuses the launch, and the wrapper raises.
+`_state_reads_above` (`pallas_stateful.py:66`) decides the JAX kernel's
+in-place versus ping-pong planes; this kernel always ping-pongs, so it has
+no counterpart here.
 
 - `stateful_sweep_len(chain)` decides, before any launch, whether the whole
   chain qualifies (`nodemodel.FrameGraph.run_batch` reads it under
@@ -21,8 +23,9 @@ ping-pongs, so it has no counterpart here.
   encoding with the stateful steps) into a `SweepPlan` whose `state_steps`
   name each stateful step's chain index and state kind, or returns None.
 - `stateful_sweep(plan, src_ids, packed, states)` launches the kernel on
-  CUDA tensors, B launches a chunk, each counted in `LAUNCHES`; on CPU
-  tensors it returns `plain_stateful_sweep`.
+  CUDA tensors, one launch a chunk counted in `LAUNCHES`, at the geometry
+  of `plan_geometry` (`fused_sweep.stateful_geometry`); on CPU tensors it
+  returns `plain_stateful_sweep`.
 - `plain_stateful_sweep(plan, src_ids, packed, states)` is the frame loop of
   the whole chain over the ported filters (FrameGraph's plain route).
 
@@ -34,6 +37,7 @@ f32, None for a stateless instance.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -41,11 +45,11 @@ from ..effects.host import FILTER_STATEFUL
 from . import fused_sweep
 from .fused_sweep import STATEFUL_STEPS, VOCABULARY, SweepPlan
 
-#: launches of the stateful sweep kernel (one a frame) since the count was
+#: launches of the stateful sweep kernel (one a chunk) since the count was
 #: last set to 0
 LAUNCHES = 0
 
-MAX_STATES = 8  # keep in step with csrc/stateful_sweep.cu
+MAX_STATES = fused_sweep.MAX_STATES  # keep in step with csrc/stateful_sweep.cu
 
 
 def _stateful_table() -> dict[str, tuple[int, str]]:
@@ -119,16 +123,67 @@ def build():
     built = load("stateful_sweep")
     lib = built.lib
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lives_stateful_sweep.argtypes = [p, p, p, i, p, p, i, p, p, p, i, p,
-                                         i, i, i, i, i, i, f, f, p]
+    lib.lives_stateful_sweep.argtypes = [p, p, p, i, p, p, i, p, i, p, p, p,
+                                         i, p, i, i, i, i, i, f, f, i, i, i,
+                                         i, i, p]
     lib.lives_stateful_sweep.restype = i
+    lib.lives_stateful_blocks_per_sm.argtypes = [i, i, p]
+    lib.lives_stateful_blocks_per_sm.restype = i
     lib.lives_cuda_error_string.argtypes = [i]
     lib.lives_cuda_error_string.restype = ctypes.c_char_p
     return built
 
 
+def _check(lib, err: int, what: str):
+    if err != 0:
+        msg = lib.lives_cuda_error_string(err).decode()
+        raise RuntimeError(f"stateful_sweep {what} failed: CUDA error {err} "
+                           f"({msg})")
+
+
+def plan_geometry(plan: SweepPlan, B: int, tile: tuple | None = None,
+                  run: int | None = None) -> fused_sweep.SweepGeometry:
+    """The geometry of a launch of `plan` over B frames on its card (`tile`
+    and `run` override the choice, for measurements)."""
+    return fused_sweep.stateful_geometry(
+        plan.height, plan.width, plan.halo, plan.ops.shape[0],
+        plan.taps.shape[0],
+        functools.partial(resident_blocks, device=plan.ops.device), B, tile,
+        run)
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(index: int, run: int, smem: int) -> int:
+    lib = build().lib
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _check(lib, lib.lives_stateful_blocks_per_sm(run, smem,
+                                                     ctypes.byref(n)),
+               "occupancy query")
+    return n.value
+
+
+def _index(device) -> int:
+    dev = torch.device(device)
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+def blocks_per_sm(geom: fused_sweep.SweepGeometry, device="cuda") -> int:
+    """Blocks of a launch at `geom` that one SM of card `device` holds (the
+    CUDA occupancy query, by registers and shared memory)."""
+    return _blocks_per_sm(_index(device), geom.run, geom.smem)
+
+
+def resident_blocks(geom: fused_sweep.SweepGeometry, device="cuda") -> int:
+    """Blocks of a launch at `geom` that card `device` holds at once: its
+    SMs times `blocks_per_sm`. The kernel's launch takes the same query and
+    SM count for its grid (or the tiles of a frame, when fewer)."""
+    props = torch.cuda.get_device_properties(_index(device))
+    return props.multi_processor_count * blocks_per_sm(geom, device)
+
+
 def _launch(plan: SweepPlan, src_ids: torch.Tensor, packed: torch.Tensor,
-            states: list):
+            states: list, geom: fused_sweep.SweepGeometry | None = None):
     global LAUNCHES
     src_ids, packed, B = fused_sweep.check_inputs(plan, src_ids, packed,
                                                   "stateful_sweep")
@@ -151,28 +206,26 @@ def _launch(plan: SweepPlan, src_ids: torch.Tensor, packed: torch.Tensor,
     new_states = list(states)
     if B == 0:
         return out, new_states
+    geom = geom or plan_geometry(plan, B)
     lib = build().lib
     sx, sy = fused_sweep.grid_scales(plan)
     stream = torch.cuda.current_stream(dev).cuda_stream
     n = len(pairs)
+
+    def table(ts):
+        return (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])
     with torch.cuda.device(dev):
-        for b in range(B):
-            prev = (ctypes.c_void_p * n)(*[
-                (first[s] if b == 0 else pairs[s][(b - 1) % 2]).data_ptr()
-                for s in range(n)])
-            nxt = (ctypes.c_void_p * n)(*[pairs[s][b % 2].data_ptr()
-                                          for s in range(n)])
-            err = lib.lives_stateful_sweep(
-                packed.data_ptr(), src_ids.data_ptr(), plan.ops.data_ptr(),
-                plan.ops.shape[0], plan.slot_rows.data_ptr(),
-                plan.slot_vals.data_ptr(), plan.slot_rows.shape[0],
-                plan.taps.data_ptr(), prev, nxt, n, out.data_ptr(),
-                plan.n_tracks, B, b, H, W, plan.halo, sx, sy, stream)
-            if err != 0:
-                msg = lib.lives_cuda_error_string(err).decode()
-                raise RuntimeError(f"stateful_sweep launch failed: CUDA "
-                                   f"error {err} ({msg})")
-            LAUNCHES += 1
+        err = lib.lives_stateful_sweep(
+            packed.data_ptr(), src_ids.data_ptr(), plan.ops.data_ptr(),
+            plan.ops.shape[0], plan.slot_rows.data_ptr(),
+            plan.slot_vals.data_ptr(), plan.slot_rows.shape[0],
+            plan.taps.data_ptr(), plan.taps.shape[0], table(first),
+            table([p[0] for p in pairs]), table([p[1] for p in pairs]), n,
+            out.data_ptr(), plan.n_tracks, B, H, W, plan.halo, sx, sy,
+            geom.tile_h, geom.tile_w, geom.run, geom.margin, geom.smem,
+            stream)
+    _check(lib, err, "launch")
+    LAUNCHES += 1
     for s, (i, _, _) in enumerate(plan.state_steps):
         new_states[i] = pairs[s][(B - 1) % 2]
     return out, new_states

@@ -38,7 +38,7 @@ class Built:
                  seconds: float):
         self.lib = lib
         self.path = path
-        self.log = log          # nvcc/ptxas stderr ("" when reused)
+        self.log = log          # nvcc/ptxas stderr, kept beside the library
         self.seconds = seconds  # build time (0.0 when reused)
 
 
@@ -89,6 +89,9 @@ def load_all(names) -> dict[str, Built]:
         if proc is not None:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+            so.with_suffix(".log").write_text(log)
             os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
+        elif so.with_suffix(".log").exists():  # reused: its build's report
+            log = so.with_suffix(".log").read_text()
         _LOADED[name] = Built(ctypes.CDLL(str(so)), so, log, seconds)
     return {name: _LOADED[name] for name in names}

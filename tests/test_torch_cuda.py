@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, on a GPU: the fused
-sweep in its three modes and the fused stateful sweep.
+sweep in its four modes, the fused stateful sweep, the colour kernels and
+the composite kernel.
 
 These tests need an NVIDIA GPU and skip without one. They import neither
 jax nor lives_tpu, so they also run where only PyTorch is installed:
@@ -355,7 +356,7 @@ def test_stateful_kernel_matches_plain(cuda, kind, w, h):
         before = stateful_sweep.LAUNCHES
         got, st_k = stateful_sweep.stateful_sweep(plan, ids, packed, st_k)
         torch.cuda.synchronize()
-        assert stateful_sweep.LAUNCHES == before + 4
+        assert stateful_sweep.LAUNCHES == before + 1  # one launch a chunk
         ref, st_p = stateful_sweep.plain_stateful_sweep(plan, ids, packed,
                                                         st_p)
         assert (got.int() - ref.int()).abs().max().item() <= 1
@@ -364,14 +365,79 @@ def test_stateful_kernel_matches_plain(cuda, kind, w, h):
             assert d <= (0 if kind_ == "u8hw" else 1e-5), (i, d)
 
 
+def _stateful_chunks(chain, w, h, device, geom=None, n_tracks=3):
+    """Two chunks of 4 frames of `chain` through the kernel (at `geom`,
+    (tile, run), or the launch's own geometry) and its plain version from
+    the filters' initial states: (plan, max |frame diff|, max |state diff|
+    of the f32 states, of the u8 states)."""
+    rng = np.random.default_rng(7)
+    src = DeviceSyntheticSource(h, w, device=device)
+    ids, packed, rows = _stateful_inputs(chain, n_tracks, 4, 0, rng, device)
+    plan = stateful_sweep.build_stateful_sweep(
+        chain_spec_of(chain), n_tracks, h, w, rows, 30.0, src,
+        SinkSpec(w, h), device)
+    assert plan is not None
+    g = stateful_sweep.plan_geometry(plan, 4, *geom) if geom else None
+    st_k = [i.filter.init_state(w, h, None, device) if i.filter.init_state
+            else None for i in chain]
+    st_p = list(st_k)
+    frames = f32 = u8 = 0.0
+    for k in range(2):
+        if k:
+            ids, packed, _ = _stateful_inputs(chain, n_tracks, 4, k, rng,
+                                              device)
+        got, st_k = stateful_sweep._launch(plan, ids, packed, st_k, g)
+        torch.cuda.synchronize()
+        ref, st_p = stateful_sweep.plain_stateful_sweep(plan, ids, packed,
+                                                        st_p)
+        frames = max(frames, (got.int() - ref.int()).abs().max().item())
+        for i, _, kind_ in plan.state_steps:
+            d = (st_k[i].double() - st_p[i].double()).abs().max().item()
+            if kind_ == "u8hw":
+                u8 = max(u8, d)
+            else:
+                f32 = max(f32, d)
+    return plan, frames, f32, u8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h", [(1920, 1080), (45, 37)])
+def test_stateful_kernel_at_the_largest_halo(cuda, w, h):
+    """K5 at the largest summed halo it takes (blur r=16 + fire + blur
+    r=16: 33) and with life in the middle: frames within 1 LSB, f32 states
+    within 1e-5, u8 states exact."""
+    for middle in (instantiate("fire", threshold=0.5),
+                   instantiate("life", threshold=0.15, amount=0.5)):
+        chain = [instantiate("gaussian_blur", radius=16.0), middle,
+                 instantiate("box_blur", radius=16.0),
+                 instantiate("saturation", saturation=1.2)]
+        plan, frames, f32, u8 = _stateful_chunks(chain, w, h, cuda)
+        assert plan.halo == 33
+        assert frames <= 1 and f32 <= 1e-5 and u8 == 0, (frames, f32, u8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["C", "sandwich", "life", "alien_blur"])
+def test_stateful_geometries_match_plain(cuda, kind):
+    """K5 at every tile of `TILES` and both runs on a ragged 70x45 frame:
+    frames within 1 LSB, states within 1e-5 (f32) or exact (u8)."""
+    chain = config_chain(instantiate, kind)
+    for tile in fused_sweep.TILES:
+        for run in (8, 4):
+            _, frames, f32, u8 = _stateful_chunks(chain, 70, 45, cuda,
+                                                  (tile, run))
+            assert frames <= 1 and f32 <= 1e-5 and u8 == 0, (tile, run)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fused_stateful,want", [
     ("0", {"comp_in": 2, "stateful": 0}),
-    ("1", {"comp_in": 0, "stateful": 10})])
+    ("1", {"comp_in": 0, "stateful": 2})])
 def test_stateful_render_routes(cuda, monkeypatch, fused_stateful, want):
     """Config C through render_events: the 3-phase route launches the
     comp-in sweep once a chunk; under the pref the stateful sweep launches
-    once a frame and no fused sweep runs."""
+    once a chunk (one cooperative launch for its 5 frames) and no fused
+    sweep runs."""
     from lives_tpu_torch.events.event_list import (EventList,
                                                    filter_init_event,
                                                    filter_map_event,
@@ -487,6 +553,70 @@ def test_composite_kernel_matches_plain(cuda, B, h, w, n_tracks, seed):
     assert composite.LAUNCHES == before + 1
     ref = composite.plain_composite(plan, tracks, packed)
     assert (got.int() - ref.int()).abs().max().item() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(37, 45), (1080, 1920), (1, 3)])
+def test_composite_kernel_unaligned_tracks(cuda, h, w):
+    """K4 on frames whose H*W is no multiple of 16 (37x45, 1x3; 1080p is
+    one), on tracks that are views at byte offsets 0-3 and on a prefix that
+    reads track 1 three times and track 2 twice: within 1 LSB of
+    `plain_composite`; the plan stages each track once."""
+    from lives_tpu_torch.graph import composite
+    items = [("crossfade", (0, 1)), ("blend_screen", (0, 1)),
+             ("chroma_key", (2, 0)), ("luma_key", (1, 2)),
+             ("saturation", (0,))]
+    chain = instances([(n, {}, tr) for n, tr in items])
+    rng = np.random.default_rng(h * w)
+    B = 2
+    params = [{k: rng.uniform(i.filter.param(k).min, i.filter.param(k).max,
+                              B).astype(np.float32)
+               for k in _split_params(i)[1]} for i in chain]
+    packed, rows = pack_params(params, np.arange(B) / 30.0, np.arange(B))
+    plan = composite.build_composite(chain_spec_of(chain), 3, rows, 30.0,
+                                     cuda)
+    assert plan.tracks_read == (0, 1, 2)
+    packed = torch.from_numpy(packed).to(cuda)
+    g = torch.Generator(cuda).manual_seed(h)
+    flat = [torch.randint(0, 256, (B * 3 * h * w + 3,), dtype=torch.uint8,
+                          device=cuda, generator=g) for _ in range(3)]
+    for off in range(4):
+        tracks = [f[off:off + B * 3 * h * w].view(B, 3, h, w) for f in flat]
+        ref = composite.plain_composite(plan, tracks, packed)
+        before = composite.LAUNCHES
+        got = composite.composite(plan, tracks, packed)
+        torch.cuda.synchronize()
+        assert composite.LAUNCHES == before + 1
+        diff = (got.int() - ref.int()).abs().max().item()
+        assert diff <= 1, (off, diff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_read,span", [(7, 4096), (10, 2048), (15, 1024),
+                                         (29, 512), (64, 256)])
+def test_composite_kernel_every_span(cuda, n_read, span):
+    """K4 at each span of `composite.SPANS`, reached by the number of tracks
+    a prefix reads (a chain of crossfades, track 0 with each other track),
+    over a 1080p frame and a ragged 37x45 one at a byte offset of 1: within
+    1 LSB of `plain_composite`."""
+    from lives_tpu_torch.graph import composite
+    chain = instances([("crossfade", {"amount": 0.3 + 0.01 * t}, (0, t))
+                       for t in range(1, n_read)])
+    plan = composite.build_composite(chain_spec_of(chain), n_read, (), 30.0,
+                                     cuda)
+    assert len(plan.tracks_read) == n_read
+    packed = torch.zeros((2, 2), device=cuda)
+    g = torch.Generator(cuda).manual_seed(n_read)
+    for h, w, off in ((1080, 1920, 0), (37, 45, 1)):
+        assert composite.plan_geometry(plan, 2, h, w).span == span
+        tracks = [torch.randint(0, 256, (2 * 3 * h * w + off,),
+                                dtype=torch.uint8, device=cuda,
+                                generator=g)[off:].view(2, 3, h, w)
+                  for _ in range(n_read)]
+        got = composite.composite(plan, tracks, packed)
+        torch.cuda.synchronize()
+        ref = composite.plain_composite(plan, tracks, packed)
+        assert (got.int() - ref.int()).abs().max().item() <= 1, (h, w)
 
 
 def _decoded_clips(tmp_path, n_clips, n_frames, h, w):
