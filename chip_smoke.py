@@ -20,11 +20,13 @@ plain PyTorch version:
 - config D, "decoded clips": 10 YUV4MPEG clips (C420jpeg, clamped BT.601)
   rendered through the main path's 13-effect chain into a YUV4MPEG file:
   K2 converts each track's chunk, K4 runs the 9 transitions, the eager
-  tail the rest, K3 converts each frame in the encoder.
+  tail the rest, K3 converts each chunk in the encoder.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --config-d   # config D alone (phase 11's render
                                        # and K4's time), no result line
+    python3 chip_smoke.py --colour     # K2's and K3's times alone, no
+                                       # result line
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
@@ -61,9 +63,12 @@ Phases, one line each:
    and its time at every tile and run, and on config C's chain with steps
    disabled (where its time goes);
 9. the colour kernels K2 (`yuv420_to_rgb`) and K3 (`rgb_to_yuv420`) vs
-   their plain versions at 1920x1080 (B=4) and 1000x562, clamped and full
-   range, BT.601 and BT.709: K2 within 1 LSB, K3 integer-identical, with
-   the share of differing values;
+   their plain versions at 1920x1080 (B=4) and at widths whose rows are no
+   multiple of 16 bytes (1000, 1004, 1002, 994), clamped and full range,
+   BT.601 and BT.709, K3 on RGB, RGBA and odd heights and widths; then on
+   planes that are views at byte offsets 1-3 of one buffer at 1080p: K2
+   within 1 LSB, K3 integer-identical, with the share of differing
+   values, one line a size;
 10. the composite kernel K4 vs `plain_composite`: config D's 9-transition
    prefix at 1920x1080 over 10 tracks (B=4), a 3-track prefix at 1000x562,
    and at 45x37 (H*W no multiple of 16) on tracks that are views at byte
@@ -73,14 +78,18 @@ Phases, one line each:
    opened with `open_clip`, rendered by `transcode.render_to_encoder(...,
    encoder="yuv4mpeg")` through `ClipFrameSource` under
    LIVES_TPU_PALLAS_COMPOSITE=1, 192 frames in 96-frame chunks: the launch
-   counts (K2 10 a chunk, K4 1 a chunk, K3 one a frame), the written file
+   counts (K2 10 a chunk, K4 1 a chunk, K3 1 a chunk), the written file
    reopened (192 frames at 1920x1080) and holding the route's first 4
    frames, which match the route on the plain versions (<= 1 LSB) and the
    route without the pref as closely as the JAX package's own two routes
    do (<= 6 LSB, at most 300 values above 2 LSB; it shows 6 and 281,
    tests/test_torch_routes.py), a warm timed pass with the host time in `get_batch` split from the
-   rest, a profiled pass (device busy share), and K2, K3 and K4 vs plain ms
-   on one 96-frame chunk; K4's geometry (span, staged bytes, blocks an SM),
+   rest, a profiled pass (device busy share, device-to-host copies), and
+   K2, K3 and K4 vs plain ms on one 96-frame chunk (K2 and K3 at each run
+   length of `yuv_kernels.RUNS`, K3 also as 96 one-frame launches, and a
+   copy ceiling: `Tensor.copy_` moving K2's bytes, in TB/s; `--colour`
+   prints these times alone); K4's geometry (span, staged bytes, blocks an
+   SM),
    its time over the first 1, 3, 5 and 9 transitions beside their bytes,
    and over 9 crossfades (what bounds it);
 12. the multi-device layer (`lives_tpu_torch.parallel`) on one card, as a
@@ -372,6 +381,14 @@ def device_busy(prof):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return (sum(by_name.values()),
             repr("; ".join(f"{n[:48]} {t:.1f}" for n, t in top)))
+
+
+def dtoh_copies(prof) -> int:
+    """Device -> host copies in a torch.profiler trace."""
+    import torch
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name.startswith("Memcpy DtoH"))
 
 
 def main_geometry(plan, ids, packed, card):
@@ -722,8 +739,9 @@ def decoded_pass(clips, el, out_path, dev):
 
 def config_d_alone(dev, card, passes=3):
     """`--config-d`: config D alone, as phase 11 renders it (its clips,
-    timeline and warm timed passes under LIVES_TPU_PALLAS_COMPOSITE=1),
-    then K4 on one 96-frame chunk against `plain_composite` and its time.
+    timeline and warm timed passes under LIVES_TPU_PALLAS_COMPOSITE=1, a
+    profiled pass with its device-to-host copies), then K4 on one
+    96-frame chunk against `plain_composite` and its time.
     It calls only entry points that every version of the port with config
     D has, so a copy of this script placed at the root of another checkout
     times that checkout's package."""
@@ -735,8 +753,7 @@ def config_d_alone(dev, card, passes=3):
     src = DeviceSyntheticSource(H, W, device=dev)
     os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "1"
     n_chunks = -(-N_FRAMES // CHUNK)
-    want = {"yuv420_to_rgb": TRACKS * n_chunks, "composite": n_chunks,
-            "rgb_to_yuv420": N_FRAMES}
+    want = {"yuv420_to_rgb": TRACKS * n_chunks, "composite": n_chunks}
     el = config_d_timeline(N_FRAMES)
     with tempfile.TemporaryDirectory() as tmp:
         clips, size, secs = write_clips(tmp, src)
@@ -745,12 +762,24 @@ def config_d_alone(dev, card, passes=3):
         out_path = os.path.join(tmp, "render.y4m")
         for k in range(passes + 1):  # the first pass builds and warms
             counts, wall_s, host_s = decoded_pass(clips, el, out_path, dev)
-            assert counts == want, counts
+            # K3: once a chunk here, once a frame in a tree before the
+            # encoder took chunks
+            k3 = counts.pop("rgb_to_yuv420")
+            assert counts == want and k3 in (n_chunks, N_FRAMES), (counts, k3)
             line("d timed", card=repr(card), root=ROOT.name, run=k,
-                 frames=N_FRAMES, wall_s=f"{wall_s:.4f}",
+                 frames=N_FRAMES, k3_launches=k3, wall_s=f"{wall_s:.4f}",
                  get_batch_s=f"{host_s:.4f}",
                  rest_s=f"{wall_s - host_s:.4f}",
                  frames_per_s=f"{N_FRAMES / wall_s:.1f}")
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, prof_wall, _ = decoded_pass(clips, el, out_path, dev)
+        busy, _ = device_busy(prof)
+        line("d profiled", card=repr(card), root=ROOT.name,
+             wall_ms=f"{prof_wall * 1e3:.1f}", device_busy_ms=f"{busy:.1f}",
+             idle_share=f"{1 - busy / (prof_wall * 1e3):.3f}",
+             dtoh_copies=dtoh_copies(prof))
         for c in clips.values():
             c.close()
     spec, ids, packed, rows = chunk_of(el, dev, CHUNK)
@@ -765,6 +794,68 @@ def config_d_alone(dev, card, passes=3):
                    5) for _ in range(2)]
     line("d k4", card=repr(card), root=ROOT.name, frames=CHUNK,
          max_abs_err=f"{worst:.6g}", ms=",".join(f"{x:.3f}" for x in got))
+
+
+def colour_chunk(dev):
+    """One 96-frame 1080p chunk of the synthetic source's clip 1 on the
+    card, as the RGB24 plane and as the YUV420P planes K3 makes of it."""
+    from lives_tpu_torch.ops import yuv_kernels
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+    rgb = DeviceSyntheticSource(H, W, device=dev).get_batch(
+        [1] * CHUNK, range(CHUNK)).planes[0]
+    return (rgb, *yuv_kernels.plain_rgb_to_yuv420(rgb))
+
+
+def colour_calls(rgb, y, u, v):
+    """{label: a call} on one chunk: K2 and K3 at each run length of
+    `yuv_kernels.RUNS` (a tree without run lengths: its one kernel), and K3
+    as CHUNK one-frame launches, as the encoder launched it before it took
+    chunks. Only entry points every version of the port has are called, so
+    a copy of this script at the root of another checkout times that
+    checkout's kernels."""
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    calls = {}
+    for run in getattr(yk, "RUNS", (None,)):
+        kw = {} if run is None else {"run": run}
+        calls[f"k2 run={run}"] = lambda kw=kw: yk._launch_k2(y, u, v, 1, 0,
+                                                             **kw)
+        calls[f"k3 run={run}"] = lambda kw=kw: yk._launch_k3(rgb, 1, 0,
+                                                             **kw)
+    calls[f"k3 x{CHUNK}"] = lambda: [yk._launch_k3(rgb[k], 1, 0)
+                                     for k in range(CHUNK)]
+    return calls
+
+
+def copy_ceiling(dev, nbytes):
+    """(ms, TB/s) of `Tensor.copy_` between two u8 tensors of nbytes / 2
+    bytes: a streaming pass that reads and writes `nbytes` in all."""
+    import torch
+    a = torch.empty(int(nbytes) // 2, dtype=torch.uint8, device=dev)
+    b = torch.empty_like(a)
+    t = time_ms(lambda: b.copy_(a), 20)
+    return t, 2 * a.numel() / t / 1e9
+
+
+def colour_alone(dev, card):
+    """`--colour`: K2 and K3 on one 96-frame 1080p chunk, every call of
+    `colour_calls` timed twice, K2 checked against its plain version, and
+    the copy ceiling; a copy of this script at the root of another
+    checkout times that checkout's kernels."""
+    from lives_tpu_torch import native
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    native.load_all(["yuv420"])
+    rgb, y, u, v = colour_chunk(dev)
+    worst, _ = diff_stats(yk._launch_k2(y, u, v, 1, 0),
+                          yk.plain_yuv420_to_rgb(y, u, v))
+    assert worst <= 1, worst
+    for label, fn in colour_calls(rgb, y, u, v).items():
+        reps = 2 if label == f"k3 x{CHUNK}" else 20
+        got = [time_ms(fn, reps) for _ in range(2)]
+        line("c colour", card=repr(card), root=ROOT.name, kernel=label,
+             frames=CHUNK, ms=",".join(f"{x:.4f}" for x in got))
+    t, rate = copy_ceiling(dev, CHUNK * H * W * 4.5)
+    line("c copy_ceiling", card=repr(card), root=ROOT.name, ms=f"{t:.4f}",
+         tb_per_s=f"{rate:.3f}")
 
 
 def render_events_of(el, src, sink):
@@ -805,6 +896,9 @@ def main(argv) -> int:
          count=torch.cuda.device_count())
     if argv == ["--config-d"]:
         config_d_alone(dev, card)
+        return 0
+    if argv == ["--colour"]:
+        colour_alone(dev, card)
         return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -1096,25 +1190,62 @@ def main(argv) -> int:
     def rand(*shape):
         return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
                              generator=gen)
-    for b, h, w in ((4, H, W), (2, 562, 1000)):
+
+    def flat(t):
+        return t.reshape(-1)
+
+    # rows of 1000, 1004, 1002 and 994 bytes: accesses of 8, 4 and 1 bytes
+    for b, h, w in ((4, H, W), (2, 562, 1000), (2, 36, 1004), (2, 34, 1002),
+                    (2, 20, 994)):
+        k2, k3 = [], []
         for clamping in (0, 1):
             for subspace in (1, 2):
-                case = dict(size=f"{w}x{h}", frames=b, clamping=clamping,
-                            subspace=subspace)
                 y, u, v = rand(b, h, w), rand(b, h // 2, w // 2), \
                     rand(b, h // 2, w // 2)
                 got = yuv_kernels.yuv420_to_rgb(y, u, v, subspace, clamping)
                 torch.cuda.synchronize()
-                held("yuv420_to_rgb", "9 k2_vs_plain", got,
-                     yuv_kernels.plain_yuv420_to_rgb(y, u, v, subspace,
-                                                     clamping), 1, **case)
-                rgb = rand(b, 3, h, w)
-                got = yuv_kernels.rgb_to_yuv420(rgb, subspace, clamping)
-                torch.cuda.synchronize()
-                ref = yuv_kernels.plain_rgb_to_yuv420(rgb, subspace, clamping)
-                for plane, g, r in zip("yuv", got, ref):
-                    held("rgb_to_yuv420", "9 k3_vs_plain", g, r, 0,
-                         plane=plane, **case)
+                k2.append((flat(got), flat(yuv_kernels.plain_yuv420_to_rgb(
+                    y, u, v, subspace, clamping))))
+                # RGB, RGBA, and RGBA with an odd height and width
+                for c, hh, ww in ((3, h, w), (4, h, w), (4, h + 1, w + 1)):
+                    rgb = rand(b, c, hh, ww)
+                    got = yuv_kernels.rgb_to_yuv420(rgb, subspace, clamping)
+                    torch.cuda.synchronize()
+                    ref = yuv_kernels.plain_rgb_to_yuv420(rgb, subspace,
+                                                          clamping)
+                    k3.append((torch.cat([flat(p) for p in got]),
+                               torch.cat([flat(p) for p in ref])))
+        case = dict(size=f"{w}x{h}", frames=b)
+        held("yuv420_to_rgb", "9 k2_vs_plain", torch.cat([g for g, _ in k2]),
+             torch.cat([r for _, r in k2]), 1, cases=len(k2), **case)
+        held("rgb_to_yuv420", "9 k3_vs_plain", torch.cat([g for g, _ in k3]),
+             torch.cat([r for _, r in k3]), 0, cases=len(k3),
+             channels="3,4,4 (odd +1)", **case)
+    del k2, k3
+    # planes that are views at byte offsets 1-3 of one buffer: one packed
+    # YUV420P upload for K2, one RGBA chunk for K3
+    b, fs = 4, H * W * 3 // 2
+    for off in (1, 2, 3):
+        buf = rand(b * fs + 16)[off:off + b * fs].view(b, fs)
+        y = buf[:, :H * W].view(b, H, W)
+        u = buf[:, H * W:H * W + fs // 6].view(b, H // 2, W // 2)
+        v = buf[:, H * W + fs // 6:].view(b, H // 2, W // 2)
+        got = yuv_kernels.yuv420_to_rgb(y, u, v)
+        torch.cuda.synchronize()
+        held("yuv420_to_rgb", "9 k2_vs_plain", got,
+             yuv_kernels.plain_yuv420_to_rgb(y.contiguous(), u.contiguous(),
+                                             v.contiguous()), 1,
+             size=f"{W}x{H}", frames=b, byte_offset=off)
+        rgba = rand(b * 4 * H * W + 16)[off:off + b * 4 * H * W].view(
+            b, 4, H, W)
+        got = yuv_kernels.rgb_to_yuv420(rgba)
+        torch.cuda.synchronize()
+        held("rgb_to_yuv420", "9 k3_vs_plain",
+             torch.cat([flat(p) for p in got]),
+             torch.cat([flat(p) for p in yuv_kernels.plain_rgb_to_yuv420(
+                 rgba.contiguous())]), 0,
+             size=f"{W}x{H}", frames=b, channels=4, byte_offset=off)
+    del buf, y, u, v, rgba, got
 
     # 10. the composite kernel vs plain_composite on the card
     from lives_tpu_torch.graph.nodemodel import composite_prefix
@@ -1187,7 +1318,7 @@ def main(argv) -> int:
         os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "1"
         counts, first_s, _ = decoded_pass(clips, el, out_path, dev)
         want = {"yuv420_to_rgb": TRACKS * n_chunks, "composite": n_chunks,
-                "rgb_to_yuv420": N_FRAMES}
+                "rgb_to_yuv420": n_chunks}
         line("11 config_d", frames=N_FRAMES, chunks=n_chunks,
              launches=counts, first_pass_s=f"{first_s:.3f}")
         assert counts == want, counts
@@ -1244,23 +1375,37 @@ def main(argv) -> int:
         busy, top = device_busy(prof)
         line("11 profiled", card=repr(card), wall_ms=f"{prof_wall * 1e3:.1f}",
              device_busy_ms=f"{busy:.1f}",
-             idle_share=f"{1 - busy / (prof_wall * 1e3):.3f}", top=top)
+             idle_share=f"{1 - busy / (prof_wall * 1e3):.3f}",
+             dtoh_copies=dtoh_copies(prof), top=top)
         for c in clips.values():
             c.close()
 
-    # kernel vs plain ms on one 96-frame chunk for K2, K3 and K4
+    # kernel vs plain ms on one 96-frame chunk for K2, K3 and K4; K2 and
+    # K3 at each run length, the launch's own (RUN) in the kernels line
     torch.cuda.reset_peak_memory_stats()
-    rgb = src.get_batch([1] * CHUNK, range(CHUNK)).planes[0]
-    y, u, v = yuv_kernels.plain_rgb_to_yuv420(rgb)
-    ms["yuv420_to_rgb"] = in_turns(
-        lambda: yuv_kernels.plain_yuv420_to_rgb(y, u, v),
-        lambda: yuv_kernels._launch_k2(y, u, v, 1, 0))
+    rgb, y, u, v = colour_chunk(dev)
+    calls = colour_calls(rgb, y, u, v)
+    plain = {"k2": lambda: yuv_kernels.plain_yuv420_to_rgb(y, u, v),
+             "k3": lambda: yuv_kernels.plain_rgb_to_yuv420(rgb)}
+    for run in yuv_kernels.RUNS:
+        for k, name in (("k2", "yuv420_to_rgb"), ("k3", "rgb_to_yuv420")):
+            got = in_turns(plain[k], calls[f"{k} run={run}"], kern_reps=20)
+            line("11 colour_run", card=repr(card), kernel=name, run=run,
+                 frames=CHUNK, times=got[2])
+            if run == yuv_kernels.RUN:
+                ms[name] = got
+    got = [time_ms(calls[f"k3 x{CHUNK}"], 2) for _ in range(2)]
+    line("11 k3_per_frame", card=repr(card), launches=CHUNK,
+         ms=",".join(f"{x:.4f}" for x in got))
     bounds["yuv420_to_rgb"] = bound(px * 4.5, px * 21)
-    ms["rgb_to_yuv420"] = in_turns(
-        lambda: yuv_kernels.plain_rgb_to_yuv420(rgb),
-        lambda: yuv_kernels._launch_k3(rgb, 1, 0))
     bounds["rgb_to_yuv420"] = bound(px * 4.5, px * 30)
-    del rgb, y, u, v
+    t, rate = copy_ceiling(dev, px * 4.5)
+    line("11 copy_ceiling", card=repr(card), bytes=int(px * 4.5),
+         ms=f"{t:.4f}", tb_per_s=f"{rate:.3f}")
+    for name in ("yuv420_to_rgb", "rgb_to_yuv420"):
+        resources[name] = (f"{name}_kernelILi{yuv_kernels.RUN}E",
+                           "not queried")
+    del rgb, y, u, v, calls, plain
     spec, ids, packed, rows = chunk_of(el, dev, CHUNK)
     prefix, n_t = composite_prefix(spec[:9], TRACKS)
     plan = composite.build_composite(prefix, n_t, rows, FPS, dev)

@@ -8,8 +8,11 @@ encoder scripts over a stdout protocol (`get_capabilities` / `get_formats`
 `accepts_device_frames`, the flag the JAX base class defines
 (`encoders.py:37-39`) and `transcode.render_to_encoder` honours: frames on
 the card are converted there (K3, `ops/yuv_kernels.py`) and only their
-YUV planes cross to the host, one copy a frame; the file is written as
-frames arrive.
+YUV planes cross to the host; the file is written as frames arrive.
+`render_to_encoder` hands such an encoder each rendered chunk whole, a
+(B, C, H, W) item, which `Y4MEncoder` converts with one K3 launch and
+brings to the host in one copy; a 3-D item is one frame, as in the JAX
+package, and writes the same bytes.
 
 Not ported yet (ROADMAP Queue 1 item 11): `WavEncoder` (so `Y4MEncoder`'s
 `audio` raises), `PNGSeqEncoder`, the MJPEG encoder (Slice 5) and the
@@ -62,7 +65,8 @@ class Encoder:
     def encode(self, out_path: str, frames: Iterable, fps: float,
                audio: np.ndarray | None = None, arate: int = 44100) -> bool:
         """frames: iterable of (3,H,W) or (H,W,3) uint8 RGB frames (numpy
-        arrays, or torch tensors where `accepts_device_frames`)."""
+        arrays, or torch tensors where `accepts_device_frames`; there also
+        (B,3,H,W) or (B,H,W,3) chunks of B frames)."""
         raise NotImplementedError
 
 
@@ -82,7 +86,8 @@ def get_encoder(name: str) -> Encoder:
 
 
 def _chw(f: torch.Tensor) -> torch.Tensor:
-    return f if f.shape[0] in (3, 4) else f.movedim(-1, 0)
+    """A frame (C, H, W) or a chunk (B, C, H, W), channels first."""
+    return f if f.shape[-3] in (3, 4) else f.movedim(-1, -3)
 
 
 @register_encoder
@@ -106,12 +111,17 @@ class Y4MEncoder(Encoder):
             for f in frames:
                 if not isinstance(f, torch.Tensor):
                     f = torch.from_numpy(np.ascontiguousarray(f))
-                lay = Layer(planes=(_chw(f)[:3],), palette=int(Palette.RGB24))
+                rgb = _chw(f)[..., :3, :, :]
+                lay = Layer(planes=(rgb,), palette=int(Palette.RGB24))
                 yuv = convert_layer(lay, Palette.YUV420P).planes
-                # one device -> host copy of the frame's three planes
+                # one device -> host copy of the item's three planes
                 host = torch.cat([p.reshape(-1) for p in yuv]).cpu().numpy()
                 sizes = np.cumsum([p.numel() for p in yuv])[:2]
-                yield tuple(a.reshape(p.shape) for a, p in
-                            zip(np.split(host, sizes), yuv))
+                y, u, v = (a.reshape(p.shape) for a, p in
+                           zip(np.split(host, sizes), yuv))
+                if rgb.ndim == 3:
+                    yield y, u, v
+                else:
+                    yield from zip(y, u, v)
         write_y4m(out_path, planar(), fps)
         return True

@@ -3,7 +3,10 @@
 Counterpart of `lives_tpu/transcode.py:70-93` (`render_to_encoder`;
 reference `src/transcode.c` with events.c:4994, without the intermediate
 clip). With an encoder that takes device frames (`Y4MEncoder`), the
-rendered frames never cross to the host as raw RGB. `transcode` (a clip
+rendered frames never cross to the host as raw RGB: such an encoder gets
+each chunk whole, a (B, C, H, W) device tensor, so it converts and copies
+once a chunk. Any other encoder gets host frames one at a time, as the
+JAX package hands them. `transcode` (a clip
 through a chain into an encoder, `transcode.py:19-67`) is not ported yet
 (ROADMAP Queue 1 item 11).
 """
@@ -27,9 +30,9 @@ def render_to_encoder(el, source, out_path: str, encoder: str = "mjpeg",
         for _, out in render_events(el, source, sink,
                                     batch_size=batch_size):
             p = out.planes[0]
-            if not dev_frames:
-                p = p.cpu().numpy()
-            for k in range(int(p.shape[0])):
-                yield p[k]
+            if dev_frames:
+                yield p
+            else:
+                yield from p.cpu().numpy()
 
     return enc.encode(out_path, frame_iter(), el.fps)

@@ -466,16 +466,28 @@ def test_stateful_render_routes(cuda, monkeypatch, fused_stateful, want):
 # -- the colour kernels K2 and K3, the composite kernel K4 ---------------------
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("run", [16, 8])     # yuv_kernels.RUNS
 @pytest.mark.parametrize("subspace", [1, 2])   # BT.601, BT.709
 @pytest.mark.parametrize("clamping", [0, 1])   # clamped, full range
-@pytest.mark.parametrize("B,h,w", [(2, 1080, 1920), (3, 562, 1000),
-                                   (1, 2, 2), (2, 34, 66)])
-def test_colour_kernels_match_plain(cuda, B, h, w, clamping, subspace):
+@pytest.mark.parametrize("B,h,w", [
+    (2, 1080, 1920),   # every access as wide as the run allows
+    (3, 562, 1000),    # rows of 1000 and 500 bytes: widths 8 and 4
+    (2, 36, 1004),     # 1004 and 502: widths 4 and 1
+    (2, 34, 1002),     # 1002 and 501: single bytes
+    (2, 20, 994),      # 994 and 497: single bytes, a run cut at 2 pixels
+    (1, 2, 2), (2, 34, 66),
+    (1, 4, 16400),     # a row pair over 1024 runs: 2 or 3 blocks
+    (96, 1080, 1920)])  # a main-path chunk
+def test_colour_kernels_match_plain(cuda, monkeypatch, B, h, w, clamping,
+                                    subspace, run):
     """K2 within 1 LSB of `plain_yuv420_to_rgb` (both round every multiply
     and add alone, so it is 0 in practice), K3 integer-identical to
-    `plain_rgb_to_yuv420`, RGBA input and odd geometry included; each
-    launch counted once."""
+    `plain_rgb_to_yuv420`, RGB and RGBA input, odd heights and widths
+    included (K3 then takes single bytes); each launch counted once, at
+    runs of 16 and 8 pixels. The widths cover every access width of
+    csrc/yuv420.cu and rows a run does not fill."""
     from lives_tpu_torch.ops import yuv_kernels as yk
+    monkeypatch.setattr(yk, "RUN", run)
     g = torch.Generator(cuda).manual_seed(h * w + clamping)
 
     def rand(*shape):
@@ -488,15 +500,19 @@ def test_colour_kernels_match_plain(cuda, B, h, w, clamping, subspace):
     assert yk.LAUNCHES["yuv420_to_rgb"] == before["yuv420_to_rgb"] + 1
     ref = yk.plain_yuv420_to_rgb(y, u, v, subspace, clamping)
     assert got.shape == (B, 3, h, w)
-    assert (got.int() - ref.int()).abs().max().item() <= 1
-    for C, hh, ww in ((3, h, w), (4, h + 1, w + 1)):
+    worst = (got.int() - ref.int()).abs().max().item()
+    assert worst <= 1, f"K2 max |diff| {worst}"
+    del y, u, v, got, ref
+    cases = ((3, h, w), (4, h, w), (4, h + 1, w + 1), (3, h + 1, w))
+    for C, hh, ww in cases:
         rgb = rand(B, C, hh, ww)
         got = yk.rgb_to_yuv420(rgb, subspace, clamping)
         torch.cuda.synchronize()
         ref = yk.plain_rgb_to_yuv420(rgb, subspace, clamping)
         for a, b in zip(got, ref):
-            assert a.shape == b.shape and torch.equal(a, b)
-    assert yk.LAUNCHES["rgb_to_yuv420"] == before["rgb_to_yuv420"] + 2
+            assert a.shape == b.shape and torch.equal(a, b), (C, hh, ww)
+    assert yk.LAUNCHES["rgb_to_yuv420"] == \
+        before["rgb_to_yuv420"] + len(cases)
 
 
 @pytest.mark.cuda
@@ -515,6 +531,43 @@ def test_yuv_kernel_reads_strided_planes(cuda):
     assert torch.equal(got, yk.plain_yuv420_to_rgb(
         y.contiguous(), u.contiguous(), v.contiguous()))
     assert torch.equal(yk.yuv420_to_rgb(y[1], u[1], v[1]), got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", [16, 8])
+@pytest.mark.parametrize("off", [0, 1, 2, 3, 4, 8])
+@pytest.mark.parametrize("h,w", [(36, 1920), (22, 1000), (9, 47)])
+def test_colour_kernels_read_views_at_byte_offsets(cuda, monkeypatch, off,
+                                                   run, h, w):
+    """K2 over Y, U and V that are views at byte offset `off` of one packed
+    upload (frame after frame), and K3 over an RGBA chunk that is a view
+    at that offset: the launch takes the access width every pointer and
+    stride allows (single bytes at offsets 1-3), K2 within 1 LSB and K3
+    bit for bit their plain versions on the contiguous copies."""
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    monkeypatch.setattr(yk, "RUN", run)
+    g = torch.Generator(cuda).manual_seed(off * 131 + w)
+    B = 3
+    if h % 2 == 0 and w % 2 == 0:
+        fs = h * w * 3 // 2
+        buf = torch.randint(0, 256, (B * fs + 16,), dtype=torch.uint8,
+                            device=cuda, generator=g)
+        flat = buf[off:off + B * fs].view(B, fs)
+        y = flat[:, :h * w].view(B, h, w)
+        u = flat[:, h * w:h * w + fs // 6].view(B, h // 2, w // 2)
+        v = flat[:, h * w + fs // 6:].view(B, h // 2, w // 2)
+        got = yk.yuv420_to_rgb(y, u, v)
+        torch.cuda.synchronize()
+        ref = yk.plain_yuv420_to_rgb(y.contiguous(), u.contiguous(),
+                                     v.contiguous())
+        assert (got.int() - ref.int()).abs().max().item() <= 1
+    buf = torch.randint(0, 256, (B * 4 * h * w + 16,), dtype=torch.uint8,
+                        device=cuda, generator=g)
+    rgba = buf[off:off + B * 4 * h * w].view(B, 4, h, w)
+    got = yk.rgb_to_yuv420(rgba)
+    torch.cuda.synchronize()
+    for a, b in zip(got, yk.plain_rgb_to_yuv420(rgba.contiguous())):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -668,8 +721,8 @@ def test_decoded_render_to_encoder_launches(cuda, tmp_path, monkeypatch,
                                             pref, k4):
     """Config D at 4 tracks from decoded clips into a YUV4MPEG file on the
     card: K2 once a track a chunk, K4 once a chunk under the pref, K3 once a
-    frame; the file's frames match the same render on the CPU (plain
-    versions) within 1 LSB."""
+    chunk (the encoder gets each chunk whole); the file's frames match the
+    same render on the CPU (plain versions) within 1 LSB."""
     from lives_tpu_torch.events.renderer import ClipFrameSource
     from lives_tpu_torch.graph import composite
     from lives_tpu_torch.io.decoders import try_decoders
@@ -691,7 +744,7 @@ def test_decoded_render_to_encoder_launches(cuda, tmp_path, monkeypatch,
         counts = (yk.LAUNCHES["yuv420_to_rgb"] - before[0]["yuv420_to_rgb"],
                   composite.LAUNCHES - before[1],
                   yk.LAUNCHES["rgb_to_yuv420"] - before[0]["rgb_to_yuv420"])
-        assert counts == ((4 * 2, k4, 8) if dev.type == "cuda"
+        assert counts == ((4 * 2, k4, 2) if dev.type == "cuda"
                           else (0, 0, 0)), counts
         cd = try_decoders(str(path))
         outs[dev.type] = [cd.decoder.get_frame(n).planes for n in range(8)]
