@@ -4,7 +4,7 @@
 Drives the port's paths through the entry points a user calls
 (`events.renderer.render_events` -> `graph.nodemodel.FrameGraph.run_batch`
 -> the kernels, and `transcode.render_to_encoder` over decoded clips) at
-1920x1080, 30 fps, in 96-frame chunks, after building the four kernel
+1920x1080, 30 fps, in 96-frame chunks, after building the five kernel
 libraries from `lives_tpu_torch/csrc/` and holding every kernel against its
 plain PyTorch version:
 
@@ -20,17 +20,25 @@ plain PyTorch version:
 - config D, "decoded clips": 10 YUV4MPEG clips (C420jpeg, clamped BT.601)
   rendered through the main path's 13-effect chain into a YUV4MPEG file:
   K2 converts each track's chunk, K4 runs the 9 transitions, the eager
-  tail the rest, K3 converts each chunk in the encoder.
+  tail the rest, K3 converts each chunk in the encoder;
+- the roofline study (benchmarks/sweep_profile.py's counterpart): four
+  chain variants through `render_events`, and the card's float32 ceiling
+  read with K6, the fused-multiply-add probe;
+- the single-frame live path at 4K60 (BASELINE row 5, as
+  benchmarks/latency4k.py:40-80 drives it): `GeneratorClip`s through
+  `FrameGraph.run`, eight chain configurations toggled every 25 frames.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --config-d   # config D alone (phase 11's render
                                        # and K4's time), no result line
     python3 chip_smoke.py --colour     # K2's and K3's times alone, no
                                        # result line
+    python3 chip_smoke.py --roofline   # phase 13 alone, no result line
+    python3 chip_smoke.py --live       # phase 14 alone, no result line
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
-2. build the four kernel libraries (one nvcc each, started together),
+2. build the five kernel libraries (one nvcc each, started together),
    build times, and each kernel entry's ptxas registers and spills;
 3. the sweep vs `plain_sweep` on the card, max |diff| <= 1 LSB: the
    13-effect chain at 1920x1080 with 10 tracks (B=4), and a ragged 1000x562
@@ -111,12 +119,44 @@ Phases, one line each:
    e. `pipeline_chain_fn`, 4 stages of point filters over (8,3,1080,1920)
       f32 frames, within 1e-5 of the sequential chain;
    f. `dryrun_multichip` on the 4 entries (every path at a small size,
-      each against the DP render).
-Then a `resources` line for K1, K4 and K5 (the main path's entry: ptxas
-registers and spills, blocks an SM), a JSON line of the kernels (with each
-one's bound: the larger of its bytes over 3.35 TB/s and its float
-operations over 67 TFLOP/s, the H100 SXM's device memory and float32
-rates) and, last, the JSON result line.
+      each against the DP render);
+13. the roofline study: the variants full, noblur, trans (10 tracks) and
+   trans2 (2 tracks) of benchmarks/sweep_profile.py:68-72,102-107 through
+   `render_events`, 192 frames in 96-frame chunks after a warm pass, one
+   K1 launch a chunk asserted: ms a frame, x realtime, K1's time on one
+   chunk; K6 (`ops/fma_chain.py`) against `plain_fma_chain` on
+   (3,1080,1920) float32 at K = 32 and 128, within a relative error of
+   K * 2^-23; the FFMA, FMUL and FADD count of its SASS (cuobjdump -sass:
+   FFMA only); each K of 32, 128, 512 and 2048 timed by CUDA events over
+   200 launches in a row queued behind one long launch (so the device, not
+   the host's 30-40 us a launch, sets the time), the depths in turns up
+   and down, with the host's time a launch; the ceiling, the difference
+   in operations over the difference in time, from 32 -> 128 (as the
+   reference reads it) and 512 -> 2048; each variant's K1 operations a
+   chunk over K1's time, as a share of the measured ceiling and of 67
+   TFLOP/s; the library call at K = 128, `x * c` with c = sum M^i for
+   i <= K (the chain in closed form, within K * 2^-23 of the plain
+   version), timed beside K6;
+14. the live path at 3840x2160 and 60 fps: `GeneratorClip("plasma")` over
+   `GeneratorClip("colour_bars")` on the card through eight `FrameGraph`s
+   (benchmarks/latency4k.py:54-56), each warmed once; 480 frames
+   switching configuration every 25: the host's time from the `run` call
+   to `torch.cuda.synchronize()` a frame, as p50, p99 and max beside
+   BASELINE row 5's target (p99 < 16 ms); the means over windows of 8
+   frames (latency4k.py's reading) and frames/s; peak memory; a profiled
+   pass (device busy and idle share, eager kernels a frame); checks:
+   frame 0 of [saturation, vignette] and of [negate] on the card within
+   1 LSB of the same `run` on the CPU at 1920x1080, `run([GenSlot(fg, n),
+   bg])` bit for bit `run([fg.get_frame(n), bg])`, a GenSlot around
+   beat_rings raises, and traced values that are tensors on the card give
+   the host numbers' frame bit for bit, with no synchronizing call in
+   either path (torch's sync debug mode).
+Then a `resources` line for K1, K4, K5 and K6 (the main path's entry:
+ptxas registers and spills, blocks an SM), a JSON line of the kernels
+(with each one's bound: the larger of its bytes over 3.35 TB/s and its
+float operations over 67 TFLOP/s, the H100 SXM's device memory and
+float32 rates; K6's at K = 128, with its largest relative error besides)
+and, last, the JSON result line.
 """
 
 import json
@@ -305,6 +345,8 @@ SOURCES = {
                   "lives_tpu/graph/pallas_composite.py:120"),
     "fused_sweep_band": ("lives_tpu_torch/csrc/fused_sweep.cu",
                          "lives_tpu/graph/pallas_composite.py:240"),
+    "fma_chain": ("lives_tpu_torch/csrc/fma_chain.cu",
+                  "benchmarks/sweep_profile.py:146"),
 }
 NAMES = tuple(SOURCES)
 #: config D's clips: 24 frames each, played at frame i % 24
@@ -858,6 +900,373 @@ def colour_alone(dev, card):
          tb_per_s=f"{rate:.3f}")
 
 
+#: phase 13's chain variants of the roofline study (benchmarks/
+#: sweep_profile.py:68-72,102-107): (name, tracks, suffix effects)
+FX_FULL = [("gaussian_blur", {"radius": 3, "amount": 0.6}),
+           ("colour_balance", {"red": 1.1, "green": 1.0, "blue": 0.9}),
+           ("saturation", {"saturation": 1.3}),
+           ("vignette", {"amount": 0.7})]
+ROOFLINE = [("full", 10, FX_FULL), ("noblur", 10, FX_FULL[1:]),
+            ("trans", 10, []), ("trans2", 2, [])]
+#: K6's depths: the reference's two (sweep_profile.py:169), then two that
+#: no launch cost can hide; the ceiling is read from each pair
+FMA_DEPTHS = (32, 128, 512, 2048)
+#: launches a timing of K6 takes in a row
+FMA_REPS = 200
+#: the depth of K6's lead launch (about 14 ms on an H100): the device is
+#: busy with it while the host queues a timing's launches
+FMA_LEAD = 65536
+
+
+def make_timeline(n_tracks, n_frames, width, height, fps, fx):
+    """`scenes.multitrack_timeline` with a configurable suffix chain: a
+    copy of benchmarks/sweep_profile.py:34-65 over the port's event
+    list."""
+    from lives_tpu_torch.events.event_list import (EventList,
+                                                   TICKS_PER_SECOND,
+                                                   filter_init_event,
+                                                   filter_map_event,
+                                                   frame_event,
+                                                   param_change_event)
+    el = EventList(fps=fps, width=width, height=height)
+    tpf = int(TICKS_PER_SECOND / fps)
+    inits = []
+    trans = ["crossfade", "blend_screen", "blend_overlay", "luma_key",
+             "blend_add", "blend_multiply", "chroma_key", "blend_lighten",
+             "blend_difference"]
+    for t in range(1, n_tracks):
+        name = trans[(t - 1) % len(trans)]
+        vals = {"amount": 0.5} if name.startswith(("crossfade", "blend")) \
+            else {}
+        init = filter_init_event(0, name, in_tracks=[0, t], out_tracks=[0],
+                                 values=vals)
+        el.insert(init)
+        inits.append(init)
+    for name, vals in fx:
+        init = filter_init_event(0, name, values=vals)
+        el.insert(init)
+        inits.append(init)
+    el.insert(filter_map_event(0, [i.event_id for i in inits]))
+    el.insert(param_change_event(0, inits[0].event_id, "amount", 0.0))
+    el.insert(param_change_event((n_frames - 1) * tpf,
+                                 inits[0].event_id, "amount", 1.0))
+    for i in range(n_frames):
+        el.insert(frame_event(i * tpf, list(range(1, n_tracks + 1)),
+                              [i] * n_tracks))
+    return el
+
+
+def sass_counts(so_path, kernel):
+    """{FFMA, FMUL, FADD: count} in `kernel`'s SASS (cuobjdump -sass of the
+    built library)."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(so_path)], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    counts, inside = dict.fromkeys(("FFMA", "FMUL", "FADD"), 0), False
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            inside = kernel in ln
+        elif inside:
+            for op in counts:
+                counts[op] += len(re.findall(rf"\b{op}\b", ln))
+    return counts
+
+
+def queued_ms(fn, reps: int, lead):
+    """(device ms a call, host us a call) of reps calls of fn timed by CUDA
+    events behind `lead`, a long launch: the host queues the calls while
+    the device runs it, so the events time the device alone, even where a
+    call costs the host more than the device (K6 at small K)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    lead()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host_us = (time.perf_counter() - t0) * 1e6 / reps
+    end.synchronize()
+    return start.elapsed_time(end) / reps, host_us
+
+
+def roofline(dev, card):
+    """13. the port's roofline study (benchmarks/sweep_profile.py): the
+    four chain variants through `render_events` at 1920x1080, K1's float
+    operations over its time, and the card's float32 ceiling read with K6
+    (`ops/fma_chain.py`). Returns K6's entry of the kernels line."""
+    import numpy as np
+    import torch
+
+    from lives_tpu_torch import native
+    from lives_tpu_torch.graph import SinkSpec
+    from lives_tpu_torch.graph import fused_sweep
+    from lives_tpu_torch.ops import fma_chain as fc
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+    native.load_all(["fused_sweep", "fma_chain"])
+    src = DeviceSyntheticSource(H, W, device=dev)
+    sink = SinkSpec(W, H)
+    n_chunks = -(-N_FRAMES // CHUNK)
+    px = CHUNK * H * W
+    k1 = {}
+    for name, tracks, fx in ROOFLINE:
+        render_path(make_timeline(tracks, CHUNK, W, H, FPS, fx), src, sink,
+                    check=False)                                  # warm
+        el = make_timeline(tracks, N_FRAMES, W, H, FPS, fx)
+        rendered, _, counts, wall = render_path(el, src, sink, check=False)
+        assert rendered == N_FRAMES and counts == {"u8": n_chunks}, counts
+        ms_frame = wall / rendered * 1e3
+        spec, ids, packed, rows = chunk_of(el, dev, CHUNK)
+        plan = sweep_plan(el, spec, rows, dev, tracks)
+        t = time_ms(lambda: fused_sweep._launch(plan, ids, packed, None), 5)
+        k1[name] = (px * (table_flops(plan.ops) + 15), t)
+        line("13 variant", card=repr(card), variant=name, tracks=tracks,
+             frames=rendered, launches=counts, ms_per_frame=f"{ms_frame:.4f}",
+             x_realtime=f"{1000.0 / FPS / ms_frame:.2f}", k1_chunk_ms=f"{t:.3f}")
+
+    # K6 against its plain version at the reference's depths
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.rand((3, H, W), device=dev, generator=g) + 0.5
+    n = x.numel()
+    worst_abs = worst_rel = 0.0
+    for K in FMA_DEPTHS[:2]:
+        got = fc.fma_chain(x, K)
+        torch.cuda.synchronize()
+        ref = fc.plain_fma_chain(x, K)
+        d = (got.double() - ref.double()).abs()
+        rel = (d / ref.double().abs()).max().item()
+        line("13 fma_vs_plain", shape=tuple(x.shape), K=K,
+             max_abs_err=f"{d.max().item():.6g}", max_rel_err=f"{rel:.3g}",
+             tolerance=f"{fc.tolerance(K):.3g}")
+        assert rel <= fc.tolerance(K), (K, rel)
+        worst_abs, worst_rel = max(worst_abs, d.max().item()), max(worst_rel,
+                                                                   rel)
+    counts = sass_counts(fc.build().path, "fma_chain_kernel")
+    line("13 sass", kernel="fma_chain_kernel", **counts)
+    assert counts["FFMA"] >= 128 and counts["FMUL"] == counts["FADD"] == 0, \
+        counts
+
+    # the ceiling: each depth FMA_REPS launches in a row, the depths in
+    # turns up and down; the launches of this study are K6's count
+    fc.LAUNCHES = 0
+    times = {K: [] for K in FMA_DEPTHS}
+    host = {K: [] for K in FMA_DEPTHS}
+    for order in (FMA_DEPTHS, FMA_DEPTHS[::-1]):
+        for K in order:
+            t, us = queued_ms(lambda: fc.fma_chain(x, K), FMA_REPS,
+                              lambda: fc.fma_chain(x, FMA_LEAD))
+            times[K].append(t)
+            host[K].append(us)
+    launches = fc.LAUNCHES
+    mean = {K: sum(v) / len(v) for K, v in times.items()}
+    for K in FMA_DEPTHS:
+        line("13 fma_ms", card=repr(card), K=K, reps=FMA_REPS,
+             ms=",".join(f"{t:.5f}" for t in times[K]),
+             host_us_per_launch=",".join(f"{u:.1f}" for u in host[K]),
+             tflops=f"{fc.flops(n, K) / mean[K] / 1e9:.2f}",
+             bound_ms=f"{bound(8 * n, fc.flops(n, K))[0]:.5f}")
+    ceiling = {}
+    for lo, hi in (FMA_DEPTHS[:2], FMA_DEPTHS[2:]):
+        ceiling[(lo, hi)] = (fc.flops(n, hi) - fc.flops(n, lo)) \
+            / (mean[hi] - mean[lo]) / 1e9
+        line("13 ceiling", card=repr(card), depths=f"{lo}->{hi}",
+             tflops=f"{ceiling[(lo, hi)]:.2f}",
+             share_of_67=f"{ceiling[(lo, hi)] / (F32_OPS_S / 1e12):.3f}")
+    top = ceiling[FMA_DEPTHS[2:]]
+    for name, (ops, t) in k1.items():
+        rate = ops / t / 1e9
+        line("13 k1_vs_ceiling", card=repr(card), variant=name,
+             ops_per_chunk=ops, k1_ms=f"{t:.3f}", tops=f"{rate:.2f}",
+             share_of_ceiling=f"{rate / top:.3f}",
+             share_of_67=f"{rate / (F32_OPS_S / 1e12):.3f}")
+    K = FMA_DEPTHS[1]       # the kernels line's: the reference's deeper K
+    plain = time_ms(lambda: fc.plain_fma_chain(x, K), 2)
+    # the library call: with acc_0 = a the chain is a * sum_{i<=K} M^i, one
+    # multiply by a constant (summed in float64, rounded once); the probe
+    # loses to it by design, since it exists to issue K dependent FFMAs
+    c = float(np.float32(sum(fc.M ** i for i in range(K + 1))))
+    lib = x * c
+    ref = fc.plain_fma_chain(x, K)
+    rel = ((lib.double() - ref.double()).abs() / ref.double().abs()).max() \
+        .item()
+    assert rel <= fc.tolerance(K), ("x * c", K, rel)
+    library = time_ms(lambda: x * c, FMA_REPS)
+    line("13 library", card=repr(card), call="x * c", K=K, c=repr(c),
+         max_rel_err=f"{rel:.3g}", tolerance=f"{fc.tolerance(K):.3g}",
+         ms=f"{library:.5f}", k6_ms=f"{mean[K]:.5f}")
+    return {"launches": launches, "max_abs_err": worst_abs,
+            "max_rel_err": worst_rel, "ms": mean[K], "plain_ms": plain,
+            "library_ms": library, "bound": bound(8 * n, fc.flops(n, K))}
+
+
+#: phase 14, BASELINE row 5 as benchmarks/latency4k.py:35-80 drives it
+LIVE_W, LIVE_H, LIVE_FPS = 3840, 2160, 60.0
+LIVE_FRAMES, LIVE_WINDOW, LIVE_TOGGLE = 480, 8, 25
+LIVE_CONFIGS = [["saturation"], ["saturation", "vignette"], ["vignette"],
+                ["vignette", "brightness_contrast"], ["brightness_contrast"],
+                ["saturation", "brightness_contrast"], [], ["negate"]]
+#: BASELINE row 5's target: p99 under 16 ms a frame at 4K60
+LIVE_P99_MS = 16.0
+
+
+def live(dev, card):
+    """14. the single-frame live path at 4K60: `GeneratorClip("plasma")`
+    over `GeneratorClip("colour_bars")` through the eight configurations,
+    one `FrameGraph.run` a frame."""
+    import numpy as np
+    import torch
+
+    from lives_tpu_torch.effects.host import instantiate
+    from lives_tpu_torch.graph import FrameGraph, GenSlot, SinkSpec
+    from lives_tpu_torch.io.genclip import GeneratorClip
+
+    def clips(w, h, device):
+        return (GeneratorClip("plasma", w, h, fps=LIVE_FPS, device=device),
+                GeneratorClip("colour_bars", w, h, fps=LIVE_FPS,
+                              device=device))
+
+    def graph(names, w, h):
+        return FrameGraph([instantiate(n) for n in names],
+                          SinkSpec(width=w, height=h), fps=LIVE_FPS)
+
+    fg, bg = clips(LIVE_W, LIVE_H, dev)
+    graphs = [graph(names, LIVE_W, LIVE_H) for names in LIVE_CONFIGS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for g in graphs:                                              # warm
+        out = g.run([fg, bg], 0.0, 0)
+        torch.cuda.synchronize()
+        arr = out.planes[0]
+        assert arr.dtype == torch.uint8 and arr.device.type == fg.device.type
+        assert tuple(arr.shape) == (3, LIVE_H, LIVE_W)
+
+    def pick(i):
+        return graphs[(i // LIVE_TOGGLE) % len(graphs)]
+
+    lat = []
+    for i in range(LIVE_FRAMES):
+        g = pick(i)
+        t0 = time.perf_counter()
+        g.run([fg, bg], i / LIVE_FPS, i)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat = np.asarray(lat)
+    p = {q: float(np.percentile(lat, q)) for q in (50, 99)}
+    line("14 latency", card=repr(card), size=f"{LIVE_W}x{LIVE_H}",
+         frames=LIVE_FRAMES, configs=len(graphs), toggle_every=LIVE_TOGGLE,
+         p50_ms=f"{p[50]:.3f}", p99_ms=f"{p[99]:.3f}",
+         max_ms=f"{lat.max():.3f}", mean_ms=f"{lat.mean():.3f}",
+         target_p99_ms=LIVE_P99_MS, meets_target=p[99] < LIVE_P99_MS)
+    win = []
+    t_all = t_win = time.perf_counter()
+    for i in range(LIVE_FRAMES):
+        pick(i).run([fg, bg], i / LIVE_FPS, i)
+        if (i + 1) % LIVE_WINDOW == 0:
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            win.append((now - t_win) / LIVE_WINDOW * 1e3)
+            t_win = now
+    win = np.asarray(win)
+    line("14 windows", card=repr(card), window=LIVE_WINDOW,
+         mean_ms=f"{win.mean():.3f}",
+         p50_ms=f"{np.percentile(win, 50):.3f}",
+         p99_ms=f"{np.percentile(win, 99):.3f}", max_ms=f"{win.max():.3f}",
+         frames_per_s=f"{LIVE_FRAMES / (t_win - t_all):.1f}")
+    line("14 peak", gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+
+    # a profiled pass: the device's busy share and its kernels a frame
+    from torch.profiler import ProfilerActivity, profile
+    n_prof = 2 * LIVE_TOGGLE
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_prof):
+            pick(i).run([fg, bg], i / LIVE_FPS, i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, top = device_busy(prof)
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith(("Memcpy", "Memset")))
+    line("14 profiled", card=repr(card), frames=n_prof,
+         wall_ms=f"{wall * 1e3:.1f}", device_busy_ms=f"{busy:.1f}",
+         idle_share=f"{1 - busy / (wall * 1e3):.3f}",
+         kernels_per_frame=f"{kernels / n_prof:.1f}", top=top)
+
+    # checks: the card against the CPU at 1080p; GenSlot against get_frame;
+    # a GenSlot around a stateful clip raises
+    on = {d: clips(W, H, d) for d in ("cpu", dev)}
+    for names in (["saturation", "vignette"], ["negate"]):
+        got = graph(names, W, H).run(list(on[dev]), 0.0, 0).planes[0]
+        ref = graph(names, W, H).run(list(on["cpu"]), 0.0, 0).planes[0]
+        worst, share = diff_stats(got.cpu(), ref)
+        line("14 card_vs_cpu", chain="+".join(names), size=f"{W}x{H}",
+             frame=0, max_abs_err=f"{worst:.6g}",
+             differing_share=f"{share:.3g}")
+        assert worst <= 1, (names, worst)
+    g = graphs[1]
+    n = 1234
+    slot = g.run([GenSlot(fg, n), bg], 0.5, 30).planes[0]
+    pulled = g.run([fg.get_frame(n), bg], 0.5, 30).planes[0]
+    assert torch.equal(slot, pulled), "GenSlot differs from get_frame"
+    line("14 genslot", n=n, bit_for_bit=True)
+    rings = GeneratorClip("beat_rings", LIVE_W, LIVE_H, fps=LIVE_FPS,
+                          device=dev)
+    try:
+        g.run([GenSlot(rings, 0), bg])
+    except ValueError:
+        line("14 genslot_stateful", raises="ValueError")
+    else:
+        raise AssertionError("a GenSlot around beat_rings must raise")
+
+    # the unpacked path: traced values that are tensors on the card (the
+    # chain's and plasma's) copied into the column there, bit for bit the
+    # host numbers' frame; neither path makes a synchronizing call
+    from lives_tpu_torch.effects.host import split_params
+    cf, cb = clips(LIVE_W, LIVE_H, dev)
+    g = graph(LIVE_CONFIGS[1], LIVE_W, LIVE_H)
+    g.run([cf, cb], 0.0, 0)
+    torch.cuda.synchronize()
+    host, host_syncs = synced_calls(
+        lambda: g.run([cf, cb], 0.5, 30).planes[0])
+    for inst in (*g.chain, cf.inst):
+        for k, v in split_params(inst)[1].items():
+            inst.values[k] = torch.tensor(float(v), device=dev)
+    got, dev_syncs = synced_calls(lambda: g.run([cf, cb], 0.5, 30).planes[0])
+    _, control = synced_calls(lambda: got.sum().item())   # one sync, seen
+    line("14 unpacked", chain="+".join(LIVE_CONFIGS[1]), keys=len(g.stats),
+         bit_for_bit=bool(torch.equal(got, host)),
+         syncs_packed=len(host_syncs), syncs_unpacked=len(dev_syncs),
+         syncs_of_an_item_call=len(control))
+    assert len(g.stats) == 2 and torch.equal(got, host)
+    assert control and not host_syncs and not dev_syncs, \
+        (control, host_syncs, dev_syncs)
+    return p
+
+
+def synced_calls(fn):
+    """(fn's result, the synchronizing CUDA calls it made, as the warnings
+    of torch's sync debug mode)."""
+    import warnings
+
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, [str(w.message) for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
 def render_events_of(el, src, sink):
     """The main path's chunks through the user's entry point."""
     from lives_tpu_torch.events.renderer import render_events
@@ -880,7 +1289,7 @@ def main(argv) -> int:
     from lives_tpu_torch.graph import (SinkSpec, composite, fused_sweep,
                                        stateful_sweep)
     from lives_tpu_torch.effects.host import FILTER_STATEFUL
-    from lives_tpu_torch.ops import yuv_kernels
+    from lives_tpu_torch.ops import fma_chain, yuv_kernels
     from lives_tpu_torch.scenes import (DeviceSyntheticSource,
                                         multitrack_timeline)
 
@@ -900,16 +1309,24 @@ def main(argv) -> int:
     if argv == ["--colour"]:
         colour_alone(dev, card)
         return 0
+    if argv == ["--roofline"]:
+        roofline(dev, card)
+        return 0
+    if argv == ["--live"]:
+        live(dev, card)
+        return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
-    # 2. build the four libraries, one nvcc each, started together
+    # 2. build the five libraries, one nvcc each, started together
     t0 = time.perf_counter()
-    native.load_all(["fused_sweep", "stateful_sweep", "yuv420", "composite"])
+    native.load_all(["fused_sweep", "stateful_sweep", "yuv420", "composite",
+                     "fma_chain"])
     wall = time.perf_counter() - t0
     ptxas = {}
-    for mod in (fused_sweep, stateful_sweep, yuv_kernels, composite):
+    for mod in (fused_sweep, stateful_sweep, yuv_kernels, composite,
+                fma_chain):
         built = mod.build()
         line("2 build", lib=built.path.name,
              seconds=f"{built.seconds:.2f}")
@@ -921,6 +1338,10 @@ def main(argv) -> int:
     resources = {}  # kernel -> its main-path entry's ptxas and blocks an SM
 
     err = dict.fromkeys(NAMES, 0.0)
+    # the library call's ms where one PyTorch call computes the same
+    # function, and keys a kernel's entry of the kernels line adds
+    library = dict.fromkeys(NAMES)
+    extra = {name: {} for name in NAMES}
     bounds = {}
     px = CHUNK * H * W  # pixels of a timed 96-frame chunk
 
@@ -1454,6 +1875,17 @@ def main(argv) -> int:
     phase12(dev, torch.device("cuda", 0), card, main_el, src, sink, held,
             ms, bounds, launches)
 
+    k6 = roofline(dev, card)
+    assert k6["launches"] > 0, "the roofline study missed K6"
+    launches["fma_chain"] = k6["launches"]
+    err["fma_chain"] = k6["max_abs_err"]
+    extra["fma_chain"] = {"max_rel_err": k6["max_rel_err"]}
+    library["fma_chain"] = round(k6["library_ms"], 6)
+    ms["fma_chain"] = (k6["ms"], k6["plain_ms"])
+    bounds["fma_chain"] = k6["bound"]
+    resources["fma_chain"] = ("fma_chain_kernel", "not queried")
+    live(dev, card)
+
     for name, (entry, per_sm) in resources.items():
         res = next((v for k, v in ptxas.items() if entry in k),
                    {"ptxas": "not in the build log"})
@@ -1466,10 +1898,11 @@ def main(argv) -> int:
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
         "replaces": SOURCES[name][1], "launches": launches[name],
-        "max_abs_err": err[name], "ms": round(ms[name][0], 4),
-        "plain_ms": round(ms[name][1], 4),
-        "bound_ms": round(bounds[name][0], 4), "bound_by": bounds[name][1],
-        "library_ms": None} for name in NAMES]}), flush=True)
+        "max_abs_err": err[name], "ms": round(ms[name][0], 6),
+        "plain_ms": round(ms[name][1], 6),
+        "bound_ms": round(bounds[name][0], 6), "bound_by": bounds[name][1],
+        "library_ms": library[name], **extra[name]} for name in NAMES]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

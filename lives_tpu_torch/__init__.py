@@ -18,8 +18,13 @@ colour kernels of `csrc/yuv420.cu`), YUV4MPEG clip I/O (`io/`),
 the composite kernel (`csrc/composite.cu`), and the multi-device layer
 (Slice 7, `parallel/`): a mesh of explicit devices for frame-batch DP,
 bands, a pipeline, stateful bands and the band sweep (the fused sweep's
-band mode). Every entry point takes its device explicitly; nothing picks
-a device on its own.
+band mode), and the single-frame live path (ROADMAP Queue 1 item 12):
+`graph.nodemodel.FrameGraph.run` over layers, `io.genclip.GeneratorClip`s
+and `GenSlot`s, with the generators of `effects/builtin/generators.py`.
+`ops.fma_chain` holds K6, the roofline study's fused-multiply-add probe
+(`csrc/fma_chain.cu`), which `chip_smoke.py` runs to read the card's
+float32 ceiling. Every entry point takes its device explicitly (a
+`GeneratorClip` defaults to "cuda"); nothing picks a device on its own.
 """
 
 from .constants import (Gamma, Palette, YUVClamping, YUVSampling,

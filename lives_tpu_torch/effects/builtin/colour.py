@@ -1,8 +1,16 @@
-"""Colour filters: `colour_balance`, `saturation`, `vignette`.
+"""Colour filters: `negate`, `brightness_contrast`, `colour_balance`,
+`saturation`, `vignette`.
 
 Counterpart of `lives_tpu/effects/builtin/colour.py:22-191` (`_rgb_filter`,
-`colour_balance`, `_saturation`, `_vignette`). The rest of that module's
-filters come with Slice 3 (ROADMAP Queue 1 items 13-14).
+`negate` `:37`, `brightness_contrast` `:39-44`, `colour_balance`,
+`_saturation`, `_vignette`). The rest of that module's filters come with
+Slice 3 (ROADMAP Queue 1 items 13-14).
+
+`negate` and `brightness_contrast` (the live path's configurations) have
+their PyTorch functions only: their opcodes in the sweep's op table come
+with item 13. So `fused_sweep.sweep_prefix_len` stops at them and
+`run_batch` takes the plain route for a chain that holds one, where the
+JAX package sweeps them; the two routes agree within +/-1 LSB.
 """
 
 from __future__ import annotations
@@ -28,6 +36,17 @@ def _rgb_filter(name, fn, params=(), desc=""):
     return register_filter(Filter(name=name, process=process,
                                   in_channels=_ONE_IN, params=tuple(params),
                                   description=desc))
+
+
+_rgb_filter("negate", lambda rgb, p, c: 1.0 - rgb, desc="invert RGB")
+
+_rgb_filter(
+    "brightness_contrast",
+    lambda rgb, p, c: ((rgb - 0.5) * bparam(p["contrast"]) + 0.5
+                       + bparam(p["brightness"])),
+    params=(Param("brightness", "num", 0.0, -1.0, 1.0),
+            Param("contrast", "num", 1.0, 0.0, 4.0)),
+    desc="linear brightness/contrast")
 
 
 def _colour_balance(rgb, p, c):

@@ -16,10 +16,16 @@ threads the state, where the JAX package scans. A stateful filter's
 geometry on first use, and `process(ins, params, ctx, state)` returns
 ``(out, new_state)``. Alpha in-channels (cconx) and analysers come with
 Slice 6 (ROADMAP Queue 1 item 21).
+
+A generator has no input layer to take its device from, so `FrameContext`
+carries one (`device`, None by default): `apply_instance` fills it from
+the layer stack when the caller left it None, and a generator that runs
+without one raises. Nothing picks a device on its own.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
 
@@ -137,11 +143,30 @@ class Instance:
         return self
 
 
+#: parameter kinds fixed at plan time: they never ride in a packed upload
+#: (`lives_tpu/graph/nodemodel.py:77`)
+STATIC_KINDS = ("int", "string", "string_list", "bool", "color")
+
+
+def split_params(inst: Instance):
+    """(static_values, traced_values) for an instance: a traced value rides
+    in the packed upload, a static one shapes the plan."""
+    static, traced = {}, {}
+    for p in inst.filter.params:
+        v = inst.values.get(p.name, p.default)
+        if p.kind in STATIC_KINDS:
+            static[p.name] = v
+        else:
+            traced[p.name] = v
+    return static, traced
+
+
 @dataclass(frozen=True)
 class FrameContext:
     """Per-frame info handed to process fns. `tc`/`frame` may be ``(B,)``
     tensors. width/height are the FULL frame dims; (y0, x0) is the origin
-    of a tile inside it (0 for a whole frame)."""
+    of a tile inside it (0 for a whole frame). `device` is where a
+    generator makes its frame."""
     tc: Any = 0.0
     frame: Any = 0
     fps: float = 25.0
@@ -149,6 +174,7 @@ class FrameContext:
     height: int = 0
     y0: int = 0
     x0: int = 0
+    device: Any = None
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +261,7 @@ def apply_instance(inst: Instance, layers: Sequence[Layer],
     selects the inputs; the result replaces the layer at out_tracks[0]. A
     stateful instance takes one frame, creates its state on first use at
     the input's geometry and device, and stores the new state in
-    inst.state."""
+    inst.state. A ctx without a device takes the stack's."""
     f = inst.filter
     layers = list(layers)
     if not inst.enabled:
@@ -254,16 +280,22 @@ def apply_instance(inst: Instance, layers: Sequence[Layer],
     if ctx is None:
         ctx = FrameContext(width=ins[0].width if ins else 0,
                            height=ins[0].height if ins else 0)
+    if ctx.device is None:
+        lead = next((l for l in layers if l is not None), None)
+        if lead is not None:
+            ctx = dataclasses.replace(ctx, device=lead.device)
     params = {k: f.param(k).clamp(v) for k, v in inst.param_values().items()}
     if f.flags & FILTER_STATEFUL:
-        lead = ins[0]
-        if lead.planes[0].shape[0] != 1:
+        lead = ins[0] if ins else None
+        if lead is not None and lead.planes[0].shape[0] != 1:
             raise ValueError(f"{f.name}: a stateful filter takes one frame "
                              f"at a time, got {lead.planes[0].shape[0]}")
         state = inst.state
         if state is None and f.init_state is not None:
-            state = f.init_state(lead.width, lead.height, lead.palette,
-                                 lead.device)
+            # a stateful generator: the frame's geometry and the ctx's device
+            state = (f.init_state(lead.width, lead.height, lead.palette,
+                                  lead.device) if lead is not None else
+                     f.init_state(ctx.width, ctx.height, None, ctx.device))
         out, inst.state = f.process(ins, params, ctx, state)
     else:
         out = f.process(ins, params, ctx)

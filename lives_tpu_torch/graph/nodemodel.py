@@ -1,7 +1,9 @@
-"""Plan compiler, batch form: `SinkSpec` and `FrameGraph.run_batch`.
+"""Plan compiler: `SinkSpec`, `GenSlot`, `FrameGraph.run` and
+`FrameGraph.run_batch`.
 
-Counterpart of `lives_tpu/graph/nodemodel.py:53` (`SinkSpec`) and
-`:363-860` (`FrameGraph.run_batch`, `_make_frame_fn`). A chunk of frames
+Counterpart of `lives_tpu/graph/nodemodel.py:53` (`SinkSpec`), `:82-88`
+(`GenSlot`), `:264-356` (`FrameGraph.run`) and `:363-860`
+(`FrameGraph.run_batch`, `_make_frame_fn`). A chunk of frames
 arrives as one packed ``(P+2, B)`` float32 upload (every traced parameter
 row in the order of `nodemodel.py:402-407`, then timecodes and frame
 numbers) and takes one of these routes on the source's device:
@@ -33,20 +35,30 @@ the JAX package's state contract), made at the frame geometry on the first
 chunk and written back to each `inst.state` after every chunk;
 `states_from_numpy`/`states_to_numpy` carry it between the packages.
 
+The single-frame live path, `FrameGraph.run` (`nodemodel.py:82-88,
+264-356`), applies the chain to one frame: entries are Layers, bare
+`GeneratorClip`s (generated on the graph's clock) or `GenSlot(clip, n)`s
+(generated on the clip's clock), each generated in the slot it holds;
+every traced scalar rides in one (P+2, 1) float32 column (the host numbers
+in one upload through pinned memory, so the host is not held; a device
+value copied in on the device, never read back), and the chain goes
+through `run_chain` at B = 1, eagerly: the JAX package runs no Pallas
+kernel on this path, so the port adds none.
+
 PyTorch runs eagerly, so the JAX package's jitted plan template becomes a
 cached plan: `_PLANS` maps the template key of `nodemodel.py:507` to the
 sweep kernel's op table on the device (route a), to None or the composite
 kernel's `CompositePlan` (route b), or to a `StatefulRoute` of op tables
 (route c). A plan never holds state. The
 inter-stage comps are float32 (the JAX package's bf16 comp is a TPU
-bandwidth choice). cconx wiring and the single-frame `FrameGraph.run`
-raise `NotImplementedError` naming the ROADMAP item that brings them;
-nothing quietly runs another path.
+bandwidth choice). cconx wiring raises `NotImplementedError` naming the
+ROADMAP item that brings it; nothing quietly runs another path.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import numbers
 from dataclasses import dataclass
 from typing import Any, Sequence
 
@@ -54,16 +66,17 @@ import numpy as np
 import torch
 
 from ..constants import Gamma, Palette, has_alpha, is_rgb_palette
+from ..effects.host import STATIC_KINDS as _STATIC_KINDS
 from ..effects.host import (FILTER_STATEFUL, FrameContext, Instance,
                             apply_instance)
+from ..effects.host import split_params as _split_params
 from ..layer import Layer
 from ..ops.colorspace import convert_layer
 from ..ops.gamma import gamma_convert_layer
 from ..ops.resize import letterbox_layer, resize_layer
 from ..prefs import pref
+from ..utils.transfer import pack_column
 from . import composite, fused_sweep, stateful_sweep
-
-_STATIC_KINDS = ("int", "string", "string_list", "bool", "color")
 
 #: process-wide plans, keyed like the JAX package's plan templates:
 #: the sweep kernel's SweepPlan (route a), None (route b) or a
@@ -103,16 +116,13 @@ class SinkSpec:
         return dataclasses.astuple(self)
 
 
-def _split_params(inst: Instance):
-    """(static_values, traced_values) for an instance."""
-    static, traced = {}, {}
-    for p in inst.filter.params:
-        v = inst.values.get(p.name, p.default)
-        if p.kind in _STATIC_KINDS:
-            static[p.name] = v
-        else:
-            traced[p.name] = v
-    return static, traced
+@dataclass(frozen=True)
+class GenSlot:
+    """A (GeneratorClip, frame number) pair for `FrameGraph.run`: the
+    clip's frame n, generated in its slot on the clip's own clock
+    (tc = n / clip.fps), as `clip.get_frame(n)` makes it."""
+    clip: Any
+    n: int
 
 
 def _chain_static_key(chain: Sequence[Instance]):
@@ -198,10 +208,11 @@ def run_chain(chain_spec: Sequence[tuple], layers: Sequence[Layer | None],
     if origin is not None:
         y0, full_h, full_w = origin
         ctx = FrameContext(tc=tc, frame=frame, fps=fps, width=full_w,
-                           height=full_h, y0=y0)
+                           height=full_h, y0=y0, device=packed.device)
     else:
         ctx = FrameContext(tc=tc, frame=frame, fps=fps,
-                           width=w0 or sink.width, height=h0 or sink.height)
+                           width=w0 or sink.width, height=h0 or sink.height,
+                           device=packed.device)
     layers = list(layers)
     if float_chain is None:
         float_chain = len(chain_spec) >= 2
@@ -292,6 +303,23 @@ def states_to_numpy(states: Sequence) -> list:
     return [conv(st) for st in states]
 
 
+def _one_frame(layer: Layer) -> Layer:
+    """A frame's Layer as a batch of one: (1, ...) planes."""
+    return layer.replace(planes=tuple(p.unsqueeze(0) for p in layer.planes))
+
+
+def _copy_state(st):
+    """A copy of one instance's state (None, a tensor, or a dict or tuple
+    of them) that an in-place write cannot reach."""
+    if isinstance(st, torch.Tensor):
+        return st.clone()
+    if isinstance(st, dict):
+        return {k: _copy_state(v) for k, v in st.items()}
+    if isinstance(st, tuple):
+        return tuple(_copy_state(v) for v in st)
+    return st
+
+
 def composite_prefix(prefix_spec, n_avail: int):
     """(prefix, comp_tracks) for the composite kernel: a track the stack
     lacks clamps to track 0, as `apply_instance`'s short-stack rule reads
@@ -306,10 +334,12 @@ def composite_prefix(prefix_spec, n_avail: int):
 
 
 class FrameGraph:
-    """A (chain, sink) configuration rendered over frame batches.
+    """A (chain, sink) configuration rendered one frame at a time or over
+    frame batches.
 
     Usage:
         g = FrameGraph(chain, sink, fps=30.0)
+        out = g.run([fg_clip, layer], tc=0.04, frame=1)
         out = g.run_batch([], tcs, frames, params, source=src,
                           src_args=(clip_ids, frame_nums))
     """
@@ -324,16 +354,110 @@ class FrameGraph:
         self.sink = sink or SinkSpec()
         self.fps = fps
         self.states: list[Any] = [inst.state for inst in self.chain]
+        #: calls of `run` by configuration key
+        self.stats: dict[Any, int] = {}
 
     @property
     def has_stateful(self) -> bool:
         return any(inst.filter.flags & FILTER_STATEFUL
                    for inst in self.chain)
 
-    def run(self, *args, **kw):
-        raise NotImplementedError(
-            "FrameGraph.run (single-frame live path) is not ported yet "
-            "(ROADMAP Queue 1 item 12)")
+    @staticmethod
+    def _is_genclip(obj) -> bool:
+        """A GeneratorClip (or a GenSlot around one) whose frames are
+        generated inside `run`: a stateless generator filter
+        (`nodemodel.py:264-278`)."""
+        if isinstance(obj, GenSlot):
+            obj = obj.clip  # the wrapped clip must itself qualify
+        inst = getattr(obj, "inst", None)
+        return (inst is not None and hasattr(obj, "get_frame")
+                and inst.filter.is_generator
+                and not (inst.filter.flags & FILTER_STATEFUL))
+
+    def run(self, layers: Sequence, tc: float = 0.0, frame: int = 0,
+            mirror_state: bool = True, *, device=None) -> Layer:
+        """One plan cycle on one frame (`nodemodel.py:280-356`).
+
+        Entries of `layers` are one-frame Layers (planes without a batch
+        axis), bare GeneratorClips, generated on the graph's clock (tc and
+        frame as given), or `GenSlot(clip, n)`s, generated on the clip's
+        clock (tc = n / clip.fps, frame n), as `clip.get_frame(n)` would;
+        each is generated in the slot it holds. A GenSlot around a
+        stateful or non-generator clip raises ValueError. `device` is needed
+        only when no layer or clip gives one (a chain that starts with a
+        generator instance).
+
+        The chain's traced params, then each generator's, then each
+        generator's (tc, frame), then (tc, frame) make one (P+2, 1) float32
+        column (`nodemodel.py:311-339`): the host numbers go to the device
+        in one upload, and a value that is already a device tensor is
+        copied into its row on the device, never read back. Frame numbers
+        ride as float32, exact to 2^24. The chain runs through `run_chain` at B = 1. Nothing
+        here waits on the device. With `mirror_state` the chain's new
+        states are kept on the graph and its instances; without it they are
+        dropped, and the states the call started from stay as they were
+        (it runs on copies, since rgb_delay writes its ring in place).
+        Returns a one-frame Layer with the planes the JAX package's `run`
+        returns: no batch axis."""
+        gens, real = [], []          # gens: (slot, clip, n or None)
+        for i, lay in enumerate(layers):
+            if self._is_genclip(lay):
+                gens.append((i, lay.clip, lay.n) if isinstance(lay, GenSlot)
+                            else (i, lay, None))
+            elif isinstance(lay, GenSlot):
+                raise ValueError(
+                    "GenSlot wraps a stateful/non-generator clip; pull its "
+                    "frames via get_frame instead")
+            else:
+                real.append(lay)
+        if device is None:
+            device = (real[0].device if real else
+                      gens[0][1].device if gens else None)
+        if device is None:
+            raise ValueError("FrameGraph.run: no layer or clip to take a "
+                             "device from; pass device=")
+        traced = [_split_params(inst)[1] for inst in self.chain]
+        gen_traced = [_split_params(c.inst)[1] for _, c, _ in gens]
+        # keyed as the JAX package keys its templates: a value that is not
+        # a host number makes another configuration
+        packable = all(isinstance(v, numbers.Number)
+                       for d in (*traced, *gen_traced) for v in d.values())
+        key = (_chain_static_key(self.chain), tuple(l.config for l in real),
+               self.sink.key(), self.fps,
+               tuple((i, c.inst.filter.hashname, c.width, c.height,
+                      n is None,
+                      tuple(sorted(_split_params(c.inst)[0].items())))
+                     for i, c, n in gens), packable)
+        self.stats[key] = self.stats.get(key, 0) + 1
+        vals = [d[k] for d in (*traced, *gen_traced) for k in sorted(d)]
+        for _, c, n in gens:
+            vals += [tc, frame] if n is None else [n / (c.fps or 25.0), n]
+        packed = pack_column(vals + [tc, frame], device)
+        rows_key = tuple((i, k) for i, d in enumerate(traced)
+                         for k in sorted(d))
+        r = len(rows_key)
+        t0 = r + sum(len(d) for d in gen_traced)
+        made = {}
+        for g, (slot, clip, _) in enumerate(gens):
+            names = sorted(gen_traced[g])
+            # no clamp: get_frame does not clamp, and the two must agree
+            made[slot] = clip.generate(
+                dict(zip(names, packed[r:r + len(names)])),
+                packed[t0 + 2 * g], packed[t0 + 2 * g + 1],
+                getattr(clip, "fps", self.fps) or self.fps)
+            r += len(names)
+        real_it = iter(real)
+        lays = [made[i] if i in made else _one_frame(next(real_it))
+                for i in range(len(real) + len(gens))]
+        states = list(self.states) if mirror_state else \
+            [_copy_state(st) for st in self.states]
+        out = run_chain(chain_spec_of(self.chain), lays, packed, rows_key,
+                        self.fps, self.sink, states=states)
+        if mirror_state:
+            self.states = states
+            for inst, st in zip(self.chain, states):
+                inst.state = st
+        return out.replace(planes=tuple(p[0] for p in out.planes))
 
     def _route(self, n_tracks: int) -> tuple[int, int, bool]:
         """(pre_n, suf_n, sf_eligible) of a stateful chain over a

@@ -26,7 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 #: per-source flags: these kernels round every multiply and add on its own,
-#: as PyTorch's eager ops do (each source's note, "Numerics")
+#: as PyTorch's eager ops do (each source's note, "Numerics"); fused_sweep
+#: and fma_chain keep nvcc's contraction (K6 exists to count FFMAs)
 EXTRA_FLAGS = {name: ("-fmad=false",)
                for name in ("stateful_sweep", "yuv420", "composite")}
 

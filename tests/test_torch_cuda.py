@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain versions, on a GPU: the fused
-sweep in its four modes, the fused stateful sweep, the colour kernels and
-the composite kernel.
+sweep in its four modes, the fused stateful sweep, the colour kernels,
+the composite kernel and K6, the fused-multiply-add probe (within a
+relative error of K * 2^-23); and the live path (`FrameGraph.run`,
+`GeneratorClip`) on the card against the CPU.
 
 These tests need an NVIDIA GPU and skip without one. They import neither
 jax nor lives_tpu, so they also run where only PyTorch is installed:
@@ -920,3 +922,120 @@ def test_comp_in_ragged_width_matches_plain(cuda, w):
             torch.cuda.synchronize()
             diff = (got.int() - ref.int()).abs().max().item()
             assert diff <= 1, (geom, diff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 1080, 1920), (1_000_003,), (7,),
+                                   (3, 5, 9)])
+@pytest.mark.parametrize("K", [1, 32, 128])
+def test_fma_chain_kernel_matches_plain(cuda, shape, K):
+    """K6 against its plain version: one FFMA a step against a multiply
+    and an add, within a relative error of K * 2^-23; lengths that are no
+    multiple of 4 take the kernel's ragged tail."""
+    from lives_tpu_torch.ops import fma_chain as fc
+    g = torch.Generator(cuda).manual_seed(K)
+    # magnitudes in [0.5, 1.5) of either sign: no value near 0, where a
+    # relative error means nothing
+    x = (torch.rand(shape, device=cuda, generator=g) + 0.5) \
+        * (torch.randint(0, 2, shape, device=cuda, generator=g) * 2 - 1)
+    before = fc.LAUNCHES
+    got = fc.fma_chain(x, K)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES == before + 1
+    ref = fc.plain_fma_chain(x, K)
+    rel = ((got.double() - ref.double()).abs() / ref.double().abs()).max()
+    assert rel.item() <= fc.tolerance(K), rel.item()
+
+
+@pytest.mark.cuda
+def test_fma_chain_refuses_wrong_inputs(cuda):
+    from lives_tpu_torch.ops import fma_chain as fc
+    x = torch.ones((3, 64, 64), device=cuda)
+    before = fc.LAUNCHES
+    with pytest.raises(TypeError):
+        fc.fma_chain(x.double(), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        fc.fma_chain(x.transpose(1, 2), 8)
+    with pytest.raises(ValueError, match="aligned"):
+        fc.fma_chain(x.reshape(-1)[1:], 8)
+    assert fc.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("names", [["saturation", "vignette"], ["negate"],
+                                   ["vignette", "brightness_contrast"], []])
+def test_live_run_on_the_card_matches_cpu(cuda, names):
+    """FrameGraph.run over [plasma, colour_bars] at 256x144: the card's
+    frame within 1 LSB of the CPU's, every temporary on the card."""
+    from lives_tpu_torch.graph import FrameGraph
+    from lives_tpu_torch.io.genclip import GeneratorClip
+    out = {}
+    for dev in ("cpu", "cuda"):
+        fg = GeneratorClip("plasma", 256, 144, fps=60.0, device=dev)
+        bg = GeneratorClip("colour_bars", 256, 144, fps=60.0, device=dev)
+        g = FrameGraph([instantiate(n) for n in names],
+                       SinkSpec(width=256, height=144), fps=60.0)
+        out[dev] = g.run([fg, bg], 37 / 60.0, 37).planes[0]
+    assert out["cuda"].device.type == "cuda"
+    assert out["cuda"].shape == (3, 144, 256)
+    diff = (out["cuda"].cpu().int() - out["cpu"].int()).abs().max().item()
+    assert diff <= 1, diff
+
+
+@pytest.mark.cuda
+def test_generator_clip_frame_lies_on_the_card(cuda):
+    from lives_tpu_torch.graph import FrameGraph, GenSlot
+    from lives_tpu_torch.io.genclip import GeneratorClip
+    fg = GeneratorClip("plasma", 256, 144, fps=60.0)
+    assert fg.device.type == "cuda"
+    frame = fg.get_frame(5)
+    assert frame.planes[0].device.type == "cuda"
+    assert frame.planes[0].shape == (3, 144, 256)
+    g = FrameGraph([instantiate("negate")])
+    assert torch.equal(g.run([GenSlot(fg, 5)]).planes[0],
+                       g.run([frame]).planes[0])
+
+
+@pytest.mark.cuda
+def test_live_run_device_params_on_the_card(cuda):
+    """Traced values that are tensors on the card (the chain's and a
+    generator's) are copied into the column there: the frame is the host
+    numbers' bit for bit, and neither path makes a synchronizing call."""
+    import warnings
+
+    from lives_tpu_torch.graph import FrameGraph
+    from lives_tpu_torch.io.genclip import GeneratorClip
+    fg = GeneratorClip("plasma", 256, 144, fps=60.0, device=cuda)
+    bg = GeneratorClip("colour_bars", 256, 144, fps=60.0, device=cuda)
+    chain = [instantiate("saturation", saturation=1.6),
+             instantiate("vignette", amount=0.3)]
+    g = FrameGraph(chain, SinkSpec(width=256, height=144), fps=60.0)
+    g.run([fg, bg], 0.0, 0)
+    torch.cuda.synchronize()
+
+    def watched(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return out, [str(w.message) for w in caught
+                     if "called a synchronizing" in str(w.message)]
+
+    def run_watched():
+        return watched(lambda: g.run([fg, bg], 37 / 60.0, 37).planes[0])
+
+    _, syncs = watched(lambda: torch.ones(1, device=cuda).sum().item())
+    assert syncs                      # the watch sees a sync where one is
+    host, syncs = run_watched()
+    assert not syncs, syncs
+    for inst in (*chain, fg.inst):
+        for k, v in _split_params(inst)[1].items():
+            inst.values[k] = torch.tensor(float(v), device=cuda)
+    dev, syncs = run_watched()
+    assert not syncs, syncs
+    assert len(g.stats) == 2
+    assert torch.equal(dev, host)
