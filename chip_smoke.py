@@ -4,7 +4,7 @@
 Drives the port's paths through the entry points a user calls
 (`events.renderer.render_events` -> `graph.nodemodel.FrameGraph.run_batch`
 -> the kernels, and `transcode.render_to_encoder` over decoded clips) at
-1920x1080, 30 fps, in 96-frame chunks, after building the five kernel
+1920x1080, 30 fps, in 96-frame chunks, after building the six kernel
 libraries from `lives_tpu_torch/csrc/` and holding every kernel against its
 plain PyTorch version:
 
@@ -26,7 +26,11 @@ plain PyTorch version:
   read with K6, the fused-multiply-add probe;
 - the single-frame live path at 4K60 (BASELINE row 5, as
   benchmarks/latency4k.py:40-80 drives it): `GeneratorClip`s through
-  `FrameGraph.run`, eight chain configurations toggled every 25 frames.
+  `FrameGraph.run`, eight chain configurations toggled every 25 frames;
+- timeline V, the sweep's whole vocabulary: 10 tracks folded by the
+  transitions the op table gained (wipe, irises, dissolve, the luma
+  overlays, ...), then alpha_over, mask_overlay, a blur and ten grading
+  ops, through K1's exact build.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --config-d   # config D alone (phase 11's render
@@ -35,11 +39,16 @@ plain PyTorch version:
                                        # result line
     python3 chip_smoke.py --roofline   # phase 13 alone, no result line
     python3 chip_smoke.py --live       # phase 14 alone, no result line
+    python3 chip_smoke.py --vocabulary # phases 1-2 and 15, no result line
+    python3 chip_smoke.py --guard      # K1 u8, K4 and K5 on their main
+                                       # paths' chunks and the ptxas report
+                                       # of the three, no result line
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
-2. build the five kernel libraries (one nvcc each, started together),
-   build times, and each kernel entry's ptxas registers and spills;
+2. build the six kernel libraries (one nvcc each, started together; K1
+   twice, its core build and its exact one), build times, and each kernel
+   entry's ptxas registers and spills;
 3. the sweep vs `plain_sweep` on the card, max |diff| <= 1 LSB: the
    13-effect chain at 1920x1080 with 10 tracks (B=4), and a ragged 1000x562
    frame with 3 tracks;
@@ -151,8 +160,26 @@ Phases, one line each:
    beat_rings raises, and traced values that are tensors on the card give
    the host numbers' frame bit for bit, with no synchronizing call in
    either path (torch's sync debug mode).
-Then a `resources` line for K1, K4, K5 and K6 (the main path's entry:
-ptxas registers and spills, blocks an SM), a JSON line of the kernels
+15. the sweep's whole vocabulary (ROADMAP item 13):
+   a. timeline V (`timeline_v`) through `render_events`, 192 frames in
+      96-frame chunks: one K1 launch a chunk (its exact build) and no chunk
+      on the plain route (`nodemodel.PLAIN_CHUNKS`), its first 4 frames
+      within 1 LSB of the plain route (the count of values beyond 1 LSB
+      printed), a timed pass, K1 vs plain ms on one chunk beside its bound;
+   b. each of the 25 ops the op table gained alone (wipe in each
+      direction), reading the source's tracks, through K1 at 1920x1080, 8
+      frames, against `plain_sweep`: max |diff| and the values beyond
+      1 LSB;
+   c. each of them in PALLAS_SAFE through K4 (4 frames), and K4 over 10
+      u8 tracks at 1080p with a chain of 9 drawn from them;
+   d. each of them through K5 after alien_overlay (4 frames, the state
+      within 1e-5), and K5 on config C with dissolve and hue_rotate in its
+      tail over two chunks;
+   e. V in bands of 270 and 135 rows (odd first rows) bit for bit the
+      whole frame's rows, and `spatial_sweep_fn` over V's chunks: 4 band
+      launches a chunk, frames bit for bit `render_events`'.
+Then a `resources` line for K1 (both builds), K4, K5 and K6 (the path's
+entry: ptxas registers and spills, blocks an SM), a JSON line of the kernels
 (with each one's bound: the larger of its bytes over 3.35 TB/s and its
 float operations over 67 TFLOP/s, the H100 SXM's device memory and
 float32 rates; K6's at K = 128, with its largest relative error besides)
@@ -198,6 +225,10 @@ CONFIGS = {
     "blur_fire": (1, [("gaussian_blur", {"radius": 2}, [0]),
                       ("fire", {"threshold": 0.5}, [0]),
                       ("saturation", {"saturation": 1.2}, [0])]),
+    # config C with two ops of the grown vocabulary added to its tail
+    "C_vocab": (10, led_chain(("alien_overlay", {}))
+                + [("dissolve", {"amount": 0.4}, [0, 3]),
+                   ("hue_rotate", {"angle": 0.2}, [0])]),
     # the largest summed halo the stateful sweep takes: 16 + 1 + 16 = 33
     "r33": (2, [("crossfade", {"amount": 0.4}, [0, 1]),
                 ("gaussian_blur", {"radius": 16}, [0]),
@@ -347,6 +378,9 @@ SOURCES = {
                          "lives_tpu/graph/pallas_composite.py:240"),
     "fma_chain": ("lives_tpu_torch/csrc/fma_chain.cu",
                   "benchmarks/sweep_profile.py:146"),
+    # K1's exact build (the whole vocabulary) on timeline V, phase 15
+    "fused_sweep_vocabulary": ("lives_tpu_torch/csrc/fused_sweep.cu",
+                               "lives_tpu/graph/pallas_composite.py:240"),
 }
 NAMES = tuple(SOURCES)
 #: config D's clips: 24 frames each, played at frame i % 24
@@ -357,15 +391,34 @@ CLIP_FRAMES = 24
 HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
 #: float operations a pixel of each opcode (graph/fused_sweep.py), counted
 #: from csrc/sweep_common.cuh and csrc/stateful_sweep.cu: a multiply, add,
-#: min, max, divide, sqrt, exp or floor counts one; the synthetic source's
-#: integer formulas are not counted. A blend adds its mode's cost a channel
-#: (_BLEND_MODES order), a stencil of radius r two passes of 2r+1 taps.
+#: min, max, divide, sqrt, exp, pow, cos, floor or compare counts one; the
+#: synthetic source's integer formulas and the pixel hash are not counted.
+#: A blend adds its mode's cost a channel (_BLEND_MODES order), an iris its
+#: shape's (circle, rectangle), a stencil of radius r two passes of 2r+1
+#: taps.
 BLEND_COST = (1, 1, 1, 4, 1, 1, 2, 4, 5, 5, 3, 4, 2, 2)
-OP_FLOPS = {0: lambda a: 16, 1: lambda a: 16 + 3 * BLEND_COST[a],
-            2: lambda a: 25, 3: lambda a: 31, 4: lambda a: 9,
-            5: lambda a: 20, 6: lambda a: 23,
-            7: lambda r: 12 * (2 * r + 1) + 15,
-            8: lambda a: 43, 9: lambda a: 30, 10: lambda a: 24}
+
+
+def _op_flops():
+    from lives_tpu_torch.graph import fused_sweep as fs
+    return {fs.OP_CROSSFADE: lambda a: 16,
+            fs.OP_BLEND: lambda a: 16 + 3 * BLEND_COST[a],
+            fs.OP_LUMA_KEY: lambda a: 25, fs.OP_CHROMA_KEY: lambda a: 31,
+            fs.OP_ALPHA_OVER: lambda a: 12, fs.OP_MASK_OVERLAY: lambda a: 15,
+            fs.OP_LUMA_SELECT: lambda a: 12, fs.OP_WIPE: lambda a: 3,
+            fs.OP_IRIS: lambda a: (24, 21)[a], fs.OP_DISSOLVE: lambda a: 2,
+            fs.OP_COLOUR_BALANCE: lambda a: 9,
+            fs.OP_SATURATION: lambda a: 20, fs.OP_VIGNETTE: lambda a: 23,
+            fs.OP_NEGATE: lambda a: 9, fs.OP_BRIGHTNESS_CONTRAST: lambda a: 18,
+            fs.OP_GAMMA_ADJUST: lambda a: 12, fs.OP_LEVELS: lambda a: 21,
+            fs.OP_GREYSCALE: lambda a: 11, fs.OP_SEPIA: lambda a: 30,
+            fs.OP_POSTERIZE: lambda a: 18, fs.OP_SOLARIZE: lambda a: 12,
+            fs.OP_THRESHOLD: lambda a: 12, fs.OP_SOFTLIGHT: lambda a: 30,
+            fs.OP_TINT: lambda a: 23, fs.OP_HUE_ROTATE: lambda a: 21,
+            fs.OP_MODULATE: lambda a: 59, fs.OP_COLOUR_REPLACE: lambda a: 17,
+            fs.OP_STENCIL: lambda r: 12 * (2 * r + 1) + 15,
+            fs.OP_FIRE: lambda a: 43, fs.OP_LIFE: lambda a: 30,
+            fs.OP_ALIEN: lambda a: 24}
 
 
 def table_flops(ops, u8_stages=False) -> int:
@@ -373,10 +426,12 @@ def table_flops(ops, u8_stages=False) -> int:
     track it reads besides track 0 and 3 for track 0, and with `u8_stages`
     (the composite kernel) a quantise (15) and a re-read (3) after each
     op."""
+    from lives_tpu_torch.graph.fused_sweep import OP_LAST_TWO_IN
+    flops = _op_flops()
     n = 3
     for code, in0, in1, arg, *_ in ops.cpu().tolist():
-        n += OP_FLOPS[code](arg) + 3 * (in0 != 0)
-        n += 3 * (code <= 3 and in1 not in (0, in0))
+        n += flops[code](arg) + 3 * (in0 != 0)
+        n += 3 * (code <= OP_LAST_TWO_IN and in1 not in (0, in0))
         n += 18 * u8_stages
     return n
 
@@ -485,6 +540,14 @@ def blur_geometry(el, ids, card):
              tile=f"{chosen.tile_h}x{chosen.tile_w}", run=chosen.run,
              blocks_per_sm=fused_sweep.blocks_per_sm(chosen),
              ms=" ".join(f"{k}:{v:.3f}" for k, v in ms.items()))
+
+
+class Materialised:
+    """A source without its LOAD step: run_batch gets layers and takes the
+    plain route."""
+
+    def __init__(self, src):
+        self.get_batch = src.get_batch
 
 
 def render_path(el, src, sink, check=True):
@@ -918,10 +981,22 @@ FMA_REPS = 200
 FMA_LEAD = 65536
 
 
-def make_timeline(n_tracks, n_frames, width, height, fps, fx):
-    """`scenes.multitrack_timeline` with a configurable suffix chain: a
-    copy of benchmarks/sweep_profile.py:34-65 over the port's event
-    list."""
+#: the transitions of make_timeline's tracks 1..9 (sweep_profile.py:40-42)
+TRANS = [("crossfade", {"amount": 0.5}), ("blend_screen", {"amount": 0.5}),
+         ("blend_overlay", {"amount": 0.5}), ("luma_key", {}),
+         ("blend_add", {"amount": 0.5}), ("blend_multiply", {"amount": 0.5}),
+         ("chroma_key", {}), ("blend_lighten", {"amount": 0.5}),
+         ("blend_difference", {"amount": 0.5})]
+
+
+def make_timeline(n_tracks, n_frames, width, height, fps, fx, trans=TRANS,
+                  animate=0):
+    """`scenes.multitrack_timeline` with a configurable chain: a copy of
+    benchmarks/sweep_profile.py:34-65 over the port's event list. Track t
+    (1..n_tracks-1) folds into track 0 by trans[(t-1) % len(trans)], (name,
+    values); then the effects `fx`, (name, values) on track 0 or (name,
+    values, in_tracks); the amount of init `animate` runs 0 -> 1 over the
+    timeline."""
     from lives_tpu_torch.events.event_list import (EventList,
                                                    TICKS_PER_SECOND,
                                                    filter_init_event,
@@ -931,29 +1006,64 @@ def make_timeline(n_tracks, n_frames, width, height, fps, fx):
     el = EventList(fps=fps, width=width, height=height)
     tpf = int(TICKS_PER_SECOND / fps)
     inits = []
-    trans = ["crossfade", "blend_screen", "blend_overlay", "luma_key",
-             "blend_add", "blend_multiply", "chroma_key", "blend_lighten",
-             "blend_difference"]
     for t in range(1, n_tracks):
-        name = trans[(t - 1) % len(trans)]
-        vals = {"amount": 0.5} if name.startswith(("crossfade", "blend")) \
-            else {}
+        name, vals = trans[(t - 1) % len(trans)]
         init = filter_init_event(0, name, in_tracks=[0, t], out_tracks=[0],
                                  values=vals)
         el.insert(init)
         inits.append(init)
-    for name, vals in fx:
-        init = filter_init_event(0, name, values=vals)
+    for name, vals, *tracks in fx:
+        init = filter_init_event(0, name, values=vals,
+                                 **({"in_tracks": tracks[0],
+                                     "out_tracks": [0]} if tracks else {}))
         el.insert(init)
         inits.append(init)
     el.insert(filter_map_event(0, [i.event_id for i in inits]))
-    el.insert(param_change_event(0, inits[0].event_id, "amount", 0.0))
+    el.insert(param_change_event(0, inits[animate].event_id, "amount", 0.0))
     el.insert(param_change_event((n_frames - 1) * tpf,
-                                 inits[0].event_id, "amount", 1.0))
+                                 inits[animate].event_id, "amount", 1.0))
     for i in range(n_frames):
         el.insert(frame_event(i * tpf, list(range(1, n_tracks + 1)),
                               [i] * n_tracks))
     return el
+
+
+#: timeline V (phase 15): tracks 1-9 fold into track 0 by the transitions
+#: the sweep gained (ROADMAP item 13), then alpha_over and mask_overlay over
+#: tracks 1 and 2, the blur, and ten one-input ops; dissolve's amount runs
+#: 0 -> 1 over the timeline (V_ANIMATE), the others' amounts are 0.5
+V_TRANS = [("chroma_blend", {"amount": 0.5}),
+           ("luma_overlay", {"amount": 0.5}),
+           ("luma_underlay", {"amount": 0.5}),
+           ("negative_luma_overlay", {"amount": 0.5}),
+           ("wipe", {"amount": 0.5, "direction": 2}),   # from the top
+           ("iris_circle", {"amount": 0.5}),
+           ("iris_rectangle", {"amount": 0.5}),
+           ("dissolve", {}),
+           ("rand_replace", {"amount": 0.5})]
+V_ANIMATE = 7
+V_FX = [("alpha_over", {"opacity": 0.7}, [0, 1]),
+        ("mask_overlay", {"threshold": 0.05, "softness": 0.5, "invert": 0.3},
+         [0, 2]),
+        ("gaussian_blur", {"radius": 3, "amount": 0.6}),
+        ("hue_rotate", {"angle": 0.15}),
+        ("modulate", {"brightness": 1.1, "saturation": 1.2, "hue": 0.8}),
+        ("levels", {"black": 0.02, "white": 0.9, "gamma": 0.8}),
+        ("gamma_adjust", {"gamma": 0.8}),
+        ("tint", {"amount": 0.3}),
+        ("softlight", {"amount": 0.5}),
+        ("colour_replace", {"red": 0.5, "green": 0.5, "blue": 0.5,
+                            "red2": 0.9, "green2": 0.4, "blue2": 0.1,
+                            "tolerance": 0.1}),
+        ("brightness_contrast", {"brightness": 0.05, "contrast": 1.2}),
+        ("solarize", {"threshold": 0.9}),
+        ("vignette", {"amount": 0.5})]
+
+
+def timeline_v(n_frames, width=W, height=H, n_tracks=TRACKS):
+    """Timeline V at `width` x `height`, 30 fps."""
+    return make_timeline(n_tracks, n_frames, width, height, FPS, V_FX,
+                         trans=V_TRANS, animate=V_ANIMATE)
 
 
 def sass_counts(so_path, kernel):
@@ -1249,6 +1359,310 @@ def live(dev, card):
     return p
 
 
+def new_ops():
+    """The 25 ops the sweep's op table gained (ROADMAP item 13): its whole
+    vocabulary less the core and the stencils."""
+    from lives_tpu_torch.graph import fused_sweep as fs
+    return sorted(fs.VOCABULARY - fs.CORE - fs.STENCILS)
+
+
+def op_cases():
+    """(label, name, static values) of each new op alone: wipe in each of
+    its four directions."""
+    return [(f"wipe[{d}]" if n == "wipe" else n, n,
+             {"direction": d} if n == "wipe" else {})
+            for n in new_ops() for d in (range(4) if n == "wipe" else [0])]
+
+
+def lone_op(name, static, n_tracks, rng, B, lead=()):
+    """(chain spec, packed (host), rows_key) of op `name` alone (after the
+    specs `lead`), reading tracks 0 and 1 where it reads two, with
+    per-frame values drawn in each traced parameter's range."""
+    import numpy as np
+
+    from lives_tpu_torch.effects.host import instantiate
+    from lives_tpu_torch.graph.nodemodel import (_split_params,
+                                                 chain_spec_of, pack_params)
+    chain = [instantiate(n, **v) for n, v in lead]
+    inst = instantiate(name, **static)
+    inst.in_tracks = (0, 1 % n_tracks) if inst.filter.n_in == 2 else (0,)
+    chain.append(inst)
+    params = [{k: rng.uniform(i.filter.param(k).min, i.filter.param(k).max,
+                              B).astype(np.float32)
+               for k in _split_params(i)[1]} for i in chain]
+    packed, rows = pack_params(params, np.arange(B) / FPS,
+                               np.arange(B) + 1000003)
+    return chain_spec_of(chain), packed, rows
+
+
+def vocabulary(dev, card, held, ms, bounds, launches):
+    """15. the sweep's whole vocabulary (ROADMAP item 13): timeline V through
+    the main path's entry points; each op the op table gained alone in K1,
+    K4 (PALLAS_SAFE) and K5; K4 on a chain of them over 10 tracks; K5 on
+    config C with two of them; V in bands."""
+    import numpy as np
+    import torch
+
+    from lives_tpu_torch.events.renderer import render_events
+    from lives_tpu_torch.graph import (SinkSpec, composite, fused_sweep,
+                                       nodemodel, stateful_sweep)
+    from lives_tpu_torch.graph.nodemodel import chain_spec_of
+    from lives_tpu_torch.parallel import frame_mesh, spatial_sweep_fn
+    from lives_tpu_torch.scenes import (DeviceSyntheticSource,
+                                        multitrack_timeline)
+    from lives_tpu_torch.effects.host import instantiate
+    src = DeviceSyntheticSource(H, W, device=dev)
+    sink = SinkSpec(W, H)
+    n_chunks = -(-N_FRAMES // CHUNK)
+    px = CHUNK * H * W
+    # the plain route is the float route, the one K1 computes (an earlier
+    # phase leaves the composite route's pref set)
+    os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "0"
+
+    # 15a. timeline V through render_events
+    el = timeline_v(N_FRAMES)
+    nodemodel.PLAIN_CHUNKS = 0
+    rendered, head, counts, first_s = render_path(el, src, sink)
+    plain_chunks = nodemodel.PLAIN_CHUNKS
+    line("15a timeline_v", frames=rendered, chunks=n_chunks, launches=counts,
+         plain_route_chunks=plain_chunks, first_pass_s=f"{first_s:.3f}")
+    assert rendered == N_FRAMES and counts == {"u8": n_chunks} \
+        and plain_chunks == 0, (rendered, counts, plain_chunks)
+    launches["fused_sweep_vocabulary"] = counts["u8"]
+    _, plain_head = next(iter(render_events(el, Materialised(src), sink,
+                                            batch_size=4)))
+    ref = plain_head.planes[0]
+    held("fused_sweep_vocabulary", "15a v_vs_plain_route", head, ref, 1,
+         frames=4, beyond_1_lsb=int(((head.int() - ref.int()).abs() > 1)
+                                    .sum()))
+    rendered, _, _, wall_s = render_path(el, src, sink, check=False)
+    line("15a timed", card=repr(card), frames=rendered,
+         wall_s=f"{wall_s:.4f}", frames_per_s=f"{rendered / wall_s:.1f}",
+         x_realtime=f"{rendered / wall_s / FPS:.2f}")
+    spec, ids, packed, rows = chunk_of(el, dev, CHUNK)
+    plan = sweep_plan(el, spec, rows, dev, TRACKS)
+    assert plan.full, "V holds ops past the core: K1's exact build"
+    ms["fused_sweep_vocabulary"] = in_turns(
+        lambda: fused_sweep.plain_sweep(plan, ids, packed),
+        lambda: fused_sweep._launch(plan, ids, packed, None))
+    bounds["fused_sweep_vocabulary"] = bound(
+        px * 3, px * (table_flops(plan.ops) + 15))
+    geom = fused_sweep.plan_geometry(plan, CHUNK)
+    line("15a chunk_ms", card=repr(card), frames=CHUNK,
+         times=ms["fused_sweep_vocabulary"][2], ops=plan.ops.shape[0],
+         bound_ms=f"{bounds['fused_sweep_vocabulary'][0]:.4f} "
+                  f"({bounds['fused_sweep_vocabulary'][1]})",
+         tile=f"{geom.tile_h}x{geom.tile_w}", run=geom.run, smem=geom.smem,
+         blocks_per_sm=fused_sweep.blocks_per_sm(geom))
+    # the exact build's entry of runs of 8 spills (phase 2's ptxas lines):
+    # V's chunk at runs of 4 beside the chosen runs, in turns
+    g4 = fused_sweep.plan_geometry(plan, CHUNK, (geom.tile_h, geom.tile_w),
+                                   4)
+    times = {geom.run: [], 4: []}
+    for run in (geom.run, 4, 4, geom.run):
+        g = geom if run == geom.run else g4
+        times[run].append(time_ms(
+            lambda: fused_sweep._launch(plan, ids, packed, None, 0, g), 5))
+    line("15a run_ms", card=repr(card), chain="V", frames=CHUNK,
+         tile=f"{geom.tile_h}x{geom.tile_w}",
+         **{f"run{r}_ms": ",".join(f"{x:.3f}" for x in t)
+            for r, t in times.items()})
+
+    # 15a. what the exact build costs: the main chain's chunk on K1's core
+    # build and on its exact one (whole vocabulary, -fmad=false), in turns
+    import dataclasses
+    mel = multitrack_timeline(n_tracks=TRACKS, n_frames=N_FRAMES, width=W,
+                              height=H, fps=FPS)
+    mspec, mids, mpacked, mrows = chunk_of(mel, dev, CHUNK)
+    core = sweep_plan(mel, mspec, mrows, dev, TRACKS)
+    exact = dataclasses.replace(core, full=True)
+    times = {id(core): [], id(exact): []}
+    for p in (core, exact, exact, core):
+        times[id(p)].append(time_ms(
+            lambda: fused_sweep._launch(p, mids, mpacked, None), 5))
+    line("15a exact_cost", card=repr(card), chain="main", frames=CHUNK,
+         core_ms=",".join(f"{x:.3f}" for x in times[id(core)]),
+         exact_ms=",".join(f"{x:.3f}" for x in times[id(exact)]))
+    del mids, mpacked
+
+    # 15b-d. each new op alone: K1 (8 frames), K4 over decoded-like u8
+    # tracks and K5 after alien_overlay (4 frames), all at 1920x1080
+    rng = np.random.default_rng(15)
+    b8 = 8
+    ids8 = torch.tensor([[[1] * b8, [2] * b8], [list(range(b8))] * 2],
+                        dtype=torch.int32, device=dev)
+    trk = [src.traced_layer(ids8[0, t, :4], ids8[1, t, :4]).planes[0]
+           for t in range(2)]
+    for label, name, static in op_cases():
+        spec1, packed1, rows1 = lone_op(name, static, 2, rng, b8)
+        packed1 = torch.from_numpy(packed1).to(dev)
+        plan = fused_sweep.build_fused_sweep(spec1, 2, H, W, rows1, FPS, src,
+                                             sink, dev)
+        got = fused_sweep.fused_sweep(plan, ids8, packed1)
+        torch.cuda.synchronize()
+        ref = fused_sweep.plain_sweep(plan, ids8, packed1)
+        held("fused_sweep_vocabulary", "15b k1_op_vs_plain", got, ref, 1,
+             op=label, frames=b8,
+             beyond_1_lsb=int(((got.int() - ref.int()).abs() > 1).sum()))
+        if name in composite.VOCABULARY:
+            cplan = composite.build_composite(spec1, 2, rows1, FPS, dev)
+            got = composite.composite(cplan, trk, packed1[:, :4])
+            torch.cuda.synchronize()
+            held("composite", "15c k4_op_vs_plain", got,
+                 composite.plain_composite(cplan, trk, packed1[:, :4]), 1,
+                 op=label, frames=4)
+        spec5, packed5, rows5 = lone_op(name, static, 2, rng, 4,
+                                        lead=[("alien_overlay", {})])
+        packed5 = torch.from_numpy(packed5).to(dev)
+        splan = stateful_sweep.build_stateful_sweep(spec5, 2, H, W, rows5,
+                                                    FPS, src, sink, dev)
+        assert splan is not None and splan.full, label
+        st = [f.init_state(W, H, None, dev) if f.init_state else None
+              for f, *_ in spec5]
+        got, st_k = stateful_sweep.stateful_sweep(splan, ids8[:, :, :4],
+                                                  packed5, st)
+        torch.cuda.synchronize()
+        ref, st_p = stateful_sweep.plain_stateful_sweep(
+            splan, ids8[:, :, :4], packed5,
+            [x.clone() if x is not None else None for x in st])
+        held("stateful_sweep", "15d k5_op_vs_plain", got, ref, 1, op=label,
+             frames=4, state_err=f"{diff_stats(st_k[0], st_p[0])[0]:.3g}")
+        assert diff_stats(st_k[0], st_p[0])[0] <= 1e-5, label
+
+    # 15c. K4 over 10 u8 tracks with a chain of 9 drawn from the new
+    # PALLAS_SAFE ops, each reading random tracks
+    pool = sorted(set(new_ops()) & composite.VOCABULARY)
+    chain = []
+    for _ in range(9):
+        inst = instantiate(pool[rng.integers(len(pool))])
+        inst.in_tracks = tuple(int(t) for t in
+                               rng.integers(0, TRACKS, inst.filter.n_in))
+        chain.append(inst)
+    from lives_tpu_torch.graph.nodemodel import _split_params, pack_params
+    params = [{k: rng.uniform(i.filter.param(k).min, i.filter.param(k).max,
+                              b8).astype(np.float32)
+               for k in _split_params(i)[1]} for i in chain]
+    packed9, rows9 = pack_params(params, np.arange(b8) / FPS, np.arange(b8))
+    packed9 = torch.from_numpy(packed9).to(dev)
+    cplan = composite.build_composite(chain_spec_of(chain), TRACKS, rows9,
+                                      FPS, dev)
+    trk10 = [src.traced_layer(torch.full((b8,), t + 1, dtype=torch.int32,
+                                         device=dev),
+                              torch.arange(b8, dtype=torch.int32,
+                                           device=dev)).planes[0]
+             for t in range(TRACKS)]
+    got = composite.composite(cplan, trk10, packed9)
+    torch.cuda.synchronize()
+    held("composite", "15c k4_chain_vs_plain", got,
+         composite.plain_composite(cplan, trk10, packed9), 1,
+         chain="+".join(i.filter.name for i in chain), tracks=TRACKS,
+         frames=b8)
+    del trk10, got
+
+    # 15d. K5 on config C with dissolve and hue_rotate in its tail, two
+    # chunks
+    tel = timeline("C_vocab", 8)
+    spec5, _, _, rows5 = chunk_of(tel, dev, 4)
+    splan = stateful_sweep.build_stateful_sweep(spec5, TRACKS, H, W, rows5,
+                                                FPS, src, sink, dev)
+    assert splan is not None and splan.full
+    st_k = [f.init_state(W, H, None, dev) if f.init_state else None
+            for f, *_ in spec5]
+    st_p = list(st_k)
+    for k in range(2):
+        _, ids4, packed4, _ = chunk_of(tel, dev, 4, k)
+        got, st_k = stateful_sweep.stateful_sweep(splan, ids4, packed4, st_k)
+        torch.cuda.synchronize()
+        ref, st_p = stateful_sweep.plain_stateful_sweep(splan, ids4, packed4,
+                                                        st_p)
+        held("stateful_sweep", "15d k5_c_vocab_vs_plain", got, ref, 1,
+             chunk=k, frames=4)
+    for i, step, kind in splan.state_steps:
+        worst, _ = diff_stats(st_k[i], st_p[i])
+        line("15d state", step=step, kind=kind, max_abs_err=f"{worst:.3g}")
+        assert worst <= 1e-5, (step, worst)
+
+    # 15e. V in bands: the band kernel bit for bit the whole frame's rows,
+    # and spatial_sweep_fn over V's chunks bit for bit render_events'
+    spec, ids, packed, rows = chunk_of(el, dev, 4)
+    whole = fused_sweep.fused_sweep(sweep_plan(el, spec, rows, dev, TRACKS),
+                                    ids, packed)
+    for band_h in (H // 4, H // 8):  # 270 and 135 rows at 1080p
+        bplan = sweep_plan(el, spec, rows, dev, TRACKS, band_h=band_h)
+        same = all(torch.equal(fused_sweep.fused_sweep(bplan, ids, packed,
+                                                       y0=y0),
+                               whole[:, :, y0:y0 + band_h])
+                   for y0 in range(0, H, band_h))
+        line("15e v_band_vs_whole", band_h=band_h, bands=H // band_h,
+             bit_identical=same)
+        assert same, band_h
+    del whole
+    graph = nodemodel.FrameGraph(_chain(el), sink, fps=FPS)
+    sweep = spatial_sweep_fn(graph, frame_mesh([torch.device("cuda", 0)] * 4,
+                                               axis="s"), src, CHUNK, H, W,
+                             axis="s")
+    assert sweep is not None, "V must qualify for the band sweep"
+    fused_sweep.MODE_LAUNCHES.update(dict.fromkeys(fused_sweep.MODE_LAUNCHES,
+                                                   0))
+    outs = [sweep(ids_k, packed_k) for _, ids_k, packed_k, _ in
+            (chunk_of(el, dev, CHUNK, k) for k in range(n_chunks))]
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in fused_sweep.MODE_LAUNCHES.items() if v}
+    assert counts == {"band": 4 * n_chunks}, counts
+    for k, (o, (_, lay)) in enumerate(zip(outs, render_events_of(el, src,
+                                                                  sink))):
+        same = torch.equal(o, lay.planes[0])
+        line("15e v_band_sweep_vs_render_events", chunk=k, launches=counts,
+             bit_identical=same)
+        assert same, k
+    del outs
+
+
+def guard(dev, card):
+    """`--guard`: K1 u8 on the main chain's chunk (phase 5's), K4 on config
+    D's 9-transition prefix over 10 tracks and K5 on config C, one 96-frame
+    chunk each, alone, and the ptxas report of K1, K4 and K5, calling only
+    entry points every version of the port since its K1 redesign has: a
+    copy of the script at the root of another checkout times that
+    checkout."""
+    import torch
+
+    from lives_tpu_torch import native
+    from lives_tpu_torch.graph import composite, fused_sweep, stateful_sweep
+    from lives_tpu_torch.graph.nodemodel import composite_prefix
+    from lives_tpu_torch.graph import SinkSpec
+    from lives_tpu_torch.scenes import (DeviceSyntheticSource,
+                                        multitrack_timeline)
+    native.load_all(["fused_sweep", "composite", "stateful_sweep"])
+    for mod in (fused_sweep, composite, stateful_sweep):
+        built = mod.build()
+        for entry, res in ptxas_entries(built.log).items():
+            line("guard ptxas", root=ROOT.name,
+                 lib=built.path.name.split("-")[0], entry=entry, **res)
+    src = DeviceSyntheticSource(H, W, device=dev)
+    el = multitrack_timeline(n_tracks=TRACKS, n_frames=N_FRAMES, width=W,
+                             height=H, fps=FPS)
+    spec, ids, packed, rows = chunk_of(el, dev, CHUNK)
+    plan = sweep_plan(el, spec, rows, dev, TRACKS)
+    calls = {"k1_u8": lambda: fused_sweep._launch(plan, ids, packed, None)}
+    prefix, n_t = composite_prefix(spec[:9], TRACKS)
+    cplan = composite.build_composite(prefix, n_t, rows, FPS, dev)
+    trk = [src.traced_layer(ids[0, t], ids[1, t]).planes[0]
+           for t in range(n_t)]
+    calls["k4"] = lambda: composite._launch(cplan, trk, packed, CHUNK, H, W)
+    cspec, cids, cpacked, crows = chunk_of(timeline("C", CHUNK), dev, CHUNK)
+    splan = stateful_sweep.build_stateful_sweep(cspec, TRACKS, H, W, crows,
+                                                FPS, src, SinkSpec(W, H), dev)
+    states = [f.init_state(W, H, None, dev) if f.init_state else None
+              for f, *_ in cspec]
+    calls["k5"] = lambda: stateful_sweep._launch(splan, cids, cpacked, states)
+    for name, fn in calls.items():
+        got = [time_ms(fn, 5) for _ in range(4)]
+        line(f"guard {name}_ms", card=repr(card), root=ROOT.name,
+             frames=CHUNK, ms=",".join(f"{x:.3f}" for x in got))
+    torch.cuda.synchronize()
+
+
 def synced_calls(fn):
     """(fn's result, the synchronizing CUDA calls it made, as the warnings
     of torch's sync debug mode)."""
@@ -1315,27 +1729,31 @@ def main(argv) -> int:
     if argv == ["--live"]:
         live(dev, card)
         return 0
-    if argv:
+    if argv == ["--guard"]:
+        guard(dev, card)
+        return 0
+    if argv and argv != ["--vocabulary"]:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
-    # 2. build the five libraries, one nvcc each, started together
+    # 2. build the six libraries, one nvcc each, started together
     t0 = time.perf_counter()
-    native.load_all(["fused_sweep", "stateful_sweep", "yuv420", "composite",
-                     "fma_chain"])
+    native.load_all(["fused_sweep", "fused_sweep_exact", "stateful_sweep",
+                     "yuv420", "composite", "fma_chain"])
     wall = time.perf_counter() - t0
-    ptxas = {}
-    for mod in (fused_sweep, stateful_sweep, yuv_kernels, composite,
-                fma_chain):
-        built = mod.build()
+    ptxas = {}  # "library:entry" -> its ptxas report
+    for built in (fused_sweep.build(), fused_sweep.build(full=True),
+                  stateful_sweep.build(), yuv_kernels.build(),
+                  composite.build(), fma_chain.build()):
+        lib = built.path.name.split("-")[0]
         line("2 build", lib=built.path.name,
              seconds=f"{built.seconds:.2f}")
         for entry, res in ptxas_entries(built.log).items():
-            ptxas[entry] = res
-            line("2 ptxas", lib=built.path.name.split("-")[0], entry=entry,
-                 **res)
+            ptxas[f"{lib.removeprefix('lib')}:{entry}"] = res
+            line("2 ptxas", lib=lib, entry=entry, **res)
     line("2 build", wall_s=f"{wall:.2f}")
-    resources = {}  # kernel -> its main-path entry's ptxas and blocks an SM
+    # kernel -> its main-path entry ("library:entry") and blocks an SM
+    resources = {}
 
     err = dict.fromkeys(NAMES, 0.0)
     # the library call's ms where one PyTorch call computes the same
@@ -1351,6 +1769,10 @@ def main(argv) -> int:
              differing_share=f"{share:.3g}")
         assert worst <= tol, f"{what} {kw}: max |diff| {worst} > {tol}"
         err[name] = max(err[name], worst)
+
+    if argv == ["--vocabulary"]:
+        vocabulary(dev, card, held, {}, {}, {})
+        return 0
 
     # 3. kernel vs plain_sweep on the card
     for w, h, tracks in ((W, H, TRACKS), (1000, 562, 3)):
@@ -1377,13 +1799,6 @@ def main(argv) -> int:
     held("fused_sweep", "4 golden", torch.from_numpy(out),
          torch.from_numpy(gold), 1, frames=out.shape[0],
          launches=fused_sweep.LAUNCHES - before)
-
-    class Materialised:
-        """A source without its LOAD step: run_batch gets layers and takes
-        the plain route."""
-
-        def __init__(self, src):
-            self.get_batch = src.get_batch
 
     src = DeviceSyntheticSource(H, W, device=dev)
     sink = SinkSpec(W, H)
@@ -1421,7 +1836,7 @@ def main(argv) -> int:
          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
     main_geometry(plan, ids, packed, card)
     geom = fused_sweep.plan_geometry(plan, CHUNK)
-    resources["fused_sweep"] = (f"fused_sweep_kernelILi{geom.run}E",
+    resources["fused_sweep"] = (f"fused_sweep:fused_sweep_kernelILi{geom.run}E",
                                 fused_sweep.blocks_per_sm(geom))
     blur_geometry(el, ids, card)
     # what the halo costs: the chain without its blur (R = 0), in turns
@@ -1565,8 +1980,8 @@ def main(argv) -> int:
          margin=geom.margin, smem=geom.smem, blocks_per_sm=per_sm,
          tiles_per_frame=tiles, grid=min(resident, tiles),
          rounds=fused_sweep.stateful_rounds(geom, resident))
-    resources["stateful_sweep"] = (f"stateful_sweep_kernelILi{geom.run}E",
-                                   per_sm)
+    resources["stateful_sweep"] = (
+        f"stateful_sweep:stateful_sweep_kernelILi{geom.run}ELb0E", per_sm)
     for tile in fused_sweep.TILES:
         for run in (8, 4):
             try:
@@ -1824,7 +2239,7 @@ def main(argv) -> int:
     line("11 copy_ceiling", card=repr(card), bytes=int(px * 4.5),
          ms=f"{t:.4f}", tb_per_s=f"{rate:.3f}")
     for name in ("yuv420_to_rgb", "rgb_to_yuv420"):
-        resources[name] = (f"{name}_kernelILi{yuv_kernels.RUN}E",
+        resources[name] = (f"yuv420:{name}_kernelILi{yuv_kernels.RUN}E",
                            "not queried")
     del rgb, y, u, v, calls, plain
     spec, ids, packed, rows = chunk_of(el, dev, CHUNK)
@@ -1842,7 +2257,7 @@ def main(argv) -> int:
     line("11 k4_geometry", span=geom.span,
          tracks_read=len(plan.tracks_read), smem=geom.smem, grid=geom.grid,
          blocks_per_sm=composite.blocks_per_sm(geom))
-    resources["composite"] = ("composite_kernel",
+    resources["composite"] = ("composite:composite_kernel",
                               composite.blocks_per_sm(geom))
     # the same 10 tracks through 9 crossfades: one op body in the loop
     xf = composite.build_composite(
@@ -1883,11 +2298,21 @@ def main(argv) -> int:
     library["fma_chain"] = round(k6["library_ms"], 6)
     ms["fma_chain"] = (k6["ms"], k6["plain_ms"])
     bounds["fma_chain"] = k6["bound"]
-    resources["fma_chain"] = ("fma_chain_kernel", "not queried")
+    resources["fma_chain"] = ("fma_chain:fma_chain_kernel", "not queried")
     live(dev, card)
+    vocabulary(dev, card, held, ms, bounds, launches)
+    vel = timeline_v(1)
+    vspec, _, _, vrows = chunk_of(vel, dev, 1)
+    v_geom = fused_sweep.plan_geometry(
+        sweep_plan(vel, vspec, vrows, dev, TRACKS), CHUNK)
+    resources["fused_sweep_vocabulary"] = (
+        f"fused_sweep_exact:fused_sweep_kernelILi{v_geom.run}E",
+        fused_sweep.blocks_per_sm(v_geom))
 
     for name, (entry, per_sm) in resources.items():
-        res = next((v for k, v in ptxas.items() if entry in k),
+        lib, fn = entry.split(":")
+        res = next((v for k, v in ptxas.items()
+                    if k.startswith(lib + ":") and fn in k),
                    {"ptxas": "not in the build log"})
         line("resources", kernel=name, entry=entry, **res,
              blocks_per_sm=per_sm)

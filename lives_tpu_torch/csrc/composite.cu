@@ -6,9 +6,10 @@
 // filter's `process` on u8 layers, so every stage's result is quantised to
 // u8 before the next stage reads it; this kernel computes the same: for
 // each op it converts its inputs' u8 values to [0,1] floats (x * 1/255),
-// runs the point op of sweep_common.cuh (crossfade, the 14 blends,
-// luma_key, chroma_key, colour_balance, saturation: the members of
-// PALLAS_SAFE the port holds), and rounds the result to u8
+// runs the point op of sweep_common.cuh (every member of PALLAS_SAFE: one
+// instance, `point_run<RUN, true>`, which ran config D's prefix no slower
+// than the core vocabulary's on an H100, PERF.md), and rounds the result
+// to u8
 // (floor(x*255+0.5), clipped), kept in registers. Only track 0 is ever
 // written (the prefix writes track 0 alone). Traced parameters are clamped
 // as Param.clamp does (load_slots), and each op's record (sweep_common.cuh
@@ -185,7 +186,7 @@ __global__ void __launch_bounds__(NTHREADS, 4) composite_kernel(
   __syncthreads();
   for (int i = threadIdx.x; i < n_ops; i += NTHREADS) {
     const int* o = ops + i * OP_FIELDS;
-    rec[i] = make_rec(o, sp + o[F_SLOT], nullptr);
+    rec[i] = make_rec(o, sp + o[F_SLOT], nullptr, nullptr);
   }
   cp_async_wait_all();
   __syncthreads();
@@ -215,7 +216,7 @@ __global__ void __launch_bounds__(NTHREADS, 4) composite_kernel(
       for (int j = 0; j < RUN; ++j) {
         v[j] = {chan_f(q[0][j]), chan_f(q[1][j]), chan_f(q[2][j])};
       }
-      point_run<RUN>(rec[k], v, track, x, 0, 0.0f, 0.0f);
+      point_run<RUN, true>(rec[k], v, track, x, 0, 0.0f, 0.0f);
 #pragma unroll
       for (int j = 0; j < RUN; ++j) {
         q[0][j] = q8f(v[j].r);

@@ -45,13 +45,27 @@
 //   The runs, the mapping, the stencil pass and the edge fix-up are
 //   sweep_common.cuh's, which stateful_sweep.cu instantiates too.
 //
-// Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
-// -shared -Xcompiler -fPIC and loaded with ctypes (lives_tpu_torch/native),
-// with fused multiply-adds. No --use_fast_math: vignette's expf,
-// chroma_key's sqrtf and divisions and the round-half-up quantise stay
-// IEEE for the +/-1 LSB contract. The integer-to-float conversions of the
-// source and the quantise's float-to-integer step go through a float's
-// mantissa and one rounding conversion, exactly.
+// Built twice with nvcc -gencode arch=compute_90a,code=sm_90a -O3
+// -std=c++17 -shared -Xcompiler -fPIC and loaded with ctypes
+// (lives_tpu_torch/native):
+//
+// - `fused_sweep`, the core vocabulary (sweep_common.cuh) with fused
+//   multiply-adds: the main chains, whose ops are continuous in their
+//   inputs, so an ulp's difference from the plain version moves a pixel by
+//   1 LSB at most;
+// - `fused_sweep_exact` (-DLIVES_SWEEP_EXACT -fmad=false), the whole
+//   vocabulary with every multiply and add rounded on its own, as PyTorch's
+//   eager ops round them. The ops past the core compare a float with a
+//   threshold (wipe, dissolve, the luma overlays, threshold, solarize,
+//   posterize, colour_replace), where one ulp anywhere upstream turns a
+//   pixel from fg to bg: a plan that holds any of them (`SweepPlan.full`)
+//   runs this build, so each comparison sees the plain version's floats.
+//
+// No --use_fast_math: expf, sqrtf, powf, cosf, divisions and the
+// round-half-up quantise stay IEEE for the +/-1 LSB contract. The
+// integer-to-float conversions of the source and the quantise's
+// float-to-integer step go through a float's mantissa and one rounding
+// conversion, exactly.
 //
 // Layout of one launch:
 //   grid (ceil(W/TW), ceil(band_h/TH), B), THREADS threads a block, tile
@@ -106,6 +120,11 @@ using namespace lives;
 constexpr int THREADS = NTHREADS;  // threads a block (load_slots strides so)
 constexpr int MIN_BLOCKS = 2;      // blocks an SM holds: at most 128 registers
 constexpr int MAX_OPS = MAX_SLOTS; // every op of the vocabulary has a slot
+#ifdef LIVES_SWEEP_EXACT
+constexpr bool FULL = true;   // the whole vocabulary (fused_sweep_exact)
+#else
+constexpr bool FULL = false;  // the core vocabulary (fused_sweep)
+#endif
 
 // Track 0 of a run from the f32 comp (row y, columns x; the run starts at
 // frame column gx >= 0): vectors along a whole run of an aligned row.
@@ -158,7 +177,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_sweep_kernel(
   __syncthreads();
   for (int i = threadIdx.x; i < n_ops; i += THREADS) {
     const int* o = ops + i * OP_FIELDS;
-    rec[i] = make_rec(o, sp + o[F_SLOT], &fr);
+    rec[i] = make_rec(o, sp + o[F_SLOT], &fr, taps);
   }
   for (int i = threadIdx.x; i < n_taps; i += THREADS) kw_all[i] = taps[i];
   if (threadIdx.x == 0) t0 = track_rec(fr, 0);
@@ -189,7 +208,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_sweep_kernel(
       } else {
         gen_run<P>(t0, x, y, v);
       }
-      apply_run<P>(rec, 0, first, v, x, y, sx, sy);
+      apply_run<P, FULL>(rec, 0, first, v, x, y, sx, sy);
       if (first == n_ops) {  // no stencil: R = M = 0, the tile itself
         if (gy < y_end) {
           store_run<P>(ob, cb, oplane, W, (size_t)(gy - y0) * W + gx, gx, v);
@@ -228,7 +247,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_sweep_kernel(
         for (int j = 0; j < P; ++j) x[j] = clampi(gx + j, 0, W - 1);
         Rgb v[P];
         get_run<P>(A, ch, row * WS + col, v);
-        apply_run<P>(rec, si + 1, next, v, x, y, sx, sy);
+        apply_run<P, FULL>(rec, si + 1, next, v, x, y, sx, sy);
         if (last) {
           if (gy < y_end) {  // inside the band
             store_run<P>(ob, cb, oplane, W, (size_t)(gy - y0) * W + gx, gx,

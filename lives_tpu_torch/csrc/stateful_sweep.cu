@@ -302,7 +302,11 @@ __device__ __forceinline__ void put_luma(float* S, int VS, int row, int col,
   for (int j = 0; j < P; ++j) d[j] = luma(v[j]);
 }
 
-template <int P>
+// FULL: the whole point-op vocabulary; else the core alone
+// (sweep_common.cuh), the code a plan of core ops ran before the
+// vocabulary grew: the whole vocabulary's instance spills more (runs of 8)
+// and took config C's chunk about 4 % longer on an H100 (PERF.md)
+template <int P, bool FULL>
 __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) stateful_sweep_kernel(
     const float* __restrict__ packed, const int* __restrict__ ids,
     const int* __restrict__ ops, int n_ops,
@@ -335,7 +339,7 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) stateful_sweep_kernel(
     const Frame fr{ids, T, B, b, sx, sy};
     for (int i = threadIdx.x; i < n_ops; i += NTHREADS) {
       const int* o = ops + i * OP_FIELDS;
-      rec[i] = make_rec(o, sp + o[F_SLOT], &fr);
+      rec[i] = make_rec(o, sp + o[F_SLOT], &fr, taps);
     }
     if (threadIdx.x == 0) t0 = track_rec(fr, 0);
     __syncthreads();
@@ -360,7 +364,7 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS) stateful_sweep_kernel(
       const auto finish = [&](Rgb (&v)[P], const RunAt<P>& at, int row,
                               int col, int gy, int gx, int from, int to,
                               bool luma) {
-        apply_run<P>(rec, from, to, v, at.x, at.y, sx, sy);
+        apply_run<P, FULL>(rec, from, to, v, at.x, at.y, sx, sy);
         if (to == n_ops) {
           if (gy < H) {
             store_run<P>(ob, nullptr, plane, W, (size_t)gy * W + gx, gx, v);
@@ -469,12 +473,17 @@ size_t smem_need(int TH, int TW, int M, int R, int n_ops, int n_taps) {
          (size_t)n_ops * sizeof(OpRec) + (size_t)n_taps * sizeof(float);
 }
 
-using Kernel = decltype(&stateful_sweep_kernel<4>);
+using Kernel = decltype(&stateful_sweep_kernel<4, false>);
 
-// The kernel of run P, null for a run that is not built
-Kernel kernel_of(int P) {
-  return P == 4 ? stateful_sweep_kernel<4>
-         : P == 8 ? stateful_sweep_kernel<8> : nullptr;
+// The kernel of run P (full: the whole vocabulary's), null for a run that
+// is not built
+Kernel kernel_of(int P, int full) {
+  if (full) {
+    return P == 4 ? stateful_sweep_kernel<4, true>
+           : P == 8 ? stateful_sweep_kernel<8, true> : nullptr;
+  }
+  return P == 4 ? stateful_sweep_kernel<4, false>
+         : P == 8 ? stateful_sweep_kernel<8, false> : nullptr;
 }
 
 int blocks_per_sm(Kernel kern, int smem, int* per_sm) {
@@ -520,9 +529,10 @@ extern "C" {
 // Launch one chunk of B frames on `stream` as one cooperative launch;
 // first/plane0/plane1 hold n_states state pointers each. The geometry (tile
 // TH x TW, run P, margin M, `smem` bytes) comes from graph/fused_sweep.py
-// stateful_geometry. Returns 0 when launched, else the CUDA error: a launch the geometry does
-// not fit is refused, and a grid the card cannot hold at once fails
-// (cudaErrorCooperativeLaunchTooLarge); nothing falls back.
+// stateful_geometry; full: the plan holds a point op past the core
+// vocabulary. Returns 0 when launched, else the CUDA error: a launch the
+// geometry does not fit is refused, and a grid the card cannot hold at once
+// fails (cudaErrorCooperativeLaunchTooLarge); nothing falls back.
 int lives_stateful_sweep(const float* packed, const int* ids, const int* ops,
                          int n_ops, const int* slot_rows,
                          const float* slot_vals, int n_slots,
@@ -531,8 +541,8 @@ int lives_stateful_sweep(const float* packed, const int* ids, const int* ops,
                          void* const* plane1, int n_states,
                          unsigned char* out, int T, int B, int H, int W,
                          int R, float sx, float sy, int TH, int TW, int P,
-                         int M, int smem, void* stream) {
-  const Kernel kern = kernel_of(P);
+                         int M, int smem, int full, void* stream) {
+  const Kernel kern = kernel_of(P, full);
   if (kern == nullptr || n_slots > MAX_SLOTS || n_states > MAX_STATES ||
       n_states < 1 || n_ops < 1 || n_ops > MAX_OPS || n_taps < 0 || T < 1 ||
       B < 1 || H < 1 || W < 1 || R < 0 || TH < 1 || TW < P || TW % P != 0 ||
@@ -551,10 +561,11 @@ int lives_stateful_sweep(const float* packed, const int* ids, const int* ops,
                 H, W, R, sx, sy, TH, TW, M);
 }
 
-// Blocks of the kernel at run P with `smem` bytes of dynamic shared memory
-// that one SM holds, in *per_sm; returns the CUDA error (0 = none).
-int lives_stateful_blocks_per_sm(int P, int smem, int* per_sm) {
-  const Kernel kern = kernel_of(P);
+// Blocks of the kernel at run P (full: the whole vocabulary's) with `smem`
+// bytes of dynamic shared memory that one SM holds, in *per_sm; returns the
+// CUDA error (0 = none).
+int lives_stateful_blocks_per_sm(int P, int full, int smem, int* per_sm) {
+  const Kernel kern = kernel_of(P, full);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   return blocks_per_sm(kern, smem, per_sm);
 }

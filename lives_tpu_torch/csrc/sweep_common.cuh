@@ -10,8 +10,17 @@
 // margin M), a (row, run) mapping with no division a cell (`for_runs`), the
 // one-channel stencil buffer V in skewed rows (`stencil_pass`) and the edge
 // fix-up between steps. The op table is encoded by
-// lives_tpu_torch/graph/fused_sweep.py (_encode, `point_op_row`); keep the
+// lives_tpu_torch/graph/fused_sweep.py (_encode, `encode_point`); keep the
 // constants in step with it.
+//
+// The vocabulary comes in two parts: the core (crossfade, the blends, the
+// keys, colour_balance, saturation, vignette: what the main chains hold)
+// and the rest of the JAX package's band-safe filters (`PALLAS_SAFE |
+// COORD_SAFE`). `point_run<P, FULL>` compiles the rest in only for FULL,
+// so a kernel instantiated for a core plan runs the code it ran before the
+// vocabulary grew: K1 (one instantiation a build, fused_sweep.cu) and K5
+// pick theirs from the plan (`full`); K4 runs the whole vocabulary's,
+// which cost it nothing on an H100 (PERF.md).
 
 #pragma once
 
@@ -24,20 +33,46 @@ constexpr int MAX_SLOTS = 256;
 constexpr int OP_FIELDS = 7;
 
 enum OpCode {
-  OP_CROSSFADE = 0,
-  OP_BLEND = 1,
+  // two-input ops, fg in0 over bg in1: code <= OP_LAST_TWO_IN
+  OP_CROSSFADE = 0,     // arg 1: chroma_blend (the weights swapped)
+  OP_BLEND = 1,         // arg: the blend mode
   OP_LUMA_KEY = 2,
   OP_CHROMA_KEY = 3,
-  OP_COLOUR_BALANCE = 4,
-  OP_SATURATION = 5,
-  OP_VIGNETTE = 6,
+  OP_ALPHA_OVER = 4,    // a fg without alpha: opaque
+  OP_MASK_OVERLAY = 5,
+  OP_LUMA_SELECT = 6,   // arg: 0 luma_overlay, 1 luma_underlay, 2 negative
+  OP_WIPE = 7,          // arg: the direction (left, right, top, bottom)
+  OP_IRIS = 8,          // arg: 0 iris_circle, 1 iris_rectangle
+  OP_DISSOLVE = 9,      // arg: 0 dissolve, 1 rand_replace (salted a frame)
+  // one-input point ops
+  OP_COLOUR_BALANCE = 10,
+  OP_SATURATION = 11,
+  OP_VIGNETTE = 12,
+  OP_NEGATE = 13,
+  OP_BRIGHTNESS_CONTRAST = 14,
+  OP_GAMMA_ADJUST = 15,
+  OP_LEVELS = 16,
+  OP_GREYSCALE = 17,
+  OP_SEPIA = 18,
+  OP_POSTERIZE = 19,
+  OP_SOLARIZE = 20,
+  OP_THRESHOLD = 21,
+  OP_SOFTLIGHT = 22,
+  OP_TINT = 23,
+  OP_HUE_ROTATE = 24,
+  OP_MODULATE = 25,
+  OP_COLOUR_REPLACE = 26,
   // the steps that are not point ops: each ends a run of point ops
-  OP_STENCIL = 7,
-  OP_FIRE = 8,
-  OP_LIFE = 9,
-  OP_ALIEN = 10,
+  OP_STENCIL = 27,
+  OP_FIRE = 28,
+  OP_LIFE = 29,
+  OP_ALIEN = 30,
 };
-// F_ARG: a stencil's radius, a blend's mode, a stateful step's state index
+constexpr int OP_LAST_TWO_IN = OP_DISSOLVE;
+// F_ARG: a stencil's radius, a family's member (a blend's mode, wipe's
+// direction, ...), a stateful step's state index; F_TAPS: a stencil's taps,
+// or a point op's constants (iris_circle: the frame's aspect and its
+// largest radius), in the taps array
 enum OpField { F_CODE = 0, F_IN0 = 1, F_IN1 = 2, F_ARG = 3, F_TAPS = 4,
                F_SHARPEN = 5, F_SLOT = 6 };
 
@@ -129,19 +164,22 @@ __device__ __forceinline__ void gen_run(const TrackRec& tr, const int (&x)[P],
 // which point_run reads in place of the parameter slots. The fused sweep
 // keeps one a chain op in shared memory.
 struct alignas(16) OpRec {
-  int code, in0, in1, arg;  // arg: a blend's mode, a stencil's radius
+  int code, in0, in1, arg;  // arg: a family's member, a stencil's radius
   int taps, sharpen, slot, pad;  // slot: the op's first parameter slot
   TrackRec a, b;            // tracks in0 and in1
-  float k[4];               // frame-uniform values (make_rec)
+  float k[12];              // frame-uniform values (make_rec)
 };
-static_assert(sizeof(OpRec) == 80, "graph/fused_sweep.py OP_REC_BYTES");
+static_assert(sizeof(OpRec) == 112, "graph/fused_sweep.py OP_REC_BYTES");
 
 // Op row `o` with its clamped parameters `p` (this frame's slots); `fr`
 // gives the TrackRecs of the tracks it reads (null where the caller makes
-// a track at the op that reads it). Each value is computed by the float
-// expression a pixel would compute it by.
+// a track at the op that reads it); `consts` is the taps array, where a
+// point op's constants lie at o[F_TAPS] (null for a table that has none).
+// Each value is computed by the float expression the op's PyTorch function
+// computes it by, once a frame.
 __device__ __forceinline__ OpRec make_rec(const int* o, const float* p,
-                                          const Frame* fr) {
+                                          const Frame* fr,
+                                          const float* consts) {
   OpRec e;
   e.code = o[F_CODE];
   e.in0 = o[F_IN0];
@@ -154,14 +192,15 @@ __device__ __forceinline__ OpRec make_rec(const int* o, const float* p,
   e.a = e.b = TrackRec{0, 0, 0u, 1};
   if (fr != nullptr && e.in0 != 0) e.a = track_rec(*fr, e.in0);
   if (fr != nullptr && e.in1 != 0) e.b = track_rec(*fr, e.in1);
-  float k[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float k[12] = {};
   switch (e.code) {
-    case OP_CROSSFADE:
-    case OP_BLEND:  // amount and the weight of the background
-      k[0] = p[0];
-      k[1] = 1.0f - p[0];
+    case OP_CROSSFADE:  // the weights of fg and bg (chroma_blend: swapped)
+    case OP_BLEND:
+      k[0] = e.arg == 1 && e.code == OP_CROSSFADE ? 1.0f - p[0] : p[0];
+      k[1] = e.arg == 1 && e.code == OP_CROSSFADE ? p[0] : 1.0f - p[0];
       break;
     case OP_LUMA_KEY:  // threshold, softness divisor, invert, 1 - invert
+    case OP_MASK_OVERLAY:
       k[0] = p[0];
       k[1] = p[1] + 1e-4f;
       k[2] = p[2];
@@ -175,19 +214,72 @@ __device__ __forceinline__ OpRec make_rec(const int* o, const float* p,
       k[3] = p[4] + 1e-4f;
       break;
     }
-    case OP_COLOUR_BALANCE:
+    case OP_LUMA_SELECT:  // t, 1 - t
       k[0] = p[0];
-      k[1] = p[1];
+      k[1] = 1.0f - p[0];
+      break;
+    case OP_IRIS:  // amount (circle: times the largest radius), softness
+                   // divisor, the aspect W / H (circle)
+      k[0] = e.arg == 0 ? p[0] * consts[e.taps + 1] : p[0];
+      k[1] = p[1] + 1e-4f;
+      k[2] = e.arg == 0 ? consts[e.taps] : 1.0f;
+      break;
+    case OP_DISSOLVE:  // amount; rand_replace: the frame number, as int32
+      k[0] = p[0];
+      k[1] = __int_as_float(e.arg == 1 ? (int)p[1] : 0);
+      break;
+    case OP_LEVELS:  // black, the range's divisor, gamma
+      k[0] = p[0];
+      k[1] = fmaxf(p[1] - p[0], 1e-4f);
       k[2] = p[2];
       break;
+    case OP_POSTERIZE:  // levels - 1, at least 1
+      k[0] = fmaxf(p[0], 2.0f) - 1.0f;
+      break;
+    case OP_HUE_ROTATE: {  // the 3x3 matrix of this frame's angle
+      // m0 + cos * m1 + sin * m2, row i giving output channel i
+      // (effects/builtin/colour.py HUE_M0, HUE_M1, HUE_M2)
+      const float m0[3] = {0.213f, 0.715f, 0.072f};
+      const float m1[9] = {0.787f, -0.715f, -0.072f, -0.213f, 0.285f,
+                           -0.072f, -0.213f, -0.715f, 0.928f};
+      const float m2[9] = {-0.213f, -0.715f, 0.928f, 0.143f, 0.140f,
+                           -0.283f, -0.787f, 0.715f, 0.072f};
+      const float th = p[0] * 6.28318548f;  // float32(2 pi)
+      const float cs = cosf(th), sn = sinf(th);
+#pragma unroll
+      for (int i = 0; i < 9; ++i) k[i] = m0[i % 3] + cs * m1[i] + sn * m2[i];
+      break;
+    }
+    case OP_MODULATE: {  // brightness, saturation, cos and sin of the hue
+      const float th = (p[2] - 1.0f) * 3.14159274f;  // float32(pi)
+      k[0] = p[0];
+      k[1] = p[1];
+      k[2] = cosf(th);
+      k[3] = sinf(th);
+      break;
+    }
+    case OP_COLOUR_REPLACE:  // red, green, blue, red2, green2, blue2, tol
+      for (int i = 0; i < 7; ++i) k[i] = p[i];
+      break;
+    case OP_TINT:  // amount, red, green, blue
+      for (int i = 0; i < 4; ++i) k[i] = p[i];
+      break;
+    case OP_COLOUR_BALANCE:
+      for (int i = 0; i < 3; ++i) k[i] = p[i];
+      break;
     case OP_VIGNETTE:  // amount, strength
+    case OP_BRIGHTNESS_CONTRAST:  // brightness, contrast
       k[0] = p[0];
       k[1] = p[1];
       break;
-    default:  // saturation; a stencil's amount
+    case OP_NEGATE:
+    case OP_GREYSCALE:
+      break;
+    default:  // one parameter: saturation, alpha_over, wipe, gamma_adjust,
+              // sepia, solarize, threshold, softlight; a stencil's amount
       k[0] = p[0];
   }
-  for (int i = 0; i < 4; ++i) e.k[i] = k[i];
+  for (int i = 0; i < 12; ++i) e.k[i] = k[i];
   return e;
 }
 
@@ -257,12 +349,200 @@ __device__ __forceinline__ void blend_mode(int m, const Rgb (&a)[P],
   }
 }
 
+// The hash of `_pixel_hash` (effects/builtin/blends.py) at frame column ix
+// and row iy (clamped to the frame), salted by the frame number for
+// rand_replace: int32 arithmetic that wraps (multiplied as unsigned) and
+// shifts arithmetically, then the low 16 bits times 2^-16.
+__device__ __forceinline__ float pixel_hash(int ix, int iy, bool salted,
+                                            int salt) {
+  int v = (int)((unsigned)ix * 73856093u ^ (unsigned)iy * 19349663u);
+  if (salted) v ^= (int)((unsigned)salt * 83492791u);
+  v = (int)((unsigned)(v ^ (v >> 13)) * 0x5BD1E995u);
+  v ^= v >> 15;
+  return exact_float((unsigned)v & 0xFFFFu) * 1.52587890625e-05f;
+}
+
+// The two-input ops past the core (record `o`): fg a over bg into v, at
+// frame columns x and row y. Each computes what its PyTorch function
+// computes, in its order; a 0/1 mask selects (fg * 1 + bg * 0 is fg).
+template <int P>
+__device__ __forceinline__ void two_in_rest(const OpRec& o, const Rgb (&a)[P],
+                                            const Rgb (&bg)[P], Rgb (&v)[P],
+                                            const int (&x)[P], int y,
+                                            float sx, float sy) {
+  const float k0 = o.k[0], k1 = o.k[1], k2 = o.k[2], k3 = o.k[3];
+  const int arg = o.arg;
+  switch (o.code) {
+    case OP_ALPHA_OVER:  // fg opaque: its alpha is the opacity; no clip
+#pragma unroll
+      for (int j = 0; j < P; ++j) v[j] = key(a[j], bg[j], k0);
+      break;
+    case OP_MASK_OVERLAY:  // fg times a mask from bg's luma; no clip
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        float m = clip01((luma(bg[j]) - k0) / k1);
+        m = m * k3 + (1.0f - m) * k2;
+        v[j] = {a[j].r * m, a[j].g * m, a[j].b * m};
+      }
+      break;
+    case OP_LUMA_SELECT:  // bg where the luma test holds, then clipped
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const bool to_bg = arg == 0   ? luma(a[j]) < k0
+                           : arg == 1 ? luma(bg[j]) > k1
+                                      : luma(a[j]) > k1;
+        v[j] = clip01(to_bg ? bg[j] : a[j]);
+      }
+      break;
+    case OP_WIPE: {  // fg where the edge has passed; no clip
+      // ctx_grid's scales float32(1 / max(n-1, 1)): half the centred ones
+      const float yy = exact_float((unsigned)y) * (sy * 0.5f);
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float xx = exact_float((unsigned)x[j]) * (sx * 0.5f);
+        const bool fg = arg == 0   ? xx < k0
+                        : arg == 1 ? 1.0f - xx < k0
+                        : arg == 2 ? yy < k0
+                                   : 1.0f - yy < k0;
+        v[j] = fg ? a[j] : bg[j];
+      }
+      break;
+    }
+    case OP_IRIS: {  // a soft mask from the centred radius; no clip
+      const float yc = exact_float((unsigned)y) * sy - 1.0f;
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float xc = exact_float((unsigned)x[j]) * sx - 1.0f;
+        float r;
+        if (arg == 0) {
+          const float xa = xc * k2;
+          r = sqrtf(xa * xa + yc * yc);
+        } else {
+          r = fmaxf(fabsf(xc), fabsf(yc));
+        }
+        v[j] = key(a[j], bg[j], clip01((k0 - r) / k1 + 0.5f));
+      }
+      break;
+    }
+    default: {  // OP_DISSOLVE: fg where the pixel's hash >= amount
+      const int salt = __float_as_int(k1);
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        v[j] = pixel_hash(x[j], y, arg == 1, salt) >= k0 ? a[j] : bg[j];
+      }
+    }
+  }
+}
+
+// The one-input point ops past the core (record `o`) on a into v, each
+// clipped to [0, 1] as `_rgb_filter` clips
+template <int P>
+__device__ __forceinline__ void one_in_rest(const OpRec& o, const Rgb (&a)[P],
+                                            Rgb (&v)[P]) {
+  const float* k = o.k;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const float r = a[j].r, g = a[j].g, b = a[j].b;
+    Rgb out;
+    switch (o.code) {
+      case OP_NEGATE:
+        out = {1.0f - r, 1.0f - g, 1.0f - b};
+        break;
+      case OP_BRIGHTNESS_CONTRAST:
+        out = {(r - 0.5f) * k[1] + 0.5f + k[0],
+               (g - 0.5f) * k[1] + 0.5f + k[0],
+               (b - 0.5f) * k[1] + 0.5f + k[0]};
+        break;
+      case OP_GAMMA_ADJUST:
+        out = {powf(fmaxf(r, 0.0f), k[0]), powf(fmaxf(g, 0.0f), k[0]),
+               powf(fmaxf(b, 0.0f), k[0])};
+        break;
+      case OP_LEVELS:
+        out = {powf(clip01((r - k[0]) / k[1]), k[2]),
+               powf(clip01((g - k[0]) / k[1]), k[2]),
+               powf(clip01((b - k[0]) / k[1]), k[2])};
+        break;
+      case OP_GREYSCALE: {
+        const float y = luma(a[j]);
+        out = {y, y, y};
+        break;
+      }
+      case OP_SEPIA: {
+        const float tr = r * 0.393f + g * 0.769f + b * 0.189f;
+        const float tg = r * 0.349f + g * 0.686f + b * 0.168f;
+        const float tb = r * 0.272f + g * 0.534f + b * 0.131f;
+        out = {r + (tr - r) * k[0], g + (tg - g) * k[0], b + (tb - b) * k[0]};
+        break;
+      }
+      case OP_POSTERIZE:
+        out = {floorf(r * k[0] + 0.5f) / k[0], floorf(g * k[0] + 0.5f) / k[0],
+               floorf(b * k[0] + 0.5f) / k[0]};
+        break;
+      case OP_SOLARIZE:
+        out = {r > k[0] ? 1.0f - r : r, g > k[0] ? 1.0f - g : g,
+               b > k[0] ? 1.0f - b : b};
+        break;
+      case OP_THRESHOLD: {
+        const float y = luma(a[j]) > k[0] ? 1.0f : 0.0f;
+        out = {y, y, y};
+        break;
+      }
+      case OP_SOFTLIGHT: {
+        const float y = luma(a[j]);
+        const bool dark = y <= 0.5f;
+        const float c[3] = {r, g, b};
+        float s[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const float lit = dark ? c[i] * (y + 0.5f)
+                                 : 1.0f - (1.0f - c[i]) * (1.5f - y);
+          s[i] = c[i] + (lit - c[i]) * k[0];
+        }
+        out = {s[0], s[1], s[2]};
+        break;
+      }
+      case OP_TINT: {
+        const float y = luma(a[j]);
+        out = {r + (y * k[1] - r) * k[0], g + (y * k[2] - g) * k[0],
+               b + (y * k[3] - b) * k[0]};
+        break;
+      }
+      case OP_HUE_ROTATE:
+        out = {k[0] * r + k[1] * g + k[2] * b, k[3] * r + k[4] * g + k[5] * b,
+               k[6] * r + k[7] * g + k[8] * b};
+        break;
+      case OP_MODULATE: {  // brightness, saturation, then the hue turn
+        Rgb m = {r * k[0], g * k[0], b * k[0]};
+        const float y0 = luma(m);
+        m = {y0 + (m.r - y0) * k[1], y0 + (m.g - y0) * k[1],
+             y0 + (m.b - y0) * k[1]};
+        const float y = luma(m);
+        const float i0 = 0.596f * m.r - 0.274f * m.g - 0.322f * m.b;
+        const float q0 = 0.211f * m.r - 0.523f * m.g + 0.312f * m.b;
+        const float i = i0 * k[2] - q0 * k[3], q = i0 * k[3] + q0 * k[2];
+        out = {y + 0.956f * i + 0.621f * q, y - 0.272f * i - 0.647f * q,
+               y - 1.106f * i + 1.703f * q};
+        break;
+      }
+      default: {  // OP_COLOUR_REPLACE: within the tolerance -> colour 2
+        const float dr = r - k[0], dg = g - k[1], db = b - k[2];
+        const float d2 = (dr * dr + dg * dg + db * db)
+                         * __int_as_float(0x3eaaaaab);  // float32(1/3)
+        out = sqrtf(d2) <= k[6] ? Rgb{k[3], k[4], k[5]} : a[j];
+      }
+    }
+    v[j] = clip01(out);
+  }
+}
+
 // One point op (record `o`) on the track-0 values v of a run of P pixels
 // at frame columns x, row y, the op decoded once for the run.
 // `track(rec, t, out)` gives track t's values over the run (`rec`, its
 // TrackRec): the sweeps generate a track where the composite kernel
-// (composite.cu) loads it. The centred-grid scales sx, sy serve vignette.
-template <int P, class Track>
+// (composite.cu) loads it. The centred-grid scales sx, sy serve the
+// coordinate ops. FULL: the whole vocabulary; else the core alone, whose
+// last cases (chroma_key, vignette) then take every other code.
+template <int P, bool FULL, class Track>
 __device__ __forceinline__ void point_run(const OpRec& o, Rgb (&v)[P],
                                           const Track& track,
                                           const int (&x)[P], int y, float sx,
@@ -276,7 +556,7 @@ __device__ __forceinline__ void point_run(const OpRec& o, Rgb (&v)[P],
   } else {
     track(o.a, in0, a);
   }
-  if (code <= OP_CHROMA_KEY) {  // transitions: fg a over bg
+  if (code <= OP_LAST_TWO_IN) {  // transitions: fg a over bg
     Rgb bg[P];
     if (in1 == 0) {
 #pragma unroll
@@ -299,7 +579,8 @@ __device__ __forceinline__ void point_run(const OpRec& o, Rgb (&v)[P],
         al = al * k3 + (1.0f - al) * k2;
         v[j] = key(a[j], bg[j], al);
       }
-    } else {  // red, green, blue -> kr, kg; tolerance, softness
+    } else if (!FULL || code == OP_CHROMA_KEY) {
+      // red, green, blue -> kr, kg; tolerance, softness
 #pragma unroll
       for (int j = 0; j < P; ++j) {
         const float s = a[j].r + a[j].g + a[j].b + 1e-4f;
@@ -307,6 +588,8 @@ __device__ __forceinline__ void point_run(const OpRec& o, Rgb (&v)[P],
         const float d = sqrtf((r - k0) * (r - k0) + (g - k1) * (g - k1));
         v[j] = key(a[j], bg[j], clip01((d - k2) / k3));
       }
+    } else {
+      two_in_rest<P>(o, a, bg, v, x, y, sx, sy);
     }
   } else if (code == OP_COLOUR_BALANCE) {
 #pragma unroll
@@ -320,7 +603,7 @@ __device__ __forceinline__ void point_run(const OpRec& o, Rgb (&v)[P],
       v[j] = clip01({g + (a[j].r - g) * k0, g + (a[j].g - g) * k0,
                      g + (a[j].b - g) * k0});
     }
-  } else {  // OP_VIGNETTE: amount, strength
+  } else if (!FULL || code == OP_VIGNETTE) {  // amount, strength
     const float yf = exact_float((unsigned)y) * sy - 1.0f;
 #pragma unroll
     for (int j = 0; j < P; ++j) {
@@ -329,18 +612,20 @@ __device__ __forceinline__ void point_run(const OpRec& o, Rgb (&v)[P],
       const float m = 1.0f - k0 * (1.0f - expf(-r2 * k1 * 2.0f));
       v[j] = clip01({a[j].r * m, a[j].g * m, a[j].b * m});
     }
+  } else {
+    one_in_rest<P>(o, a, v);
   }
 }
 
 // point_run with the other tracks generated from the synthetic source
-template <int P>
+template <int P, bool FULL>
 __device__ __forceinline__ void gen_point_run(const OpRec& o, Rgb (&v)[P],
                                               const int (&x)[P], int y,
                                               float sx, float sy) {
   const auto track = [&](const TrackRec& t, int, Rgb (&out)[P]) {
     gen_run<P>(t, x, y, out);
   };
-  point_run<P>(o, v, track, x, y, sx, sy);
+  point_run<P, FULL>(o, v, track, x, y, sx, sy);
 }
 
 // This frame's parameter slots, clamped as Param.clamp does.
@@ -458,11 +743,13 @@ __device__ __forceinline__ void put_run(float* A, int ch, int at,
 
 // Point ops [from, to) of the chain (records `rec`) on track-0 values v
 // of a run at frame columns x and row y
-template <int P>
+template <int P, bool FULL>
 __device__ __forceinline__ void apply_run(const OpRec* rec, int from, int to,
                                           Rgb (&v)[P], const int (&x)[P],
                                           int y, float sx, float sy) {
-  for (int i = from; i < to; ++i) gen_point_run<P>(rec[i], v, x, y, sx, sy);
+  for (int i = from; i < to; ++i) {
+    gen_point_run<P, FULL>(rec[i], v, x, y, sx, sy);
+  }
 }
 
 // The chain's result for a run at output offset `at` (frame column gx, a

@@ -1,7 +1,10 @@
-"""Keying filters: `chroma_key` and `luma_key`.
+"""Keying filters: `chroma_key`, `luma_key` and `alpha_over`.
 
-Counterpart of `lives_tpu/effects/builtin/keying.py:17-72` (reference
-`colorkey.c`). `alpha_over` comes with Slice 3 (ROADMAP Queue 1 item 13).
+Counterpart of `lives_tpu/effects/builtin/keying.py` (reference
+`colorkey.c`), every filter of that module. The fused sweep kernel's
+vocabulary holds each (`graph/fused_sweep.py`); there a track has no alpha,
+so `alpha_over`'s fg counts as opaque, as it does in the JAX package's
+sweep.
 """
 
 from __future__ import annotations
@@ -71,3 +74,24 @@ register_filter(Filter(
             Param("invert", "num", 0.0, 0.0, 1.0)),
     flags=FILTER_IS_TRANSITION,
     description="key fg over bg by fg luma"))
+
+
+def _alpha_over_process(ins, p, ctx):
+    """Composite fg over bg by fg's own alpha channel (a fg without one
+    counts as opaque), scaled by `opacity`."""
+    fg, bg = ins[0], ins[1]
+    argb, aal = split_alpha(to_f01(fg))
+    brgb, bal = split_alpha(to_f01(bg))
+    alpha = aal if aal is not None else torch.ones_like(argb[:, :1])
+    alpha = alpha * bparam(p["opacity"])
+    out = argb * alpha + brgb * (1.0 - alpha)
+    return from_f01(join_alpha(out, bal), bg)
+
+
+register_filter(Filter(
+    name="alpha_over", process=_alpha_over_process,
+    in_channels=(ChannelTemplate("fg", (Palette.RGBA32,)),
+                 ChannelTemplate("bg", _RGBX)),
+    params=(Param("opacity", "num", 1.0, 0.0, 1.0),),
+    flags=FILTER_IS_TRANSITION,
+    description="alpha composite fg over bg (fg alpha)"))

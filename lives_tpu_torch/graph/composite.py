@@ -16,8 +16,9 @@ for the H100 (`csrc/composite.cu`); its note says what bounds it.
   masks the ragged end of a frame.
 - `build_composite(prefix, n_tracks, rows_key, fps, device)` encodes the
   prefix once into an op table on the device (the point-op rows of the
-  fused sweep's encoding), a `CompositePlan`, or returns None for a prefix
-  outside the kernel's vocabulary.
+  fused sweep's encoding, `fused_sweep.encode_point`), a `CompositePlan`,
+  or returns None for a prefix outside the kernel's vocabulary, which is
+  PALLAS_SAFE, as the JAX kernel's is.
 - `composite(plan, tracks, packed)` launches the kernel on CUDA tensors,
   counting it in `LAUNCHES`, and returns `plain_composite` on CPU tensors;
   any other device raises. The kernel stages every byte it reads in shared
@@ -50,28 +51,20 @@ MAX_TRACKS = 64  # keep in step with csrc/composite.cu
 #: the kernel's run of 4 pixels a thread)
 SPANS = (4096, 2048, 1024, 512, 256)
 #: the most bytes a block stages: with the largest op table (MAX_SLOTS
-#: records) and the static and reserved shared memory, two blocks fit an SM
-STAGE_BUDGET = 90112
+#: records of OP_REC_BYTES), the static shared memory (the parameter slots
+#: and the segment offsets) and the system's reserve, two blocks fit an SM
+STAGE_BUDGET = (fused_sweep.SM_SMEM // 2 - fused_sweep.BLOCK_RESERVED
+                - 4 * fused_sweep.MAX_SLOTS - 4 * 3 * MAX_TRACKS
+                - fused_sweep.OP_REC_BYTES * fused_sweep.MAX_SLOTS)
 
 #: coordinate-free, reduction-free, gather-free per-pixel filters
-#: (`pallas_composite.py:51`, a copy)
-PALLAS_SAFE = {
-    "crossfade", "blend_add", "blend_subtract", "blend_multiply",
-    "blend_screen", "blend_darken", "blend_lighten", "blend_difference",
-    "blend_exclusion", "blend_overlay", "blend_hardlight", "blend_dodge",
-    "blend_burn", "blend_grain_extract", "blend_grain_merge",
-    "luma_key", "chroma_key", "alpha_over", "mask_overlay",
-    "negate", "brightness_contrast", "gamma_adjust", "saturation",
-    "colour_balance", "levels", "greyscale", "sepia", "posterize",
-    "solarize", "threshold", "softlight", "tint",
-    "chroma_blend", "luma_overlay", "luma_underlay",
-    "negative_luma_overlay", "hue_rotate", "modulate", "colour_replace",
-}
+#: (`pallas_composite.py:51`), the fused sweep's definition
+PALLAS_SAFE = fused_sweep.PALLAS_SAFE
 
-#: the members of PALLAS_SAFE the kernel holds: the fused sweep's point ops
-#: less vignette (coordinate-dependent). The others are not in the port's
-#: effect library yet (ROADMAP Queue 1 item 13), so no chain holds them.
-VOCABULARY = frozenset(PALLAS_SAFE & set(fused_sweep._POINT_OPS))
+#: the kernel's vocabulary: PALLAS_SAFE, as `build_composite` of the JAX
+#: package takes it (`pallas_composite.py:74,120-170`); the coordinate ops
+#: of the fused sweep stay out, as they do there
+VOCABULARY = PALLAS_SAFE
 
 
 def splittable_prefix(chain) -> int:
@@ -125,9 +118,9 @@ def build_composite(prefix: Sequence[tuple], n_tracks: int, rows_key,
         if (filt.name not in VOCABULARY or tuple(out_tr) != (0,)
                 or len(used) != filt.n_in or max(used) >= n_tracks):
             return None
-        slot = fused_sweep.add_slots(filt, static, idx, row_of, slot_rows,
-                                     slot_vals)
-        ops.append(fused_sweep.point_op_row(filt.name, used, slot))
+        ops.append(fused_sweep.encode_point(filt, static, used, idx, row_of,
+                                            len(rows_key), slot_rows,
+                                            slot_vals, None))
     # the kernel keeps one record an op in shared memory
     if max(len(slot_rows), len(ops)) > fused_sweep.MAX_SLOTS:
         return None

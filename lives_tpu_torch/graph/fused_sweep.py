@@ -29,13 +29,27 @@ serve stateful chains (`nodemodel.FrameGraph.run_batch`):
   kernel cannot run there.
 - `plain_sweep(plan, src_ids, packed, comp=None)` computes the same result
   with the ported effect functions (FrameGraph's plain route).
-- `build()` compiles the kernel with nvcc on first use (`native.load`) and
-  binds it with ctypes; `fused_sweep` calls it on its first launch.
+- `build(full)` compiles the kernel with nvcc on first use
+  (`native.load`), its core build or with `full` its exact one, and binds
+  it with ctypes; `fused_sweep` calls it on its first launch.
 - `sweep_geometry(rows, W, halo, n_ops, n_taps, B)` is a launch's
   geometry: the run of pixels a thread computes (`sweep_run`, from the
   halo), the tile (the least halo work among `TILES`, a block that fills
   an SM alone weighing more), the shared row's margin, the grid and the
   shared memory.
+
+The vocabulary is the JAX sweep's, `PALLAS_SAFE | COORD_SAFE | STENCILS`
+(`pallas_composite.py:51-84,358`): 45 point ops, each a row of the op
+table that K1, K4 (`graph/composite.py`) and K5 (`graph/stateful_sweep.py`)
+share (`csrc/sweep_common.cuh`), and three stencils. `encode_point` writes
+a point op's row: its opcode, its family member or static choice (a
+blend's mode, wipe's direction) in `arg`, its parameter slots, the frame
+number's row for rand_replace's salt, iris_circle's constants in the taps
+array. The core (`CORE`, what the main chains hold) runs K1's contracted
+build; a plan that holds any other op is `full` and runs K1's exact build
+(`-fmad=false`, the whole vocabulary), so the ops that compare a float
+with a threshold see the plain version's floats (csrc/fused_sweep.cu's
+note), and K5's whole-vocabulary instantiation.
 
 Band mode (`band_h`, `pallas_composite.py:242,286-297,302-311,332,367,
 390-393,452,490`) serves the multi-device layer
@@ -83,7 +97,7 @@ SMEM_LIMIT = 232448      # 227 KB of shared memory a block can use
 SM_SMEM = 233472         # 228 KB of shared memory an SM holds
 BLOCK_RESERVED = 1024    # shared memory the system keeps for each block
 STATIC_SMEM = 4 * MAX_SLOTS + 16  # the parameter slots and track 0
-OP_REC_BYTES = 80        # one op's record in shared memory (OpRec)
+OP_REC_BYTES = 112       # one op's record in shared memory (OpRec)
 #: a thread computes a run of 8 adjacent pixels, or of 4 from this summed
 #: stencil radius on (`sweep_run`): in chip_smoke.py phase 5 on an H100,
 #: runs of 8 were the fastest on the main chain (R = 3; runs of 4 took
@@ -106,29 +120,57 @@ MAX_STATES = 8
 MAX_STATEFUL_OPS = MAX_SLOTS + MAX_STATES
 
 # opcodes and op fields: keep in step with csrc/sweep_common.cuh
-(OP_CROSSFADE, OP_BLEND, OP_LUMA_KEY, OP_CHROMA_KEY, OP_COLOUR_BALANCE,
- OP_SATURATION, OP_VIGNETTE, OP_STENCIL, OP_FIRE, OP_LIFE,
- OP_ALIEN) = range(11)
+(OP_CROSSFADE, OP_BLEND, OP_LUMA_KEY, OP_CHROMA_KEY, OP_ALPHA_OVER,
+ OP_MASK_OVERLAY, OP_LUMA_SELECT, OP_WIPE, OP_IRIS, OP_DISSOLVE,
+ OP_COLOUR_BALANCE, OP_SATURATION, OP_VIGNETTE, OP_NEGATE,
+ OP_BRIGHTNESS_CONTRAST, OP_GAMMA_ADJUST, OP_LEVELS, OP_GREYSCALE, OP_SEPIA,
+ OP_POSTERIZE, OP_SOLARIZE, OP_THRESHOLD, OP_SOFTLIGHT, OP_TINT,
+ OP_HUE_ROTATE, OP_MODULATE, OP_COLOUR_REPLACE, OP_STENCIL, OP_FIRE, OP_LIFE,
+ OP_ALIEN) = range(31)
+#: codes up to this one read two tracks (fg in0 over bg in1)
+OP_LAST_TWO_IN = OP_DISSOLVE
 OP_FIELDS = 7  # code, in0, in1, arg, taps offset, sharpen, first slot
 
-_POINT_OPS = {"crossfade": OP_CROSSFADE, "luma_key": OP_LUMA_KEY,
-              "chroma_key": OP_CHROMA_KEY,
-              "colour_balance": OP_COLOUR_BALANCE,
-              "saturation": OP_SATURATION, "vignette": OP_VIGNETTE,
-              **{name: OP_BLEND for name in _BLEND_MODES}}
-_BLEND_INDEX = {name: i for i, name in enumerate(_BLEND_MODES)}
+#: point op name -> (opcode, arg): arg picks a family's member (a blend's
+#: mode, a luma overlay's test, an iris's shape, dissolve or rand_replace);
+#: wipe's arg is its static direction (`encode_point`)
+_POINT_OPS = {
+    "crossfade": (OP_CROSSFADE, 0), "chroma_blend": (OP_CROSSFADE, 1),
+    **{name: (OP_BLEND, i) for i, name in enumerate(_BLEND_MODES)},
+    "luma_key": (OP_LUMA_KEY, 0), "chroma_key": (OP_CHROMA_KEY, 0),
+    "alpha_over": (OP_ALPHA_OVER, 0), "mask_overlay": (OP_MASK_OVERLAY, 0),
+    "luma_overlay": (OP_LUMA_SELECT, 0), "luma_underlay": (OP_LUMA_SELECT, 1),
+    "negative_luma_overlay": (OP_LUMA_SELECT, 2), "wipe": (OP_WIPE, 0),
+    "iris_circle": (OP_IRIS, 0), "iris_rectangle": (OP_IRIS, 1),
+    "dissolve": (OP_DISSOLVE, 0), "rand_replace": (OP_DISSOLVE, 1),
+    "colour_balance": (OP_COLOUR_BALANCE, 0),
+    "saturation": (OP_SATURATION, 0), "vignette": (OP_VIGNETTE, 0),
+    "negate": (OP_NEGATE, 0),
+    "brightness_contrast": (OP_BRIGHTNESS_CONTRAST, 0),
+    "gamma_adjust": (OP_GAMMA_ADJUST, 0), "levels": (OP_LEVELS, 0),
+    "greyscale": (OP_GREYSCALE, 0), "sepia": (OP_SEPIA, 0),
+    "posterize": (OP_POSTERIZE, 0), "solarize": (OP_SOLARIZE, 0),
+    "threshold": (OP_THRESHOLD, 0), "softlight": (OP_SOFTLIGHT, 0),
+    "tint": (OP_TINT, 0), "hue_rotate": (OP_HUE_ROTATE, 0),
+    "modulate": (OP_MODULATE, 0), "colour_replace": (OP_COLOUR_REPLACE, 0),
+}
+#: the core vocabulary: what the main chains hold, and all the vocabulary
+#: was before it grew. A plan of these ops alone runs K1's contracted build
+#: and K5's core instantiation (`point_run<P, false>`); any other op makes
+#: the plan `full` (csrc/sweep_common.cuh). K4 has one instantiation, the
+#: whole vocabulary's (csrc/composite.cu).
+CORE = frozenset({"crossfade", *_BLEND_MODES, "luma_key", "chroma_key",
+                  "colour_balance", "saturation", "vignette"})
 #: separable stencils: name -> (taps of a radius, sharpen mode)
 _STENCILS = {"gaussian_blur": (_gauss_kernel, False),
              "box_blur": (_box_kernel, False),
              "sharpen": (_gauss_kernel, True)}
-#: the kernel's vocabulary
-VOCABULARY = frozenset(_POINT_OPS) | frozenset(_STENCILS)
-#: the JAX package's band-safe filter names (`pallas_composite.py:51-84`),
-#: as data: coordinate-free, reduction-free, gather-free per-pixel filters,
-#: and pointwise filters that read their frame coordinates through
-#: `effects.util.ctx_grid`. The multi-device layer's band paths take these
-#: and the separable stencils (`parallel.mesh.chain_band_halo`); a name
-#: the port has not registered cannot be instantiated.
+#: the JAX package's band-safe filter names (`pallas_composite.py:51-84`):
+#: coordinate-free, reduction-free, gather-free per-pixel filters, and
+#: pointwise filters that read their frame coordinates through
+#: `effects.util.ctx_grid` or `_pixel_hash`. The multi-device layer's band
+#: paths take these and the separable stencils
+#: (`parallel.mesh.chain_band_halo`).
 PALLAS_SAFE = frozenset({
     "crossfade", "blend_add", "blend_subtract", "blend_multiply",
     "blend_screen", "blend_darken", "blend_lighten", "blend_difference",
@@ -145,6 +187,8 @@ COORD_SAFE = frozenset({"vignette", "wipe", "iris_circle", "iris_rectangle",
                         "dissolve", "rand_replace"})
 #: the separable stencils' names
 STENCILS = frozenset(_STENCILS)
+#: the kernel's vocabulary: the JAX sweep's (`pallas_composite.py:358`)
+VOCABULARY = PALLAS_SAFE | COORD_SAFE | STENCILS
 #: the stateful steps of the fused stateful sweep (csrc/stateful_sweep.cu):
 #: name -> (opcode, halo, state kind in the JAX state contract)
 #: (`lives_tpu/graph/pallas_stateful.py:54-63`)
@@ -204,6 +248,9 @@ class SweepPlan:
     state_steps: tuple = ()
     #: band mode: the rows of one launch's output (None: the whole frame)
     band_h: int | None = None
+    #: the chain holds an op past the core vocabulary (`CORE`): K1 runs its
+    #: exact build, K5 its whole-vocabulary instantiation
+    full: bool = False
 
     @property
     def mode(self) -> str:
@@ -288,15 +335,16 @@ def sweep_run(halo: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def sweep_geometry(rows: int, W: int, halo: int, n_ops: int, n_taps: int,
-                   B: int = 1, tile: tuple | None = None) -> SweepGeometry:
+                   B: int = 1, tile: tuple | None = None,
+                   run: int | None = None) -> SweepGeometry:
     """The geometry of a launch over `rows` output rows (a band's, or the
     frame's) of a W-column frame for a plan of summed stencil radius
     `halo`, `n_ops` ops and `n_taps` taps: runs of `sweep_run(halo)`
     pixels, and the tile of `TILES` that fits a block and evaluates the
     fewest phase-1 cells, a cell weighing ONE_BLOCK_COST where one block
-    fills an SM; or `tile` when given (for measurements). Raises when the
-    launch does not fit a block's shared memory."""
-    run = sweep_run(halo)
+    fills an SM; or `tile` and `run` when given (for measurements). Raises
+    when the launch does not fit a block's shared memory."""
+    run = run or sweep_run(halo)
     args = (run, rows, W, halo, n_ops, n_taps, B)
     if tile is not None:
         geom = _geometry(tile, *args)
@@ -386,11 +434,39 @@ def add_slots(filt, static, idx: int, row_of: dict, slot_rows: list,
     return slot
 
 
-def point_op_row(name: str, used: tuple, slot: int) -> tuple:
-    """The op-table row of point op `name` reading tracks `used`, its
-    parameters from `slot` (csrc/sweep_common.cuh `make_rec`, `point_run`)."""
-    return (_POINT_OPS[name], used[0], used[-1], _BLEND_INDEX.get(name, 0),
-            0, 0, slot)
+#: the frame-number slot's clamp: none (rand_replace's salt)
+_NO_CLAMP = (0.0, float(np.finfo(np.float32).min),
+             float(np.finfo(np.float32).max))
+
+
+def encode_point(filt, static, used: tuple, idx: int, row_of: dict,
+                 n_rows: int, slot_rows: list, slot_vals: list,
+                 consts: list | None, H: int = 0, W: int = 0) -> tuple:
+    """The op-table row of point op `filt` of instance `idx` reading tracks
+    `used` (csrc/sweep_common.cuh `make_rec`, `point_run`), appending its
+    parameter slots (`add_slots`) and what else it reads: rand_replace a
+    slot for the frame number (packed row n_rows + 1, the salt of
+    `_pixel_hash`), iris_circle its constants (float32 of the aspect W / H
+    and of the largest radius sqrt(1 + (W/H)^2), as `blends._iris_mask`
+    rounds them) in `consts`, at the row's taps offset. `consts` is None
+    for an op table that has no constants (the composite kernel's)."""
+    name = filt.name
+    code, arg = _POINT_OPS[name]
+    slot = add_slots(filt, static, idx, row_of, slot_rows, slot_vals)
+    if name == "wipe":
+        arg = int(static.get("direction", filt.param("direction").default))
+        if not 0 <= arg <= 3:
+            raise ValueError(f"wipe: direction {arg} is not 0-3")
+    elif name == "rand_replace":
+        slot_rows.append(n_rows + 1)
+        slot_vals.append(_NO_CLAMP)
+    at = 0
+    if name == "iris_circle":
+        at = len(consts)
+        aspect = W / H
+        consts.extend((np.float32(aspect),
+                       np.float32(np.sqrt(1.0 + aspect ** 2))))
+    return (code, used[0], used[-1], arg, at, 0, slot)
 
 
 def _encode(chain_spec, n_tracks: int, H: int, W: int, rows_key, source,
@@ -429,9 +505,9 @@ def _encode(chain_spec, n_tracks: int, H: int, W: int, rows_key, source,
             return None
         if step is None and name not in VOCABULARY:
             return None
-        slot = add_slots(filt, static, idx + idx_base, row_of, slot_rows,
-                         slot_vals)
         if step is not None:
+            slot = add_slots(filt, static, idx + idx_base, row_of, slot_rows,
+                             slot_vals)
             code, step_halo, kind = step
             ops.append((code, 0, 0, len(state_steps), 0, 0, slot))
             state_steps.append((idx + idx_base, name, kind))
@@ -448,6 +524,8 @@ def _encode(chain_spec, n_tracks: int, H: int, W: int, rows_key, source,
                 # XLA's sep_conv switches to the band-matrix form above 33
                 # taps, which the shifted-add stencil does not reproduce
                 return None
+            slot = add_slots(filt, static, idx + idx_base, row_of, slot_rows,
+                             slot_vals)
             ops.append((OP_STENCIL, 0, 0, r, len(taps), int(sharpen), slot))
             taps.extend(shift_taps(kern_fn(r)))
             halo += r
@@ -460,7 +538,9 @@ def _encode(chain_spec, n_tracks: int, H: int, W: int, rows_key, source,
             # after a stencil only track 0 has a halo; the stateful sweep
             # generates the other tracks at the halo left
             return None
-        ops.append(point_op_row(name, used, slot))
+        ops.append(encode_point(filt, static, used, idx + idx_base, row_of,
+                                len(rows_key), slot_rows, slot_vals, taps,
+                                H, W))
     if len(slot_rows) > MAX_SLOTS:
         return None
     if stateful:
@@ -473,6 +553,13 @@ def _encode(chain_spec, n_tracks: int, H: int, W: int, rows_key, source,
             np.asarray(slot_vals, np.float32).reshape(-1, 3),
             np.asarray(taps, np.float32), halo, n_stencils,
             tuple(state_steps))
+
+
+def holds_full(chain_spec) -> bool:
+    """Does the chain hold an enabled point op past the core vocabulary
+    (`CORE`)?"""
+    return any(enabled and filt.name in _POINT_OPS and filt.name not in CORE
+               for filt, _, _, _, enabled in chain_spec)
 
 
 def build_fused_sweep(chain_spec, n_tracks: int, H: int, W: int, rows_key,
@@ -511,7 +598,8 @@ def build_fused_sweep(chain_spec, n_tracks: int, H: int, W: int, rows_key,
         slot_rows=torch.from_numpy(slot_rows).to(dev),
         slot_vals=torch.from_numpy(slot_vals).to(dev),
         taps=torch.from_numpy(taps).to(dev), emit=emit, consume=consume,
-        idx_base=idx_base, state_steps=state_steps, band_h=band_h)
+        idx_base=idx_base, state_steps=state_steps, band_h=band_h,
+        full=holds_full(chain_spec))
 
 
 def plain_sweep(plan: SweepPlan, src_ids: torch.Tensor,
@@ -588,11 +676,12 @@ def fused_sweep(plan: SweepPlan, src_ids: torch.Tensor,
     return _launch(plan, src_ids, packed, comp, y0 or 0)
 
 
-def build():
-    """Build (on first use) and bind the kernel library; returns the
+def build(full: bool = False):
+    """Build (on first use) and bind the kernel library, the core build or
+    with `full` the exact one (csrc/fused_sweep.cu's note); returns the
     `native.Built` record with the build's time and nvcc/ptxas log."""
     from ..native import load
-    built = load("fused_sweep")
+    built = load("fused_sweep_exact" if full else "fused_sweep")
     lib = built.lib
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # every pointer and the stream as c_void_p: ctypes would pass a bare
@@ -633,13 +722,13 @@ def grid_scales(plan: SweepPlan) -> tuple[float, float]:
             float(np.float32(2.0 / max(plan.height - 1, 1))))
 
 
-def plan_geometry(plan: SweepPlan, B: int,
-                  tile: tuple | None = None) -> SweepGeometry:
-    """The geometry of a launch of `plan` over B frames (`tile` overrides
-    the choice, for measurements)."""
+def plan_geometry(plan: SweepPlan, B: int, tile: tuple | None = None,
+                  run: int | None = None) -> SweepGeometry:
+    """The geometry of a launch of `plan` over B frames (`tile` and `run`
+    override the choice, for measurements)."""
     rows = plan.band_h if plan.band_h is not None else plan.height
     return sweep_geometry(rows, plan.width, plan.halo, plan.ops.shape[0],
-                          plan.taps.shape[0], B, tile)
+                          plan.taps.shape[0], B, tile, run)
 
 
 def _launch(plan: SweepPlan, src_ids: torch.Tensor, packed: torch.Tensor,
@@ -663,7 +752,7 @@ def _launch(plan: SweepPlan, src_ids: torch.Tensor, packed: torch.Tensor,
     if B == 0:
         return out
     geom = geom or plan_geometry(plan, B)
-    lib = build().lib
+    lib = build(plan.full).lib
     sx, sy = grid_scales(plan)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):

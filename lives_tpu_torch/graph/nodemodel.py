@@ -83,6 +83,11 @@ from . import composite, fused_sweep, stateful_sweep
 #: StatefulRoute (route c)
 _PLANS: dict = {}
 
+#: chunks of a traceable source that ran a stateless chain on the plain
+#: route (b) since the count was last set to 0: the fused sweep did not
+#: take the chain, its source or its sink
+PLAIN_CHUNKS = 0
+
 
 @dataclass(frozen=True)
 class StatefulRoute:
@@ -554,6 +559,8 @@ class FrameGraph:
             return Layer(planes=(u8,), palette=int(Palette.RGB24),
                          gamma=self.sink.gamma)
         if source is not None:
+            global PLAIN_CHUNKS
+            PLAIN_CHUNKS += 1
             layers = [source.traced_layer(src_dev[0, t], src_dev[1, t])
                       for t in range(src_dev.shape[1])]
         start = 0

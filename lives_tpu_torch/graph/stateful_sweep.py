@@ -25,7 +25,9 @@ no counterpart here.
 - `stateful_sweep(plan, src_ids, packed, states)` launches the kernel on
   CUDA tensors, one launch a chunk counted in `LAUNCHES`, at the geometry
   of `plan_geometry` (`fused_sweep.stateful_geometry`); on CPU tensors it
-  returns `plain_stateful_sweep`.
+  returns `plain_stateful_sweep`. A `full` plan (an op past the fused
+  sweep's core) runs the kernel's whole-vocabulary instantiation, whose
+  occupancy the geometry queries.
 - `plain_stateful_sweep(plan, src_ids, packed, states)` is the frame loop of
   the whole chain over the ported filters (FrameGraph's plain route).
 
@@ -125,9 +127,9 @@ def build():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lives_stateful_sweep.argtypes = [p, p, p, i, p, p, i, p, i, p, p, p,
                                          i, p, i, i, i, i, i, f, f, i, i, i,
-                                         i, i, p]
+                                         i, i, i, p]
     lib.lives_stateful_sweep.restype = i
-    lib.lives_stateful_blocks_per_sm.argtypes = [i, i, p]
+    lib.lives_stateful_blocks_per_sm.argtypes = [i, i, i, p]
     lib.lives_stateful_blocks_per_sm.restype = i
     lib.lives_cuda_error_string.argtypes = [i]
     lib.lives_cuda_error_string.restype = ctypes.c_char_p
@@ -148,16 +150,16 @@ def plan_geometry(plan: SweepPlan, B: int, tile: tuple | None = None,
     return fused_sweep.stateful_geometry(
         plan.height, plan.width, plan.halo, plan.ops.shape[0],
         plan.taps.shape[0],
-        functools.partial(resident_blocks, device=plan.ops.device), B, tile,
-        run)
+        functools.partial(resident_blocks, device=plan.ops.device,
+                          full=plan.full), B, tile, run)
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks_per_sm(index: int, run: int, smem: int) -> int:
+def _blocks_per_sm(index: int, run: int, full: bool, smem: int) -> int:
     lib = build().lib
     n = ctypes.c_int(0)
     with torch.cuda.device(index):
-        _check(lib, lib.lives_stateful_blocks_per_sm(run, smem,
+        _check(lib, lib.lives_stateful_blocks_per_sm(run, int(full), smem,
                                                      ctypes.byref(n)),
                "occupancy query")
     return n.value
@@ -168,18 +170,21 @@ def _index(device) -> int:
     return torch.cuda.current_device() if dev.index is None else dev.index
 
 
-def blocks_per_sm(geom: fused_sweep.SweepGeometry, device="cuda") -> int:
+def blocks_per_sm(geom: fused_sweep.SweepGeometry, device="cuda",
+                  full: bool = False) -> int:
     """Blocks of a launch at `geom` that one SM of card `device` holds (the
-    CUDA occupancy query, by registers and shared memory)."""
-    return _blocks_per_sm(_index(device), geom.run, geom.smem)
+    CUDA occupancy query, by registers and shared memory), of the core
+    instantiation or with `full` the whole vocabulary's."""
+    return _blocks_per_sm(_index(device), geom.run, full, geom.smem)
 
 
-def resident_blocks(geom: fused_sweep.SweepGeometry, device="cuda") -> int:
+def resident_blocks(geom: fused_sweep.SweepGeometry, device="cuda",
+                    full: bool = False) -> int:
     """Blocks of a launch at `geom` that card `device` holds at once: its
     SMs times `blocks_per_sm`. The kernel's launch takes the same query and
     SM count for its grid (or the tiles of a frame, when fewer)."""
     props = torch.cuda.get_device_properties(_index(device))
-    return props.multi_processor_count * blocks_per_sm(geom, device)
+    return props.multi_processor_count * blocks_per_sm(geom, device, full)
 
 
 def _launch(plan: SweepPlan, src_ids: torch.Tensor, packed: torch.Tensor,
@@ -223,7 +228,7 @@ def _launch(plan: SweepPlan, src_ids: torch.Tensor, packed: torch.Tensor,
             table([p[0] for p in pairs]), table([p[1] for p in pairs]), n,
             out.data_ptr(), plan.n_tracks, B, H, W, plan.halo, sx, sy,
             geom.tile_h, geom.tile_w, geom.run, geom.margin, geom.smem,
-            stream)
+            int(plan.full), stream)
     _check(lib, err, "launch")
     LAUNCHES += 1
     for s, (i, _, _) in enumerate(plan.state_steps):

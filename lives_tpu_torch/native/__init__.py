@@ -7,7 +7,9 @@ first use, bound with ctypes), for the port's hand-written CUDA sources in
 at the root of the checkout, named by a hash of the source, the shared
 headers (`csrc/*.cuh`) and the flags, so an edited kernel is rebuilt and an
 unchanged one is reused. A build that fails raises with nvcc's stderr;
-nothing falls back. `EXTRA_FLAGS` adds a source's own flags.
+nothing falls back. `EXTRA_FLAGS` adds a library's own flags; `SOURCE_OF`
+names the source of a library built from another one's source with other
+flags.
 """
 
 from __future__ import annotations
@@ -30,6 +32,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 #: and fma_chain keep nvcc's contraction (K6 exists to count FFMAs)
 EXTRA_FLAGS = {name: ("-fmad=false",)
                for name in ("stateful_sweep", "yuv420", "composite")}
+#: fused_sweep's exact build: the whole vocabulary, every multiply and add
+#: rounded on its own (csrc/fused_sweep.cu's note)
+EXTRA_FLAGS["fused_sweep_exact"] = ("-DLIVES_SWEEP_EXACT", "-fmad=false")
+#: library -> the source it is built from, where the names differ
+SOURCE_OF = {"fused_sweep_exact": "fused_sweep"}
 
 
 class Built:
@@ -55,7 +62,8 @@ def _nvcc() -> str:
 
 
 def load(name: str) -> Built:
-    """Build (if needed) and load `csrc/<name>.cu`."""
+    """Build (if needed) and load library `name`, from `csrc/<name>.cu`
+    (or its `SOURCE_OF` source)."""
     return load_all([name])[name]
 
 
@@ -66,7 +74,7 @@ def load_all(names) -> dict[str, Built]:
     for name in names:
         if name in _LOADED or name in todo:
             continue
-        src = CSRC / f"{name}.cu"
+        src = CSRC / f"{SOURCE_OF.get(name, name)}.cu"
         flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
         text = src.read_bytes() + b"".join(
             h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))

@@ -45,8 +45,8 @@ import torch
 from ..constants import Palette
 from ..effects.builtin.effectv import DEFERRED
 from ..effects.host import FILTER_STATEFUL, FrameContext
-from ..graph.fused_sweep import (COORD_SAFE, PALLAS_SAFE, STENCILS,
-                                 build_fused_sweep, fused_sweep)
+from ..graph.fused_sweep import (STENCILS, VOCABULARY, build_fused_sweep,
+                                 fused_sweep)
 from ..graph.nodemodel import (_split_params, chain_spec_of, pack_params,
                                run_chain)
 from ..layer import Layer
@@ -250,7 +250,7 @@ def chain_band_halo(graph) -> int:
             static, _ = _split_params(inst)
             dflt = inst.filter.param("radius").default
             R += max(1, int(static.get("radius", dflt)))
-        elif name not in PALLAS_SAFE and name not in COORD_SAFE:
+        elif name not in VOCABULARY:
             raise ValueError(
                 f"{name!r} is not band-safe for spatial sharding")
     if graph.has_stateful:
@@ -480,7 +480,7 @@ def chain_band_halo_stateful(graph) -> int:
                 "stencils are not supported in spatially-sharded "
                 f"STATEFUL chains ({name!r}); run blur before the "
                 "recording or use the fused stateful sweep")
-        elif name not in PALLAS_SAFE and name not in COORD_SAFE:
+        elif name not in VOCABULARY:
             raise ValueError(
                 f"{name!r} is not band-safe for spatial sharding")
     return R

@@ -50,6 +50,18 @@ TWO_STENCILS = [("blend_overlay", {"amount": 0.7}, (0, 1)),
                 ("sharpen", {"radius": 3, "amount": 0.9}, None)]
 
 
+def _v_spec():
+    """Timeline V's chain (chip_smoke.timeline_v): every transition the
+    sweep's vocabulary gained, alpha_over and mask_overlay, a blur and ten
+    grading ops."""
+    from chip_smoke import V_FX, V_TRANS
+    return ([(n, v, (0, t)) for t, (n, v) in enumerate(V_TRANS, 1)]
+            + [(n, v, tuple(tr[0]) if tr else None) for n, v, *tr in V_FX])
+
+
+V = _v_spec()
+
+
 def inputs(graph, n_tracks, B):
     """(ids (2,T,B) int32, packed (P+2,B) f32) numpy arrays: track t plays
     clip t+1, frame b at frame b."""
@@ -91,11 +103,13 @@ def test_traced_rows_matches_traced_tile(y_lo, y_hi):
 
 
 @pytest.mark.parametrize("chain,n_tracks,H,n", [
-    ("three", 2, 64, 2), ("three", 2, 64, 8), ("flagship", 10, 64, 4)])
+    ("three", 2, 64, 2), ("three", 2, 64, 8), ("flagship", 10, 64, 4),
+    ("v", 10, 56, 8)])
 def test_band_sweep_matches_jax(interpret, chain, n_tracks, H, n):
     """The port's band sweep on an n-entry CPU mesh against the JAX band
-    sweep on n devices, and against the port's whole-frame plain_sweep."""
-    spec = {"three": THREE, "flagship": FLAGSHIP}[chain]
+    sweep on n devices, and against the port's whole-frame plain_sweep
+    (V: bands of 7 rows, at odd first rows)."""
+    spec = {"three": THREE, "flagship": FLAGSHIP, "v": V}[chain]
     W, B = 256, 4
     jg = JGraph(make_chain(j_instantiate, spec), JSink(width=W, height=H),
                 fps=25.0)
@@ -123,7 +137,7 @@ def test_band_sweep_matches_jax(interpret, chain, n_tracks, H, n):
 
 @pytest.mark.parametrize("spec,H,W,band_h", [
     (THREE, 90, 100, 30), (THREE, 90, 100, 7), (TWO_STENCILS, 90, 100, 45),
-    (TWO_STENCILS, 61, 40, 13), (FLAGSHIP, 50, 64, 50)])
+    (TWO_STENCILS, 61, 40, 13), (FLAGSHIP, 50, 64, 50), (V, 61, 40, 13)])
 def test_band_rows_match_whole_frame(spec, H, W, band_h):
     """plain_band_sweep at every y0 (a ragged last band too) against the
     same rows of the whole frame: the halo stops at the frame's edges, so

@@ -11,9 +11,11 @@ jax nor lives_tpu, so they also run where only PyTorch is installed:
 
 (tests/conftest.py configures jax for the rest of the suite.) Kernel and
 plain version get the same inputs on the card and agree to +/-1 LSB:
-both compute in float32, the fused sweep with fused multiply-adds and
-CUDA's own expf; an f32 comp within 1/255; the stateful sweep's states
-within 1e-5 (f32) or exactly (life's u8 cells)."""
+both compute in float32, the fused sweep's core build with fused
+multiply-adds and CUDA's own expf, its exact build (a plan that holds an op
+past the core vocabulary) and the other kernels with every multiply and
+add rounded on its own; an f32 comp within 1/255; the stateful sweep's
+states within 1e-5 (f32) or exactly (life's u8 cells)."""
 
 import random
 
@@ -203,19 +205,24 @@ def test_wrapper_refuses_wrong_inputs(cuda):
         fused_sweep.fused_sweep(plan, ids, packed[:1])
 
 
-_POINT = ["crossfade", *_BLEND_MODES, "luma_key", "chroma_key",
-          "colour_balance", "saturation", "vignette"]
+#: the sweep's point ops (its whole vocabulary less the stencils), and
+#: those of one input
+_POINT = sorted(fused_sweep.VOCABULARY - fused_sweep.STENCILS)
+_ONE_IN = [n for n in _POINT if get_filter(n).n_in == 1]
 
 
 def random_chain(seed: int, n_tracks: int):
     """A random chain inside the sweep kernel's contract, as (name, values,
-    in_tracks) items: 2-6 point ops on any tracks (a single-input op may
-    read another track into track 0), then 0-2 stencils of r 1..4, each
-    maybe followed by a single-input op on track 0. Every numeric value is
-    drawn inside its range."""
+    in_tracks) items: 2-6 point ops of its whole vocabulary (wipe in a
+    random direction) on any tracks (a single-input op may read another
+    track into track 0), then 0-2 stencils of r 1..4, each maybe followed
+    by a single-input op on track 0. Every numeric value is drawn inside
+    its range."""
     rng = random.Random(seed)
 
     def values(name, **fixed):
+        if name == "wipe":
+            fixed["direction"] = rng.randrange(4)
         return {**{p.name: rng.uniform(p.min, p.max)
                    for p in get_filter(name).params if p.kind == "num"},
                 **fixed}
@@ -229,7 +236,7 @@ def random_chain(seed: int, n_tracks: int):
         name = rng.choice(["gaussian_blur", "box_blur", "sharpen"])
         items.append((name, values(name, radius=rng.randint(1, 4)), (0,)))
         if rng.random() < 0.7:
-            post = rng.choice(["colour_balance", "saturation", "vignette"])
+            post = rng.choice(_ONE_IN)
             items.append((post, values(post), (0,)))
     return items
 
@@ -647,7 +654,7 @@ def test_composite_kernel_unaligned_tracks(cuda, h, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_read,span", [(7, 4096), (10, 2048), (15, 1024),
+@pytest.mark.parametrize("n_read,span", [(6, 4096), (10, 2048), (15, 1024),
                                          (29, 512), (64, 256)])
 def test_composite_kernel_every_span(cuda, n_read, span):
     """K4 at each span of `composite.SPANS`, reached by the number of tracks
@@ -1039,3 +1046,169 @@ def test_live_run_device_params_on_the_card(cuda):
     assert not syncs, syncs
     assert len(g.stats) == 2
     assert torch.equal(dev, host)
+
+
+#: the ops the sweep's op table gained (its vocabulary less the core and
+#: the stencils), wipe in each direction: (label, name, static values)
+NEW_OPS = [(f"wipe{d}" if n == "wipe" else n, n,
+            {"direction": d} if n == "wipe" else {})
+           for n in sorted(fused_sweep.VOCABULARY - fused_sweep.CORE
+                           - fused_sweep.STENCILS)
+           for d in (range(4) if n == "wipe" else [0])]
+#: (kernel, label, name, static values): K1 and K5 take every new op, K4
+#: those of PALLAS_SAFE
+NEW_OP_CASES = [(k, *op) for k in ("K1", "K4", "K5") for op in NEW_OPS
+                if k != "K4" or op[1] in fused_sweep.PALLAS_SAFE]
+
+
+def _lone(name, static, B, seed, lead=()):
+    """(chain spec, packed (P+2, B), rows_key) of op `name` alone after the
+    instances `lead`, reading tracks 0 and 1 where it reads two; per-frame
+    values drawn in each traced parameter's range."""
+    rng = np.random.default_rng(seed)
+    chain = [instantiate(n) for n in lead]
+    inst = instantiate(name, **static)
+    inst.in_tracks = (0, 1) if inst.filter.n_in == 2 else (0,)
+    chain.append(inst)
+    params = [{k: rng.uniform(i.filter.param(k).min, i.filter.param(k).max,
+                              B).astype(np.float32)
+               for k in _split_params(i)[1]} for i in chain]
+    packed, rows = pack_params(params, np.arange(B) / 25.0,
+                               np.array([0, 99_991, 16_777_215][:B]))
+    return chain_spec_of(chain), torch.from_numpy(packed), rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,label,name,static", NEW_OP_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in NEW_OP_CASES])
+def test_new_op_alone_matches_plain(cuda, kernel, label, name, static):
+    """Each op the op table gained alone, at ragged sizes, against its
+    plain version: K1 (its exact build) and K5 (after alien_overlay, its
+    state within 1e-5) over generated tracks, K4 over random u8 tracks;
+    frames within 1 LSB. Frame numbers up to 2^24 - 1 salt rand_replace."""
+    from lives_tpu_torch.graph import composite
+    B = 3
+    ids = torch.tensor([[[1, 2, 3], [5, -1, 7]], [[0, 1, 2], [3, 4, 5]]],
+                       dtype=torch.int32, device=cuda)
+    for w, h in ((70, 45), (1001, 37)):
+        src = DeviceSyntheticSource(h, w, device=cuda)
+        lead = ("alien_overlay",) if kernel == "K5" else ()
+        spec, packed, rows = _lone(name, static, B, w, lead)
+        packed = packed.to(cuda)
+        if kernel == "K1":
+            plan = fused_sweep.build_fused_sweep(spec, 2, h, w, rows, 25.0,
+                                                 src, SinkSpec(w, h), cuda)
+            assert plan is not None and plan.full
+            _check(plan, ids, packed)
+        elif kernel == "K4":
+            plan = composite.build_composite(spec, 2, rows, 25.0, cuda)
+            assert plan is not None
+            g = torch.Generator(cuda).manual_seed(w)
+            tracks = [torch.randint(0, 256, (B, 3, h, w), dtype=torch.uint8,
+                                    device=cuda, generator=g)
+                      for _ in range(2)]
+            got = composite.composite(plan, tracks, packed)
+            torch.cuda.synchronize()
+            ref = composite.plain_composite(plan, tracks, packed)
+            assert (got.int() - ref.int()).abs().max().item() <= 1, (w, h)
+        else:
+            plan = stateful_sweep.build_stateful_sweep(
+                spec, 2, h, w, rows, 25.0, src, SinkSpec(w, h), cuda)
+            assert plan is not None and plan.full
+            states = [f.init_state(w, h, None, cuda) if f.init_state
+                      else None for f, *_ in spec]
+            got, st_k = stateful_sweep.stateful_sweep(plan, ids, packed,
+                                                      states)
+            torch.cuda.synchronize()
+            ref, st_p = stateful_sweep.plain_stateful_sweep(
+                plan, ids, packed, [s.clone() if s is not None else None
+                                    for s in states])
+            assert (got.int() - ref.int()).abs().max().item() <= 1, (w, h)
+            assert (st_k[0] - st_p[0]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_stateful_kernel_widest_op_table(cuda):
+    """The widened record (112 bytes) at the largest op table K5 takes, at
+    its largest summed halo: blur r=16, fire, box blur r=16 (R = 33), each
+    one-input op the vocabulary gained, then negate and greyscale (no
+    parameter slot) in turn up to the kernel's MAX_OPS records; two chunks,
+    frames within 1 LSB, fire's state within 1e-5."""
+    ones = sorted({n for _, n, _ in NEW_OPS if get_filter(n).n_in == 1})
+    names = ones + ["negate", "greyscale"] * fused_sweep.MAX_STATEFUL_OPS
+    chain = [instantiate("gaussian_blur", radius=16),
+             instantiate("fire", threshold=0.5),
+             instantiate("box_blur", radius=16)]
+    chain += [instantiate(n) for n in
+              names[:fused_sweep.MAX_STATEFUL_OPS - len(chain)]]
+    w, h, B = 80, 40, 2
+    src = DeviceSyntheticSource(h, w, device=cuda)
+    packed, rows = pack_params(
+        [{k: np.full(B, v, np.float32) for k, v in _split_params(i)[1].items()}
+         for i in chain], np.arange(B) / 25.0, np.arange(B))
+    plan = stateful_sweep.build_stateful_sweep(
+        chain_spec_of(chain), 1, h, w, rows, 25.0, src, SinkSpec(w, h), cuda)
+    assert plan is not None and plan.halo == 33 and plan.full
+    assert plan.ops.shape[0] == len(chain) == fused_sweep.MAX_STATEFUL_OPS
+    geom = stateful_sweep.plan_geometry(plan, B)
+    assert geom.smem >= fused_sweep.OP_REC_BYTES * len(chain)
+    states = [f.init_state(w, h, None, cuda) if f.init_state else None
+              for f in (i.filter for i in chain)]
+    st_p = [s.clone() if s is not None else None for s in states]
+    packed = torch.from_numpy(packed).to(cuda)
+    for k in range(2):
+        ids = torch.tensor([[[1] * B], [[k * B + b for b in range(B)]]],
+                           dtype=torch.int32, device=cuda)
+        got, states = stateful_sweep.stateful_sweep(plan, ids, packed,
+                                                    states)
+        torch.cuda.synchronize()
+        ref, st_p = stateful_sweep.plain_stateful_sweep(plan, ids, packed,
+                                                        st_p)
+        assert (got.int() - ref.int()).abs().max().item() <= 1, k
+    assert (states[1] - st_p[1]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h,band_h", [(100, 61, 7), (1001, 37, 9)])
+def test_v_bands_match_whole_frame(cuda, w, h, band_h):
+    """Timeline V's chain (chip_smoke.timeline_v: every transition the
+    vocabulary gained, a blur, ten grading ops) in K1's band mode, bands
+    starting on odd rows (and one that ends at the frame's last row): every
+    band bit for bit the whole frame's rows, both on the exact build."""
+    from chip_smoke import chunk_of, timeline_v
+    el = timeline_v(4, w, h)
+    spec, ids, packed, rows = chunk_of(el, cuda, 4)
+    src = DeviceSyntheticSource(h, w, device=cuda)
+    plan = fused_sweep.build_fused_sweep(spec, 10, h, w, rows, el.fps, src,
+                                         SinkSpec(w, h), cuda)
+    assert plan is not None and plan.full
+    whole = fused_sweep.fused_sweep(plan, ids, packed)
+    bplan = fused_sweep.build_fused_sweep(spec, 10, h, w, rows, el.fps, src,
+                                          SinkSpec(w, h), cuda,
+                                          band_h=band_h)
+    starts = list(range(0, h - band_h + 1, band_h)) + [h - band_h]
+    assert any(y0 % 2 for y0 in starts)
+    for y0 in starts:
+        got = fused_sweep.fused_sweep(bplan, ids, packed, y0=y0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, whole[:, :, y0:y0 + band_h]), y0
+
+
+@pytest.mark.cuda
+def test_timeline_v_renders_through_the_exact_build(cuda):
+    """Timeline V through `render_to_arrays` on the card: one K1 launch a
+    chunk, no chunk on the plain route, frames within 1 LSB of the same
+    render on the CPU (the plain version)."""
+    from chip_smoke import timeline_v
+    from lives_tpu_torch.graph import nodemodel
+    w, h = 160, 72
+    el = timeline_v(10, w, h)
+    before = fused_sweep.MODE_LAUNCHES["u8"]
+    nodemodel.PLAIN_CHUNKS = 0
+    got, _ = render_to_arrays(el, DeviceSyntheticSource(h, w, device=cuda),
+                              SinkSpec(w, h), batch_size=4)
+    assert fused_sweep.MODE_LAUNCHES["u8"] - before == 3
+    assert nodemodel.PLAIN_CHUNKS == 0
+    ref, _ = render_to_arrays(el, DeviceSyntheticSource(h, w, device="cpu"),
+                              SinkSpec(w, h), batch_size=4)
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1

@@ -96,6 +96,18 @@ def specs(kind, n_tracks):
         from lives_tpu_torch.effects.builtin.blends import _BLEND_MODES
         return [(n, {"amount": 0.2 + 0.05 * i}, tr_tracks(i))
                 for i, n in enumerate(_BLEND_MODES)]
+    if kind == "vocab":  # the PALLAS_SAFE ops the sweep's vocabulary gained
+        return [("chroma_blend", {}, (0, 1)), ("alpha_over", {}, (0, 2)),
+                ("mask_overlay", {}, (0, 3 % n_tracks)),
+                ("luma_overlay", {}, (0, 1)), ("luma_underlay", {}, (0, 2)),
+                ("negative_luma_overlay", {}, (1, 0)),
+                ("negate", {}, (0,)), ("brightness_contrast", {}, (0,)),
+                ("gamma_adjust", {}, (0,)), ("levels", {}, (0,)),
+                ("sepia", {}, (0,)), ("posterize", {}, (0,)),
+                ("solarize", {}, (0,)), ("softlight", {}, (0,)),
+                ("tint", {}, (0,)), ("hue_rotate", {}, (0,)),
+                ("modulate", {}, (0,)), ("colour_replace", {}, (0,)),
+                ("greyscale", {}, (2,)), ("threshold", {}, (0,))]
     raise KeyError(kind)
 
 
@@ -131,7 +143,7 @@ def per_frame_params(chain, seed, b=B):
 # -- the composite kernel's plain version ---------------------------------------
 
 @pytest.mark.parametrize("kind,n_tracks", [("D", 4), ("keys", 3),
-                                           ("blends", 3)])
+                                           ("blends", 3), ("vocab", 4)])
 def test_plain_composite_matches_pallas_kernel(kind, n_tracks,
                                                jax_composite):
     """`plain_composite` against the JAX `build_composite` kernel on the
@@ -172,7 +184,7 @@ class _UsedKeys(dict):
 
 @pytest.mark.parametrize("pref", ["1", "0"])
 @pytest.mark.parametrize("kind,n_tracks", [("D", 4), ("D", 10),
-                                           ("keys", 3)])
+                                           ("keys", 3), ("vocab", 4)])
 def test_run_batch_matches_jax(kind, n_tracks, pref, jax_composite,
                                monkeypatch):
     """Decoded layers through `run_batch`, with the composite pref on both

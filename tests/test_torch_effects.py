@@ -42,14 +42,46 @@ CASES += [
     ("vignette_tile", "vignette", {}, (-3, 17, 60, 70)),
     ("vignette_tile_inside", "vignette", {}, (30, 25, 90, 80)),
 ]
+#: the filters of blends.py, colour.py, keying.py and extra.py that the
+#: sweep's op table gained, then the plain-route ones of those modules
+CASES += [(f"wipe_{d}", "wipe", {"direction": i}, None)
+          for i, d in enumerate(("left", "right", "top", "bottom"))]
+CASES += [(n, n, {}, None) for n in (
+    "iris_circle", "iris_rectangle", "dissolve", "rand_replace",
+    "chroma_blend", "luma_overlay", "luma_underlay", "negative_luma_overlay",
+    "alpha_over", "mask_overlay", "negate",
+    "brightness_contrast", "gamma_adjust", "levels", "greyscale", "sepia",
+    "posterize", "solarize", "threshold", "softlight", "tint", "hue_rotate",
+    "modulate", "colour_replace")]
+# the coordinate filters on tiles whose origin lies partly outside the
+# frame (clamped coordinates) and inside it
+CASES += [(f"{n}_tile{k}", n, st, tile)
+          for n, st in (("wipe", {"direction": 0}), ("wipe", {"direction": 3}),
+                        ("iris_circle", {}), ("iris_rectangle", {}),
+                        ("dissolve", {}), ("rand_replace", {}))
+          for k, tile in enumerate(((-3, 17, 60, 70), (30, 25, 90, 80)))]
+CASES += [("alpha_over_rgba", "alpha_over", {}, None)]
+CASES += [(n, n, {}, None) for n in (
+    "averaged_luma_overlay", "picture_in_picture", "grid4", "white_balance")]
+CASES += [(f"slide_over_{d}", "slide_over", {"direction": d}, None)
+          for d in range(4)]
+CASES += [(f"compositor_revz{r}", "compositor", {"revz": r}, None)
+          for r in (0, 1)]
+CASES += [(f"triple_split_vert{v}", "triple_split", {"vert": v}, None)
+          for v in (0, 1)]
+CASES += [(f"posterise_{n}", "posterise", {"levels": n}, None)
+          for n in (1, 3, 8)]
+CASES += [(f"palette_mapper_{k}", "palette_mapper", {"palette": k}, None)
+          for k in range(5)]
 
 
-def _inputs(name, static, dtype):
-    """Seeded frames and per-frame parameter values for one case."""
+def _inputs(name, static, dtype, alpha=False):
+    """Seeded frames and per-frame parameter values for one case; with
+    `alpha` the first input has an alpha channel."""
     rng = np.random.default_rng(zlib.crc32(name.encode()))
     filt = j_get_filter(name)
-    frames = [rng.random((B, 3, H, W), np.float32)
-              for _ in range(filt.n_in)]
+    frames = [rng.random((B, 4 if alpha and i == 0 else 3, H, W), np.float32)
+              for i in range(filt.n_in)]
     if dtype == "u8":
         frames = [np.floor(f * 255.0 + 0.5).astype(np.uint8)
                   for f in frames]
@@ -68,14 +100,17 @@ def _inputs(name, static, dtype):
 @pytest.mark.parametrize("case,name,static,tile", CASES,
                          ids=[c[0] for c in CASES])
 def test_filter_matches_jax(case, name, static, tile, dtype):
-    filt, frames, params = _inputs(name, static, dtype)
+    alpha = case.endswith("_rgba")
+    filt, frames, params = _inputs(name, static, dtype, alpha)
     pal = Palette.RGBFLOAT if dtype == "f32" else Palette.RGB24
+    apal = Palette.RGBAFLOAT if dtype == "f32" else Palette.RGBA32
+    pals = [apal if f.shape[1] == 4 else pal for f in frames]
     y0, x0, fh, fw = tile if tile else (0, 0, H, W)
     tcs = np.array([0.0, 0.5, 1.25], np.float32)
     ref = []
     for b in range(B):
-        ins = [JLayer(planes=(jnp.asarray(f[b]),), palette=int(pal))
-               for f in frames]
+        ins = [JLayer(planes=(jnp.asarray(f[b]),), palette=int(pl))
+               for f, pl in zip(frames, pals)]
         p = {k: (jnp.asarray(v[b], jnp.float32) if isinstance(v, np.ndarray)
                  else v) for k, v in params.items()}
         ctx = JContext(tc=jnp.float32(tcs[b]), frame=jnp.int32(b), fps=25.0,
@@ -87,8 +122,8 @@ def test_filter_matches_jax(case, name, static, tile, dtype):
     assert tfilt.hashname == filt.hashname
     assert [(p.name, p.kind, p.default, p.min, p.max) for p in tfilt.params] \
         == [(p.name, p.kind, p.default, p.min, p.max) for p in filt.params]
-    ins = [TLayer(planes=(torch.from_numpy(f),), palette=int(pal))
-           for f in frames]
+    ins = [TLayer(planes=(torch.from_numpy(f),), palette=int(pl))
+           for f, pl in zip(frames, pals)]
     p = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
          for k, v in params.items()}
     ctx = TContext(tc=torch.from_numpy(tcs), frame=torch.arange(B), fps=25.0,
@@ -96,7 +131,7 @@ def test_filter_matches_jax(case, name, static, tile, dtype):
     out = tfilt.process(ins, p, ctx)
     got = out.planes[0].numpy()
     assert got.shape == ref.shape and got.dtype == ref.dtype
-    assert out.palette == int(pal)
+    assert out.palette == ins[0 if name != "alpha_over" else 1].palette
     if dtype == "f32":
         np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
     else:
@@ -209,3 +244,39 @@ def test_grids_match_jax(centered, tile):
     for a, b in zip(ref, got):
         assert b.dtype == torch.float32
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+@pytest.mark.parametrize("salt", [None, 0, 7, 16777215, -5])
+@pytest.mark.parametrize("tile", [(0, 0, 24, 40), (-3, 17, 60, 70),
+                                  (1000, 30000, 1080, 40000)])
+def test_pixel_hash_matches_jax_exactly(salt, tile):
+    """`_pixel_hash` is the JAX integer hash bit for bit, at coordinates
+    whose products wrap int32 (x up to 39,999) and at frame salts up to
+    2^24 - 1 and below 0, clamped to the frame at tile origins outside
+    it."""
+    from lives_tpu.effects.builtin.blends import _pixel_hash as j_hash
+    from lives_tpu_torch.effects.builtin.blends import _pixel_hash as t_hash
+    y0, x0, fh, fw = tile
+    h, w = 24, 40
+    ref = np.asarray(j_hash(JContext(width=fw, height=fh, y0=y0, x0=x0), h,
+                            w, None if salt is None else jnp.int32(salt)))
+    got = t_hash(TContext(width=fw, height=fh, y0=y0, x0=x0), h, w,
+                 None if salt is None else torch.tensor([salt]),
+                 device="cpu").numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.reshape(h, w), ref)
+
+
+def test_mask_overlay_connected_alpha_raises():
+    """mask_overlay's two-input form is ported; a third input (a connected
+    alpha channel, cconx) raises, naming its ROADMAP item."""
+    filt = t_get_filter("mask_overlay")
+    lay = TLayer(planes=(torch.rand(1, 3, 4, 6),),
+                 palette=int(Palette.RGBFLOAT))
+    mask = TLayer(planes=(torch.rand(1, 1, 4, 6),),
+                  palette=int(Palette.AFLOAT))
+    p = {"threshold": 0.5, "softness": 0.05, "invert": 0.0}
+    assert filt.process([lay, lay], p, TContext()).planes[0].shape == \
+        (1, 3, 4, 6)
+    with pytest.raises(NotImplementedError, match="item 21"):
+        filt.process([lay, lay, mask], p, TContext())

@@ -270,8 +270,8 @@ def test_stateful_launch_is_one_a_chunk(monkeypatch):
     calls = _recorder(monkeypatch, stateful_sweep, "lives_stateful_sweep")
     seen = []
 
-    def resident(g, device):
-        seen.append(device)
+    def resident(g, device, full=False):
+        seen.append((device, full))
         return h100(g)
     monkeypatch.setattr(stateful_sweep, "resident_blocks", resident)
     plan = _plan([FIRE, ALIEN, ("crossfade", {}, (0, 1))])
@@ -285,12 +285,13 @@ def test_stateful_launch_is_one_a_chunk(monkeypatch):
     assert out.shape == (B, 3, H, W) and stateful_sweep.LAUNCHES == before + 1
     assert len(calls) == 1
     (*_, first, p0, p1, n, _out, T, b, h, w, halo, _sx, _sy, th, tw, run,
-     margin, smem, _s) = calls[0]
+     margin, smem, full, _s) = calls[0]
     g = stateful_sweep.plan_geometry(plan, B)
     assert g == fused_sweep.stateful_geometry(H, W, 1, plan.ops.shape[0],
                                               plan.taps.shape[0], h100, B)
-    assert set(seen) == {plan.ops.device}  # the plan's own card
-    assert (n, T, b, h, w, halo) == (2, 3, B, H, W, 1)
+    # the plan's own card, and the core instantiation's occupancy
+    assert set(seen) == {(plan.ops.device, False)}
+    assert (n, T, b, h, w, halo, full) == (2, 3, B, H, W, 1, 0)
     assert (th, tw, run, margin, smem) == (g.tile_h, g.tile_w, g.run,
                                            g.margin, g.smem)
     for s, (i, _, _) in enumerate(plan.state_steps):
@@ -323,8 +324,9 @@ def test_tracks_read_stages_each_track_once():
 
 #: distinct tracks read -> the span a block owns and its staged bytes
 SPANS = {1: (4096, 12336), 2: (4096, 24672), 4: (4096, 49344),
-         7: (4096, 86352), 10: (2048, 61920), 14: (2048, 86688),
-         15: (1024, 46800), 29: (512, 45936), 64: (256, 52224)}
+         6: (4096, 74016), 7: (2048, 43344), 10: (2048, 61920),
+         14: (1024, 43680), 15: (1024, 46800), 29: (512, 45936),
+         64: (256, 52224)}
 
 
 @pytest.mark.parametrize("n_read", sorted(SPANS))

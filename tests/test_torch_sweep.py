@@ -228,3 +228,71 @@ def test_random_chain_matches_jax_xla_path(seed, monkeypatch):
         ["SweepPlan"]
     diff = np.abs(got.astype(int) - ref.astype(int))
     assert diff.max() <= 1, (items, diff.max())
+
+
+@pytest.mark.parametrize("route,w,h", [("xla", 96, 54), ("pallas", 128, 48)])
+def test_timeline_v_matches_jax(route, w, h, monkeypatch):
+    """Timeline V (chip_smoke.timeline_v: every transition the sweep's
+    vocabulary gained, alpha_over, mask_overlay, a blur, ten grading ops),
+    10 tracks, 4 frames, through both packages' `render_to_arrays`: the
+    port plans its sweep (the whole-vocabulary plan) and runs its plain
+    version on the CPU; the JAX package runs its f32 XLA path, or its
+    Pallas sweep in interpret mode (which needs a width of 128). +/-1
+    LSB."""
+    from chip_smoke import timeline_v
+    from lives_tpu.events.event_list import EventList as JEventList
+    from lives_tpu_torch.graph import nodemodel
+    monkeypatch.setenv("LIVES_TPU_CHAIN_DTYPE", "f32")
+    if route == "xla":
+        monkeypatch.setenv("LIVES_TPU_FUSED_SWEEP", "0")
+    else:
+        monkeypatch.setenv("LIVES_TPU_PALLAS_INTERPRET", "1")
+    el = timeline_v(4, w, h)
+    ref, _ = jr.render_to_arrays(JEventList.from_json(el.to_json()),
+                                 JSource(h, w), JSink(w, h), batch_size=4)
+    nodemodel._PLANS.clear()
+    nodemodel.PLAIN_CHUNKS = 0
+    got, _ = tr.render_to_arrays(el, TSource(h, w, device="cpu"),
+                                 TSink(w, h), batch_size=4)
+    plans = list(nodemodel._PLANS.values())
+    assert [type(p).__name__ for p in plans] == ["SweepPlan"]
+    assert plans[0].full and nodemodel.PLAIN_CHUNKS == 0
+    diff = np.abs(np.asarray(got).astype(int) - np.asarray(ref).astype(int))
+    assert diff.max() <= 1, diff.max()
+
+
+@pytest.mark.parametrize("name", ["negate", "brightness_contrast"])
+def test_live_filters_plan_a_sweep(name):
+    """`negate` and `brightness_contrast` (the live path's configurations)
+    are in the sweep's vocabulary: a chain that holds one plans a
+    `SweepPlan`, its prefix runs through them, and it is a whole-vocabulary
+    plan."""
+    spec = _spec(*MAIN[:9], (name, {}, (0,)), *MAIN[9:])
+    plan = _eligible(spec)
+    assert isinstance(plan, fused_sweep.SweepPlan) and plan.full
+    chain = [instantiate(n, **v) for n, v, _ in MAIN[9:]]
+    chain.insert(1, instantiate(name))
+    assert fused_sweep.sweep_prefix_len(chain) == len(chain)
+    assert not _eligible(_spec(*MAIN)).full
+
+
+def test_vocabulary_is_the_jax_sweeps():
+    """The sweep's vocabulary is the JAX sweep's, `PALLAS_SAFE | COORD_SAFE
+    | STENCILS` (`pallas_composite.py:51-84`), every name registered in the
+    port; K4's is PALLAS_SAFE."""
+    from lives_tpu.graph import pallas_composite as jpc
+    from lives_tpu_torch.effects.host import list_filters
+    from lives_tpu_torch.graph import composite
+    assert fused_sweep.VOCABULARY == (fused_sweep.PALLAS_SAFE
+                                      | fused_sweep.COORD_SAFE
+                                      | fused_sweep.STENCILS)
+    # every point op has its opcode
+    assert fused_sweep.VOCABULARY == (set(fused_sweep._POINT_OPS)
+                                      | fused_sweep.STENCILS)
+    assert fused_sweep.PALLAS_SAFE == jpc.PALLAS_SAFE
+    assert fused_sweep.COORD_SAFE == jpc.COORD_SAFE
+    assert fused_sweep.STENCILS == set(jpc._stencil_fns())
+    assert fused_sweep.VOCABULARY <= set(list_filters())
+    assert composite.VOCABULARY == jpc.PALLAS_SAFE
+    assert len(fused_sweep.VOCABULARY - fused_sweep.CORE
+               - fused_sweep.STENCILS) == 25

@@ -247,7 +247,7 @@ def test_launch_passes_the_geometry(monkeypatch):
         return 0
     lib = types.SimpleNamespace(lives_fused_sweep=entry)
     monkeypatch.setattr(fused_sweep, "build",
-                        lambda: types.SimpleNamespace(lib=lib))
+                        lambda full=False: types.SimpleNamespace(lib=lib))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(torch.cuda, "device", lambda d: _Null())
