@@ -30,7 +30,11 @@ plain PyTorch version:
 - timeline V, the sweep's whole vocabulary: 10 tracks folded by the
   transitions the op table gained (wipe, irises, dissolve, the luma
   overlays, ...), then alpha_over, mask_overlay, a blur and ten grading
-  ops, through K1's exact build.
+  ops, through K1's exact build;
+- the realtime player (the clip editor's VJ path): two decoded 1080p30
+  YUV4MPEG clips through `Player` (keys, trickplay, precache and upload
+  ring, K2 per track and K3 in the Y4M sink's step), recorded and
+  re-rendered.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --config-d   # config D alone (phase 11's render
@@ -43,6 +47,7 @@ plain PyTorch version:
     python3 chip_smoke.py --guard      # K1 u8, K4 and K5 on their main
                                        # paths' chunks and the ptxas report
                                        # of the three, no result line
+    python3 chip_smoke.py --player     # phase 16 alone, no result line
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
@@ -178,6 +183,35 @@ Phases, one line each:
    e. V in bands of 270 and 135 rows (odd first rows) bit for bit the
       whole frame's rows, and `spatial_sweep_fn` over V's chunks: 4 band
       launches a chunk, frames bit for bit `render_events`'.
+16. the realtime player (`lives_tpu_torch.player`) on two 1080p30
+   YUV4MPEG clips of 48 frames (C420jpeg, clamped BT.601, written with
+   phase 11's `write_clips`), keys 0-2 gaussian_blur r=3, colour_balance,
+   vignette, key 3 the autotransition's crossfade, precache 8, pipeline
+   2, display fetches in groups of 4, into a `Y4MSink` (YUV420P), recording
+   on, under the default prefs. Pass A, 240 cycles on a scripted clock
+   (the player module's `time` a `ScriptedClock`, advanced 1/30 s a
+   cycle; a chain change builds its graph in the cycle and a precache miss
+   decodes inline, so what is shown is the script's alone): a key toggles
+   every 25 frames, the fg switches with a
+   1 s autotransition, 30 cycles at -30 fps, 30 in nervous mode from a
+   seeded generator (`player_script`); run with K2 and K3 swapped for
+   their plain versions, then with the kernels (timed: process_one p50,
+   p99, max; frames shown and dropped; inline decodes), then profiled, the
+   device's activity only (K2 and K3 launches and device-to-host copies a
+   frame, the device's busy share, the profiler's own start and stop);
+   K2 and K3 launches equal the design (each run of a graph, a
+   served frame or a warm-up, converts each decoded track once and its
+   output once), none in the plain run, and the three Y4M files are
+   byte-identical. The kernels pass's take through
+   `render_last_recording` on the card: frames, launches, frames/s, and
+   max |diff| (Y, U, V) against the frames the sink received, at most
+   `PLAYER_RERENDER_BOUND` + 1. Pass B: the same performance on the wall
+   clock, `play_n_cycles(1, realtime=True)` a cycle, under the realtime
+   policies (chain changes warmed off-thread and on one toggle away,
+   drops on a precache miss): frames shown and dropped, the miss drops by
+   the performance's mode with the worker's backlog and lead
+   compensation at each, K2 and K3 launches equal the design. Then `python -m lives_tpu_torch.cli play <clip> --fx
+   gaussian_blur --seconds 3` in a subprocess exits 0.
 Then a `resources` line for K1 (both builds), K4, K5 and K6 (the path's
 entry: ptxas registers and spills, blocks an SM), a JSON line of the kernels
 (with each one's bound: the larger of its bytes over 3.35 TB/s and its
@@ -779,23 +813,23 @@ def phase12(dev, card0, card, el, src, sink, held, ms, bounds, launches):
     os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "1"
 
 
-def write_clips(tmp, src):
-    """Config D's clips in directory `tmp`: TRACKS YUV4MPEG clips of
-    CLIP_FRAMES synthetic frames of `src` each (clip c is the source's clip
-    c, through K3), opened with `open_clip`: ({c: Clip}, bytes, s)."""
+def write_clips(tmp, src, n_clips=TRACKS, frames=CLIP_FRAMES):
+    """Config D's clips in directory `tmp`: `n_clips` YUV4MPEG clips of
+    `frames` synthetic frames of `src` each (clip c is the source's clip c,
+    through K3), opened with `open_clip`: ({c: Clip}, bytes, s)."""
     from lives_tpu_torch.constants import Palette
     from lives_tpu_torch.io.clips import open_clip
     from lives_tpu_torch.io.decoders import write_y4m
     from lives_tpu_torch.ops.colorspace import convert_layer
     t0 = time.perf_counter()
     clips, size = {}, 0
-    for c in range(1, TRACKS + 1):
+    for c in range(1, n_clips + 1):
         yuv = [p.cpu().numpy() for p in convert_layer(
-            src.get_batch([c] * CLIP_FRAMES, range(CLIP_FRAMES)),
+            src.get_batch([c] * frames, range(frames)),
             Palette.YUV420P).planes]
         path = os.path.join(tmp, f"clip{c}.y4m")
         write_y4m(path, [tuple(p[i] for p in yuv)
-                         for i in range(CLIP_FRAMES)], FPS)
+                         for i in range(frames)], FPS)
         size += os.path.getsize(path)
         clips[c] = open_clip(path, os.path.join(tmp, "work"))
         clips[c].unique_id = c  # the timeline's clip ids
@@ -1663,6 +1697,418 @@ def guard(dev, card):
     torch.cuda.synchronize()
 
 
+# -- phase 16: the realtime player ------------------------------------------
+
+#: phase 16's keys: key -> (filter, per-key defaults); key 3 holds the
+#: autotransition's crossfade
+PLAYER_KEYS = {0: ("gaussian_blur", {"radius": 3}), 1: ("colour_balance", {}),
+               2: ("vignette", {}), 3: ("crossfade", {})}
+AUTOTRANS_KEY = 3
+#: the player's clips (two, 48 frames each), cycles a pass, the cycles
+#: between key toggles (BASELINE row 5's rhythm) and nervous mode's seed
+PLAYER_CLIP_FRAMES, PLAYER_CYCLES, PLAYER_EVERY = 48, 240, 25
+PLAYER_SEED = 16
+#: max |diff| over the Y, U and V planes between what the JAX package's
+#: own player showed and its re-render of the take, on phase 16's
+#: performance at 64x36 (measured by tests/test_torch_player.py
+#: `test_jax_player_vs_its_rerender`); phase 16 holds the port's player
+#: on the card to it plus 1 LSB
+PLAYER_RERENDER_BOUND = 1
+
+
+class ScriptedClock:
+    """A stand-in for the `time` module inside a player module:
+    `monotonic()` reads `now`, which the script advances; `sleep` sleeps."""
+
+    def __init__(self, now=0.0):
+        self.now = now
+
+    def monotonic(self):
+        return self.now
+
+    @staticmethod
+    def sleep(seconds):
+        time.sleep(seconds)
+
+
+def player_script(cycles, every):
+    """{cycle: [action, ...]} of phase 16's performance, before that
+    cycle's `process_one`: key (j + 1) % 3 toggles at cycle every * (j +
+    1) (keys 1, 2 on, 0, 1, 2 off, 0, 1, 2 on, 0 off from key 0 on: a key
+    goes on only above every key that is on, so the live chain's key order
+    and the recorded filter map's agree); the fg switches at 2.88 * every
+    with an autotransition of 1.2 * every cycles (over key releases only);
+    play runs reversed for 1.2 * every cycles from 5.2 * every and nervous
+    for as long from 7.2 * every."""
+    acts, span = {}, round(1.2 * every)
+
+    def at(c, *act):
+        acts.setdefault(c, []).append(act)
+    for c in range(every, cycles, every):
+        at(c, "toggle", (c // every) % 3)
+    at(round(2.88 * every), "switch")
+    r0, n0 = round(5.2 * every), round(7.2 * every)
+    at(r0, "fps", -1)
+    at(r0 + span, "fps", 1)
+    at(n0, "nervous", True)
+    at(n0 + span, "nervous", False)
+    return acts
+
+
+def player_setup(p, clips, fps, every):
+    """Phase 16's player set-up on either package's Player: the keys, the
+    autotransition, clips a (fg) and b (bg), precache 8, pipeline 2, fetch
+    groups of 4, the seeded nervous generator, key 0 on, recording on,
+    playing."""
+    import numpy as np
+    for k, (name, vals) in PLAYER_KEYS.items():
+        p.keymap.set_key(k, 0, name)
+        if vals:
+            p.keymap.set_key_defaults(k, 0, **vals)
+    p.set_autotrans(AUTOTRANS_KEY, duration=round(1.2 * every) / fps)
+    p.state.fg_clip, p.state.bg_clip = clips
+    p.precache_depth, p.pipeline_depth, p.fetch_batch = 8, 2, 4
+    p._nervous_rng = np.random.default_rng(PLAYER_SEED)
+    p.key_toggle(0, True)
+    p.record_start(clips[0].width, clips[0].height)
+    p.start()
+
+
+def perform(p, clips, fps, cycles, every, clock=None, realtime=False):
+    """Drive phase 16's performance (`player_script`) on a set-up player.
+    With `clock` (a ScriptedClock standing in for the player module's
+    `time`), each cycle sees the clock advanced by 1 / fps; without it the
+    cycles run on the wall clock, `play_n_cycles(1, realtime=True)` each.
+    Returns each cycle's host ms. When the autotransition releases the bg
+    track, the next cycle selects the other clip as bg again."""
+    a, b = clips
+    acts = player_script(cycles, every)
+    ms = []
+    for c in range(cycles):
+        for act in acts.get(c, ()):
+            if act[0] == "toggle":
+                p.key_toggle(act[1])
+            elif act[0] == "switch":
+                p.switch_fg(b if p.state.fg_clip is a else a)
+            elif act[0] == "fps":
+                p.set_pb_fps(act[1] * fps)
+            else:
+                p.state.nervous = act[1]
+        if p.state.bg_clip is None:
+            p.state.bg_clip = a if p.state.fg_clip is b else b
+        t0 = time.perf_counter()
+        if realtime:
+            p.play_n_cycles(1, realtime=True)
+        else:
+            p.process_one()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if clock is not None:
+            clock.now = (c + 1) / fps
+    return ms
+
+
+def rerender_index(el, fps):
+    """Each FRAME event's frame in the take's re-render: its slot on the
+    fps grid `EventList.quantise` lays from the first FRAME event."""
+    frames = [e for e in el.events if e.type.name == "FRAME"]
+    tpf = 100_000_000 / fps
+    return [round((e.tc - frames[0].tc) / tpf) for e in frames]
+
+
+def yuv_gap(shown, rendered, index):
+    """max |diff| over the Y, U and V planes (tensors) between shown frame
+    j and rendered frame index[j], on the rendered frame's device."""
+    import torch
+    return max(int((a.to(b.device, torch.int16)
+                    - b.to(torch.int16)).abs().max())
+               for j, g in enumerate(index)
+               for a, b in zip(shown[j], rendered[g]))
+
+
+def player_phase(dev, card, launches):
+    """16. the realtime player on two decoded 1080p30 YUV4MPEG clips: keys,
+    clock and trickplay, precache and upload ring, the Y4M sink (K3),
+    recording and the re-render."""
+    import threading
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.graph import FrameGraph, SinkSpec
+    from lives_tpu_torch.io.decoders import try_decoders
+    from lives_tpu_torch.layer import Layer
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.ops.colorspace import convert_layer
+    from lives_tpu_torch.player import Player, Y4MSink
+    from lives_tpu_torch.player import player as player_mod
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+
+    os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "0"   # the default prefs
+    os.environ["LIVES_TPU_FUSED_STATEFUL"] = "0"
+    spec = SinkSpec(palette=int(Palette.YUV420P))   # as cli.build_player
+
+    def one_pass(clips, path, clock=None, plain=False, prof=False):
+        """A pass of the performance into a Y4MSink at `path`, the launch
+        counts set to 0 just before it and read after `stop`: (player,
+        per-cycle ms, {launches, runs}, [inline decodes, frames dropped on
+        a precache miss], profile)."""
+        runs = []
+        run = FrameGraph.run
+
+        def counted(self, layers, *a, **kw):
+            # the decoded tracks this run's chain reads (track 0, and a
+            # track past the stack reads track 0), and whether it converts
+            # an output
+            n = sum(isinstance(lay, Layer) for lay in layers)
+            read = {0} | {t for i in self.chain
+                          for t in i.in_tracks[:i.filter.n_in] if t < n}
+            runs.append((threading.current_thread() is
+                         threading.main_thread(),
+                         len(read) if self.chain else 0, bool(self.chain)))
+            return run(self, layers, *a, **kw)
+        kernels = (yk.yuv420_to_rgb, yk.rgb_to_yuv420)
+        saved_time = player_mod.time
+        # inline decodes, frames dropped on a miss, those drops by the
+        # performance's mode, and at each drop (s into the pass, the
+        # worker's backlog, whether it was decoding farthest-first)
+        misses = [0, 0, {}, []]
+        t_pass = [0.0]
+        p = Player(Y4MSink(path), spec, fps=FPS, device=dev)
+        if clock is not None:
+            # what is shown is a function of the script alone: a chain
+            # change builds its graph in the cycle (no warm-up thread
+            # serving the old graph meanwhile), a precache miss decodes
+            # inline (no drop)
+            player_mod.time = clock
+            p.async_compile = False
+            p.drop_on_miss = False
+        decode, pull = p._decode_frame, p._pull
+
+        def counted_decode(clip, n):
+            if threading.current_thread() is threading.main_thread():
+                misses[0] += 1
+            return decode(clip, n)
+
+        def counted_pull(clip, n):
+            try:
+                return pull(clip, n)
+            except player_mod._PrecacheMiss:
+                # the performance's mode at the drop, and the frames the
+                # worker had still to decode
+                st = p.state
+                mode = ("nervous" if st.nervous else "reverse"
+                        if st.pb_fps < 0 else "autotrans"
+                        if p._autotrans_t0 is not None else "forward")
+                misses[1] += 1
+                misses[2][mode] = misses[2].get(mode, 0) + 1
+                misses[3].append((time.perf_counter() - t_pass[0],
+                                  len(p._inflight), p._pc_behind))
+                raise
+        p._decode_frame, p._pull = counted_decode, counted_pull
+        FrameGraph.run = counted
+        if plain:
+            yk.yuv420_to_rgb = yk.plain_yuv420_to_rgb
+            yk.rgb_to_yuv420 = yk.plain_rgb_to_yuv420
+        yk.LAUNCHES.update(dict.fromkeys(yk.LAUNCHES, 0))
+        trace = None
+        try:
+            player_setup(p, clips, FPS, PLAYER_EVERY)
+            t_pass[0] = time.perf_counter()
+            if clock is not None:
+                p._frame0 += 0.5   # mid-frame: floor never lands a frame off
+            if prof:
+                # the device's activity only: its kernels and copies are
+                # all the pass reads, and a trace of every host op of 240
+                # cycles takes seconds to read back
+                t_in = time.perf_counter()
+                with profile(activities=[ProfilerActivity.CUDA]) as trace:
+                    t0 = time.perf_counter()
+                    ms = perform(p, clips, FPS, PLAYER_CYCLES,
+                                 PLAYER_EVERY, clock=clock)
+                    p.record_stop()
+                    p.stop()
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    trace.wall_ms = (t1 - t0) * 1e3
+                # the profiler's own cost: starting it, and stopping it
+                # with the trace read back
+                trace.own_s = (t0 - t_in, time.perf_counter() - t1)
+            else:
+                ms = perform(p, clips, FPS, PLAYER_CYCLES, PLAYER_EVERY,
+                             clock=clock, realtime=clock is None)
+                p.record_stop()
+                p.stop()
+        finally:
+            FrameGraph.run = run
+            yk.yuv420_to_rgb, yk.rgb_to_yuv420 = kernels
+            player_mod.time = saved_time
+        counts = dict(yk.LAUNCHES)
+        counts["runs"] = runs
+        return p, ms, counts, misses, trace
+
+    def design(runs):
+        """K2 and K3 launches the design gives: every run of a graph
+        converts each decoded track its chain reads once and its output
+        once (in pass A: fg + bg a frame, fg alone in the frame the
+        autotransition releases the bg, 1 K3 a frame)."""
+        return {"yuv420_to_rgb": sum(n for _, n, _ in runs),
+                "rgb_to_yuv420": sum(out for _, _, out in runs)}
+
+    def y4m_planes(path, device):
+        """A YUV4MPEG file's frames as (Y, U, V) views of one upload to
+        `device`."""
+        cd = try_decoders(path)
+        dec = cd.decoder
+        buf = np.fromfile(path, np.uint8)
+        flat = torch.from_numpy(np.stack(
+            [buf[dec._offset(n):dec._offset(n) + dec.frame_size]
+             for n in range(cd.nframes)])).to(device)
+        dec.close()
+        ny, nc = cd.height * cd.width, (cd.height // 2) * (cd.width // 2)
+        return [(f[:ny].view(cd.height, cd.width),
+                 f[ny:ny + nc].view(cd.height // 2, cd.width // 2),
+                 f[ny + nc:].view(cd.height // 2, cd.width // 2))
+                for f in flat]
+
+    yk.build()
+    t_phase = time.perf_counter()
+    steps = {}   # step -> the host clock at its end
+    src = DeviceSyntheticSource(H, W, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        allc, size, secs = write_clips(tmp, src, 2, PLAYER_CLIP_FRAMES)
+        clips = (allc[1], allc[2])
+        line("16 clips", clips=2, frames=PLAYER_CLIP_FRAMES,
+             size=f"{W}x{H}", mb=f"{size / 1e6:.1f}", seconds=f"{secs:.2f}")
+        steps["clips"] = time.perf_counter()
+        # pass A, scripted clock: plain versions first (they warm the
+        # allocator), then the kernels timed, then the kernels profiled
+        files = {}
+        for label, plain, prof in (("plain", True, False),
+                                   ("kernels", False, False),
+                                   ("profiled", False, True)):
+            path = os.path.join(tmp, f"{label}.y4m")
+            p, ms, counts, misses, trace = one_pass(
+                clips, path, clock=ScriptedClock(), plain=plain, prof=prof)
+            files[label] = path
+            runs = counts.pop("runs")
+            served = sum(1 for main, _, _ in runs if main)
+            want = {k: 0 for k in counts} if plain else design(runs)
+            assert counts == want, (label, counts, want)
+            assert served == p.frames_shown, (served, p.frames_shown)
+            cd = try_decoders(path)
+            n_file = cd.nframes
+            cd.decoder.close()
+            assert n_file == p.frames_shown, (n_file, p.frames_shown)
+            lat = np.asarray(ms)
+            line("16 pass_a", card=repr(card), run=label,
+                 cycles=PLAYER_CYCLES, frames_shown=p.frames_shown,
+                 frames_dropped=p.frames_dropped, precache_misses=misses[0],
+                 warm_runs=len(runs) - served,
+                 k2_launches=counts["yuv420_to_rgb"],
+                 k3_launches=counts["rgb_to_yuv420"],
+                 p50_ms=f"{np.percentile(lat, 50):.3f}",
+                 p99_ms=f"{np.percentile(lat, 99):.3f}",
+                 max_ms=f"{lat.max():.3f}",
+                 file_bytes=os.path.getsize(path))
+            if label == "kernels":
+                take, take_shown = p.last_recording, p
+                take_counts = counts
+            if prof:
+                busy, top = device_busy(trace)
+                names = [e.name for e in trace.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA]
+                n_k2 = sum("yuv420_to_rgb" in n for n in names)
+                n_k3 = sum("rgb_to_yuv420" in n for n in names)
+                assert (n_k2, n_k3) == (counts["yuv420_to_rgb"],
+                                        counts["rgb_to_yuv420"]), \
+                    (n_k2, n_k3, counts)
+                line("16 profiled", card=repr(card),
+                     frames=p.frames_shown,
+                     k2_per_frame=f"{n_k2 / p.frames_shown:.3f}",
+                     k3_per_frame=f"{n_k3 / p.frames_shown:.3f}",
+                     dtoh_per_frame=f"{dtoh_copies(trace) / p.frames_shown:.3f}",
+                     wall_ms=f"{trace.wall_ms:.1f}",
+                     device_busy_ms=f"{busy:.1f}",
+                     busy_share=f"{busy / trace.wall_ms:.3f}",
+                     profiler_start_stop_s="{:.2f},{:.2f}".format(
+                         *trace.own_s), top=top)
+            steps[label] = time.perf_counter()
+        plain_bytes = np.fromfile(files["plain"], np.uint8)
+        same = {label: np.array_equal(plain_bytes,
+                                      np.fromfile(path, np.uint8))
+                for label, path in files.items() if label != "plain"}
+        del plain_bytes
+        line("16 bit_identity", against="plain", **same)
+        assert all(same.values()), same
+        steps["identity"] = time.perf_counter()
+        for k in ("yuv420_to_rgb", "rgb_to_yuv420"):
+            launches[k] += take_counts[k]
+        # the re-render of the kernels pass's take, on the card
+        yk.LAUNCHES.update(dict.fromkeys(yk.LAUNCHES, 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames, _ = take_shown.render_last_recording(
+            take_shown.recording_uid_map(clips), batch_size=CHUNK)
+        secs = time.perf_counter() - t0
+        rerender_counts = {k: v for k, v in yk.LAUNCHES.items() if v}
+        rendered = []   # the re-render as YUV420P, on the card
+        for k in range(0, len(frames), CHUNK):
+            yuv = convert_layer(Layer(planes=(torch.from_numpy(
+                frames[k:k + CHUNK]).to(dev),)), Palette.YUV420P).planes
+            rendered += [tuple(q[i] for q in yuv) for i in range(len(yuv[0]))]
+        shown = y4m_planes(files["kernels"], dev)
+        gap = yuv_gap(shown, rendered, rerender_index(take, FPS))
+        line("16 rerender", card=repr(card), frames=len(frames),
+             launches=rerender_counts, seconds=f"{secs:.3f}",
+             frames_per_s=f"{len(frames) / secs:.1f}", max_abs_err=gap,
+             bound=PLAYER_RERENDER_BOUND + 1)
+        assert gap <= PLAYER_RERENDER_BOUND + 1, gap
+        del frames, rendered, shown
+        steps["rerender"] = time.perf_counter()
+        # pass B: the same performance on the wall clock
+        p, _, counts, misses, _ = one_pass(
+            clips, os.path.join(tmp, "wall.y4m"))
+        runs = counts.pop("runs")
+        assert counts == design(runs), (counts, design(runs))
+        ft = np.asarray(p._frame_times) * 1e3
+        line("16 pass_b", card=repr(card), cycles=PLAYER_CYCLES,
+             frames_shown=p.frames_shown, frames_dropped=p.frames_dropped,
+             miss_drops=misses[1], miss_drops_by_mode=misses[2],
+             drops_at_s=(f"{misses[3][0][0]:.2f}-{misses[3][-1][0]:.2f}"
+                         if misses[3] else "-"),
+             backlog_at_drop=(
+                 f"p50={np.median([b for _, b, _ in misses[3]]):.0f},"
+                 f"max={max(b for _, b, _ in misses[3])}"
+                 if misses[3] else "-"),
+             farthest_first_drops=sum(f for _, _, f in misses[3]),
+             precache_misses=misses[0],
+             warm_runs=sum(1 for main, _, _ in runs if not main),
+             p50_ms=f"{np.percentile(ft, 50):.3f}",
+             p99_ms=f"{np.percentile(ft, 99):.3f}",
+             max_ms=f"{ft.max():.3f}")
+        steps["pass_b"] = time.perf_counter()
+        # the console: a clip played for 3 s into a null sink
+        env = {**os.environ, "PYTHONPATH": str(ROOT)}
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "lives_tpu_torch.cli", "play",
+             os.path.join(tmp, "clip1.y4m"), "--fx", "gaussian_blur",
+             "--seconds", "3"], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=300)
+        status = r.stderr.strip().splitlines()[-1].strip()
+        line("16 cli", rc=r.returncode,
+             seconds=f"{time.perf_counter() - t0:.1f}", status=repr(status))
+        assert r.returncode == 0, r.stderr[-2000:]
+        steps["cli"] = time.perf_counter()
+        for c in allc.values():
+            c.close()
+    marks = [t_phase, *steps.values()]
+    line("16 wall", seconds=f"{time.perf_counter() - t_phase:.1f}",
+         **{k: f"{b - a:.1f}" for k, a, b in zip(steps, marks, marks[1:])})
+
+
 def synced_calls(fn):
     """(fn's result, the synchronizing CUDA calls it made, as the warnings
     of torch's sync debug mode)."""
@@ -1731,6 +2177,9 @@ def main(argv) -> int:
         return 0
     if argv == ["--guard"]:
         guard(dev, card)
+        return 0
+    if argv == ["--player"]:
+        player_phase(dev, card, dict.fromkeys(NAMES, 0))
         return 0
     if argv and argv != ["--vocabulary"]:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -2301,6 +2750,7 @@ def main(argv) -> int:
     resources["fma_chain"] = ("fma_chain:fma_chain_kernel", "not queried")
     live(dev, card)
     vocabulary(dev, card, held, ms, bounds, launches)
+    player_phase(dev, card, launches)
     vel = timeline_v(1)
     vspec, _, _, vrows = chunk_of(vel, dev, 1)
     v_geom = fused_sweep.plan_geometry(

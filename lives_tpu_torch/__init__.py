@@ -23,8 +23,11 @@ band mode), and the single-frame live path (ROADMAP Queue 1 item 12):
 and `GenSlot`s, with the generators of `effects/builtin/generators.py`.
 `ops.fma_chain` holds K6, the roofline study's fused-multiply-add probe
 (`csrc/fma_chain.cu`), which `chip_smoke.py` runs to read the card's
-float32 ceiling. Every entry point takes its device explicitly (a
-`GeneratorClip` defaults to "cuda"); nothing picks a device on its own.
+float32 ceiling. The clip editor's realtime player (ROADMAP Queue 1 item
+20) is `player` (`Player`, `KeyMap`, the sinks), with `diagnostics` and
+the console `cli` (`python -m lives_tpu_torch.cli play clip.y4m`). Every
+entry point takes its device explicitly (a `GeneratorClip` and a `Player`
+default to "cuda"); nothing picks a device on its own.
 """
 
 from .constants import (Gamma, Palette, YUVClamping, YUVSampling,

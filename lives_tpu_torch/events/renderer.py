@@ -298,8 +298,10 @@ class ClipFrameSource:
     def get_batch(self, clip_ids, frame_nums) -> Layer:
         clips = [self.clips.get(int(c)) for c in clip_ids]
         nums = [int(f) for f in frame_nums]
-        configs = {c.frame_config(f) for c, f in zip(clips, nums)
-                   if c is not None}
+        # a clip-like without `frame_config` (a generator clip, a test's
+        # in-memory clip) goes frame by frame
+        configs = {getattr(c, "frame_config", lambda f: None)(f)
+                   for c, f in zip(clips, nums) if c is not None}
         if len(configs) == 1 and None not in configs:
             out = self._chunk(clips, nums, *configs.pop())
             if out is not None:

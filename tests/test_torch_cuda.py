@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain versions, on a GPU: the fused
 sweep in its four modes, the fused stateful sweep, the colour kernels,
 the composite kernel and K6, the fused-multiply-add probe (within a
-relative error of K * 2^-23); and the live path (`FrameGraph.run`,
-`GeneratorClip`) on the card against the CPU.
+relative error of K * 2^-23); the live path (`FrameGraph.run`,
+`GeneratorClip`) on the card against the CPU; and the realtime player
+(decoded clips: K2/K3 launches, its Y4M file byte-identical to the plain
+versions'; the upload ring; `NullSink`'s bounded lag).
 
 These tests need an NVIDIA GPU and skip without one. They import neither
 jax nor lives_tpu, so they also run where only PyTorch is installed:
@@ -1212,3 +1214,191 @@ def test_timeline_v_renders_through_the_exact_build(cuda):
     ref, _ = render_to_arrays(el, DeviceSyntheticSource(h, w, device="cpu"),
                               SinkSpec(w, h), batch_size=4)
     assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+# -- the realtime player (ROADMAP Queue 1 item 20) ---------------------------
+
+def _player_pass(cuda, clips, path, plain=False):
+    """chip_smoke phase 16's pass A at a small size (96 cycles, a toggle
+    every 10) on the card into a Y4MSink at `path`, the colour kernels or,
+    with `plain`, their plain versions: (the take, {kernel: launches})."""
+    import chip_smoke as cs
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.player import Player, Y4MSink
+    from lives_tpu_torch.player import player as player_mod
+    clock, saved = cs.ScriptedClock(), player_mod.time
+    kernels = (yk.yuv420_to_rgb, yk.rgb_to_yuv420)
+    player_mod.time = clock
+    if plain:
+        yk.yuv420_to_rgb = yk.plain_yuv420_to_rgb
+        yk.rgb_to_yuv420 = yk.plain_rgb_to_yuv420
+    yk.LAUNCHES.update(dict.fromkeys(yk.LAUNCHES, 0))
+    try:
+        p = Player(Y4MSink(path), SinkSpec(palette=int(Palette.YUV420P)),
+                   fps=cs.FPS, device=cuda)
+        p.async_compile = False
+        p.drop_on_miss = False
+        cs.player_setup(p, clips, cs.FPS, 10)
+        p._frame0 += 0.5
+        cs.perform(p, clips, cs.FPS, 96, 10, clock=clock)
+        el = p.record_stop()
+        p.stop()
+    finally:
+        player_mod.time = saved
+        yk.yuv420_to_rgb, yk.rgb_to_yuv420 = kernels
+    return el, dict(yk.LAUNCHES)
+
+
+@pytest.mark.cuda
+def test_player_on_decoded_clips_launches_and_matches_plain(cuda, tmp_path):
+    """The player on two small decoded YUV4MPEG clips on the card: K2 once
+    a track a shown frame and K3 once a frame (the take's FRAME events say
+    which tracks each frame pulled), and the Y4M file byte-identical to the
+    same performance on the plain versions (a torn upload or a stale
+    precache entry would differ)."""
+    import chip_smoke as cs
+    cs_w, cs_h = cs.W, cs.H
+    cs.W, cs.H = 128, 72
+    try:
+        allc, _, _ = cs.write_clips(
+            str(tmp_path), DeviceSyntheticSource(72, 128, device=cuda), 2,
+            cs.PLAYER_CLIP_FRAMES)
+    finally:
+        cs.W, cs.H = cs_w, cs_h
+    clips = (allc[1], allc[2])
+    el, counts = _player_pass(cuda, clips, str(tmp_path / "k.y4m"))
+    frames = [e for e in el.events if e.type.name == "FRAME"]
+    assert len(frames) == 96
+    assert counts == {"yuv420_to_rgb": sum(len(e.clips) for e in frames),
+                      "rgb_to_yuv420": len(frames)}
+    _, plain = _player_pass(cuda, clips, str(tmp_path / "p.y4m"), plain=True)
+    assert plain == {"yuv420_to_rgb": 0, "rgb_to_yuv420": 0}
+    assert (tmp_path / "k.y4m").read_bytes() == \
+        (tmp_path / "p.y4m").read_bytes()
+    for c in allc.values():
+        c.close()
+
+
+@pytest.mark.cuda
+def test_player_host_frames_on_the_card_match_cpu(cuda):
+    """Host frames of a clip without `frame_config` go through the upload
+    ring (copied into a pinned slot); the card's frames are the CPU
+    player's within 1 LSB, and fetched groups arrive as host planes."""
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.layer import Layer
+    from lives_tpu_torch.player import CollectSink, Player
+
+    class Clip:
+        frames, fps, width, height, unique_id = 12, 25.0, 40, 24, 1
+
+        def get_frame(self, n):
+            rng = np.random.default_rng(n)
+            return Layer(planes=(torch.from_numpy(
+                rng.integers(0, 256, (3, 24, 40), np.uint8)),),
+                palette=int(Palette.RGB24))
+    got = {}
+    for dev in (cuda, "cpu"):
+        sink = CollectSink()
+        p = Player(sink, SinkSpec(), fps=25.0, device=dev)
+        p.state.fg_clip = Clip()
+        p.keymap.set_key(0, 0, "saturation")
+        p.key_toggle(0, True)
+        p.async_compile = False
+        p.precache_depth, p.pipeline_depth, p.fetch_batch = 3, 1, 3
+        p.start()
+        for k in range(9):
+            p.state.frame = -1
+            p._clock0 = None
+            p.time_source = lambda k=k: (k + 0.5) / 25.0
+            p.process_one()
+        p.stop()
+        got[str(dev)] = sink.frames
+    assert len(got["cpu"]) == len(got[str(cuda)]) == 9
+    for a, b in zip(got["cpu"], got[str(cuda)]):
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strict", [False, True])
+def test_null_sink_bounds_the_device_lag(cuda, strict):
+    """NullSink waits, every `sync_every` frames, on the event it recorded
+    the time before: after frame n the device has finished every frame up
+    to the window before the last one (strict: every frame so far, at each
+    sync)."""
+    from lives_tpu_torch.layer import Layer
+    from lives_tpu_torch.player import NullSink
+    every = 4
+    sink = NullSink(sync_every=every, strict=strict)
+    lay = Layer(planes=(torch.zeros(8, dtype=torch.uint8, device=cuda),))
+    events = []
+    for n in range(1, 33):
+        torch.cuda._sleep(1_000_000)      # about half a ms of device work
+        ev = torch.cuda.Event()
+        ev.record()
+        events.append(ev)
+        assert sink.play_frame(lay, 0.0)
+        done = (n // every) * every - (0 if strict else every)
+        assert all(e.query() for e in events[:max(done, 0)]), n
+    sink.exit_screen()
+    assert events[-1].query()
+
+
+@pytest.mark.cuda
+def test_upload_ring_never_reuses_a_buffer_in_flight(cuda):
+    """A producer faster than the copies: each upload is held in flight
+    behind device work on the ring's stream; the ring never hands a slot's
+    buffer out again before its copy has completed, and every frame arrives
+    whole."""
+    from lives_tpu_torch.player.player import UploadRing
+    ring = UploadRing(cuda, slots=2)
+    specs = [((64, 96), torch.uint8), ((32, 48), torch.uint8)]
+    outs = []
+    for k in range(8):
+        with torch.cuda.stream(ring.stream):
+            torch.cuda._sleep(2_000_000)   # the copy waits behind this
+        prev = ring._slots[ring._next][1]
+
+        def read(bufs, k=k, prev=prev):
+            assert prev is None or prev.query(), \
+                "a buffer was handed out while its copy was in flight"
+            for b in bufs:
+                b.fill_(k)
+        outs.append(ring.upload(specs, read))
+    for k, (planes, ev) in enumerate(outs):
+        UploadRing.consume(planes, ev)
+        for p in planes:
+            assert bool((p == k).all()), k
+
+
+@pytest.mark.cuda
+def test_upload_ring_feeds_a_slower_consumer_from_a_thread(cuda):
+    """The precache worker's shape: a thread uploads 40 frames through a
+    3-slot ring as fast as it can while the serving stream consumes each
+    behind device work of its own; every consumed frame is the one
+    uploaded (no torn or reused buffer)."""
+    import queue
+    import threading
+
+    from lives_tpu_torch.player.player import UploadRing
+    ring = UploadRing(cuda, slots=3)
+    q = queue.Queue()
+
+    def worker():
+        torch.cuda.set_device(ring.stream.device)
+        for k in range(40):
+            def read(bufs, k=k):
+                bufs[0].copy_(torch.full((128, 128), k, dtype=torch.uint8))
+            q.put((k, *ring.upload([((128, 128), torch.uint8)], read)))
+    t = threading.Thread(target=worker)
+    t.start()
+    seen = []
+    for _ in range(40):
+        k, planes, ev = q.get(timeout=60)
+        UploadRing.consume(planes, ev)
+        torch.cuda._sleep(200_000)
+        seen.append((k, planes[0].sum().item() == k * 128 * 128))
+    t.join(timeout=60)
+    assert not t.is_alive()
+    assert [k for k, _ in seen] == list(range(40))
+    assert all(ok for _, ok in seen)
