@@ -34,7 +34,12 @@ plain PyTorch version:
 - the realtime player (the clip editor's VJ path): two decoded 1080p30
   YUV4MPEG clips through `Player` (keys, trickplay, precache and upload
   ring, K2 per track and K3 in the Y4M sink's step), recorded and
-  re-rendered.
+  re-rendered;
+- the VJ filters a reference keymap names (geometry.py, the EffecTV
+  warps and feedbacks, threefry's noise and nervous, motion_blur, the
+  compounds): each alone against the port on the CPU, a stateful
+  timeline through K1's comp-out and comp-in modes, and the player with a
+  reference-format keymap.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --config-d   # config D alone (phase 11's render
@@ -48,6 +53,7 @@ plain PyTorch version:
                                        # paths' chunks and the ptxas report
                                        # of the three, no result line
     python3 chip_smoke.py --player     # phase 16 alone, no result line
+    python3 chip_smoke.py --vjfilters  # phases 1-2 and 17, no result line
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
@@ -212,6 +218,27 @@ Phases, one line each:
    the performance's mode with the worker's backlog and lead
    compensation at each, K2 and K3 launches equal the design. Then `python -m lives_tpu_torch.cli play <clip> --fx
    gaussian_blur --seconds 3` in a subprocess exits 0.
+17. the VJ filters (ROADMAP items 14-15) at 1920x1080:
+   a. each new filter (`VJ_STATELESS` at B = 2, `VJ_STATEFUL` over 8
+      frames threading each side's own state) on the card against the same
+      call on the CPU, on the same seeded frames and per-frame values:
+      max |diff| <= 1 LSB, 0 for `VJ_EXACT`; noise's frames 0, 1 and
+      100,000, threefry's words over 2^21 counts and its Random123 known
+      answer, and spread's sin twin on its 1080p arguments, bit for bit;
+      each filter's ms a 1080p frame by CUDA events after a warm-up (noise
+      also at 3840x2160);
+   b. the stateful timeline `CONFIGS["VJ"]` (10 tracks, 9 transitions,
+      vertigo, blurzoom, nervous, feedback, saturation, vignette) through
+      `render_events`, 192 frames in 96-frame chunks: one K1 comp-out and
+      one comp-in launch a chunk, every frame within 1 LSB of the plain
+      route (`Materialised`, the state carried across both chunks), then a
+      timed pass (frames/s);
+   c. phase 16's clips on the player with the reference-format keymap
+      `VJ_KEYMAP` (13 lines, every one mapped) and `vj_script` on the
+      scripted clock, with K2 and K3 swapped for their plain versions,
+      then with the kernels: the two Y4M files byte-identical, K2 and K3
+      launches as designed, process_one p50, p99 and max; the take's
+      re-render within `PLAYER_RERENDER_BOUND` + 1.
 Then a `resources` line for K1 (both builds), K4, K5 and K6 (the path's
 entry: ptxas registers and spills, blocks an SM), a JSON line of the kernels
 (with each one's bound: the larger of its bytes over 3.35 TB/s and its
@@ -269,6 +296,16 @@ CONFIGS = {
                 ("fire", {"threshold": 0.5}, [0]),
                 ("box_blur", {"radius": 16}, [0]),
                 ("saturation", {"saturation": 1.2}, [0])]),
+    # phase 17b: the main path's 9 transitions (K1 comp-out), four
+    # EffecTV filters in the frame loop, two point ops (K1 comp-in)
+    "VJ": (10, [(TRANSITIONS[t - 1], {"amount": 0.5}, [0, t])
+                for t in range(1, 10)]
+           + [("vertigo", {"feedback": 0.7, "speed": 0.6, "zoom": 0.5}, [0]),
+              ("blurzoom", {"decay": 0.5, "amount": 0.8}, [0]),
+              ("nervous", {}, [0]),
+              ("feedback", {"feedback": 0.6, "zoom": 0.4}, [0]),
+              ("saturation", {"saturation": 1.2}, [0]),
+              ("vignette", {"amount": 0.5}, [0])]),
 }
 
 
@@ -1774,15 +1811,17 @@ def player_setup(p, clips, fps, every):
     p.start()
 
 
-def perform(p, clips, fps, cycles, every, clock=None, realtime=False):
-    """Drive phase 16's performance (`player_script`) on a set-up player.
+def perform(p, clips, fps, cycles, every, clock=None, realtime=False,
+            script=None):
+    """Drive phase 16's performance (`player_script`, or `script`) on a
+    set-up player.
     With `clock` (a ScriptedClock standing in for the player module's
     `time`), each cycle sees the clock advanced by 1 / fps; without it the
     cycles run on the wall clock, `play_n_cycles(1, realtime=True)` each.
     Returns each cycle's host ms. When the autotransition releases the bg
     track, the next cycle selects the other clip as bg again."""
     a, b = clips
-    acts = player_script(cycles, every)
+    acts = (script or player_script)(cycles, every)
     ms = []
     for c in range(cycles):
         for act in acts.get(c, ()):
@@ -1825,152 +1864,197 @@ def yuv_gap(shown, rendered, index):
                for a, b in zip(shown[j], rendered[g]))
 
 
-def player_phase(dev, card, launches):
-    """16. the realtime player on two decoded 1080p30 YUV4MPEG clips: keys,
-    clock and trickplay, precache and upload ring, the Y4M sink (K3),
-    recording and the re-render."""
+def player_pass(dev, clips, path, setup, script=None, clock=None,
+                plain=False, prof=False):
+    """A pass of a performance on a `Player` into a Y4MSink at `path` (the
+    sink step YUV420P, as cli.build_player), `setup(p)` first (phase 16's
+    `player_setup` or phase 17c's `vj_setup`), then `perform` with
+    `script`; K2 and K3 launch counts set to 0 just before it and read
+    after `stop`. Returns (player, per-cycle ms, {launches, runs},
+    [inline decodes, frames dropped on a precache miss, those drops by
+    mode, (s into the pass, backlog, farthest-first) at each], profile)."""
     import threading
 
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from lives_tpu_torch.constants import Palette
     from lives_tpu_torch.graph import FrameGraph, SinkSpec
+    from lives_tpu_torch.layer import Layer
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.player import Player, Y4MSink
+    from lives_tpu_torch.player import player as player_mod
+
+    spec = SinkSpec(palette=int(Palette.YUV420P))   # as cli.build_player
+    runs = []
+    run = FrameGraph.run
+
+    def counted(self, layers, *a, **kw):
+        # the decoded tracks this run's chain reads (track 0, and a
+        # track past the stack reads track 0), and whether it converts
+        # an output
+        n = sum(isinstance(lay, Layer) for lay in layers)
+        read = {0} | {t for i in self.chain
+                      for t in i.in_tracks[:i.filter.n_in] if t < n}
+        runs.append((threading.current_thread() is
+                     threading.main_thread(),
+                     len(read) if self.chain else 0, bool(self.chain)))
+        return run(self, layers, *a, **kw)
+    kernels = (yk.yuv420_to_rgb, yk.rgb_to_yuv420)
+    saved_time = player_mod.time
+    misses = [0, 0, {}, []]
+    t_pass = [0.0]
+    p = Player(Y4MSink(path), spec, fps=FPS, device=dev)
+    if clock is not None:
+        # what is shown is a function of the script alone: a chain
+        # change builds its graph in the cycle (no warm-up thread
+        # serving the old graph meanwhile), a precache miss decodes
+        # inline (no drop)
+        player_mod.time = clock
+        p.async_compile = False
+        p.drop_on_miss = False
+    decode, pull = p._decode_frame, p._pull
+
+    def counted_decode(clip, n):
+        if threading.current_thread() is threading.main_thread():
+            misses[0] += 1
+        return decode(clip, n)
+
+    def counted_pull(clip, n):
+        try:
+            return pull(clip, n)
+        except player_mod._PrecacheMiss:
+            # the performance's mode at the drop, and the frames the
+            # worker had still to decode
+            st = p.state
+            mode = ("nervous" if st.nervous else "reverse"
+                    if st.pb_fps < 0 else "autotrans"
+                    if p._autotrans_t0 is not None else "forward")
+            misses[1] += 1
+            misses[2][mode] = misses[2].get(mode, 0) + 1
+            misses[3].append((time.perf_counter() - t_pass[0],
+                              len(p._inflight), p._pc_behind))
+            raise
+    p._decode_frame, p._pull = counted_decode, counted_pull
+    FrameGraph.run = counted
+    if plain:
+        yk.yuv420_to_rgb = yk.plain_yuv420_to_rgb
+        yk.rgb_to_yuv420 = yk.plain_rgb_to_yuv420
+    yk.LAUNCHES.update(dict.fromkeys(yk.LAUNCHES, 0))
+    trace = None
+    try:
+        setup(p)
+        t_pass[0] = time.perf_counter()
+        if clock is not None:
+            p._frame0 += 0.5   # mid-frame: floor never lands a frame off
+        if prof:
+            # the device's activity only: its kernels and copies are
+            # all the pass reads, and a trace of every host op of 240
+            # cycles takes seconds to read back
+            t_in = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as trace:
+                t0 = time.perf_counter()
+                ms = perform(p, clips, FPS, PLAYER_CYCLES, PLAYER_EVERY,
+                             clock=clock, script=script)
+                p.record_stop()
+                p.stop()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                trace.wall_ms = (t1 - t0) * 1e3
+            # the profiler's own cost: starting it, and stopping it
+            # with the trace read back
+            trace.own_s = (t0 - t_in, time.perf_counter() - t1)
+        else:
+            ms = perform(p, clips, FPS, PLAYER_CYCLES, PLAYER_EVERY,
+                         clock=clock, realtime=clock is None, script=script)
+            p.record_stop()
+            p.stop()
+    finally:
+        FrameGraph.run = run
+        yk.yuv420_to_rgb, yk.rgb_to_yuv420 = kernels
+        player_mod.time = saved_time
+    counts = dict(yk.LAUNCHES)
+    counts["runs"] = runs
+    return p, ms, counts, misses, trace
+
+
+def player_design(runs):
+    """K2 and K3 launches the design gives: every run of a graph converts
+    each decoded track its chain reads once and its output once (in a
+    pass on the scripted clock: fg + bg a frame, fg alone in the frame the
+    autotransition releases the bg, 1 K3 a frame)."""
+    return {"yuv420_to_rgb": sum(n for _, n, _ in runs),
+            "rgb_to_yuv420": sum(out for _, _, out in runs)}
+
+
+def y4m_planes(path, device):
+    """A YUV4MPEG file's frames as (Y, U, V) views of one upload to
+    `device`."""
+    import numpy as np
+    import torch
+
     from lives_tpu_torch.io.decoders import try_decoders
+    cd = try_decoders(path)
+    dec = cd.decoder
+    buf = np.fromfile(path, np.uint8)
+    flat = torch.from_numpy(np.stack(
+        [buf[dec._offset(n):dec._offset(n) + dec.frame_size]
+         for n in range(cd.nframes)])).to(device)
+    dec.close()
+    ny, nc = cd.height * cd.width, (cd.height // 2) * (cd.width // 2)
+    return [(f[:ny].view(cd.height, cd.width),
+             f[ny:ny + nc].view(cd.height // 2, cd.width // 2),
+             f[ny + nc:].view(cd.height // 2, cd.width // 2))
+            for f in flat]
+
+
+def rerender_gap(take_shown, take, clips, shown_path, dev):
+    """The kernels pass's take re-rendered on the card
+    (`render_last_recording`) against the frames its Y4M file holds:
+    (frames, non-zero K2/K3 launches, seconds, max |diff| over Y, U and
+    V)."""
+    import torch
+
+    from lives_tpu_torch.constants import Palette
     from lives_tpu_torch.layer import Layer
     from lives_tpu_torch.ops import yuv_kernels as yk
     from lives_tpu_torch.ops.colorspace import convert_layer
-    from lives_tpu_torch.player import Player, Y4MSink
-    from lives_tpu_torch.player import player as player_mod
+    yk.LAUNCHES.update(dict.fromkeys(yk.LAUNCHES, 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames, _ = take_shown.render_last_recording(
+        take_shown.recording_uid_map(clips), batch_size=CHUNK)
+    secs = time.perf_counter() - t0
+    counts = {k: v for k, v in yk.LAUNCHES.items() if v}
+    rendered = []   # the re-render as YUV420P, on the card
+    for k in range(0, len(frames), CHUNK):
+        yuv = convert_layer(Layer(planes=(torch.from_numpy(
+            frames[k:k + CHUNK]).to(dev),)), Palette.YUV420P).planes
+        rendered += [tuple(q[i] for q in yuv) for i in range(len(yuv[0]))]
+    shown = y4m_planes(shown_path, dev)
+    return (len(frames), counts, secs,
+            yuv_gap(shown, rendered, rerender_index(take, FPS)))
+
+
+def player_phase(dev, card, launches):
+    """16. the realtime player on two decoded 1080p30 YUV4MPEG clips: keys,
+    clock and trickplay, precache and upload ring, the Y4M sink (K3),
+    recording and the re-render."""
+    import numpy as np
+    import torch
+
+    from lives_tpu_torch.io.decoders import try_decoders
+    from lives_tpu_torch.ops import yuv_kernels as yk
     from lives_tpu_torch.scenes import DeviceSyntheticSource
 
     os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "0"   # the default prefs
     os.environ["LIVES_TPU_FUSED_STATEFUL"] = "0"
-    spec = SinkSpec(palette=int(Palette.YUV420P))   # as cli.build_player
 
     def one_pass(clips, path, clock=None, plain=False, prof=False):
-        """A pass of the performance into a Y4MSink at `path`, the launch
-        counts set to 0 just before it and read after `stop`: (player,
-        per-cycle ms, {launches, runs}, [inline decodes, frames dropped on
-        a precache miss], profile)."""
-        runs = []
-        run = FrameGraph.run
-
-        def counted(self, layers, *a, **kw):
-            # the decoded tracks this run's chain reads (track 0, and a
-            # track past the stack reads track 0), and whether it converts
-            # an output
-            n = sum(isinstance(lay, Layer) for lay in layers)
-            read = {0} | {t for i in self.chain
-                          for t in i.in_tracks[:i.filter.n_in] if t < n}
-            runs.append((threading.current_thread() is
-                         threading.main_thread(),
-                         len(read) if self.chain else 0, bool(self.chain)))
-            return run(self, layers, *a, **kw)
-        kernels = (yk.yuv420_to_rgb, yk.rgb_to_yuv420)
-        saved_time = player_mod.time
-        # inline decodes, frames dropped on a miss, those drops by the
-        # performance's mode, and at each drop (s into the pass, the
-        # worker's backlog, whether it was decoding farthest-first)
-        misses = [0, 0, {}, []]
-        t_pass = [0.0]
-        p = Player(Y4MSink(path), spec, fps=FPS, device=dev)
-        if clock is not None:
-            # what is shown is a function of the script alone: a chain
-            # change builds its graph in the cycle (no warm-up thread
-            # serving the old graph meanwhile), a precache miss decodes
-            # inline (no drop)
-            player_mod.time = clock
-            p.async_compile = False
-            p.drop_on_miss = False
-        decode, pull = p._decode_frame, p._pull
-
-        def counted_decode(clip, n):
-            if threading.current_thread() is threading.main_thread():
-                misses[0] += 1
-            return decode(clip, n)
-
-        def counted_pull(clip, n):
-            try:
-                return pull(clip, n)
-            except player_mod._PrecacheMiss:
-                # the performance's mode at the drop, and the frames the
-                # worker had still to decode
-                st = p.state
-                mode = ("nervous" if st.nervous else "reverse"
-                        if st.pb_fps < 0 else "autotrans"
-                        if p._autotrans_t0 is not None else "forward")
-                misses[1] += 1
-                misses[2][mode] = misses[2].get(mode, 0) + 1
-                misses[3].append((time.perf_counter() - t_pass[0],
-                                  len(p._inflight), p._pc_behind))
-                raise
-        p._decode_frame, p._pull = counted_decode, counted_pull
-        FrameGraph.run = counted
-        if plain:
-            yk.yuv420_to_rgb = yk.plain_yuv420_to_rgb
-            yk.rgb_to_yuv420 = yk.plain_rgb_to_yuv420
-        yk.LAUNCHES.update(dict.fromkeys(yk.LAUNCHES, 0))
-        trace = None
-        try:
-            player_setup(p, clips, FPS, PLAYER_EVERY)
-            t_pass[0] = time.perf_counter()
-            if clock is not None:
-                p._frame0 += 0.5   # mid-frame: floor never lands a frame off
-            if prof:
-                # the device's activity only: its kernels and copies are
-                # all the pass reads, and a trace of every host op of 240
-                # cycles takes seconds to read back
-                t_in = time.perf_counter()
-                with profile(activities=[ProfilerActivity.CUDA]) as trace:
-                    t0 = time.perf_counter()
-                    ms = perform(p, clips, FPS, PLAYER_CYCLES,
-                                 PLAYER_EVERY, clock=clock)
-                    p.record_stop()
-                    p.stop()
-                    torch.cuda.synchronize()
-                    t1 = time.perf_counter()
-                    trace.wall_ms = (t1 - t0) * 1e3
-                # the profiler's own cost: starting it, and stopping it
-                # with the trace read back
-                trace.own_s = (t0 - t_in, time.perf_counter() - t1)
-            else:
-                ms = perform(p, clips, FPS, PLAYER_CYCLES, PLAYER_EVERY,
-                             clock=clock, realtime=clock is None)
-                p.record_stop()
-                p.stop()
-        finally:
-            FrameGraph.run = run
-            yk.yuv420_to_rgb, yk.rgb_to_yuv420 = kernels
-            player_mod.time = saved_time
-        counts = dict(yk.LAUNCHES)
-        counts["runs"] = runs
-        return p, ms, counts, misses, trace
-
-    def design(runs):
-        """K2 and K3 launches the design gives: every run of a graph
-        converts each decoded track its chain reads once and its output
-        once (in pass A: fg + bg a frame, fg alone in the frame the
-        autotransition releases the bg, 1 K3 a frame)."""
-        return {"yuv420_to_rgb": sum(n for _, n, _ in runs),
-                "rgb_to_yuv420": sum(out for _, _, out in runs)}
-
-    def y4m_planes(path, device):
-        """A YUV4MPEG file's frames as (Y, U, V) views of one upload to
-        `device`."""
-        cd = try_decoders(path)
-        dec = cd.decoder
-        buf = np.fromfile(path, np.uint8)
-        flat = torch.from_numpy(np.stack(
-            [buf[dec._offset(n):dec._offset(n) + dec.frame_size]
-             for n in range(cd.nframes)])).to(device)
-        dec.close()
-        ny, nc = cd.height * cd.width, (cd.height // 2) * (cd.width // 2)
-        return [(f[:ny].view(cd.height, cd.width),
-                 f[ny:ny + nc].view(cd.height // 2, cd.width // 2),
-                 f[ny + nc:].view(cd.height // 2, cd.width // 2))
-                for f in flat]
+        return player_pass(
+            dev, clips, path,
+            lambda p: player_setup(p, clips, FPS, PLAYER_EVERY),
+            clock=clock, plain=plain, prof=prof)
 
     yk.build()
     t_phase = time.perf_counter()
@@ -1994,7 +2078,7 @@ def player_phase(dev, card, launches):
             files[label] = path
             runs = counts.pop("runs")
             served = sum(1 for main, _, _ in runs if main)
-            want = {k: 0 for k in counts} if plain else design(runs)
+            want = {k: 0 for k in counts} if plain else player_design(runs)
             assert counts == want, (label, counts, want)
             assert served == p.frames_shown, (served, p.frames_shown)
             cd = try_decoders(path)
@@ -2046,32 +2130,19 @@ def player_phase(dev, card, launches):
         for k in ("yuv420_to_rgb", "rgb_to_yuv420"):
             launches[k] += take_counts[k]
         # the re-render of the kernels pass's take, on the card
-        yk.LAUNCHES.update(dict.fromkeys(yk.LAUNCHES, 0))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        frames, _ = take_shown.render_last_recording(
-            take_shown.recording_uid_map(clips), batch_size=CHUNK)
-        secs = time.perf_counter() - t0
-        rerender_counts = {k: v for k, v in yk.LAUNCHES.items() if v}
-        rendered = []   # the re-render as YUV420P, on the card
-        for k in range(0, len(frames), CHUNK):
-            yuv = convert_layer(Layer(planes=(torch.from_numpy(
-                frames[k:k + CHUNK]).to(dev),)), Palette.YUV420P).planes
-            rendered += [tuple(q[i] for q in yuv) for i in range(len(yuv[0]))]
-        shown = y4m_planes(files["kernels"], dev)
-        gap = yuv_gap(shown, rendered, rerender_index(take, FPS))
-        line("16 rerender", card=repr(card), frames=len(frames),
+        n, rerender_counts, secs, gap = rerender_gap(
+            take_shown, take, clips, files["kernels"], dev)
+        line("16 rerender", card=repr(card), frames=n,
              launches=rerender_counts, seconds=f"{secs:.3f}",
-             frames_per_s=f"{len(frames) / secs:.1f}", max_abs_err=gap,
+             frames_per_s=f"{n / secs:.1f}", max_abs_err=gap,
              bound=PLAYER_RERENDER_BOUND + 1)
         assert gap <= PLAYER_RERENDER_BOUND + 1, gap
-        del frames, rendered, shown
         steps["rerender"] = time.perf_counter()
         # pass B: the same performance on the wall clock
         p, _, counts, misses, _ = one_pass(
             clips, os.path.join(tmp, "wall.y4m"))
         runs = counts.pop("runs")
-        assert counts == design(runs), (counts, design(runs))
+        assert counts == player_design(runs), (counts, player_design(runs))
         ft = np.asarray(p._frame_times) * 1e3
         line("16 pass_b", card=repr(card), cycles=PLAYER_CYCLES,
              frames_shown=p.frames_shown, frames_dropped=p.frames_dropped,
@@ -2106,6 +2177,333 @@ def player_phase(dev, card, launches):
             c.close()
     marks = [t_phase, *steps.values()]
     line("16 wall", seconds=f"{time.perf_counter() - t_phase:.1f}",
+         **{k: f"{b - a:.1f}" for k, a, b in zip(steps, marks, marks[1:])})
+
+
+# -- phase 17: the VJ filters ----------------------------------------------
+
+#: phase 17c's reference-format keymap: (key, Weed hashname, the filter
+#: it maps to) lines, keys from 1, each hashname holding its
+#: REF_FILTER_MAP fragment first; key 13's crossfade is the
+#: autotransition. Keys 1-6 are played. The other six are mapped, not
+#: played, because the take would not re-render within the bound in the
+#: JAX player either: ripple, warptv and nervous read the clock or the
+#: clip's frame number, which the live player and the re-render give them
+#: differently, and blurzoom's edge threshold, revtv's trace band and
+#: comic's posterize levels are hard selects that turn the 1 LSB between
+#: the live path and its re-render (PLAYER_RERENDER_BOUND) into tens of
+#: LSB.
+VJ_KEYMAP = [(1, "vertigoeffecttv", "vertigo"),
+             (2, "rotozoomsalsaman", "rotozoom"),
+             (3, "kaleidoscopesalsaman", "kaleidoscope"),
+             (4, "bump2dsalsaman", "bump2d"),
+             (5, "bumpmapsalsaman", "lens"),
+             (6, "tvpicsalsaman", "tvpic"),
+             (7, "blurzoomeffecttv", "blurzoom"),
+             (8, "revtvsalsaman", "revtv"),
+             (9, "comicsalsaman", "comic"),
+             (10, "rippletveffecttv", "ripple"),
+             (11, "warptveffecttv", "warptv"),
+             (12, "nervouseffecttv", "nervous"),
+             (13, "simple_blendsalsaman", "crossfade")]
+VJ_PLAYED, VJ_AUTOTRANS_KEY = 6, 12
+#: the played keys whose filter carries state (vertigo): a take's
+#: re-render starts every filter's state afresh at each change of the
+#: filter map, where the live player carries it (both packages), so it is
+#: on from the start to the first toggle, over no other change
+VJ_STATEFUL_KEYS = (0,)
+#: phase 17c's toggles, one every PLAYER_EVERY cycles from keys 0-2 on:
+#: every played key goes on, only above every key that is on; the
+#: toggles inside the autotransition (cycles 72-102) are releases
+VJ_ON_AT_START = (0, 1, 2)
+VJ_TOGGLES = (0, 3, 1, 2, 4, 5, 3, 4, 5)
+#: per-key defaults of phase 17c (key from 0): vertigo, a zoomed and
+#: turned rotozoom
+VJ_DEFAULTS = {0: {"feedback": 0.6, "speed": 0.7},
+               1: {"angle": 0.05, "zoom": 1.25}}
+
+
+def vj_script(cycles, every):
+    """{cycle: [action, ...]} of phase 17c's performance: phase 16's fg
+    switch, reversed and nervous spans (`player_script`), and at each
+    every-th cycle the next toggle of VJ_TOGGLES (up to three keys on)."""
+    acts = {c: [a for a in v if a[0] != "toggle"]
+            for c, v in player_script(cycles, every).items()}
+    for c, k in zip(range(every, cycles, every), VJ_TOGGLES):
+        acts.setdefault(c, []).append(("toggle", k))
+    return {c: v for c, v in acts.items() if v}
+
+
+def write_vj_keymap(path):
+    with open(path, "w") as fh:
+        fh.writelines(f"{k}|{h}\n" for k, h, _ in VJ_KEYMAP)
+
+
+def vj_setup(p, clips, fps, every, keymap_path):
+    """Phase 17c's set-up on either package's Player: the reference keymap
+    loaded (every line mapped), the per-key defaults, the autotransition,
+    clips a (fg) and b (bg), precache 8, pipeline 2, fetch groups of 4,
+    the seeded nervous generator, VJ_ON_AT_START's keys on, recording on,
+    playing.
+    Returns the mapped count."""
+    import numpy as np
+    n = p.keymap.load_reference_keymap(keymap_path)
+    for k, vals in VJ_DEFAULTS.items():
+        p.keymap.set_key_defaults(k, 0, **vals)
+    p.set_autotrans(VJ_AUTOTRANS_KEY, duration=round(1.2 * every) / fps)
+    p.state.fg_clip, p.state.bg_clip = clips
+    p.precache_depth, p.pipeline_depth, p.fetch_batch = 8, 2, 4
+    p._nervous_rng = np.random.default_rng(PLAYER_SEED)
+    for k in VJ_ON_AT_START:
+        p.key_toggle(k, True)
+    p.record_start(clips[0].width, clips[0].height)
+    p.start()
+    return n
+
+
+#: phase 17a's stateless filters: geometry.py's 21, motion_blur, edge and
+#: the three stateless compounds; the stateful ones, over 8 frames; those
+#: whose output is a permutation of the input's pixels (or a copy of a
+#: stored one): 0 LSB
+VJ_STATELESS = ("flip_horizontal", "flip_vertical", "rotate180", "mirror",
+                "pixelate", "rotozoom", "kaleidoscope", "ripple", "lens",
+                "rotate", "wave", "swirl", "spread", "shift", "bump2d",
+                "tvpic", "emboss", "charcoal", "warptv", "targeted_zoom",
+                "revtv", "motion_blur", "edge", "dream", "night_vision",
+                "comic")
+VJ_STATEFUL = ("blurzoom", "onedtv", "nervous", "feedback", "vertigo", "vhs")
+VJ_EXACT = ("flip_horizontal", "flip_vertical", "rotate180", "mirror",
+            "shift", "onedtv", "nervous", "noise")
+
+
+def _vj_params(filt, rng, B, device):
+    """Seeded per-frame values of a filter's traced params ((B,) float32
+    on `device`), its static params at their defaults."""
+    import torch
+    return {p.name: (torch.from_numpy(rng.uniform(p.min, p.max, B)
+                                      .astype("float32")).to(device)
+                     if p.kind == "num" else p.default)
+            for p in filt.params}
+
+
+def vj_filters(dev, card, launches):
+    """17. the VJ filters (ROADMAP items 14-15) at 1920x1080 on the card:
+    each new filter against the port on the CPU, phase 17b's stateful
+    timeline through `render_events`, phase 17c's performance with a
+    reference keymap."""
+    import numpy as np
+    import torch
+
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.effects.builtin.geometry import spread_hash
+    from lives_tpu_torch.effects.host import (FrameContext, Instance,
+                                              apply_instance, get_filter)
+    from lives_tpu_torch.events.renderer import render_events
+    from lives_tpu_torch.graph import SinkSpec, fused_sweep
+    from lives_tpu_torch.io.decoders import try_decoders
+    from lives_tpu_torch.layer import Layer
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+    from lives_tpu_torch.utils import prng
+    from lives_tpu_torch.utils.sinf import sinf
+
+    os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "0"   # the default prefs
+    os.environ["LIVES_TPU_FUSED_STATEFUL"] = "0"
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    steps = {}
+
+    def ctx_on(device, B, frame0=0, h=H, w=W):
+        fr = torch.arange(B, dtype=torch.int32) * 7 + frame0
+        return FrameContext(tc=(fr.float() / FPS).to(device),
+                            frame=fr.to(device), fps=FPS, width=w,
+                            height=h, device=device)
+
+    def gap(a, b):
+        return int((a.cpu().int() - b.int()).abs().max())
+
+    # 17a. each filter alone, the card against the CPU
+    for name in VJ_STATELESS:
+        f = get_filter(name)
+        rng = np.random.default_rng(sum(map(ord, name)))
+        fr = torch.from_numpy(rng.integers(0, 256, (2, 3, H, W),
+                                           dtype=np.uint8))
+        pars = _vj_params(f, rng, 2, cpu)
+        ins = {d: (fr.to(d), {k: v.to(d) if isinstance(v, torch.Tensor)
+                              else v for k, v in pars.items()})
+               for d in (dev, cpu)}
+
+        def run(device, B=2):
+            frames, p = ins[device]
+            lay = Layer(planes=(frames[:B],), palette=int(Palette.RGB24))
+            p = {k: v[:B] if isinstance(v, torch.Tensor) else v
+                 for k, v in p.items()}
+            return f.process([lay], p, ctx_on(device, B)).planes[0]
+        err = gap(run(dev), run(cpu))
+        ms = time_ms(lambda: run(dev, 1), 5)
+        line("17a filter", name=name, frames=2, max_abs_err=err,
+             bound=0 if name in VJ_EXACT else 1, card=repr(card),
+             ms_per_1080p_frame=f"{ms:.3f}")
+        assert err <= (0 if name in VJ_EXACT else 1), (name, err)
+    steps["stateless"] = time.perf_counter()
+    for name in VJ_STATEFUL:
+        f = get_filter(name)
+        rng = np.random.default_rng(sum(map(ord, name)))
+        fr = torch.from_numpy(rng.integers(0, 256, (8, 3, H, W),
+                                           dtype=np.uint8))
+        pars = _vj_params(f, rng, 8, cpu)
+        # each side its own instance, so its own state
+        ins = {side: (d, fr.to(d), {k: v.to(d)
+                                    if isinstance(v, torch.Tensor) else v
+                                    for k, v in pars.items()},
+                      Instance(filter=f))
+               for side, d in (("card", dev), ("cpu", cpu))}
+
+        def step(side, b):
+            device, frames, p, inst = ins[side]
+            inst.values = {k: v[b:b + 1] if isinstance(v, torch.Tensor)
+                           else v for k, v in p.items()}
+            lay = Layer(planes=(frames[b:b + 1],),
+                        palette=int(Palette.RGB24))
+            return apply_instance(inst, [lay], ctx_on(device, 1, b))[0] \
+                .planes[0]
+        err = max(gap(step("card", b), step("cpu", b)) for b in range(8))
+        ms = time_ms(lambda: step("card", 7), 5)
+        line("17a filter", name=name, frames=8, max_abs_err=err,
+             bound=0 if name in VJ_EXACT else 1, card=repr(card),
+             ms_per_1080p_frame=f"{ms:.3f}")
+        assert err <= (0 if name in VJ_EXACT else 1), (name, err)
+    steps["stateful"] = time.perf_counter()
+    # noise: frames 0, 1 and 100,000, then its time at 1080p and 4K
+    f = get_filter("noise")
+    rng = np.random.default_rng(42)
+    mono = torch.from_numpy(rng.uniform(0, 1, 3).astype(np.float32))
+
+    def noise(device, frames, h=H, w=W):
+        fr = torch.tensor(frames, dtype=torch.int32)
+        ctx = FrameContext(tc=(fr.float() / FPS).to(device),
+                           frame=fr.to(device), fps=FPS, width=w, height=h,
+                           device=device)
+        return f.process([], {"mono": mono[:len(frames)].to(device)},
+                         ctx).planes[0]
+    err = gap(noise(dev, [0, 1, 100_000]), noise(cpu, [0, 1, 100_000]))
+    ms = time_ms(lambda: noise(dev, [100_000]), 5)
+    ms4k = time_ms(lambda: noise(dev, [100_000], 2160, 3840), 5)
+    line("17a filter", name="noise", frames="0,1,100000", max_abs_err=err,
+         bound=0, card=repr(card), ms_per_1080p_frame=f"{ms:.3f}",
+         ms_per_4k_frame=f"{ms4k:.3f}")
+    assert err == 0, err
+    # the threefry words and spread's sin twin, bit for bit the CPU's
+    g = torch.Generator().manual_seed(17)
+    words = torch.randint(0, 2 ** 32, (4, 1 << 20), generator=g,
+                          dtype=torch.int64)
+    got = prng.threefry_2x32(*words.to(dev))
+    ref = prng.threefry_2x32(*words)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
+    (k1, k2), (x1, x2), want = ((0x13198A2E, 0x03707344),
+                                (0x243F6A88, 0x85A308D3),
+                                (0xC4923A9C, 0x483DF7A0))
+    kat = tuple(int(v) for v in prng.threefry_2x32(*(
+        torch.tensor(v, device=dev) for v in (k1, k2, x1, x2))))
+    line("17a threefry", words=2 * words.shape[1], equal_cpu=same,
+         known_answer=kat == want)
+    assert same and kat == want, (same, kat)
+    y = torch.arange(H, dtype=torch.float32)[:, None]
+    x = torch.arange(W, dtype=torch.float32)[None, :]
+    seed = torch.tensor([[[7.0]]])
+    twin = [spread_hash(x.to(d), y.to(d), k, seed.to(d))
+            for d in (dev, cpu) for k in (1.0, 2.0)]
+    same = all(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+               for a, b in zip(twin[:2], twin[2:]))
+    arg = (x.to(dev) * 12.9898 + y.to(dev) * 78.233 + 7.317).contiguous()
+    ms = time_ms(lambda: sinf(arg), 5)
+    line("17a sin_twin", values=2 * H * W, equal_cpu=same, card=repr(card),
+         sinf_ms_per_1080p_plane=f"{ms:.3f}")
+    assert same
+    steps["twins"] = time.perf_counter()
+
+    # 17b. the stateful timeline through render_events
+    src = DeviceSyntheticSource(H, W, device=dev)
+    sink = SinkSpec(W, H)
+    n_chunks = -(-N_FRAMES // CHUNK)
+    el = timeline("VJ", N_FRAMES)
+
+    def all_frames(source):
+        return torch.cat([lay.planes[0] for _, lay in render_events(
+            el, source, sink, batch_size=CHUNK)])
+    fused_sweep.MODE_LAUNCHES.update(
+        dict.fromkeys(fused_sweep.MODE_LAUNCHES, 0))
+    got = all_frames(src)
+    counts = {k: v for k, v in fused_sweep.MODE_LAUNCHES.items() if v}
+    ref = all_frames(Materialised(src))
+    err = gap(got, ref.cpu())
+    line("17b vj_timeline", frames=len(got), chunks=n_chunks,
+         launches=counts, max_abs_err=err, bound=1,
+         beyond_1_lsb=int(((got.int() - ref.int()).abs() > 1).sum()))
+    assert counts == {"comp_out": n_chunks, "comp_in": n_chunks}, counts
+    assert len(got) == N_FRAMES and err <= 1, err
+    del got, ref
+    for k in ("comp_out", "comp_in"):
+        launches[KERNEL_OF[k]] += counts[k]
+    rendered, _, _, wall_s = render_path(el, src, sink, check=False)
+    line("17b timed", card=repr(card), frames=rendered,
+         wall_s=f"{wall_s:.4f}", frames_per_s=f"{rendered / wall_s:.1f}",
+         x_realtime=f"{rendered / wall_s / FPS:.2f}")
+    steps["timeline"] = time.perf_counter()
+
+    # 17c. the player with a reference keymap
+    yk.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        allc, size, secs = write_clips(tmp, src, 2, PLAYER_CLIP_FRAMES)
+        clips = (allc[1], allc[2])
+        keymap = os.path.join(tmp, "default.keymap")
+        write_vj_keymap(keymap)
+        mapped = []
+
+        def setup(p):
+            mapped.append(vj_setup(p, clips, FPS, PLAYER_EVERY, keymap))
+        files, res = {}, {}
+        for label, plain in (("plain", True), ("kernels", False)):
+            path = os.path.join(tmp, f"{label}.y4m")
+            p, ms, counts, _, _ = player_pass(
+                dev, clips, path, setup, script=vj_script,
+                clock=ScriptedClock(), plain=plain)
+            files[label], res[label] = path, (p, counts)
+            runs = counts.pop("runs")
+            want = {k: 0 for k in counts} if plain else player_design(runs)
+            assert counts == want, (label, counts, want)
+            cd = try_decoders(path)
+            assert cd.nframes == p.frames_shown, (cd.nframes, p.frames_shown)
+            cd.decoder.close()
+            lat = np.asarray(ms)
+            line("17c pass", card=repr(card), run=label,
+                 keymap_lines=len(VJ_KEYMAP), mapped=mapped[-1],
+                 cycles=PLAYER_CYCLES, frames_shown=p.frames_shown,
+                 k2_launches=counts["yuv420_to_rgb"],
+                 k3_launches=counts["rgb_to_yuv420"],
+                 p50_ms=f"{np.percentile(lat, 50):.3f}",
+                 p99_ms=f"{np.percentile(lat, 99):.3f}",
+                 max_ms=f"{lat.max():.3f}")
+            assert mapped[-1] == len(VJ_KEYMAP), mapped
+        same = np.array_equal(np.fromfile(files["plain"], np.uint8),
+                              np.fromfile(files["kernels"], np.uint8))
+        line("17c bit_identity", against="plain", kernels=same)
+        assert same
+        p, counts = res["kernels"]
+        for k in ("yuv420_to_rgb", "rgb_to_yuv420"):
+            launches[k] += counts[k]
+        n, rerender_counts, secs, err = rerender_gap(
+            p, p.last_recording, clips, files["kernels"], dev)
+        line("17c rerender", card=repr(card), frames=n,
+             launches=rerender_counts, seconds=f"{secs:.3f}",
+             frames_per_s=f"{n / secs:.1f}", max_abs_err=err,
+             bound=PLAYER_RERENDER_BOUND + 1)
+        assert err <= PLAYER_RERENDER_BOUND + 1, err
+        for c in allc.values():
+            c.close()
+    steps["player"] = time.perf_counter()
+    marks = [t_phase, *steps.values()]
+    line("17 wall", seconds=f"{time.perf_counter() - t_phase:.1f}",
          **{k: f"{b - a:.1f}" for k, a, b in zip(steps, marks, marks[1:])})
 
 
@@ -2181,7 +2579,7 @@ def main(argv) -> int:
     if argv == ["--player"]:
         player_phase(dev, card, dict.fromkeys(NAMES, 0))
         return 0
-    if argv and argv != ["--vocabulary"]:
+    if argv and argv not in (["--vocabulary"], ["--vjfilters"]):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
@@ -2221,6 +2619,9 @@ def main(argv) -> int:
 
     if argv == ["--vocabulary"]:
         vocabulary(dev, card, held, {}, {}, {})
+        return 0
+    if argv == ["--vjfilters"]:
+        vj_filters(dev, card, dict.fromkeys(NAMES, 0))
         return 0
 
     # 3. kernel vs plain_sweep on the card
@@ -2751,6 +3152,7 @@ def main(argv) -> int:
     live(dev, card)
     vocabulary(dev, card, held, ms, bounds, launches)
     player_phase(dev, card, launches)
+    vj_filters(dev, card, launches)
     vel = timeline_v(1)
     vspec, _, _, vrows = chunk_of(vel, dev, 1)
     v_geom = fused_sweep.plan_geometry(

@@ -27,8 +27,8 @@ import torch.nn.functional as F
 from ...constants import Palette
 from ..host import (ChannelTemplate, FILTER_IS_TRANSITION, Filter, Param,
                     register_filter)
-from ..util import (bparam, ctx_grid, from_f01, join_alpha, luma,
-                    split_alpha, to_f01)
+from ..util import (bilinear, bparam, ctx_grid, from_f01, join_alpha,
+                    luma, split_alpha, to_f01)
 
 _RGBX = (Palette.RGB24, Palette.RGBA32)
 _TWO_IN = (ChannelTemplate("fg", _RGBX), ChannelTemplate("bg", _RGBX))
@@ -361,34 +361,6 @@ register_filter(Filter(
     description="fg slides in over bg (slide_over.c)"))
 
 
-def _bilinear(src: torch.Tensor, v: torch.Tensor,
-              u: torch.Tensor) -> torch.Tensor:
-    """`jax.scipy.ndimage.map_coordinates(src[b, c], [v[b], u[b]],
-    order=1)` for every frame and channel: src (B, C, H, W), v and u
-    (B, h, w) -> (B, C, h, w). A corner outside the plane contributes 0
-    (mode "constant"); the four corners are summed in JAX's order."""
-    B, C, H, W = src.shape
-    flat = src.reshape(B, C, H * W)
-    out = None
-    nodes = []
-    for coord, size in ((v, H), (u, W)):
-        lo = torch.floor(coord)
-        up_w = coord - lo
-        idx = lo.to(torch.int64)
-        nodes.append(((idx, 1 - up_w), (idx + 1, up_w), size))
-    (v0, v1, _), (u0, u1, _) = nodes
-    for (iy, wy) in (v0, v1):
-        for (ix, wx) in (u0, u1):
-            ok = (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
-            at = (torch.clamp(iy, 0, H - 1) * W
-                  + torch.clamp(ix, 0, W - 1)).reshape(B, 1, -1)
-            val = torch.gather(flat, 2, at.expand(B, C, -1)).reshape(
-                B, C, *v.shape[1:])
-            term = (wy * wx)[:, None] * torch.where(ok[:, None], val, 0.0)
-            out = term if out is None else out + term
-    return out
-
-
 def _compositor_process(ins, p, ctx):
     """gdk/compositor.c: up to four inputs, each placed at (x, y) scaled by
     (sx, sy) with its own alpha, composited in z order (revz reverses) over
@@ -421,8 +393,8 @@ def _compositor_process(ins, p, ctx):
         v = (y_t - pv(f"y{i}") * h) / sy
         inside = ((u >= 0) & (u <= w - 1) & (v >= 0)
                   & (v <= h - 1)).to(torch.float32)
-        sampled = _bilinear(src, torch.clamp(v, 0, h - 1),
-                            torch.clamp(u, 0, w - 1))
+        sampled = bilinear(src, torch.clamp(v, 0, h - 1),
+                           torch.clamp(u, 0, w - 1))
         m = (inside * torch.clamp(pv(f"alpha{i}"), 0.0, 1.0))[:, None]
         acc = acc * (1.0 - m) + sampled * m
     return from_f01(join_alpha(torch.clamp(acc, 0.0, 1.0), aal), base)

@@ -1,12 +1,14 @@
-"""Blur / sharpen filters: `gaussian_blur`, `box_blur`, `sharpen`.
+"""Blur / sharpen filters: `gaussian_blur`, `box_blur`, `sharpen`,
+`motion_blur`.
 
-Counterpart of `lives_tpu/effects/builtin/blur.py:28-127`. `sep_conv` keeps
+Counterpart of `lives_tpu/effects/builtin/blur.py:28-147`. `sep_conv` keeps
 both of the JAX package's forms, because they round differently at the
 frame edge and in precision: shifted adds over edge-padded planes for
 kernels of up to 33 taps, and the band-matrix product with edge
 renormalisation above that, bf16 in and f32 accumulate. The band product
 stays a plain `torch.matmul`, as the JAX package leaves it to XLA.
-`motion_blur` comes with Slice 3 (ROADMAP Queue 1 item 14).
+`motion_blur` is the box kernel's band matrix along rows alone, a float32
+product (`:130-147`).
 """
 
 from __future__ import annotations
@@ -130,3 +132,28 @@ register_filter(Filter(
     params=(Param("radius", "int", 2, 1, 16),
             Param("amount", "num", 0.8, 0.0, 4.0)),
     description="unsharp-mask sharpen"))
+
+
+@lru_cache(maxsize=32)
+def _band_on(n: int, kernel: tuple[float, ...],
+             device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_band_matrix(n, kernel)).to(device)
+
+
+def _motion_blur_h(ins, p, ctx):
+    """Horizontal motion blur: each row times the (W, W) box band matrix,
+    float32 in and out."""
+    lay = ins[0]
+    rgb, al = split_alpha(to_f01(lay))
+    radius = max(1, int(p["radius"]))
+    kw = _band_on(rgb.shape[-1], _box_kernel(radius), rgb.device)
+    out = torch.matmul(rgb, kw.T)
+    out = rgb + (out - rgb) * bparam(p["amount"])
+    return from_f01(join_alpha(torch.clamp(out, 0.0, 1.0), al), lay)
+
+
+register_filter(Filter(
+    name="motion_blur", process=_motion_blur_h, in_channels=_ONE_IN,
+    params=(Param("radius", "int", 8, 1, 128),
+            Param("amount", "num", 1.0, 0.0, 1.0)),
+    description="horizontal motion blur"))

@@ -18,10 +18,9 @@ x, a column of y) and broadcast, so a term of x alone is computed once a
 column; every value is the one the JAX package's (h, w) grid gives.
 Nothing inside a generator reads a device value back to the host.
 
-`noise` (`:91`) draws from `jax.random` (threefry) and cannot match without
-an integer port of threefry: it is registered, and running it raises
-`NotImplementedError` naming ROADMAP Queue 1 item 15, which needs the same
-port for `nervous`.
+`noise` (`:91-103`) draws `jax.random.uniform(fold_in(PRNGKey(42),
+frame), (3, h, w))` through `utils.prng`, the port of JAX's threefry, bit
+for bit, keyed by each frame's number on the device.
 """
 
 from __future__ import annotations
@@ -32,6 +31,7 @@ import torch
 from ...constants import Gamma, Palette
 from ...layer import Layer
 from ...ops.colorspace import quantise_u8
+from ...utils import prng
 from ..host import (FILTER_IS_GENERATOR, FILTER_STATEFUL, Filter, Param,
                     register_filter)
 
@@ -124,9 +124,15 @@ _mk_generator("plasma", _plasma,
 
 
 def _noise(p, ctx):
-    raise NotImplementedError(
-        "noise draws from jax.random's threefry, which the port has no "
-        "integer copy of yet (ROADMAP Queue 1 item 15, with nervous)")
+    """White noise, the same for a frame number: threefry's uniform draw,
+    or its first plane on every channel with `mono`."""
+    dev = _device(ctx)
+    frame = torch.as_tensor(ctx.frame, device=dev).reshape(-1)
+    key = prng.fold_in(prng.prng_key(42, dev), frame.to(torch.int32))
+    n = prng.uniform(key, (3, ctx.height, ctx.width))
+    m = _col(p["mono"], ctx)
+    return _out_layer([n[:, c] * (1.0 - m) + n[:, 0] * m for c in range(3)],
+                      ctx)
 
 
 _mk_generator("noise", _noise,

@@ -14,8 +14,9 @@ time, ``(1, C, H, W)``: `FrameGraph.run_batch` loops a chunk's frames and
 threads the state, where the JAX package scans. A stateful filter's
 `init_state(width, height, palette, device)` makes its state at the frame
 geometry on first use, and `process(ins, params, ctx, state)` returns
-``(out, new_state)``. Alpha in-channels (cconx) and analysers come with
-Slice 6 (ROADMAP Queue 1 item 21).
+``(out, new_state)``, or ``(out, new_state, out_values)`` when the filter
+reports out-params (`host.py:327-329`). Alpha in-channels (cconx) and
+analysers come with Slice 6 (ROADMAP Queue 1 item 21).
 
 A generator has no input layer to take its device from, so `FrameContext`
 carries one (`device`, None by default): `apply_instance` fills it from
@@ -87,6 +88,9 @@ class Filter:
     in_channels: tuple[ChannelTemplate, ...] = (ChannelTemplate("in"),)
     out_channels: tuple[ChannelTemplate, ...] = (ChannelTemplate("out"),)
     params: tuple[Param, ...] = ()
+    # values the filter reports each frame (weed out-params), which a
+    # compound's connections feed into a later step's params
+    out_params: tuple[Param, ...] = ()
     flags: int = 0
     # the JAX package's author string, so hashnames (the serialised
     # identity of a filter) are the same in both packages
@@ -131,6 +135,8 @@ class Instance:
     enabled: bool = True
     in_tracks: tuple[int, ...] = (0,)
     out_tracks: tuple[int, ...] = (0,)
+    # the latest out-param values (a stateful filter's third result)
+    out_values: dict[str, Any] = field(default_factory=dict)
 
     def param_values(self) -> dict[str, Any]:
         return {p.name: self.values.get(p.name, p.default)
@@ -182,6 +188,11 @@ class FrameContext:
 # ---------------------------------------------------------------------------
 
 _REGISTRY: dict[str, Filter] = {}
+
+#: filters of the JAX package's registry that the port does not register
+#: yet -> why (their ROADMAP item); `events.renderer._chain_for` names it
+#: when a timeline holds one
+DEFERRED: dict[str, str] = {}
 
 
 def register_filter(f: Filter) -> Filter:
@@ -296,7 +307,12 @@ def apply_instance(inst: Instance, layers: Sequence[Layer],
             state = (f.init_state(lead.width, lead.height, lead.palette,
                                   lead.device) if lead is not None else
                      f.init_state(ctx.width, ctx.height, None, ctx.device))
-        out, inst.state = f.process(ins, params, ctx, state)
+        ret = f.process(ins, params, ctx, state)
+        if len(ret) == 3:  # (out, state, out-param values)
+            out, inst.state, outs = ret
+            inst.out_values = dict(outs)
+        else:
+            out, inst.state = ret
     else:
         out = f.process(ins, params, ctx)
     outs = out if isinstance(out, (list, tuple)) else [out]

@@ -3,7 +3,10 @@
 Counterpart of `lives_tpu/effects/util.py:15-111`. Arrays here are batched:
 an RGB view is ``(B, C, H, W)``, a per-frame parameter is a ``(B,)`` tensor
 (or a Python number), and `bparam` gives it the shape that broadcasts
-against the view.
+against the view. `bilinear` is the port's `jax.scipy.ndimage.
+map_coordinates(order=1)`, which the compositor (`lives_tpu/effects/
+builtin/blends.py:364-389`) and the coordinate warps of `geometry.py` and
+`effectv.py` sample through.
 """
 
 from __future__ import annotations
@@ -19,6 +22,13 @@ def bparam(v):
     if isinstance(v, torch.Tensor) and v.ndim == 1:
         return v.reshape(-1, 1, 1, 1)
     return v
+
+
+def per_frame(v, device) -> torch.Tensor:
+    """A per-frame value (a number or a (B,) tensor) as a float32 (B,)
+    tensor, (1,) for a number, on `device`: rounded to float32 as the JAX
+    package's traced scalar is."""
+    return torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1)
 
 
 def to_f01(layer: Layer) -> torch.Tensor:
@@ -98,3 +108,43 @@ def ctx_grid(ctx, h: int, w: int, centered: bool = False, *,
     y, x = torch.meshgrid(yi.to(torch.float32), xi.to(torch.float32),
                           indexing="ij")
     return _normalise(x, y, H, W, centered)
+
+
+def bilinear(src: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
+             mode: str = "constant") -> torch.Tensor:
+    """`jax.scipy.ndimage.map_coordinates(src[b, c], [v[b], u[b]],
+    order=1, mode=mode)` for every frame and channel: src (B, C, H, W),
+    v and u (B or 1, h, w) float32 -> (B, C, h, w).
+
+    Each axis gives the corners floor(coord) and floor(coord) + 1 with
+    weights 1 - frac and frac; the four are summed in JAX's order (v0, u0),
+    (v0, u1), (v1, u0), (v1, u1), each weighted by wy * wx
+    (`jax/_src/scipy/ndimage.py` `_map_coordinates`). In mode "constant" a
+    corner outside the plane contributes 0; in mode "nearest" its index is
+    clipped to [0, size - 1] and it contributes."""
+    if mode not in ("constant", "nearest"):
+        raise ValueError(f"bilinear: unknown mode {mode!r}")
+    B, C, H, W = src.shape
+    v, u = torch.broadcast_tensors(v, u)
+    v = v.expand(B, *v.shape[1:])
+    u = u.expand(B, *u.shape[1:])
+    flat = src.reshape(B, C, H * W)
+    nodes = []
+    for coord in (v, u):
+        lo = torch.floor(coord)
+        up_w = coord - lo
+        idx = lo.to(torch.int64)
+        nodes.append(((idx, 1 - up_w), (idx + 1, up_w)))
+    out = None
+    for (iy, wy) in nodes[0]:
+        for (ix, wx) in nodes[1]:
+            at = (torch.clamp(iy, 0, H - 1) * W
+                  + torch.clamp(ix, 0, W - 1)).reshape(B, 1, -1)
+            val = torch.gather(flat, 2, at.expand(B, C, -1)).reshape(
+                B, C, *v.shape[1:])
+            if mode == "constant":
+                ok = (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
+                val = torch.where(ok[:, None], val, 0.0)
+            term = (wy * wx)[:, None] * val
+            out = term if out is None else out + term
+    return out

@@ -23,7 +23,7 @@ from typing import Iterator, Protocol, Sequence
 import numpy as np
 import torch
 
-from ..effects.host import Instance, get_filter
+from ..effects.host import DEFERRED, Instance, get_filter
 from ..graph.nodemodel import _STATIC_KINDS, FrameGraph, SinkSpec
 from ..layer import Layer, _plane_shapes, layer_blank
 from ..ops.colorspace import convert_layer
@@ -133,9 +133,8 @@ def _chain_for(inits: list[Event], el: EventList,
         try:
             f = get_filter(name)
         except KeyError:
-            from ..effects.builtin.effectv import DEFERRED
-            why = DEFERRED.get(name, "ROADMAP Queue 1 items 13-14 port the "
-                                     "rest of the effect library")
+            why = DEFERRED.get(name, "ROADMAP Queue 1 items 14 and 21 port "
+                                     "the rest of the effect library")
             raise NotImplementedError(
                 f"filter {name!r} is not ported yet ({why})") from None
         values = dict(init.props.get("values", {}))

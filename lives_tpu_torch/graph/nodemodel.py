@@ -277,8 +277,9 @@ def frame_loop(chain_spec, start: int, stop: int, frame_layers, B: int,
 def states_from_numpy(chain: Sequence[Instance], states: Sequence,
                       device: torch.device | str) -> list:
     """The JAX package's `FrameGraph.states` (per instance: None, an
-    array, or rgb_delay's {"ring", "head"}) as host numpy arrays -> the
-    port's, on `device`."""
+    array, a dict such as rgb_delay's {"ring", "head"}, or a compound's
+    tuple of its steps' states) as host numpy arrays -> the port's, on
+    `device`."""
     if len(states) != len(chain):
         raise ValueError(f"{len(states)} states for {len(chain)} instances")
 
@@ -287,6 +288,8 @@ def states_from_numpy(chain: Sequence[Instance], states: Sequence,
             return None
         if isinstance(v, dict):
             return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, tuple):   # a compound's steps' states
+            return tuple(conv(x) for x in v)
         return torch.from_numpy(np.array(v)).to(device)
     out = []
     for inst, st in zip(chain, states):
@@ -304,6 +307,8 @@ def states_to_numpy(states: Sequence) -> list:
             return None
         if isinstance(v, dict):
             return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, tuple):
+            return tuple(conv(x) for x in v)
         return v.detach().cpu().numpy()
     return [conv(st) for st in states]
 

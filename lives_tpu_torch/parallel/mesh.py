@@ -43,7 +43,6 @@ import numpy as np
 import torch
 
 from ..constants import Palette
-from ..effects.builtin.effectv import DEFERRED
 from ..effects.host import FILTER_STATEFUL, FrameContext
 from ..graph.fused_sweep import (STENCILS, VOCABULARY, build_fused_sweep,
                                  fused_sweep)
@@ -461,8 +460,7 @@ def chain_band_halo_stateful(graph) -> int:
     """The summed read radius of a stateful chain, checking that every
     enabled effect is band-safe; raises ValueError otherwise, and for a
     stencil (a stencil's value at a frame edge row would feed the next
-    stateful step's shift). A band-safe filter the port does not hold yet
-    raises NotImplementedError naming its ROADMAP item."""
+    stateful step's shift)."""
     R = 0
     for inst in graph.chain:
         if not inst.enabled:
@@ -472,8 +470,6 @@ def chain_band_halo_stateful(graph) -> int:
             if name not in BAND_SAFE_STATEFUL:
                 raise ValueError(
                     f"{name!r} is not band-safe for spatial sharding")
-            if name in DEFERRED:
-                raise NotImplementedError(f"{name!r}: {DEFERRED[name]}")
             R += BAND_SAFE_STATEFUL[name]
         elif name in STENCILS:
             raise ValueError(

@@ -177,8 +177,11 @@ class KeyMap:
     def load_reference_keymap(self, path) -> int:
         """Import a reference `default.keymap` (lines `key|WeedHashname`),
         mapping known plugin hashnames onto our filters. Returns mapped
-        count; unknown filters (and filters the port does not register
-        yet) are skipped."""
+        count. The first fragment of `REF_FILTER_MAP` that a line's
+        hashname holds decides the line, as it does in the JAX package
+        (whose registry holds every target); a line whose target the port
+        does not register yet is skipped, never mapped by a later fragment
+        (a reference blurzoom line would otherwise match "blur")."""
         from ..effects.host import list_filters
         have = set(list_filters())
         n = 0
@@ -192,9 +195,10 @@ class KeyMap:
                 continue
             h = hashname.lower()
             for frag, ours in self.REF_FILTER_MAP.items():
-                if frag in h and ours in have:
-                    self.set_key(key, len(self.slots[key]), ours)
-                    n += 1
+                if frag in h:
+                    if ours in have:
+                        self.set_key(key, len(self.slots[key]), ours)
+                        n += 1
                     break
         return n
 

@@ -1402,3 +1402,40 @@ def test_upload_ring_feeds_a_slower_consumer_from_a_thread(cuda):
     assert not t.is_alive()
     assert [k for k, _ in seen] == list(range(40))
     assert all(ok for _, ok in seen)
+
+
+# -- the VJ filters' integer and float twins ----------------------------------
+
+#: the Random123 known-answer vector of Threefry-2x32, 20 rounds: key,
+#: counter, output
+THREEFRY_KAT = ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+                (0xC4923A9C, 0x483DF7A0))
+
+
+def _threefry_known_answer(device):
+    from lives_tpu_torch.utils.prng import threefry_2x32
+    (k1, k2), (x1, x2), want = THREEFRY_KAT
+    words = [torch.tensor(v, dtype=torch.int64, device=device)
+             for v in (k1, k2, x1, x2)]
+    assert tuple(int(y) for y in threefry_2x32(*words)) == want
+
+
+def test_threefry_known_answer_on_the_cpu():
+    _threefry_known_answer("cpu")
+
+
+@pytest.mark.cuda
+def test_threefry_known_answer(cuda):
+    _threefry_known_answer(cuda)
+
+
+@pytest.mark.cuda
+def test_sinf_on_the_card_matches_cpu(cuda):
+    """The sin twin's float64 and int64 steps round alike on the card:
+    bit for bit the CPU's on a stride through [0, 2^17) and negatives."""
+    from lives_tpu_torch.utils.sinf import sinf
+    x = torch.arange(0, 0x48000000, 997, dtype=torch.int64).to(
+        torch.int32).view(torch.float32)
+    x = torch.cat([x, -x])
+    assert torch.equal(sinf(x.to(cuda)).cpu().view(torch.int32),
+                       sinf(x).view(torch.int32))

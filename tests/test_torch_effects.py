@@ -4,10 +4,13 @@ The same seeded numpy frames and per-frame parameters go through the JAX
 filter's `process`, one frame at a time, and through the port's, which
 takes the whole batch with (B,) parameter tensors. Float32 layers agree to
 atol=1e-5 (both compute in float32; only the order of a few operations
-may differ); u8 layers, quantised by `from_f01`, agree to +/-1 LSB."""
+may differ; kaleidoscope's bound is derived in `f32_atol`); u8 layers,
+quantised by `from_f01`, agree to +/-1 LSB; a filter that only moves
+pixels (`EXACT`) agrees exactly."""
 
 import zlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -73,14 +76,46 @@ CASES += [(f"posterise_{n}", "posterise", {"levels": n}, None)
           for n in (1, 3, 8)]
 CASES += [(f"palette_mapper_{k}", "palette_mapper", {"palette": k}, None)
           for k in range(5)]
+#: geometry.py, motion_blur, edge and the stateless compounds
+CASES += [(n, n, {}, None) for n in (
+    "flip_horizontal", "flip_vertical", "rotate180", "mirror", "rotozoom",
+    "kaleidoscope", "ripple", "lens", "rotate", "wave", "swirl", "spread",
+    "shift", "bump2d", "tvpic", "emboss", "charcoal", "warptv",
+    "targeted_zoom", "edge", "dream", "night_vision", "comic")]
+CASES += [(f"pixelate_{n}", "pixelate", {"block": n}, None) for n in (2, 5, 8)]
+CASES += [(f"revtv_{n}", "revtv", {"linespace": n}, None) for n in (2, 4, 7)]
+CASES += [(f"motion_blur_r{r}", "motion_blur", {"radius": r}, None)
+          for r in (1, 8, 30)]
+CASES += [("mirror_odd", "mirror", {}, None)]
+#: filters whose output is a permutation of the input's pixels: equal
+EXACT = {"flip_horizontal", "flip_vertical", "rotate180", "mirror", "shift"}
+#: the JAX package runs a filter inside a jitted plan, where XLA contracts
+#: spread's hash argument into a fused multiply-add; the port computes that
+#: argument (`geometry.spread_hash`), so the jitted process is its
+#: reference (the eager one differs by up to 255 LSB wherever the hash's
+#: floor flips)
+JIT_REFERENCE = {"spread"}
 
 
-def _inputs(name, static, dtype, alpha=False):
+def f32_atol(name, h, w):
+    """The float32 bound: 1e-5, and for kaleidoscope what its angle's
+    one-ulp gaps give. torch's atan2, sin and cos differ from XLA's by an
+    ulp; theta = atan2 + angle * 2 pi lies in [-pi, 3 pi], so it differs
+    by at most 2^-20 + 2^-22, the fold doubles that, sin and cos add an
+    ulp, and the radius (at most hypot((h-1)/2, (w-1)/2)) scales it into a
+    coordinate gap; a unit of coordinate moves a [0,1] pixel by at most 1:
+    1e-5 + r_max * 2^-18."""
+    if name == "kaleidoscope":
+        return 1e-5 + float(np.hypot((h - 1) / 2, (w - 1) / 2)) * 2.0 ** -18
+    return 1e-5
+
+
+def _inputs(name, static, dtype, alpha=False, w=W):
     """Seeded frames and per-frame parameter values for one case; with
     `alpha` the first input has an alpha channel."""
     rng = np.random.default_rng(zlib.crc32(name.encode()))
     filt = j_get_filter(name)
-    frames = [rng.random((B, 4 if alpha and i == 0 else 3, H, W), np.float32)
+    frames = [rng.random((B, 4 if alpha and i == 0 else 3, H, w), np.float32)
               for i in range(filt.n_in)]
     if dtype == "u8":
         frames = [np.floor(f * 255.0 + 0.5).astype(np.uint8)
@@ -101,21 +136,27 @@ def _inputs(name, static, dtype, alpha=False):
                          ids=[c[0] for c in CASES])
 def test_filter_matches_jax(case, name, static, tile, dtype):
     alpha = case.endswith("_rgba")
-    filt, frames, params = _inputs(name, static, dtype, alpha)
+    w = W - 1 if case.endswith("_odd") else W
+    filt, frames, params = _inputs(name, static, dtype, alpha, w)
     pal = Palette.RGBFLOAT if dtype == "f32" else Palette.RGB24
     apal = Palette.RGBAFLOAT if dtype == "f32" else Palette.RGBA32
     pals = [apal if f.shape[1] == 4 else pal for f in frames]
-    y0, x0, fh, fw = tile if tile else (0, 0, H, W)
+    y0, x0, fh, fw = tile if tile else (0, 0, H, w)
     tcs = np.array([0.0, 0.5, 1.25], np.float32)
+
+    def process(ins, p, tc, frame):
+        return filt.process(ins, p, JContext(
+            tc=tc, frame=frame, fps=25.0, width=fw, height=fh, y0=y0, x0=x0))
+    if name in JIT_REFERENCE:
+        process = jax.jit(process)
     ref = []
     for b in range(B):
         ins = [JLayer(planes=(jnp.asarray(f[b]),), palette=int(pl))
                for f, pl in zip(frames, pals)]
         p = {k: (jnp.asarray(v[b], jnp.float32) if isinstance(v, np.ndarray)
                  else v) for k, v in params.items()}
-        ctx = JContext(tc=jnp.float32(tcs[b]), frame=jnp.int32(b), fps=25.0,
-                       width=fw, height=fh, y0=y0, x0=x0)
-        ref.append(np.asarray(filt.process(ins, p, ctx).planes[0]))
+        ref.append(np.asarray(process(ins, p, jnp.float32(tcs[b]),
+                                      jnp.int32(b)).planes[0]))
     ref = np.stack(ref)
 
     tfilt = t_get_filter(name)
@@ -132,8 +173,10 @@ def test_filter_matches_jax(case, name, static, tile, dtype):
     got = out.planes[0].numpy()
     assert got.shape == ref.shape and got.dtype == ref.dtype
     assert out.palette == ins[0 if name != "alpha_over" else 1].palette
-    if dtype == "f32":
-        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    if name in EXACT:
+        np.testing.assert_array_equal(got, ref)
+    elif dtype == "f32":
+        np.testing.assert_allclose(got, ref, rtol=0, atol=f32_atol(name, H, w))
     else:
         diff = np.abs(got.astype(int) - ref.astype(int))
         assert diff.max() <= 1, diff.max()

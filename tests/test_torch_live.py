@@ -41,7 +41,7 @@ from lives_tpu_torch.layer import Layer
 from lives_tpu_torch.utils.uid import stable_uid
 
 GENERATORS = ["solid_colour", "plasma", "gradient", "checkerboard",
-              "colour_bars", "vu_bars", "spectrascope"]
+              "colour_bars", "vu_bars", "spectrascope", "noise"]
 #: benchmarks/latency4k.py:54-56
 LIVE_CONFIGS = [["saturation"], ["saturation", "vignette"], ["vignette"],
                 ["vignette", "brightness_contrast"], ["brightness_contrast"],
@@ -135,8 +135,17 @@ def test_generator_needs_a_device():
 
 
 def test_noise_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        GeneratorClip("noise", W, H, device="cpu").get_frame(0)
+    """noise was deferred to the threefry port (ROADMAP item 15); it is
+    ported: frames 0, 1 and 100,000 bit for bit the JAX package's
+    `get_frame`, mono (the default) and colour."""
+    for mono in (1.0, 0.0):
+        tclip = GeneratorClip("noise", W, H, device="cpu")
+        jclip = JClip("noise", W, H)
+        tclip.inst.values["mono"] = jclip.inst.values["mono"] = mono
+        for n in (0, 1, 100_000):
+            np.testing.assert_array_equal(
+                tclip.get_frame(n).planes[0].numpy(),
+                np.asarray(jclip.get_frame(n).planes[0]))
 
 
 @pytest.mark.parametrize("channels", [3, 4])

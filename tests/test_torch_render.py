@@ -144,20 +144,31 @@ def test_golden_reproduced_by_both_packages(jax_f32_path):
     assert diff.max() <= 1, diff.max()
 
 
-def test_run_batch_refuses_what_is_not_ported():
-    """A timeline holding an EffecTV filter the port does not hold yet
-    raises naming its ROADMAP item; so does cconx wiring."""
-    from lives_tpu_torch.events.event_list import (filter_init_event,
-                                                   filter_map_event,
-                                                   frame_event)
+def test_run_batch_refuses_what_is_not_ported(jax_f32_path):
+    """blurzoom, refused until ROADMAP item 15 ported it, renders as the
+    JAX package renders it: a timeline holding it within 1 LSB of the JAX
+    render, its glow state carried across chunks. cconx wiring still
+    raises, naming item 21."""
+    from lives_tpu.events.event_list import EventList, frame_event
     from lives_tpu_torch.graph import FrameGraph
-    el = TEventList(fps=25.0, width=16, height=8)
-    init = filter_init_event(0, "blurzoom")
-    el.insert(init)
-    el.insert(filter_map_event(0, [init.event_id]))
-    el.insert(frame_event(0, [1], [0]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        list(tr.render_events(el, TSource(8, 16, device="cpu")))
+    el = EventList(fps=25.0, width=40, height=24)
+    inits = [filter_init_event(0, "blurzoom", values={"amount": 0.9}),
+             filter_init_event(0, "crossfade", in_tracks=[0, 1],
+                               out_tracks=[0], values={"amount": 0.3})]
+    for e in inits:
+        el.insert(e)
+    el.insert(filter_map_event(0, [e.event_id for e in inits]))
+    tpf = int(TICKS_PER_SECOND / 25.0)
+    for i in range(8):
+        el.insert(frame_event(i * tpf, [1, 2], [i, 3 * i]))
+    ref, ref_tcs = jr.render_to_arrays(el, JSource(24, 40), JSink(40, 24),
+                                       batch_size=3)
+    got, tcs = tr.render_to_arrays(TEventList.from_json(el.to_json()),
+                                   TSource(24, 40, device="cpu"),
+                                   TSink(40, 24), batch_size=3)
+    assert tcs == ref_tcs
+    diff = np.abs(got.astype(int) - np.asarray(ref).astype(int))
+    assert diff.max() <= 1, diff.max()
     with pytest.raises(NotImplementedError, match="item 21"):
         FrameGraph([], cconx=[(0, "mask", 1, 0)])
 
@@ -176,7 +187,9 @@ def test_port_never_imports_jax():
             "lives_tpu_torch.utils.uid, lives_tpu_torch.utils.transfer, "
             "lives_tpu_torch.io.genclip, "
             "lives_tpu_torch.effects.builtin.generators, "
-            "lives_tpu_torch.ops.fma_chain; "
+            "lives_tpu_torch.effects.builtin.geometry, "
+            "lives_tpu_torch.effects.compound, lives_tpu_torch.utils.prng, "
+            "lives_tpu_torch.utils.sinf, lives_tpu_torch.ops.fma_chain; "
             "from lives_tpu_torch.effects.host import list_filters; "
             "list_filters(); "
             "assert 'jax' not in sys.modules, sorted("

@@ -20,8 +20,7 @@ from lives_tpu.graph import SinkSpec as JSink
 from lives_tpu.parallel import chain_band_halo_stateful as j_halo
 from lives_tpu.parallel import frame_mesh as j_frame_mesh
 from lives_tpu.parallel import spatial_stateful_fn as j_spatial_stateful_fn
-from lives_tpu_torch.effects.host import (FILTER_STATEFUL, Filter, Instance,
-                                          instantiate)
+from lives_tpu_torch.effects.host import instantiate
 from lives_tpu_torch.graph import FrameGraph, SinkSpec
 from lives_tpu_torch.layer import Layer
 from lives_tpu_torch.parallel import (BAND_SAFE_STATEFUL,
@@ -36,7 +35,8 @@ LEADS = {"fire": [("fire", {"threshold": 0.4, "cooling": 0.2}, None)],
          "bench": [("fire", {"threshold": 0.5}, None),
                    ("rgb_delay", {"delay_r": 0.0, "delay_g": 1.0,
                                   "delay_b": 2.0}, None)],
-         "life": [("life", {"threshold": 0.15, "amount": 0.5}, None)]}
+         "life": [("life", {"threshold": 0.15, "amount": 0.5}, None)],
+         "nervous": [("nervous", {}, None)]}
 
 
 @pytest.fixture(autouse=True)
@@ -118,11 +118,6 @@ def test_state_carries_across_calls():
     assert g.chain[1].state is g.states[1]
 
 
-def _stateful_filter(name):
-    return Filter(name=name, process=lambda ins, p, ctx, st: (ins[0], st),
-                  flags=FILTER_STATEFUL)
-
-
 @pytest.mark.parametrize("case", ["stencil", "warp", "nervous", "sink",
                                   "rows"])
 def test_refusals(case):
@@ -135,17 +130,28 @@ def test_refusals(case):
         with pytest.raises(ValueError, match="stencils"):
             chain_band_halo_stateful(g)
     elif case == "warp":
-        # a global warp (the JAX package's feedback, not registered here)
-        g.chain.insert(0, Instance(filter=_stateful_filter("feedback")))
-        g.states.insert(0, None)
-        with pytest.raises(ValueError, match="band-safe"):
-            spatial_stateful_fn(g, frame_mesh(CPU8))
+        # the global warps stay refused, as in the JAX package
+        for name in ("feedback", "vertigo", "blurzoom"):
+            gw = graph("fire")
+            gw.chain.insert(0, instantiate(name))
+            gw.states.insert(0, None)
+            with pytest.raises(ValueError, match="band-safe"):
+                spatial_stateful_fn(gw, frame_mesh(CPU8))
     elif case == "nervous":
+        # band-safe (radius 0) and ported: held to the JAX package's
+        # spatial_stateful_fn over the 8-entry mesh, its ring exact (it
+        # stores the input frames) and its slots the JAX package's
         assert BAND_SAFE_STATEFUL["nervous"] == 0
-        g.chain.insert(0, Instance(filter=_stateful_filter("nervous")))
-        g.states.insert(0, None)
-        with pytest.raises(NotImplementedError, match="item 15"):
-            chain_band_halo_stateful(g)
+        jg = graph("nervous", j_instantiate, JGraph, JSink)
+        assert chain_band_halo_stateful(graph("nervous")) == j_halo(jg) == 0
+        jl, tl = tracks(2, B, H, W, seed=11)
+        frames = np.arange(B) + 7
+        ref = j_spatial_stateful_fn(jg, j_frame_mesh(8))(jl, tcs, frames)
+        g, out = port_run("nervous", 8, tl, tcs, frames)
+        assert_within_1(out, np.asarray(ref.planes[0]))
+        assert_states_match(g.states, [
+            None if s is None else {k: np.asarray(v) for k, v in s.items()}
+            for s in jg.states], ring_lsb=0)
     elif case == "sink":
         g.sink = SinkSpec(width=W // 2, height=H // 2)
         with pytest.raises(ValueError, match="same-geometry"):
