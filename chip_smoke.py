@@ -39,7 +39,11 @@ plain PyTorch version:
   warps and feedbacks, threefry's noise and nervous, motion_blur, the
   compounds): each alone against the port on the CPU, a stateful
   timeline through K1's comp-out and comp-in modes, and the player with a
-  reference-format keymap.
+  reference-format keymap;
+- text and titles (`text.py`, `extra.py`'s filters, `puretext`): each new
+  filter alone against the port on the CPU, a titled edit rendered from
+  decoded clips (K2, K4 on its transitions, K3), and the player with the
+  reference keymap's text keys and a subtitle track.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --config-d   # config D alone (phase 11's render
@@ -54,6 +58,7 @@ plain PyTorch version:
                                        # of the three, no result line
     python3 chip_smoke.py --player     # phase 16 alone, no result line
     python3 chip_smoke.py --vjfilters  # phases 1-2 and 17, no result line
+    python3 chip_smoke.py --titles     # phases 1-2 and 18, no result line
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
@@ -239,6 +244,29 @@ Phases, one line each:
       then with the kernels: the two Y4M files byte-identical, K2 and K3
       launches as designed, process_one p50, p99 and max; the take's
       re-render within `PLAYER_RERENDER_BOUND` + 1.
+18. text and titles at 1920x1080:
+   a. each filter of `TITLES_FILTERS` (extra.py's 15 and puretext) on the
+      card against the same call on the CPU at B = 2 (haip and randomiser
+      at frames 0, 1 and 100,000): every pixel within 1 LSB; bit for bit
+      the analysers' out-values, haip's trails, textfun's glyph indices
+      and puretext's letters (all seven modes over 2,001 (tc, speed)
+      pairs); each filter's ms a 1080p frame by CUDA events;
+   b. the titled edit (`titled_timeline`: five 1080p30 YUV4MPEG clips it
+      writes, `TITLED_CHAIN`) through `render_to_encoder` under
+      LIVES_TPU_PALLAS_COMPOSITE=1, 192 frames in 96-frame chunks: K2
+      five launches a chunk, K4 one, K3 one; the file within 1 LSB of the
+      same render with K2, K4 and K3 swapped for their plain versions;
+      frames/s;
+   c. phase 16's clips on the player with `TITLES_KEYMAP` (the puretext,
+      textfun, scribbler and videowall fragments; each line asserted to
+      map as the JAX KeyMap maps it) and `titles_script` on the scripted
+      clock (livetext, scribbler and videowall toggled every 25 cycles,
+      recording on), plain versions then kernels: the Y4M files
+      byte-identical, K2 and K3 launches as designed, process_one p50,
+      p99 and max, the take's re-render within `PLAYER_RERENDER_BOUND` +
+      1; then 60 cycles with `SUB_SRT` loaded through `load_subtitles`
+      into an RGB file sink, not recorded: the two files byte-identical,
+      each subtitle frame changed only in the rows its mask covers.
 Then a `resources` line for K1 (both builds), K4, K5 and K6 (the path's
 entry: ptxas registers and spills, blocks an SM), a JSON line of the kernels
 (with each one's bound: the larger of its bytes over 3.35 TB/s and its
@@ -1865,12 +1893,13 @@ def yuv_gap(shown, rendered, index):
 
 
 def player_pass(dev, clips, path, setup, script=None, clock=None,
-                plain=False, prof=False):
+                plain=False, prof=False, cycles=PLAYER_CYCLES, rgb=False):
     """A pass of a performance on a `Player` into a Y4MSink at `path` (the
-    sink step YUV420P, as cli.build_player), `setup(p)` first (phase 16's
-    `player_setup` or phase 17c's `vj_setup`), then `perform` with
-    `script`; K2 and K3 launch counts set to 0 just before it and read
-    after `stop`. Returns (player, per-cycle ms, {launches, runs},
+    sink step YUV420P, as cli.build_player; with `rgb` an `RGBFileSink`,
+    the sink step RGB24), `setup(p)` first (phase 16's `player_setup`,
+    phase 17c's `vj_setup` or phase 18c's `titles_setup`), then `perform`
+    with `script` for `cycles`; K2 and K3 launch counts set to 0 just
+    before it and read after `stop`. Returns (player, per-cycle ms, {launches, runs},
     [inline decodes, frames dropped on a precache miss, those drops by
     mode, (s into the pass, backlog, farthest-first) at each], profile)."""
     import threading
@@ -1885,17 +1914,22 @@ def player_pass(dev, clips, path, setup, script=None, clock=None,
     from lives_tpu_torch.player import Player, Y4MSink
     from lives_tpu_torch.player import player as player_mod
 
-    spec = SinkSpec(palette=int(Palette.YUV420P))   # as cli.build_player
+    # as cli.build_player
+    spec = SinkSpec(palette=int(Palette.RGB24 if rgb else Palette.YUV420P))
     runs = []
     run = FrameGraph.run
 
     def counted(self, layers, *a, **kw):
-        # the decoded tracks this run's chain reads (track 0, and a
-        # track past the stack reads track 0), and whether it converts
-        # an output
+        # the decoded tracks this run's chain reads before a generator
+        # writes over them (a track past the stack reads track 0), and
+        # whether it converts an output
         n = sum(isinstance(lay, Layer) for lay in layers)
-        read = {0} | {t for i in self.chain
-                      for t in i.in_tracks[:i.filter.n_in] if t < n}
+        read, written = set(), set()
+        for i in self.chain:
+            read |= {t if t < n else 0
+                     for t in i.in_tracks[:i.filter.n_in]} - written
+            if not i.filter.n_in:
+                written |= set(i.out_tracks)
         runs.append((threading.current_thread() is
                      threading.main_thread(),
                      len(read) if self.chain else 0, bool(self.chain)))
@@ -1904,7 +1938,8 @@ def player_pass(dev, clips, path, setup, script=None, clock=None,
     saved_time = player_mod.time
     misses = [0, 0, {}, []]
     t_pass = [0.0]
-    p = Player(Y4MSink(path), spec, fps=FPS, device=dev)
+    p = Player(RGBFileSink(path) if rgb else Y4MSink(path), spec, fps=FPS,
+               device=dev)
     if clock is not None:
         # what is shown is a function of the script alone: a chain
         # change builds its graph in the cycle (no warm-up thread
@@ -1954,7 +1989,7 @@ def player_pass(dev, clips, path, setup, script=None, clock=None,
             t_in = time.perf_counter()
             with profile(activities=[ProfilerActivity.CUDA]) as trace:
                 t0 = time.perf_counter()
-                ms = perform(p, clips, FPS, PLAYER_CYCLES, PLAYER_EVERY,
+                ms = perform(p, clips, FPS, cycles, PLAYER_EVERY,
                              clock=clock, script=script)
                 p.record_stop()
                 p.stop()
@@ -1965,7 +2000,7 @@ def player_pass(dev, clips, path, setup, script=None, clock=None,
             # with the trace read back
             trace.own_s = (t0 - t_in, time.perf_counter() - t1)
         else:
-            ms = perform(p, clips, FPS, PLAYER_CYCLES, PLAYER_EVERY,
+            ms = perform(p, clips, FPS, cycles, PLAYER_EVERY,
                          clock=clock, realtime=clock is None, script=script)
             p.record_stop()
             p.stop()
@@ -2507,6 +2542,418 @@ def vj_filters(dev, card, launches):
          **{k: f"{b - a:.1f}" for k, a, b in zip(steps, marks, marks[1:])})
 
 
+# -- phase 18: text and titles ---------------------------------------------
+
+#: phase 18b's titled edit over five decoded tracks: three transitions over
+#: tracks 0-3 (K4's prefix), push with track 4 (its amount runs 0 -> 1 over
+#: the edit: TITLED_ANIMATE), deinterlace, a censored corner, a title
+#: with a background box, a paraffin wash and the grade
+TITLED_CHAIN = [
+    ("crossfade", {"amount": 0.5}, [0, 1]),
+    ("blend_screen", {"amount": 0.5}, [0, 2]),
+    ("blend_overlay", {"amount": 0.5}, [0, 3]),
+    ("push", {"amount": 0.0}, [0, 4]),
+    ("deinterlace", {"amount": 1.0}, [0]),
+    ("photo_censor", {"left": 0.62, "top": 0.08, "right": 0.92,
+                      "bottom": 0.34, "mode": 0, "block": 16}, [0]),
+    ("scribbler", {"text": "LiVES on a GPU\ntitles and subtitles",
+                   "size": 64, "mode": 2, "bg_alpha": 0.6}, [0]),
+    ("toonz_paraffin", {"angle": 0.25, "offset": 0.3, "softness": 0.4,
+                        "density": 0.4}, [0]),
+    ("saturation", {"saturation": 1.2}, [0]),
+    ("vignette", {"amount": 0.5}, [0])]
+TITLED_ANIMATE = 3
+TITLED_TRACKS = 5
+
+#: phase 18a's filters at B = 2 with their static values; haip and
+#: randomiser at frames 0, 1 and 100,000; puretext, deferred, through its
+#: unregistered filter
+TITLES_FILTERS = [
+    ("livetext", {"text": "live text", "size": 96}),
+    ("videowall", {"tiles": 3}), ("push", {}), ("data_processor", {}),
+    ("randomiser", {}), ("toonz_light_bloom", {}), ("toonz_paraffin", {}),
+    ("toonz_pencil_hatching", {}), ("toonz_coherent_noise", {}),
+    ("deinterlace", {}),
+    ("scribbler", {"text": "a title\nin two lines", "size": 64, "mode": 2}),
+    ("textfun", {}), ("photo_censor", {"block": 24}), ("xeffect", {}),
+    ("haip", {}), ("puretext", {"text": "pure text on a card", "mode": 0})]
+
+#: phase 18c's reference-format keymap (key, Weed hashname, the filter it
+#: maps to): the four text and wall fragments, and key 5's crossfade as
+#: the autotransition. Keys 1-3 are played; textfun (key 4) is a hard
+#: select, held in 18a and not played, as revtv and comic are left out
+#: of 17c
+TITLES_KEYMAP = [(1, "scribblersalsaman", "scribbler"),
+                 (2, "videowallsalsaman", "videowall"),
+                 (3, "puretextsalsaman", "livetext"),
+                 (4, "textfunsalsaman", "textfun"),
+                 (5, "simple_blendsalsaman", "crossfade")]
+TITLES_AUTOTRANS_KEY = 4
+#: toggles every PLAYER_EVERY cycles from key 0 on (a key goes on only
+#: above every key that is on; the two inside the autotransition,
+#: cycles 72-102, are releases)
+TITLES_ON_AT_START = (0,)
+TITLES_TOGGLES = (1, 2, 2, 1, 0, 0, 1, 2, 1)
+TITLES_DEFAULTS = {0: {"text": "live titles", "size": 72, "mode": 2},
+                   2: {"text": "livetext", "size": 120, "red": 1.0,
+                       "green": 0.8, "blue": 0.2}}
+#: the subtitle pass: its cycles and its .srt (clip time)
+SUB_CYCLES = 60
+SUB_SRT = ("1\n00:00:00,300 --> 00:00:00,900\nFirst subtitle\n\n"
+           "2\n00:00:01,200 --> 00:00:01,800\nSecond subtitle\n"
+           "in two lines\n")
+
+
+class RGBFileSink:
+    """A sink that appends each RGB24 frame's bytes to a file (phase 18c's
+    subtitle pass: the overlay composites on RGB frames)."""
+
+    def __init__(self, path):
+        from lives_tpu_torch.constants import Palette
+        self.palette_list = (int(Palette.RGB24),)
+        self.path = path
+        self._fh = None
+
+    def init_screen(self, width, height, fps):
+        self._fh = open(self.path, "wb")
+
+    def play_frame(self, layer, tc):
+        from lives_tpu_torch.player.sinks import host_planes
+        self._fh.write(host_planes(layer)[0].tobytes())
+        return True
+
+    def exit_screen(self):
+        if self._fh:
+            self._fh.close()
+            self._fh = None
+
+
+def titled_timeline(n_frames, width=W, height=H):
+    """Phase 18b's edit: TITLED_CHAIN over TITLED_TRACKS tracks, track t
+    playing clip t+1 at frame i % CLIP_FRAMES, push's amount 0 -> 1."""
+    from lives_tpu_torch.events.event_list import (EventList,
+                                                   TICKS_PER_SECOND,
+                                                   filter_init_event,
+                                                   filter_map_event,
+                                                   frame_event,
+                                                   param_change_event)
+    el = EventList(fps=FPS, width=width, height=height)
+    inits = [filter_init_event(0, f, in_tracks=tr, out_tracks=[0],
+                               values=v) for f, v, tr in TITLED_CHAIN]
+    for e in inits:
+        el.insert(e)
+    el.insert(filter_map_event(0, [e.event_id for e in inits]))
+    tpf = int(TICKS_PER_SECOND / FPS)
+    anim = inits[TITLED_ANIMATE].event_id
+    el.insert(param_change_event(0, anim, "amount", 0.0))
+    el.insert(param_change_event((n_frames - 1) * tpf, anim, "amount", 1.0))
+    for i in range(n_frames):
+        el.insert(frame_event(i * tpf, list(range(1, TITLED_TRACKS + 1)),
+                              [i % CLIP_FRAMES] * TITLED_TRACKS))
+    return el
+
+
+def write_titles_keymap(path):
+    with open(path, "w") as fh:
+        fh.writelines(f"{k}|{h}\n" for k, h, _ in TITLES_KEYMAP)
+
+
+def titles_script(cycles, every):
+    """{cycle: [action, ...]} of phase 18c: phase 16's fg switch, reversed
+    and nervous spans, and TITLES_TOGGLES every `every` cycles."""
+    acts = {c: [a for a in v if a[0] != "toggle"]
+            for c, v in player_script(cycles, every).items()}
+    for c, k in zip(range(every, cycles, every), TITLES_TOGGLES):
+        acts.setdefault(c, []).append(("toggle", k))
+    return {c: v for c, v in acts.items() if v}
+
+
+def titles_setup(p, clips, fps, every, keymap_path, record=True):
+    """Phase 18c's set-up, as `vj_setup`: the keymap loaded, the per-key
+    defaults, the autotransition, clips a (fg) and b (bg), precache 8,
+    pipeline 2, fetch groups of 4, the seeded nervous generator, key 0 on,
+    recording on (unless not `record`), playing. Returns the mapped
+    count."""
+    import numpy as np
+    n = p.keymap.load_reference_keymap(keymap_path)
+    for k, vals in TITLES_DEFAULTS.items():
+        # scribbler's "mode" param shares its name with the key's mode
+        p.keymap.set_key_defaults(k, 0)
+        p.keymap.defaults[(k, 0)].update(vals)
+    p.set_autotrans(TITLES_AUTOTRANS_KEY, duration=round(1.2 * every) / fps)
+    p.state.fg_clip, p.state.bg_clip = clips
+    p.precache_depth, p.pipeline_depth, p.fetch_batch = 8, 2, 4
+    p._nervous_rng = np.random.default_rng(PLAYER_SEED)
+    for k in TITLES_ON_AT_START:
+        p.key_toggle(k, True)
+    if record:
+        p.record_start(clips[0].width, clips[0].height)
+    p.start()
+    return n
+
+
+def _title_params(filt, rng, B, device):
+    """Seeded per-frame values of a filter's num params ((B,) float32 on
+    `device`; toonz_light_bloom's as numbers, its eager form), the static
+    ones at their defaults; a censor rectangle's edges in order."""
+    import torch
+    out = {}
+    for p in filt.params:
+        if p.kind != "num":
+            out[p.name] = p.default
+        elif filt.name == "toonz_light_bloom":
+            out[p.name] = float(rng.uniform(p.min, p.max))
+        else:
+            out[p.name] = torch.from_numpy(
+                rng.uniform(p.min, p.max, B).astype("float32")).to(device)
+    if filt.name == "photo_censor":
+        for lo, hi in (("left", "right"), ("top", "bottom")):
+            a, b = out[lo], out[hi]
+            out[lo], out[hi] = torch.minimum(a, b), torch.maximum(a, b)
+    return out
+
+
+def titles(dev, card, launches):
+    """18. text and titles at 1920x1080 on the card: each new filter
+    against the port on the CPU, a titled edit rendered from decoded clips
+    under the composite route, the player with the reference keymap's
+    text keys and a subtitle pass."""
+    import numpy as np
+    import torch
+
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.effects.builtin import extra, puretext
+    from lives_tpu_torch.effects.host import (FrameContext, Instance,
+                                              apply_instance, get_filter)
+    from lives_tpu_torch.graph import composite
+    from lives_tpu_torch.io.decoders import try_decoders
+    from lives_tpu_torch.layer import Layer
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+    from lives_tpu_torch.text import render_text_mask
+
+    os.environ["LIVES_TPU_FUSED_STATEFUL"] = "0"
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    steps = {}
+
+    def ctx_on(device, frames):
+        fr = torch.tensor(frames, dtype=torch.int32)
+        return FrameContext(tc=(fr.float() / FPS).to(device),
+                            frame=fr.to(device), fps=FPS, width=W, height=H,
+                            device=device)
+
+    def gap(a, b):
+        return int((a.cpu().int() - b.cpu().int()).abs().max())
+
+    def same(a, b):
+        return torch.equal(a.cpu(), b.cpu())
+
+    # 18a. each filter alone, the card against the CPU
+    for name, static in TITLES_FILTERS:
+        # puretext is written and deferred: its filter, unregistered
+        f = puretext.FILTER if name == "puretext" else get_filter(name)
+        rng = np.random.default_rng(sum(map(ord, name)))
+        frames = [0, 1, 100_000] if name in ("haip", "randomiser") else [0, 7]
+        B = len(frames)
+        fr = [torch.from_numpy(rng.integers(0, 256, (B, 3, H, W),
+                                            dtype=np.uint8))
+              for _ in range(f.n_in)]
+        pars = {**_title_params(f, rng, B, cpu), **static}
+        ins = {d: ([x.to(d) for x in fr],
+                   {k: v.to(d) if isinstance(v, torch.Tensor) else v
+                    for k, v in pars.items()}) for d in (dev, cpu)}
+
+        def run(device, B=B):
+            lays, p = ins[device]
+            lays = [Layer(planes=(x[:B],), palette=int(Palette.RGB24))
+                    for x in lays]
+            p = {k: v[:B] if isinstance(v, torch.Tensor) else v
+                 for k, v in p.items()}
+            inst = Instance(filter=f, values=p,
+                            in_tracks=tuple(range(f.n_in)))
+            out = apply_instance(inst, lays, ctx_on(device, frames[:B]))
+            return out[0].planes[0], inst.out_values
+        (a, av), (b, bv) = run(dev), run(cpu)
+        err = gap(a, b)
+        exact = {}
+        if av or bv:   # the analysers' out-values, bit for bit
+            exact["out_values"] = av.keys() == bv.keys() and all(
+                same(torch.as_tensor(av[k]).float().view(torch.int32),
+                     torch.as_tensor(bv[k]).float().view(torch.int32))
+                for k in av)
+        if name == "haip":
+            tr = [extra.haip_trails(torch.tensor(frames).to(d), H, W, d)
+                  for d in (dev, cpu)]
+            exact["trails"] = all(same(x, y) for x, y in zip(*tr))
+        if name == "textfun":
+            gl = [extra.textfun_glyphs(
+                Layer(planes=(ins[d][0][0],), palette=int(Palette.RGB24)),
+                8, len(extra.glyph_atlas(8)))[2] for d in (dev, cpu)]
+            exact["glyphs"] = same(*gl)
+        if name == "puretext":
+            t = torch.linspace(0, 20, 2001).reshape(-1, 1)
+            s = torch.linspace(0.05, 10, 2001).reshape(-1, 1)
+            exact["letters"] = all(
+                all(same(x, y) for x, y in zip(*[puretext.letters(
+                    m, t.to(d), s.to(d), puretext._atlas_on(
+                        static["text"], 48, W, H, m == 1, str(d)), W, H)
+                    for d in (dev, cpu)]))
+                for m in range(len(puretext.MODES)))
+        ms = time_ms(lambda: run(dev, 1), 5)
+        line("18a filter", name=name, frames=",".join(map(str, frames)),
+             max_abs_err=err, bound=1, **exact, card=repr(card),
+             ms_per_1080p_frame=f"{ms:.3f}")
+        assert err <= 1 and all(exact.values()), (name, err, exact)
+    steps["filters"] = time.perf_counter()
+
+    # 18b. the titled edit from decoded clips, K4 on its transitions
+    os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "1"
+    src = DeviceSyntheticSource(H, W, device=dev)
+    n_chunks = -(-N_FRAMES // CHUNK)
+    want = {"yuv420_to_rgb": TITLED_TRACKS * n_chunks,
+            "composite": n_chunks, "rgb_to_yuv420": n_chunks}
+    el = titled_timeline(N_FRAMES)
+    kernels = (yk.yuv420_to_rgb, yk.rgb_to_yuv420, composite.composite)
+    with tempfile.TemporaryDirectory() as tmp:
+        clips, size, secs = write_clips(tmp, src, TITLED_TRACKS)
+        line("18b clips", clips=TITLED_TRACKS, frames=CLIP_FRAMES,
+             mb=f"{size / 1e6:.1f}", seconds=f"{secs:.2f}")
+        paths = {k: os.path.join(tmp, f"{k}.y4m") for k in ("plain", "kern")}
+        yk.yuv420_to_rgb = yk.plain_yuv420_to_rgb
+        yk.rgb_to_yuv420 = yk.plain_rgb_to_yuv420
+        composite.composite = composite.plain_composite
+        try:
+            counts, _, _ = decoded_pass(clips, el, paths["plain"], dev)
+        finally:
+            yk.yuv420_to_rgb, yk.rgb_to_yuv420, composite.composite = \
+                kernels
+        assert not counts, counts
+        for k in range(2):   # the first builds and warms
+            counts, wall_s, host_s = decoded_pass(clips, el, paths["kern"],
+                                                  dev)
+            assert counts == want, (counts, want)
+        line("18b titled_edit", card=repr(card), frames=N_FRAMES,
+             chunks=n_chunks, launches=counts, wall_s=f"{wall_s:.4f}",
+             get_batch_s=f"{host_s:.4f}",
+             frames_per_s=f"{N_FRAMES / wall_s:.1f}",
+             x_realtime=f"{N_FRAMES / wall_s / FPS:.2f}")
+        got, ref = (y4m_planes(paths[k], dev) for k in ("kern", "plain"))
+        assert len(got) == len(ref) == N_FRAMES
+        err = max(gap(a, b) for x, y in zip(got, ref) for a, b in zip(x, y))
+        line("18b vs_plain", frames=N_FRAMES, max_abs_err=err, bound=1)
+        assert err <= 1, err
+        del got, ref
+        for k in ("yuv420_to_rgb", "rgb_to_yuv420", "composite"):
+            launches[k] += counts[k]
+        for c in clips.values():
+            c.close()
+    os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "0"   # the default prefs
+    steps["titled_edit"] = time.perf_counter()
+
+    # 18c. the player with the reference keymap's text keys
+    yk.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        allc, size, secs = write_clips(tmp, src, 2, PLAYER_CLIP_FRAMES)
+        clips = (allc[1], allc[2])
+        keymap = os.path.join(tmp, "default.keymap")
+        write_titles_keymap(keymap)
+        mapped = []
+
+        def setup(p, record=True):
+            mapped.append(titles_setup(p, clips, FPS, PLAYER_EVERY, keymap,
+                                       record))
+            assert [p.keymap.current_filter(k - 1)
+                    for k, _, _ in TITLES_KEYMAP] == \
+                [name for _, _, name in TITLES_KEYMAP]
+        files, res = {}, {}
+        for label, plain in (("plain", True), ("kernels", False)):
+            path = os.path.join(tmp, f"{label}.y4m")
+            p, ms, counts, _, _ = player_pass(
+                dev, clips, path, setup, script=titles_script,
+                clock=ScriptedClock(), plain=plain)
+            files[label], res[label] = path, (p, counts)
+            runs = counts.pop("runs")
+            want = {k: 0 for k in counts} if plain else player_design(runs)
+            assert counts == want, (label, counts, want)
+            cd = try_decoders(path)
+            assert cd.nframes == p.frames_shown, (cd.nframes, p.frames_shown)
+            cd.decoder.close()
+            lat = np.asarray(ms)
+            line("18c pass", card=repr(card), run=label,
+                 keymap_lines=len(TITLES_KEYMAP), mapped=mapped[-1],
+                 cycles=PLAYER_CYCLES, frames_shown=p.frames_shown,
+                 k2_launches=counts["yuv420_to_rgb"],
+                 k3_launches=counts["rgb_to_yuv420"],
+                 p50_ms=f"{np.percentile(lat, 50):.3f}",
+                 p99_ms=f"{np.percentile(lat, 99):.3f}",
+                 max_ms=f"{lat.max():.3f}")
+            assert mapped[-1] == len(TITLES_KEYMAP), mapped
+        ident = np.array_equal(np.fromfile(files["plain"], np.uint8),
+                               np.fromfile(files["kernels"], np.uint8))
+        line("18c bit_identity", against="plain", kernels=ident)
+        assert ident
+        p, counts = res["kernels"]
+        for k in ("yuv420_to_rgb", "rgb_to_yuv420"):
+            launches[k] += counts[k]
+        n, rerender_counts, secs, err = rerender_gap(
+            p, p.last_recording, clips, files["kernels"], dev)
+        line("18c rerender", card=repr(card), frames=n,
+             launches=rerender_counts, seconds=f"{secs:.3f}",
+             frames_per_s=f"{n / secs:.1f}", max_abs_err=err,
+             bound=PLAYER_RERENDER_BOUND + 1)
+        assert err <= PLAYER_RERENDER_BOUND + 1, err
+        steps["player"] = time.perf_counter()
+        # the subtitle pass: RGB frames, not recorded; each composite
+        # changes only rows its mask covers
+        srt = os.path.join(tmp, "titles.srt")
+        with open(srt, "w") as fh:
+            fh.write(SUB_SRT)
+        sub_files, outside = {}, {}
+
+        def sub_setup(p):
+            setup(p, record=False)
+            ov = p.load_subtitles(srt, size=48)
+            apply = ov.apply
+
+            def checked(layer, t):
+                out = apply(layer, t)
+                if out is not layer:
+                    text = ov.subs[0].text if t < 1.0 else ov.subs[1].text
+                    rows = torch.from_numpy(render_text_mask(
+                        text, layer.width, layer.height, size=48)[3]
+                        .any(1)).to(dev)
+                    moved = (out.planes[0] != layer.planes[0]).any(0).any(1)
+                    outside[label].append(int((moved & ~rows).sum()))
+                return out
+            ov.apply = checked
+        for label, plain in (("plain", True), ("kernels", False)):
+            path = os.path.join(tmp, f"sub_{label}.rgb")
+            outside[label] = []
+            p, _, counts, _, _ = player_pass(
+                dev, clips, path, sub_setup, script=titles_script,
+                clock=ScriptedClock(), plain=plain, cycles=SUB_CYCLES,
+                rgb=True)
+            sub_files[label] = path
+            line("18c subtitles", run=label, cycles=SUB_CYCLES,
+                 frames_shown=p.frames_shown,
+                 subtitle_frames=len(outside[label]),
+                 mask_uploads=p.subtitles.uploads,
+                 rows_changed_outside_mask=sum(outside[label]),
+                 k2_launches=counts["yuv420_to_rgb"])
+            assert outside[label] and not any(outside[label]), outside
+        ident = np.array_equal(np.fromfile(sub_files["plain"], np.uint8),
+                               np.fromfile(sub_files["kernels"], np.uint8))
+        line("18c subtitle_identity", against="plain", kernels=ident)
+        assert ident
+        for c in allc.values():
+            c.close()
+    steps["subtitles"] = time.perf_counter()
+    marks = [t_phase, *steps.values()]
+    line("18 wall", seconds=f"{time.perf_counter() - t_phase:.1f}",
+         **{k: f"{b - a:.1f}" for k, a, b in zip(steps, marks, marks[1:])})
+
+
 def synced_calls(fn):
     """(fn's result, the synchronizing CUDA calls it made, as the warnings
     of torch's sync debug mode)."""
@@ -2579,7 +3026,8 @@ def main(argv) -> int:
     if argv == ["--player"]:
         player_phase(dev, card, dict.fromkeys(NAMES, 0))
         return 0
-    if argv and argv not in (["--vocabulary"], ["--vjfilters"]):
+    if argv and argv not in (["--vocabulary"], ["--vjfilters"],
+                             ["--titles"]):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
@@ -2622,6 +3070,9 @@ def main(argv) -> int:
         return 0
     if argv == ["--vjfilters"]:
         vj_filters(dev, card, dict.fromkeys(NAMES, 0))
+        return 0
+    if argv == ["--titles"]:
+        titles(dev, card, dict.fromkeys(NAMES, 0))
         return 0
 
     # 3. kernel vs plain_sweep on the card
@@ -3153,6 +3604,7 @@ def main(argv) -> int:
     vocabulary(dev, card, held, ms, bounds, launches)
     player_phase(dev, card, launches)
     vj_filters(dev, card, launches)
+    titles(dev, card, launches)
     vel = timeline_v(1)
     vspec, _, _, vrows = chunk_of(vel, dev, 1)
     v_geom = fused_sweep.plan_geometry(

@@ -15,8 +15,12 @@ threads the state, where the JAX package scans. A stateful filter's
 `init_state(width, height, palette, device)` makes its state at the frame
 geometry on first use, and `process(ins, params, ctx, state)` returns
 ``(out, new_state)``, or ``(out, new_state, out_values)`` when the filter
-reports out-params (`host.py:327-329`). Alpha in-channels (cconx) and
-analysers come with Slice 6 (ROADMAP Queue 1 item 21).
+reports out-params (`host.py:327-329`). An analyser's
+`analyse(ins, params, ctx)` runs after `process` and returns a dict that
+`apply_instance` splits as `host.py:309-335` `_split_outs` does: a
+non-Layer value is an out-param value (`Instance.out_values`); a Layer
+value would be an alpha out-channel (cconx), which raises until data
+connections come (ROADMAP Queue 1 item 21), as alpha in-channels do.
 
 A generator has no input layer to take its device from, so `FrameContext`
 carries one (`device`, None by default): `apply_instance` fills it from
@@ -100,6 +104,8 @@ class Filter:
     # (width, height, palette, device) -> state, for FILTER_STATEFUL
     init_state: Callable | None = None
     preferred_gamma: int | None = None
+    # analyser hook: (ins, params, ctx) -> {out-param name: value}
+    analyse: Callable | None = None
 
     @property
     def hashname(self) -> str:
@@ -135,7 +141,8 @@ class Instance:
     enabled: bool = True
     in_tracks: tuple[int, ...] = (0,)
     out_tracks: tuple[int, ...] = (0,)
-    # the latest out-param values (a stateful filter's third result)
+    # the latest out-param values (an analyser's, or a stateful filter's
+    # third result)
     out_values: dict[str, Any] = field(default_factory=dict)
 
     def param_values(self) -> dict[str, Any]:
@@ -265,6 +272,19 @@ def negotiate_layer(layer: Layer, tmpl: ChannelTemplate,
     return layer
 
 
+def _split_outs(inst: Instance, outs) -> None:
+    """An analyser's outputs (`lives_tpu/effects/host.py:309-335`): every
+    non-Layer value is an out-param value; a Layer value is an alpha
+    out-channel, a cconx source, which is not ported."""
+    outs = dict(outs)
+    chans = [k for k, v in outs.items() if isinstance(v, Layer)]
+    if chans:
+        raise NotImplementedError(
+            f"{inst.filter.name}: alpha out-channels {chans} (cconx) are not "
+            "ported yet (ROADMAP Queue 1 item 21)")
+    inst.out_values = outs
+
+
 def apply_instance(inst: Instance, layers: Sequence[Layer],
                    ctx: FrameContext | None = None) -> list[Layer]:
     """Apply one instance to a layer stack; returns the new stack
@@ -310,11 +330,13 @@ def apply_instance(inst: Instance, layers: Sequence[Layer],
         ret = f.process(ins, params, ctx, state)
         if len(ret) == 3:  # (out, state, out-param values)
             out, inst.state, outs = ret
-            inst.out_values = dict(outs)
+            _split_outs(inst, outs)
         else:
             out, inst.state = ret
     else:
         out = f.process(ins, params, ctx)
+    if f.analyse is not None:
+        _split_outs(inst, f.analyse(ins, params, ctx))
     outs = out if isinstance(out, (list, tuple)) else [out]
     for t, o in zip(inst.out_tracks, outs):
         while len(layers) <= t:

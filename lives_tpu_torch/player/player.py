@@ -26,13 +26,17 @@ event before the graph reads the frame, and a pinned buffer is reused only
 once the copy that read it has completed. A chain change is warmed on a
 background thread on its own stream while the old graph serves.
 
+Subtitles (`load_subtitles`, `text.SubtitleOverlay`) composite after the
+chain and before the pipeline, indexed by clip time, on an RGB sink's
+frames; a mask is uploaded once while its subtitle shows.
+
 Left out, each raising `NotImplementedError` naming its ROADMAP Queue 1
 item: the MJPEG device decode lane (`get_frames_device`, item 18: the
 worker decodes frame by frame, as the JAX package does for a decoder
 without it), scrap capture of live sources while recording (a stateful
 generator or a `scrap_on_record` clip; item 21; stateless generators ride
-as `GenSlot`s and decoded clips need none), subtitles, data connections
-and cconx (item 21), audio, `time_source="audio"` and the audio of a
+as `GenSlot`s and decoded clips need none), data connections and cconx
+(item 21), audio, `time_source="audio"` and the audio of a
 recorded frame (item 23); the JACK transport that mirrors start and stop
 (`transport`, item 23) is absent. The JAX worker's fixed decode batch
 sizes {4, `precache_chunk`} existed so that XLA compiled two templates;
@@ -403,6 +407,9 @@ class Player:
         # frame listeners: called (frame, tc) after each shown frame
         # (reference lives_notify, player.c:1295)
         self.frame_listeners: list = []
+        # optional subtitle overlay (text.SubtitleOverlay) composited
+        # after the chain, before the pipeline (reference subtitle path)
+        self.subtitles = None
         self._autotrans_t0: float | None = None
         self.autotrans_key: int | None = None
         self.autotrans_duration = 1.0
@@ -429,8 +436,15 @@ class Player:
             f"({_ITEM23})")
 
     def load_subtitles(self, path, **style):
-        raise NotImplementedError(
-            f"the subtitle overlay (text.py) is not ported yet ({_ITEM21})")
+        """Attach .srt/.sub subtitles composited during playback
+        (`lives_tpu/player/player.py:324-331`; reference reload_subs,
+        clip_load_save.c:1752). The overlay blends onto the chain's
+        output, so the sink's palette must be an RGB one."""
+        from ..text import SubtitleOverlay, load_srt, load_sub
+        subs = load_srt(path) if str(path).lower().endswith(".srt") \
+            else load_sub(path, fps=abs(self.state.pb_fps) or 25.0)
+        self.subtitles = SubtitleOverlay(subs, **style)
+        return self.subtitles
 
     def _check_datacons(self):
         if self.datacons is not None:
@@ -1296,6 +1310,12 @@ class Player:
         out = graph.run(layers, tc=tc, frame=target)
         if self.ladder is not None:
             self.ladder.mark("applied")
+        if self.subtitles is not None:
+            # subtitles index CLIP time (frame / clip fps), not the
+            # playback-rate clock: scratching must not shift captions
+            # (`lives_tpu/player/player.py:1454-1458`)
+            clip_fps = getattr(st.fg_clip, "fps", 25.0) or 25.0
+            out = self.subtitles.apply(out, target / clip_fps)
         if self.pipeline_depth > 0:
             self._pending.append((out, tc))
             ok = True

@@ -103,11 +103,13 @@ def _reduce_large(xi):
     return (hi * (1 << 32) + lo).to(torch.float64) * _PI63, n
 
 
-def sinf(y: torch.Tensor) -> torch.Tensor:
-    """float32 sin, bit for bit the C library's `sinf` that XLA's CPU
-    backend calls (see the module's docstring). Any shape and device."""
+def _sincosf(y: torch.Tensor, cos: bool) -> torch.Tensor:
+    """s_sinf.c's `sinf` (cos False) or s_cosf.c's `cosf` (cos True): the
+    same reductions, and the other polynomial for cos (`sinf_poly` of n ^
+    1), which below pi/4 is the cosine polynomial of x itself."""
+    name = "cosf" if cos else "sinf"
     if y.dtype != torch.float32:
-        raise TypeError(f"sinf takes float32, got {y.dtype}")
+        raise TypeError(f"{name} takes float32, got {y.dtype}")
     xi = y.view(torch.int32).to(torch.int64) & _M32
     top = (xi >> 20) & 0x7FF                           # abstop12
     x = y.to(torch.float64)
@@ -122,6 +124,20 @@ def sinf(y: torch.Tensor) -> torch.Tensor:
     n = torch.where(small, 0, torch.where(fast, nf, nl))
     q = torch.where(fast, n, n + (xi >> 31)) & 3       # the sign's quadrant
     sgn = torch.where((q == 1) | (q == 2), -1.0, 1.0).to(torch.float64)
-    out = _poly(r * sgn, r * r, (n & 1) == 1, (q & 2) == 2).to(torch.float32)
-    out = torch.where(top < 0x398, y, out)             # |y| < 2^-12: y
+    odd = (n & 1) == (0 if cos else 1)
+    out = _poly(r * sgn, r * r, odd, (q & 2) == 2).to(torch.float32)
+    # |y| < 2^-12: y (sin), 1 (cos)
+    out = torch.where(top < 0x398, torch.ones_like(y) if cos else y, out)
     return torch.where(top >= 0x7F8, y - y, out)       # inf, nan: nan
+
+
+def sinf(y: torch.Tensor) -> torch.Tensor:
+    """float32 sin, bit for bit the C library's `sinf` that XLA's CPU
+    backend calls (see the module's docstring). Any shape and device."""
+    return _sincosf(y, False)
+
+
+def cosf(y: torch.Tensor) -> torch.Tensor:
+    """float32 cos, bit for bit the C library's `cosf` (`__cosf_fma`),
+    which XLA's CPU backend calls for `jnp.cos`. Any shape and device."""
+    return _sincosf(y, True)

@@ -1439,3 +1439,91 @@ def test_sinf_on_the_card_matches_cpu(cuda):
     x = torch.cat([x, -x])
     assert torch.equal(sinf(x.to(cuda)).cpu().view(torch.int32),
                        sinf(x).view(torch.int32))
+
+
+# -- text and titles ----------------------------------------------------------
+
+def _rgb_layer(device, B=2, h=90, w=160, seed=12):
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.layer import Layer
+    rng = np.random.default_rng(seed)
+    return Layer(planes=(torch.from_numpy(rng.integers(
+        0, 256, (B, 3, h, w), np.uint8)).to(device),),
+        palette=int(Palette.RGB24))
+
+
+@pytest.mark.cuda
+def test_haip_and_randomiser_on_the_card_match_cpu(cuda):
+    """haip's trails and its last-write-wins scatters, and randomiser's
+    threefry draws, bit for bit the CPU's at frames 0, 1 and 100,000."""
+    from lives_tpu_torch.effects.builtin.extra import haip_trails
+    from lives_tpu_torch.effects.host import (FrameContext, Instance,
+                                              apply_instance)
+    frames = [0, 1, 100_000]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        fr = torch.tensor(frames, dtype=torch.int32, device=dev)
+        ctx = FrameContext(tc=fr.float() / 30.0, frame=fr, fps=30.0,
+                           width=160, height=90, device=dev)
+        lay = _rgb_layer(dev, B=3)
+        haip = get_filter("haip").process(
+            [lay], {"wurms": torch.full((3,), 80.0, device=dev)}, ctx)
+        inst = Instance(filter=get_filter("randomiser"))
+        apply_instance(inst, [lay], ctx)
+        out[dev.type] = (haip.planes[0].cpu(),
+                         [t.cpu() for t in haip_trails(fr, 90, 160, dev)],
+                         {k: v.cpu() for k, v in inst.out_values.items()})
+    a, b = out["cuda"], out["cpu"]
+    assert torch.equal(a[0], b[0])
+    for x, y in zip(a[1], b[1]):
+        assert torch.equal(x, y)
+    assert a[2].keys() == b[2].keys()
+    for k in a[2]:
+        assert torch.equal(a[2][k].view(torch.int32),
+                           b[2][k].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_subtitle_overlay_on_the_card_matches_cpu(cuda, tmp_path):
+    """A subtitle composited on the card is the CPU's composite exactly,
+    and its mask is uploaded once while it stays on screen."""
+    from lives_tpu_torch.text import SubtitleOverlay, Subtitle
+    subs = [Subtitle(0.0, 1.0, "HELLO\nsubtitles")]
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        ov = SubtitleOverlay(subs, size=14)
+        lay = _rgb_layer(dev, B=1)
+        lay = lay.replace(planes=(lay.planes[0][0],))
+        for t in (0.1, 0.5):
+            got[dev.type] = ov.apply(lay, t).planes[0].cpu()
+        assert ov.uploads == 1
+    assert torch.equal(got["cuda"], got["cpu"])
+
+
+@pytest.mark.cuda
+def test_position_twins_on_the_card_match_cpu(cuda):
+    """cosf, XLA's expf and fma32 round alike on the card, and puretext's
+    letter positions in all seven modes are the CPU's exactly."""
+    from lives_tpu_torch.effects.builtin import puretext
+    from lives_tpu_torch.utils.sinf import cosf
+    from lives_tpu_torch.utils.xla_exp import expf, fma32
+    x = torch.arange(0, 0x48000000, 997, dtype=torch.int64).to(
+        torch.int32).view(torch.float32)
+    x = torch.cat([x, -x])
+    assert torch.equal(cosf(x.to(cuda)).cpu().view(torch.int32),
+                       cosf(x).view(torch.int32))
+    e = torch.linspace(-90, 90, 1_000_003)
+    assert torch.equal(expf(e.to(cuda)).cpu().view(torch.int32),
+                       expf(e).view(torch.int32))
+    g = torch.Generator().manual_seed(3)
+    a, b, c = (torch.randn(1 << 20, generator=g) * s for s in (1, 300, 1e-3))
+    assert torch.equal(fma32(a.to(cuda), b.to(cuda), c.to(cuda)).cpu()
+                       .view(torch.int32), fma32(a, b, c).view(torch.int32))
+    t = torch.linspace(0, 40, 4001).reshape(-1, 1)
+    s = torch.linspace(0.05, 10, 4001).reshape(-1, 1)
+    for mode in range(7):
+        got = [puretext.letters(mode, t.to(d), s.to(d), puretext._atlas_on(
+            "The titles of an edit", 30, 640, 360, mode == 1, str(d)),
+            640, 360) for d in (cuda, torch.device("cpu"))]
+        for x, y in zip(*got):
+            assert torch.equal(x.cpu(), y), mode

@@ -1172,8 +1172,6 @@ LEFT_OUT = {
     "time_source_audio": (
         lambda: setattr(make_player("torch")[0], "time_source", "audio"),
         23),
-    "subtitles": (lambda: make_player("torch")[0].load_subtitles("x.srt"),
-                  21),
     "datacons": (_cconx_player, 21),
     "scrap_capture": (_stateful_generator_take, 21),
     "png_sink": (lambda: t_sinks.PNGSink("frames"), 11),

@@ -175,11 +175,11 @@ def test_edge_and_blurzoom_wrap():
 
 
 def test_registry_is_a_subset_of_jax():
-    """102 of the JAX package's 147 filters, each with the JAX hashname,
+    """117 of the JAX package's 147 filters, each with the JAX hashname,
     flags and params."""
     from lives_tpu.effects.host import list_filters as j_list_filters
     names = t_host.list_filters()
-    assert len(names) == 102 and set(names) <= set(j_list_filters())
+    assert len(names) == 117 and set(names) <= set(j_list_filters())
     for name in names:
         jf, tf = j_get_filter(name), t_host.get_filter(name)
         assert (tf.hashname, tf.flags) == (jf.hashname, jf.flags), name
@@ -359,7 +359,9 @@ def test_reference_keymap_every_fragment_maps_as_jax(tmp_path):
     into both packages: the first fragment a hashname holds decides its
     line in both; the port's slot is the JAX one wherever the port
     registers that filter and empty where it does not; the count is the
-    lines the port mapped. A reference blurzoom line maps to blurzoom."""
+    lines the port mapped. A reference blurzoom line maps to blurzoom, and
+    the text and wall lines (puretext, textfun, scribbler, videowall) map
+    in both packages: every line maps."""
     frags = list(KeyMap.REF_FILTER_MAP)
     assert frags == list(JKeyMap.REF_FILTER_MAP)
     path = tmp_path / "default.keymap"
@@ -379,7 +381,12 @@ def test_reference_keymap_every_fragment_maps_as_jax(tmp_path):
             assert got == "", (frags[k], got)
     assert n == mapped and jn == len(frags)
     assert km.current_filter(frags.index("blurzoom")) == "blurzoom"
-    assert n == len(frags) - 4   # textfun, livetext, scribbler, videowall
+    for frag, name in (("puretext", "livetext"), ("textfun", "textfun"),
+                       ("scribbler", "scribbler"),
+                       ("videowall", "videowall")):
+        k = frags.index(frag)
+        assert km.current_filter(k) == jkm.current_filter(k) == name
+    assert n == len(frags)
 
 
 def test_vj_keymap_maps_every_line(tmp_path):
