@@ -43,7 +43,11 @@ plain PyTorch version:
 - text and titles (`text.py`, `extra.py`'s filters, `puretext`): each new
   filter alone against the port on the CPU, a titled edit rendered from
   decoded clips (K2, K4 on its transitions, K3), and the player with the
-  reference keymap's text keys and a subtitle track.
+  reference keymap's text keys and a subtitle track;
+- the MJPEG lanes (`io/jpeg_ingest.py`, `io/jpeg_encode.py`, the AVI
+  reader and writer): config D from MJPEG AVIs through the compressed
+  ingest lane (K2, K4) into `render_to_encoder`'s default "mjpeg"
+  encoder, and the player on MJPEG clips through the lane (K2, K3).
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --config-d   # config D alone (phase 11's render
@@ -59,6 +63,7 @@ plain PyTorch version:
     python3 chip_smoke.py --player     # phase 16 alone, no result line
     python3 chip_smoke.py --vjfilters  # phases 1-2 and 17, no result line
     python3 chip_smoke.py --titles     # phases 1-2 and 18, no result line
+    python3 chip_smoke.py --mjpeg      # phase 19 alone, no result line
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
@@ -267,6 +272,37 @@ Phases, one line each:
       1; then 60 cycles with `SUB_SRT` loaded through `load_subtitles`
       into an RGB file sink, not recorded: the two files byte-identical,
       each subtitle frame changed only in the rows its mask covers.
+19. the MJPEG lanes at 1920x1080 (`jpegcoef` built with g++ first):
+   a. four frames of config D's source: `JpegDeviceEncoder`'s
+      coefficients on the card against the CPU's (max |diff| <= 1 on under
+      `COEF_FLIP_SHARE` of them), the v2 and v3 wires packed on the card
+      from the CPU's coefficients byte for byte the CPU's (bytes a frame
+      against raw RGB and YUV420), the decoder's planes on the card within
+      1 LSB of the CPU's and of `decode_frame_ref`; the lane's block
+      products within 2^-23 of float64 with the process's TF32 switch on,
+      and the lane's coefficients and planes unchanged by it (a float32
+      product under TF32 printed beside them);
+   b. config D's 10 clips written as MJPEG AVIs by the "mjpeg" encoder
+      (24 frames, q90; encode frames/s, bytes a frame), phase 11's
+      192-frame timeline from them through `MJPEGMultiClipSource` under
+      LIVES_TPU_PALLAS_COMPOSITE=1 into `render_to_encoder`'s default
+      encoder, twice: K2 10 and K4 1 launch a chunk, no host decode,
+      capacity fallback or encoder pool overflow, the files
+      byte-identical; a third pass split by
+      stage with a synchronise around each (host entropy decode and pack,
+      HtoD bytes, device decode, chain, device encode, DtoH bytes, host
+      entropy encode), its file identical too, each written frame decoded
+      back through the ingest lane at PSNR >= `MJPEG_PSNR_DB` against the
+      frame the encoder was handed; a pass profiled (device busy and idle
+      share, the trace's float64 GEMMs, and the block products timed by
+      CUDA events around each call, decoder and encoder apart); the first
+      chunk's source batches through the lane against
+      the host lane (`AVIDecoder.get_frame`: PIL decode, upload), in turns;
+   c. phase 16's player script on two of the AVIs, pass A on the scripted
+      clock into a Y4M sink, plain versions, kernels, profiled: every
+      decode through `get_frames_device` (counted; no host decode, no lane
+      error), K2 and K3 as designed, the three files byte-identical,
+      process_one p50, p99 and max, the device's busy share.
 Then a `resources` line for K1 (both builds), K4, K5 and K6 (the path's
 entry: ptxas registers and spills, blocks an SM), a JSON line of the kernels
 (with each one's bound: the larger of its bytes over 3.35 TB/s and its
@@ -2954,6 +2990,490 @@ def titles(dev, card, launches):
          **{k: f"{b - a:.1f}" for k, a, b in zip(steps, marks, marks[1:])})
 
 
+# -- phase 19: the MJPEG lanes ---------------------------------------------
+
+#: the PSNR the JAX package holds its q90 round trip to
+#: (tests/test_jpeg_encode.py:92-104), and the share of coefficients that
+#: may flip by 1 between two computations of the coefficient stage (its
+#: bound against its float64 twin, tests/test_jpeg_encode.py:56-57)
+MJPEG_PSNR_DB, COEF_FLIP_SHARE = 30.0, 2e-3
+
+
+def sync(dev):
+    """Wait for the device's queued work (nothing to wait for on the
+    CPU)."""
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def write_mjpeg_clips(tmp, src, n_clips=TRACKS, frames=CLIP_FRAMES):
+    """Config D's clips as MJPEG AVIs in `tmp`, each written by the
+    "mjpeg" encoder (`MJPEGDeviceEncoder`, q90) from one (frames, 3, H, W)
+    chunk of the source's clip c on its device, opened with `open_clip`:
+    ({c: Clip}, bytes, s in the encoder). No frame may be written with its
+    ACs cut at the encoder's pool."""
+    from lives_tpu_torch.io.clips import open_clip
+    from lives_tpu_torch.io.encoders import get_encoder
+    clips, size, secs = {}, 0, 0.0
+    for c in range(1, n_clips + 1):
+        rgb = src.get_batch([c] * frames, range(frames)).planes[0]
+        path = os.path.join(tmp, f"clip{c}.avi")
+        enc = get_encoder("mjpeg")
+        sync(rgb.device)
+        t0 = time.perf_counter()
+        assert enc.encode(path, [rgb], FPS)
+        secs += time.perf_counter() - t0
+        assert enc.overflows == 0, (path, enc.overflows)
+        size += os.path.getsize(path)
+        clips[c] = open_clip(path, os.path.join(tmp, "work"))
+        clips[c].unique_id = c  # the timeline's clip ids
+    return clips, size, secs
+
+
+def product_events():
+    """The decoder's and the encoder's block products (the lanes' two
+    float64 GEMMs between two casts, `jpeg_ingest.block_products`, which
+    `jpeg_encode` imports), each call bracketed by CUDA events on the
+    current stream: (the pairs by stage, a function that restores the
+    two)."""
+    import torch
+
+    from lives_tpu_torch.io import jpeg_encode as je
+    from lives_tpu_torch.io import jpeg_ingest as ji
+    pairs = {"decode": [], "encode": []}
+    saved = ji.block_products, je.block_products
+
+    def timed(key, fn):
+        def run(*a):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a)
+            ev[1].record()
+            pairs[key].append(ev)
+            return out
+        return run
+
+    def restore():
+        ji.block_products, je.block_products = saved
+    ji.block_products = timed("decode", saved[0])
+    je.block_products = timed("encode", saved[1])
+    return pairs, restore
+
+
+def mjpeg_pass(clips, el, out_path, dev):
+    """One render of `el` from MJPEG `clips` through `MJPEGMultiClipSource`
+    into `out_path` by `render_to_encoder` with its default encoder (an
+    MJPEG AVI), every launch count set to 0 just before it and read just
+    after: (non-zero counts, wall s, the source, the encoder
+    `render_to_encoder` made)."""
+    from lives_tpu_torch import transcode
+    from lives_tpu_torch.graph import composite, fused_sweep, stateful_sweep
+    from lives_tpu_torch.io.jpeg_ingest import MJPEGMultiClipSource
+    from lives_tpu_torch.ops import yuv_kernels
+    made, get_encoder = [], transcode.get_encoder
+
+    def keep(name):
+        made.append(get_encoder(name))
+        return made[-1]
+    fused_sweep.MODE_LAUNCHES.update(
+        dict.fromkeys(fused_sweep.MODE_LAUNCHES, 0))
+    stateful_sweep.LAUNCHES = 0
+    yuv_kernels.LAUNCHES.update(dict.fromkeys(yuv_kernels.LAUNCHES, 0))
+    composite.LAUNCHES = 0
+    msrc = MJPEGMultiClipSource(clips, el.width, el.height, device=dev)
+    transcode.get_encoder = keep
+    try:
+        sync(dev)
+        t0 = time.perf_counter()
+        assert transcode.render_to_encoder(el, msrc, out_path,
+                                           batch_size=CHUNK)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        transcode.get_encoder = get_encoder
+    counts = {**fused_sweep.MODE_LAUNCHES,
+              "stateful": stateful_sweep.LAUNCHES,
+              **yuv_kernels.LAUNCHES, "composite": composite.LAUNCHES}
+    (enc,) = made
+    assert enc.name == "mjpeg", enc.name
+    return {k: v for k, v in counts.items() if v}, wall, msrc, enc
+
+
+def source_batches(src, el, dev, n_frames) -> float:
+    """s to fetch the source batches of the timeline's first `n_frames`
+    frames as the renderer asks for them: one `get_batch` a track a chunk
+    of CHUNK frames."""
+    import numpy as np
+    evs = el.frame_events()[:n_frames]
+    sync(dev)
+    t0 = time.perf_counter()
+    for k in range(0, len(evs), CHUNK):
+        ids = np.array([e.clips for e in evs[k:k + CHUNK]])
+        nums = np.array([e.frames for e in evs[k:k + CHUNK]])
+        for t in range(ids.shape[1]):
+            src.get_batch(ids[:, t].tolist(), nums[:, t].tolist())
+    sync(dev)
+    return time.perf_counter() - t0
+
+
+def avi_frames_rgb(path, dev, k, n):
+    """Frames [k, k + n) of an MJPEG AVI decoded back through the port's
+    ingest lane onto `dev`, as (n, 3, H, W) RGB24."""
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.io.decoders import try_decoders
+    from lives_tpu_torch.io.jpeg_ingest import JpegStreamSource
+    from lives_tpu_torch.ops.colorspace import convert_layer
+    dec = try_decoders(path).decoder
+    try:
+        jsrc = JpegStreamSource([dec.get_frame_bytes(i)
+                                 for i in range(k, k + n)], device=dev)
+        lay = jsrc.get_batch_planes(range(n))
+        assert jsrc.fallbacks == 0, jsrc.fallbacks
+    finally:
+        dec.close()
+    return convert_layer(lay, Palette.RGB24).planes[0]
+
+
+def psnr(a, b):
+    """PSNR in dB of each frame of two (B, C, H, W) u8 tensors."""
+    mse = ((a.double() - b.double()) ** 2).mean(dim=(1, 2, 3))
+    return 10 * (255.0 ** 2 / mse.clamp(min=1e-12)).log10()
+
+
+def mjpeg_card_vs_cpu(dev, card):
+    """19a: the encoder and the decoder on the card against the CPU on
+    four 1080p frames of config D's source; the wires packed on the card
+    from the CPU's coefficients against the CPU's; the lane's products in
+    full precision whatever the process's TF32 switch."""
+    import numpy as np
+    import torch
+
+    from lives_tpu_torch.io import jpeg_encode as je
+    from lives_tpu_torch.io import jpeg_ingest as ji
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+    cpu = torch.device("cpu")
+    B = 4
+    rgb = DeviceSyntheticSource(H, W, device=dev).get_batch(
+        [1, 2, 3, 4], [0, 5, 10, 15]).planes[0]
+    encs = {d: je.JpegDeviceEncoder(W, H, quality=90, batch=B, device=d)
+            for d in (dev, cpu)}
+    (dcd, acd), (dcc, acc) = (encs[d].coefs(rgb.to(d)) for d in (dev, cpu))
+    d = torch.cat([(dcd.cpu().int() - dcc.int()).abs().reshape(-1),
+                   (acd.cpu() - acc).abs().reshape(-1)])
+    flips, worst = int((d > 0).sum()), int(d.max())
+    wires, lay3 = {}, encs[cpu].clayout
+    lay2 = je.WireLayout(lay3.nb, lay3.capacity, lay3.esc_cap)
+    for v, pack, lay in (("v2", je.pack_wire, lay2),
+                         ("v3", je.pack_compact, lay3)):
+        got = pack(dcc.to(dev), acc.to(dev), lay).cpu()
+        wires[v] = pack(dcc, acc, lay)
+        assert torch.equal(got, wires[v]), f"{v} wire differs on the card"
+    head = wires["v3"][:8 * B].numpy()
+    v3_used = encs[cpu].clayout.used(int(head[:4 * B].view(np.int32).sum()),
+                                     int(head[4 * B:].view(np.int32).sum()))
+    line("19a encoder", card=repr(card), size=f"{W}x{H}", frames=B,
+         quality=90, coefficients=d.numel(), flips=flips,
+         flip_share=f"{flips / d.numel():.3g}", max_abs_err=worst,
+         wires_identical="v2,v3", v2_bytes_per_frame=lay2.total,
+         v3_bytes_per_frame=v3_used // B, raw_rgb_bytes=W * H * 3,
+         raw_yuv420_bytes=W * H * 3 // 2)
+    assert worst <= 1 and flips / d.numel() < COEF_FLIP_SHARE, (worst, flips)
+    # the decoder, on the CPU encoder's JPEG frames
+    jpegs = encs[cpu].encode_batch(rgb.cpu())
+    srcs = {dd: ji.JpegStreamSource(jpegs, device=dd) for dd in (dev, cpu)}
+    lays = {dd: s.get_batch_planes(range(B)) for dd, s in srcs.items()}
+    refs = [ji.decode_frame_ref(ji.read_coefficients(j)) for j in jpegs]
+    gaps = []
+    for k, (pd, pc) in enumerate(zip(lays[dev].planes, lays[cpu].planes)):
+        ref = torch.from_numpy(np.stack(
+            [r[k][:pd.shape[1], :pd.shape[2]] for r in refs]))
+        gaps.append((int((pd.cpu().int() - pc.int()).abs().max()),
+                     int((pd.cpu().int() - ref.int()).abs().max())))
+    line("19a decoder", card=repr(card), frames=B,
+         jpeg_bytes_per_frame=sum(map(len, jpegs)) // B,
+         wire_bytes_per_frame=srcs[dev].wire_bytes_per_frame(),
+         card_vs_cpu=max(g for g, _ in gaps),
+         card_vs_twin=max(g for _, g in gaps),
+         fallbacks=srcs[dev].fallbacks)
+    assert max(max(g) for g in gaps) <= 1 and srcs[dev].fallbacks == 0, gaps
+    # full precision: the lane is the same with the process's TF32 switch
+    # on, where a float32 product would move
+    A64 = torch.from_numpy(ji._idct_basis(np.float64)).to(dev)
+    co = encs[dev].coefs(rgb)[1][0, :512].float()     # up to 512 blocks
+    blocks = torch.cat([co.new_full((co.shape[0], 1), 100.0), co], 1) \
+        .view(-1, 8, 8) * 16.0
+    exact = A64 @ blocks.double() @ A64.T
+    torch.set_float32_matmul_precision("high")
+    try:
+        lane = ji.block_products(A64, blocks, A64.T)
+        f32 = A64.float() @ blocks @ A64.float().T
+        tf32_lays = srcs[dev].get_batch_planes(range(B))
+        tf32_co = encs[dev].coefs(rgb)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    rel = float(((lane.double() - exact).abs() / exact.abs().max()).max())
+    rel32 = float(((f32.double() - exact).abs() / exact.abs().max()).max())
+    same = all(torch.equal(a, b) for a, b in
+               zip(tf32_lays.planes, lays[dev].planes)) and \
+        torch.equal(tf32_co[1], acd) and torch.equal(tf32_co[0], dcd)
+    line("19a precision", card=repr(card), tf32_switch="on",
+         lane_rel_err=f"{rel:.3g}", float32_product_rel_err=f"{rel32:.3g}",
+         bound=f"{2 ** -23:.3g}", lane_unchanged=same)
+    assert rel <= 2 ** -23 and same, (rel, same)
+
+
+def mjpeg_phase(dev, card, launches):
+    """19. the MJPEG lanes at 1920x1080: card against CPU per module;
+    config D from MJPEG clips into the default encoder's AVI; the player on
+    MJPEG clips through the compressed lane."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lives_tpu_torch import native
+    from lives_tpu_torch.events.renderer import ClipFrameSource
+    from lives_tpu_torch.io import jpeg_encode as je
+    from lives_tpu_torch.io import jpeg_ingest as ji
+    from lives_tpu_torch.io.decoders import try_decoders
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+
+    native.load_all(["yuv420", "composite"])
+    t0 = time.perf_counter()
+    native.load_jpegcoef()
+    built = native._LOADED["jpegcoef"]
+    line("19 jpegcoef", lib=built.path.name, libjpeg=repr(built.libjpeg),
+         seconds=f"{built.seconds:.2f}",
+         load_s=f"{time.perf_counter() - t0:.2f}")
+    os.environ["LIVES_TPU_FUSED_STATEFUL"] = "0"
+    t_phase = time.perf_counter()
+    steps = {}
+    mjpeg_card_vs_cpu(dev, card)
+    steps["card_vs_cpu"] = time.perf_counter()
+
+    # 19b. config D from MJPEG clips into the default encoder's AVI
+    src = DeviceSyntheticSource(H, W, device=dev)
+    n_chunks = -(-N_FRAMES // CHUNK)
+    want = {"yuv420_to_rgb": TRACKS * n_chunks, "composite": n_chunks}
+    el = config_d_timeline(N_FRAMES)
+    os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "1"
+    with tempfile.TemporaryDirectory() as tmp:
+        clips, size, secs = write_mjpeg_clips(tmp, src)
+        n_enc = TRACKS * CLIP_FRAMES
+        line("19b clips", card=repr(card), clips=TRACKS, frames=CLIP_FRAMES,
+             mb=f"{size / 1e6:.1f}", bytes_per_frame=size // n_enc,
+             encode_s=f"{secs:.3f}", encode_frames_per_s=f"{n_enc / secs:.1f}")
+        steps["clips"] = time.perf_counter()
+        paths, walls = [], []
+        for run in range(2):
+            paths.append(os.path.join(tmp, f"render{run}.avi"))
+            counts, wall, msrc, enc = mjpeg_pass(clips, el, paths[-1], dev)
+            walls.append(wall)
+            line("19b render", card=repr(card), run=run, frames=N_FRAMES,
+                 launches=counts, host_decoded=msrc.host_decoded,
+                 fallbacks=msrc.fallbacks, encoder_overflows=enc.overflows,
+                 wall_s=f"{wall:.4f}", frames_per_s=f"{N_FRAMES / wall:.1f}",
+                 bytes=os.path.getsize(paths[-1]))
+            assert counts == want, counts
+            assert msrc.host_decoded == msrc.fallbacks == enc.overflows == 0
+        for k in want:
+            launches[k] += counts[k]
+        cd = try_decoders(paths[0])
+        assert (cd.nframes, cd.width, cd.height, cd.decoder.fourcc) == \
+            (N_FRAMES, W, H, "MJPG"), (cd.nframes, cd.width, cd.height)
+        cd.decoder.close()
+        steps["render"] = time.perf_counter()
+        # the wall split: each stage timed with a synchronise around it
+        split = dict.fromkeys(("entropy_s", "decode_s", "source_s",
+                               "encode_s", "dtoh_s", "host_encode_s",
+                               "htod_bytes", "dtoh_bytes"), 0.0)
+        rendered = []
+        saved = (ji.JpegStreamSource.entropy_pack, ji.build_device_decoder,
+                 ji.MJPEGMultiClipSource.get_batch,
+                 je.JpegDeviceEncoder.encode_batch, je.JpegDeviceEncoder._fetch,
+                 je.write_jpeg_packed)
+
+        def timed(key, fn, before=False):
+            def run(*a, **kw):
+                if before:
+                    sync(dev)
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                sync(dev)
+                split[key] += time.perf_counter() - t
+                return out
+            return run
+
+        def entropy(self, idx):
+            out = saved[0](self, idx)
+            split["htod_bytes"] += sum(t.nbytes for t in out[0])
+            return out
+
+        def decoder(*a, **kw):
+            return timed("decode_s", saved[1](*a, **kw), before=True)
+
+        def encode_batch(self, frames):
+            if int(frames.shape[0]) == self.batch:
+                rendered.append(frames.clone())
+            return saved[3](self, frames)
+
+        def fetch(self, buf):
+            raw = saved[4](self, buf)
+            split["dtoh_bytes"] += raw.nbytes + 8 * self.clayout.B
+            return raw
+        ji.JpegStreamSource.entropy_pack = timed("entropy_s", entropy)
+        ji.build_device_decoder = decoder
+        ji.MJPEGMultiClipSource.get_batch = timed("source_s", saved[2])
+        je.JpegDeviceEncoder.encode_batch = timed("encode_s", encode_batch)
+        je.JpegDeviceEncoder._fetch = timed("dtoh_s", fetch, before=True)
+        je.write_jpeg_packed = timed("host_encode_s", saved[5])
+        try:
+            split_path = os.path.join(tmp, "split.avi")
+            _, split_wall, msrc, enc = mjpeg_pass(clips, el, split_path,
+                                                  dev)
+        finally:
+            (ji.JpegStreamSource.entropy_pack, ji.build_device_decoder,
+             ji.MJPEGMultiClipSource.get_batch,
+             je.JpegDeviceEncoder.encode_batch, je.JpegDeviceEncoder._fetch,
+             je.write_jpeg_packed) = saved
+        assert msrc.host_decoded == msrc.fallbacks == enc.overflows == 0
+        blobs = [open(p, "rb").read() for p in (*paths, split_path)]
+        line("19b identity", files=len(blobs),
+             identical=all(b == blobs[0] for b in blobs))
+        assert all(b == blobs[0] for b in blobs)
+        s = split
+        htod_s = s["source_s"] - s["entropy_s"] - s["decode_s"]
+        line("19b split", card=repr(card), frames=N_FRAMES,
+             wall_s=f"{split_wall:.4f}", entropy_pack_s=f"{s['entropy_s']:.4f}",
+             htod_mb=f"{s['htod_bytes'] / 1e6:.1f}",
+             htod_and_convert_s=f"{htod_s:.4f}",
+             device_decode_s=f"{s['decode_s']:.4f}",
+             chain_s=f"{split_wall - s['source_s'] - s['encode_s']:.4f}",
+             device_encode_s=f"{s['encode_s'] - s['dtoh_s'] - s['host_encode_s']:.4f}",
+             dtoh_mb=f"{s['dtoh_bytes'] / 1e6:.1f}",
+             dtoh_s=f"{s['dtoh_s']:.4f}",
+             host_entropy_encode_s=f"{s['host_encode_s']:.4f}")
+        # each written frame, decoded back through the ingest lane,
+        # against the frame the encoder was handed
+        frames = torch.cat(rendered)[:N_FRAMES]
+        worst = min(float(psnr(avi_frames_rgb(paths[0], dev, k, CHUNK),
+                               frames[k:k + CHUNK]).min())
+                    for k in range(0, N_FRAMES, CHUNK))
+        del frames, rendered
+        line("19b psnr", frames=N_FRAMES, min_db=f"{worst:.2f}",
+             bound=MJPEG_PSNR_DB)
+        assert worst >= MJPEG_PSNR_DB, worst
+        steps["split"] = time.perf_counter()
+        # the device's activity only (a host trace of the pass takes
+        # longer to read back than the pass)
+        pairs, restore = product_events()
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _, prof_wall, msrc, enc = mjpeg_pass(clips, el, split_path,
+                                                     dev)
+        finally:
+            restore()
+        assert msrc.host_decoded == msrc.fallbacks == enc.overflows == 0
+        busy, top = device_busy(prof)
+        line("19b profiled", card=repr(card), wall_ms=f"{prof_wall * 1e3:.1f}",
+             device_busy_ms=f"{busy:.1f}",
+             idle_share=f"{1 - busy / (prof_wall * 1e3):.3f}",
+             dtoh_copies=dtoh_copies(prof), top=top)
+        # the float64 GEMMs of the trace, and the block products split by
+        # stage with the events around each call (the GEMMs and casts)
+        gemm = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "gemm_f64" in e.name) / 1e3
+        stage = {k: sum(a.elapsed_time(b) for a, b in v)
+                 for k, v in pairs.items()}
+        line("19b products", card=repr(card), trace_f64_gemm_ms=f"{gemm:.1f}",
+             decode_ms=f"{stage['decode']:.1f}",
+             decode_calls=len(pairs["decode"]),
+             encode_ms=f"{stage['encode']:.1f}",
+             encode_calls=len(pairs["encode"]))
+        assert len(pairs["decode"]) and len(pairs["encode"]), pairs
+        steps["profiled"] = time.perf_counter()
+        # the compressed lane against the host lane (PIL decode, upload)
+        # on the first chunk, in turns lane, host, lane (the host lane is
+        # the slow one: a full decode of each frame on the host)
+        lane = ji.MJPEGMultiClipSource(clips, W, H, device=dev)
+        host = ClipFrameSource(clips, device=dev)
+        rates = {}
+        for name, s_ in (("lane", lane), ("host", host), ("lane", lane)):
+            rates.setdefault(name, []).append(
+                CHUNK / source_batches(s_, el, dev, CHUNK))
+        line("19b sources", card=repr(card), frames=CHUNK, tracks=TRACKS,
+             lane_frames_per_s=",".join(f"{r:.1f}" for r in rates["lane"]),
+             host_frames_per_s=",".join(f"{r:.1f}" for r in rates["host"]),
+             lane_over_host=f"{min(rates['lane']) / rates['host'][0]:.2f}")
+        assert lane.host_decoded == 0
+        steps["sources"] = time.perf_counter()
+        os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "0"   # the default prefs
+
+        # 19c. the player on two of the MJPEG clips
+        pclips = (clips[1], clips[2])
+        decoded = {"lane": 0, "host": 0}
+
+        def count(key, fn, frames):
+            def run(*a, **kw):
+                decoded[key] += frames(a)
+                return fn(*a, **kw)
+            return run
+        for c in pclips:
+            dec = c.cdata.decoder
+            dec.get_frames_device = count("lane", dec.get_frames_device,
+                                          lambda a: len(a[0]))
+            c.get_frame = count("host", c.get_frame, lambda a: 1)
+        yk.build()
+        files = {}
+        for label, plain, prof in (("plain", True, False),
+                                   ("kernels", False, False),
+                                   ("profiled", False, True)):
+            decoded.update(lane=0, host=0)
+            path = os.path.join(tmp, f"{label}.y4m")
+            p, ms, counts, misses, trace = player_pass(
+                dev, pclips, path,
+                lambda p: player_setup(p, pclips, FPS, PLAYER_EVERY),
+                clock=ScriptedClock(), plain=plain, prof=prof)
+            files[label] = path
+            runs = counts.pop("runs")
+            want = {k: 0 for k in counts} if plain else player_design(runs)
+            assert counts == want, (label, counts, want)
+            lat = np.asarray(ms)
+            extra = {}
+            if prof:
+                busy, _ = device_busy(trace)
+                extra = dict(wall_ms=f"{trace.wall_ms:.1f}",
+                             device_busy_ms=f"{busy:.1f}",
+                             busy_share=f"{busy / trace.wall_ms:.3f}")
+            line("19c pass", card=repr(card), run=label, cycles=PLAYER_CYCLES,
+                 frames_shown=p.frames_shown, lane_frames=decoded["lane"],
+                 host_decodes=decoded["host"], lane_errors=p.lane_errors,
+                 inline_decodes=misses[0],
+                 k2_launches=counts["yuv420_to_rgb"],
+                 k3_launches=counts["rgb_to_yuv420"],
+                 p50_ms=f"{np.percentile(lat, 50):.3f}",
+                 p99_ms=f"{np.percentile(lat, 99):.3f}",
+                 max_ms=f"{lat.max():.3f}", **extra)
+            assert decoded["lane"] > 0 and decoded["host"] == 0 \
+                and p.lane_errors == 0, (decoded, p.lane_errors)
+            if label == "kernels":
+                for k in ("yuv420_to_rgb", "rgb_to_yuv420"):
+                    launches[k] += counts[k]
+        plain_bytes = np.fromfile(files["plain"], np.uint8)
+        same = {label: np.array_equal(plain_bytes, np.fromfile(path, np.uint8))
+                for label, path in files.items() if label != "plain"}
+        line("19c bit_identity", against="plain", **same)
+        assert all(same.values()), same
+        steps["player"] = time.perf_counter()
+        for c in clips.values():
+            c.close()
+    marks = [t_phase, *steps.values()]
+    line("19 wall", seconds=f"{time.perf_counter() - t_phase:.1f}",
+         **{k: f"{b - a:.1f}" for k, a, b in zip(steps, marks, marks[1:])})
+
+
 def synced_calls(fn):
     """(fn's result, the synchronizing CUDA calls it made, as the warnings
     of torch's sync debug mode)."""
@@ -3025,6 +3545,9 @@ def main(argv) -> int:
         return 0
     if argv == ["--player"]:
         player_phase(dev, card, dict.fromkeys(NAMES, 0))
+        return 0
+    if argv == ["--mjpeg"]:
+        mjpeg_phase(dev, card, dict.fromkeys(NAMES, 0))
         return 0
     if argv and argv not in (["--vocabulary"], ["--vjfilters"],
                              ["--titles"]):
@@ -3605,6 +4128,7 @@ def main(argv) -> int:
     player_phase(dev, card, launches)
     vj_filters(dev, card, launches)
     titles(dev, card, launches)
+    mjpeg_phase(dev, card, launches)
     vel = timeline_v(1)
     vspec, _, _, vrows = chunk_of(vel, dev, 1)
     v_geom = fused_sweep.plan_geometry(

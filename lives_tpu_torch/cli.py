@@ -35,8 +35,7 @@ UNPORTED_SINKS = {"png": 11, "stream": 23, "l2l": 23, "sdl": 23,
                   "vjack": 23, "av": 23}
 #: subcommands of the JAX console not ported yet, and their items
 UNPORTED_COMMANDS = {
-    "render": "multitrack/model.py layouts and the MJPEG multi-clip "
-              "source (ROADMAP Queue 1 items 23 and 18)",
+    "render": "multitrack/model.py layouts (ROADMAP Queue 1 item 23)",
     "selftest": "diagnostics.run_startup_tests (ROADMAP Queue 1 item 23)",
     "recover": "api.py and sets.py (ROADMAP Queue 1 item 23)",
     "rfx": "rfx.py and rfx_scripts.py (ROADMAP Queue 1 items 21 and 23)",

@@ -1,9 +1,10 @@
 """Decoder services, host side: the decoder-plugin contract and the
 YUV4MPEG2 decoder and writer.
 
-Counterpart of `lives_tpu/io/decoders.py:41-114,166-295,353-367`
+Counterpart of `lives_tpu/io/decoders.py:41-114,166-295,353-367,462-661`
 (`ClipData`, `Decoder`, `register_decoder`, `try_decoders`, `Y4MDecoder`,
-`write_y4m`); reference decoder-plugin API, LiVES
+`write_y4m`, `write_mjpeg_avi`, `AVIDecoder`); reference decoder-plugin
+API, LiVES
 `lives-plugins/plugins/decoders/decplugin.h`. A decoder claims a URI, returns
 its clip data and serves frames by index as Layers of host (CPU) planes;
 the device upload happens once a chunk, in `events.renderer.
@@ -11,16 +12,25 @@ ClipFrameSource`. `get_frame(n, out=...)` reads a frame's planes straight
 into caller-owned arrays, the rows of a chunk's stacked planes, so a chunk
 is read with no further host copy.
 
+`AVIDecoder` opens MJPEG and raw-DIB AVIs (the JAX package's own
+compressed clip format, `write_mjpeg_avi`): `get_frame` decodes through
+PIL on the host as RGB24; for MJPG, `get_frames_device(ns, device=...)`
+is the compressed lane (`io/jpeg_ingest.py`: entropy decode on the host,
+the rest on the device), which the player's precache takes.
+
 Plain Python file IO. Not ported yet (ROADMAP Queue 1 item 11): the JAX
 decoder's optional native prefetch cache (`enable_prefetch`, `:191-205`),
-`Y4MStreamSource`, the image-sequence, WAV, AVI and ffmpeg decoders, and
-the contract's `rip_audio` and `estimate_delay` (`:80-90`), which only
-audio and the player's prefetcher call.
+`Y4MStreamSource`, the image-sequence, WAV and ffmpeg decoders, and the
+contract's `rip_audio` and `estimate_delay` (`:80-90`), which only audio
+and the player's prefetcher call.
 """
 
 from __future__ import annotations
 
+import io
+import mmap
 import os
+import struct
 import threading
 from dataclasses import dataclass
 from pathlib import Path
@@ -219,3 +229,197 @@ def write_y4m(path: str, frames_yuv420: Iterable, fps: float = 25.0):
             fh.write(b"FRAME\n")
             for p in (y, u, v):
                 fh.write(np.ascontiguousarray(p, np.uint8).tobytes())
+
+
+# ---------------------------------------------------------------------------
+# AVI: MJPEG + raw DIB, pure-python RIFF parse
+# ---------------------------------------------------------------------------
+
+def write_mjpeg_avi(path, jpeg_frames, width: int, height: int,
+                    fps: float = 25.0):
+    """Minimal MJPEG AVI writer (RIFF avih/strh/strf + movi 00dc chunks +
+    idx1), byte for byte the JAX package's. Streams: `jpeg_frames` may be
+    any iterable; the frame count and sizes are backpatched."""
+
+    def chunk(cid, payload):
+        pad = b"\0" if len(payload) & 1 else b""
+        return cid + struct.pack("<I", len(payload)) + payload + pad
+
+    rate = int(round(fps * 1000))
+
+    def avih(n):
+        return struct.pack("<IIIIIIIIIIIIII", int(1e6 / fps), 0, 0, 0x10,
+                           n, 0, 1, 0, width, height, 0, 0, 0, 0)
+
+    def strh(n):
+        return (b"vids" + b"MJPG"
+                + struct.pack("<IHHIIIIIIIII", 0, 0, 0, 0, 1000, rate,
+                              0, n, 0, 0xFFFFFFFF, 0, 0))
+
+    strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 24, b"MJPG",
+                       width * height * 3, 0, 0, 0, 0)
+
+    def hdrl(n):
+        return chunk(b"LIST", b"hdrl" + chunk(b"avih", avih(n))
+                     + chunk(b"LIST", b"strl" + chunk(b"strh", strh(n))
+                             + chunk(b"strf", strf)))
+
+    with open(path, "wb") as fh:
+        fh.write(b"RIFF" + struct.pack("<I", 0))   # size backpatched
+        fh.write(b"AVI " + hdrl(0))                # counts backpatched
+        movi_start = fh.tell()
+        fh.write(b"LIST" + struct.pack("<I", 0) + b"movi")
+        idx = bytearray()
+        off = 4
+        n = 0
+        for f in jpeg_frames:
+            fh.write(chunk(b"00dc", f))
+            idx += b"00dc" + struct.pack("<III", 0x10, off, len(f))
+            off += 8 + len(f) + (len(f) & 1)
+            n += 1
+        movi_end = fh.tell()
+        fh.write(chunk(b"idx1", bytes(idx)))
+        total = fh.tell()
+        fh.seek(movi_start + 4)
+        fh.write(struct.pack("<I", movi_end - movi_start - 8))
+        fh.seek(4)
+        fh.write(struct.pack("<I", total - 8))
+        fh.seek(12)
+        fh.write(hdrl(n))
+
+
+@register_decoder
+class AVIDecoder(Decoder):
+    """MJPEG and raw-DIB AVIs: frames as host RGB24 planes (PIL for MJPG),
+    and for MJPG the compressed lane onto a device."""
+
+    name = "avi"
+
+    def __init__(self, cdata: ClipData, path: Path,
+                 offsets: list[tuple[int, int]], fourcc: str,
+                 topdown: bool = False):
+        self.cdata = cdata
+        self.path = path
+        self.offsets = offsets
+        self.fourcc = fourcc
+        # negative biHeight = top-down DIB rows (no flip needed)
+        self.topdown = topdown
+        self._fh = open(path, "rb")
+        self._lock = threading.Lock()
+        self._jsrc: dict = {}    # device -> MJPEGClipSource
+
+    @classmethod
+    def get_clip_data(cls, uri: str):
+        p = Path(uri)
+        if not (p.is_file() and p.suffix.lower() == ".avi"):
+            return None
+        # mmap, not read_bytes: the probe touches only chunk headers
+        with open(p, "rb") as fh:
+            try:
+                data = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
+            except (ValueError, OSError):
+                return None
+            try:
+                if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
+                    return None
+                return cls._probe_avi(uri, p, data)
+            finally:
+                data.close()
+
+    @classmethod
+    def _probe_avi(cls, uri, p, data):
+        i = data.find(b"strh")
+        if i < 0 or data[i + 8: i + 12] != b"vids":
+            return None
+        fourcc = data[i + 12: i + 16].decode("latin1").strip("\0 ").upper()
+        scale, rate = struct.unpack("<II", data[i + 28: i + 36])
+        fps = rate / scale if scale else 25.0
+        j = data.find(b"strf", i)
+        w, h = struct.unpack("<ii", data[j + 12: j + 20])
+        if fourcc not in ("MJPG", "DIB", ""):
+            return None  # compressed codecs need ffmpeg
+        # scan movi chunks
+        m = data.find(b"movi")
+        offsets = []
+        pos = m + 4
+        while pos + 8 <= len(data):
+            cid = data[pos: pos + 4]
+            (sz,) = struct.unpack("<I", data[pos + 4: pos + 8])
+            if cid == b"LIST":
+                # interleave groups ('rec ') wrap frame chunks: step INTO
+                # the list (past its 4-byte type), not over it
+                pos += 12
+                continue
+            if cid[2:4] in (b"db", b"dc"):
+                offsets.append((pos + 8, sz))
+            if cid == b"idx1" or sz == 0 and cid[:4] == b"\0\0\0\0":
+                break
+            pos += 8 + sz + (sz & 1)
+        if not offsets:
+            return None
+        cd = ClipData(uri=uri, nframes=len(offsets), width=w, height=abs(h),
+                      fps=fps, palette=int(Palette.RGB24))
+        cd.decoder = cls(cd, p, offsets, fourcc, topdown=h < 0)
+        return cd
+
+    def get_frame_bytes(self, n: int) -> bytes:
+        """Raw codec chunk (the JPEG bitstream for MJPG streams), what the
+        compressed lane (`io/jpeg_ingest.py`) reads."""
+        ofs, sz = self.offsets[n]
+        with self._lock:
+            self._fh.seek(ofs)
+            return self._fh.read(sz)
+
+    def _lane(self, device):
+        if self.fourcc != "MJPG":
+            raise RuntimeError("device decode is MJPG-only")
+        from .jpeg_ingest import MJPEGClipSource
+        dev = torch.device(device)
+        if dev not in self._jsrc:
+            self._jsrc[dev] = MJPEGClipSource(self, device=dev)
+        return self._jsrc[dev]
+
+    def get_frames_device(self, ns, device="cuda") -> list[Layer]:
+        """Batched compressed-domain decode onto `device`: one host
+        entropy-pack pass, one upload, one decode for the whole batch,
+        split into per-frame Layers (views of the batch's planes). The
+        player's precache worker takes this lane; `get_frame` keeps the
+        host-decode contract (decplugin.h:280)."""
+        from .jpeg_ingest import split_layer_batch
+        return split_layer_batch(self._lane(device).get_batch(None,
+                                                              list(ns)))
+
+    def get_frame_device(self, n: int, device="cuda") -> Layer:
+        """Frame n through the compressed lane onto `device`."""
+        return self.get_frames_device([n], device)[0]
+
+    @property
+    def fallbacks(self) -> int:
+        """Frames the lane decoded through the host twin (past the wire's
+        capacity)."""
+        return sum(s.fallbacks for s in self._jsrc.values())
+
+    def get_frame(self, n: int, out=None) -> Layer:
+        """Frame n as a host RGB24 (3, H, W) plane, read into `out` (one
+        writable (3, H, W) uint8 array) when given."""
+        raw = self.get_frame_bytes(n)
+        w, h = self.cdata.width, self.cdata.height
+        if self.fourcc == "MJPG":
+            from PIL import Image
+            with Image.open(io.BytesIO(raw)) as im:
+                arr = np.asarray(im.convert("RGB"))
+        else:  # raw DIB: bottom-up BGR rows, 4-byte aligned
+            stride = (w * 3 + 3) & ~3
+            arr = np.frombuffer(raw[: stride * h], np.uint8
+                                ).reshape(h, stride)[:, : w * 3]
+            arr = arr.reshape(h, w, 3)[:, :, ::-1]
+            if not self.topdown:  # bottom-up rows (positive biHeight)
+                arr = arr[::-1]
+        if out is None:
+            out = (np.empty((3, h, w), np.uint8),)
+        out[0][...] = np.moveaxis(arr, -1, 0)
+        return Layer(planes=(torch.from_numpy(out[0]),),
+                     palette=int(Palette.RGB24), gamma=int(Gamma.SRGB))
+
+    def close(self):
+        self._fh.close()

@@ -1,8 +1,9 @@
-"""Encoder plugins: the capability-query contract and the YUV4MPEG2
-encoder.
+"""Encoder plugins: the capability-query contract, the YUV4MPEG2 encoder
+and the MJPEG AVI encoder.
 
-Counterpart of `lives_tpu/io/encoders.py:24-99` (`Encoder`,
-`register_encoder`, `get_encoder`, `Y4MEncoder`); the reference drives
+Counterpart of `lives_tpu/io/encoders.py:24-99,295-364` (`Encoder`,
+`register_encoder`, `get_encoder`, `Y4MEncoder`, `MJPEGDeviceEncoder`);
+the reference drives
 encoder scripts over a stdout protocol (`get_capabilities` / `get_formats`
 / `encode`, LiVES src/plugins.c:1813). `Y4MEncoder` sets
 `accepts_device_frames`, the flag the JAX base class defines
@@ -12,15 +13,20 @@ YUV planes cross to the host; the file is written as frames arrive.
 `render_to_encoder` hands such an encoder each rendered chunk whole, a
 (B, C, H, W) item, which `Y4MEncoder` converts with one K3 launch and
 brings to the host in one copy; a 3-D item is one frame, as in the JAX
-package, and writes the same bytes.
+package, and writes the same bytes. `MJPEGDeviceEncoder` ("mjpeg", the
+default of `render_to_encoder`) also takes device frames: it encodes them
+through the compressed lane (`io/jpeg_encode.py`) in batches of its fixed
+`batch`, whatever the items' sizes, so a chunk writes the same bytes as
+its frames one at a time.
 
-Not ported yet (ROADMAP Queue 1 item 11): `WavEncoder` (so `Y4MEncoder`'s
-`audio` raises), `PNGSeqEncoder`, the MJPEG encoder (Slice 5) and the
+Not ported yet (ROADMAP Queue 1 item 11): `WavEncoder` (so the audio of
+`Y4MEncoder` and `MJPEGDeviceEncoder` raises), `PNGSeqEncoder` and the
 ffmpeg encoder. `get_encoder` names the item for each.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Iterable
 
@@ -36,7 +42,6 @@ CAP_VIDEO = 1
 DEFERRED = {
     "pngseq": "ROADMAP Queue 1 item 11 (PNG images need PIL)",
     "wav": "ROADMAP Queue 1 item 11",
-    "mjpeg": "ROADMAP Queue 1 item 19 (the compressed MJPEG lane)",
     "ffmpeg": "ROADMAP Queue 1 item 11",
 }
 
@@ -124,4 +129,79 @@ class Y4MEncoder(Encoder):
                 else:
                     yield from zip(y, u, v)
         write_y4m(out_path, planar(), fps)
+        return True
+
+
+@register_encoder
+class MJPEGDeviceEncoder(Encoder):
+    """MJPEG AVI export through the compressed lane (`io/jpeg_encode.py`):
+    batches of frames are converted, transformed, quantised and packed on
+    their device and cross as coefficients; the host runs the entropy
+    encode and writes the AVI (`decoders.write_mjpeg_avi`). Frames that
+    are tensors are encoded on their device, host (numpy) frames on
+    `device`. Reference role: jpeg stream export (marcos-encoders
+    family).
+
+    `overflows` totals, over every `encode`, the frames the lane wrote
+    with their ACs cut at its pool (`JpegDeviceEncoder.overflows`, a loss
+    of quality, never corruption); a warning names the file the first
+    time it is above 0."""
+
+    name = "mjpeg"
+    accepts_device_frames = True
+
+    @classmethod
+    def get_formats(cls):
+        return [EncFormat("mjpeg_avi", "avi", "Motion-JPEG AVI")]
+
+    def __init__(self, quality: int = 90, batch: int = 8, *,
+                 device="cuda"):
+        self.quality = quality
+        self.batch = batch
+        self.device = device
+        self.overflows = 0
+
+    def encode(self, out_path, frames, fps, audio=None, arate=44100):
+        from .decoders import write_mjpeg_avi
+        from .jpeg_encode import JpegDeviceEncoder
+        if audio is not None:
+            raise NotImplementedError(
+                "audio beside an MJPEG AVI needs WavEncoder, which is not "
+                "ported yet (ROADMAP Queue 1 item 11)")
+        enc = None
+        datas: list[bytes] = []
+        pending: list[torch.Tensor] = []   # (n, 3, H, W) pieces, in order
+
+        def flush(final=False):
+            nonlocal enc
+            n = sum(int(p.shape[0]) for p in pending)
+            while n >= self.batch or (final and n):
+                batch = torch.cat(pending) if len(pending) > 1 \
+                    else pending[0]
+                take = min(n, self.batch)
+                pending[:] = [batch[take:]] if take < n else []
+                if enc is None:
+                    h, w = batch.shape[-2:]
+                    enc = JpegDeviceEncoder(w, h, quality=self.quality,
+                                            batch=self.batch,
+                                            device=batch.device)
+                datas.extend(enc.encode_batch(batch[:take]))
+                n -= take
+
+        for f in frames:
+            if not isinstance(f, torch.Tensor):
+                f = torch.from_numpy(np.ascontiguousarray(f)).to(self.device)
+            f = _chw(f)[..., :3, :, :]
+            pending.append(f if f.ndim == 4 else f[None])
+            flush()
+        flush(final=True)
+        if not datas:
+            return False
+        if enc.overflows and not self.overflows:
+            warnings.warn(f"MJPEGDeviceEncoder: {out_path}: {enc.overflows} "
+                          "frames written with their ACs cut at the pool",
+                          stacklevel=2)
+        self.overflows += enc.overflows
+        h, w = enc.meta.height, enc.meta.width
+        write_mjpeg_avi(out_path, datas, w, h, fps)
         return True

@@ -6,8 +6,9 @@ main path's 10 tracks and 13 effects) at a small geometry through every
 path of `parallel.mesh`: frame-batch DP, spatial bands, a DP x SP grid,
 the band sweep (which must engage), a stateful chain over bands, and a
 pipeline over four one-input filters. The JAX dry run's DP steps over the
-JPEG device decoder and encoder wait for their modules (ROADMAP Queue 1
-Slice 5, items 18-19) and are left out.
+JPEG device decoder and encoder (`__graft_entry__.py:186-238`) come with
+`shard_decode_batch` and `shard_encode_batch` over the port's `Mesh`
+(ROADMAP Queue 1 item 25) and are left out.
 
     from lives_tpu_torch.parallel import dryrun_multichip
     dryrun_multichip(["cpu"] * 8)        # or ["cuda:0"] * 4, or 4 cards

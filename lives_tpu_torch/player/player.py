@@ -30,18 +30,26 @@ Subtitles (`load_subtitles`, `text.SubtitleOverlay`) composite after the
 chain and before the pipeline, indexed by clip time, on an RGB sink's
 frames; a mask is uploaded once while its subtitle shows.
 
+The compressed lane (JAX `:1015-1025,1047-1064,1228-1245`): a virtual
+frame of a decoder with `get_frame_device` (an MJPEG AVI) is decoded
+through `io/jpeg_ingest.py` onto the player's device while the pref
+`mjpeg_device_decode` is on (the default): entropy decode on the host,
+the rest on the card, so it skips the upload ring. The precache worker
+decodes each clip's missing window with one `get_frames_device` call a
+`precache_chunk` of frames, and a miss on such a clip drops the frame
+(the worker will decode it) rather than decode inline. An exception of
+the lane falls back to the host decode, as in the JAX package, and is
+counted (`lane_errors`) and warned once a clip.
+
 Left out, each raising `NotImplementedError` naming its ROADMAP Queue 1
-item: the MJPEG device decode lane (`get_frames_device`, item 18: the
-worker decodes frame by frame, as the JAX package does for a decoder
-without it), scrap capture of live sources while recording (a stateful
+item: scrap capture of live sources while recording (a stateful
 generator or a `scrap_on_record` clip; item 21; stateless generators ride
 as `GenSlot`s and decoded clips need none), data connections and cconx
 (item 21), audio, `time_source="audio"` and the audio of a
 recorded frame (item 23); the JACK transport that mirrors start and stop
 (`transport`, item 23) is absent. The JAX worker's fixed decode batch
 sizes {4, `precache_chunk`} existed so that XLA compiled two templates;
-the port decodes the window as it stands (`precache_chunk` is kept so the
-API matches).
+the port decodes the window as it stands, in chunks of `precache_chunk`.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ import dataclasses
 import math
 import threading
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -390,9 +399,12 @@ class Player:
         # already decoding: drop the frame (never block the serving loop
         # on a synchronous decode). First frame always renders.
         self.drop_on_miss = True
-        # the JAX package's fixed decode batch size; the port decodes the
-        # window frame by frame and keeps the attribute so the API matches
+        # frames a batched decode of the compressed lane takes at once
         self.precache_chunk = 8
+        # exceptions of the compressed lane that fell back to the host
+        # decode, and the clips already warned about
+        self.lane_errors = 0
+        self._lane_warned: set = set()
         # adaptive quality under load (reference "effort", prefs->pbq_adaptive)
         self.adaptive_quality = False
         self.effort = 0
@@ -911,10 +923,13 @@ class Player:
         if lay is not None:
             self._precache[key] = lay
             return self._ready(lay, self._copies.pop(key, None))
+        dec = getattr(getattr(clip, "cdata", None), "decoder", None)
         if self.drop_on_miss and self.frames_shown > 0 \
-                and self.precache_depth > 0 and key in self._inflight:
-            # the worker is on it: skip this frame rather than stall the
-            # loop with a synchronous decode
+                and self.precache_depth > 0 \
+                and (key in self._inflight
+                     or hasattr(dec, "get_frames_device")):
+            # the worker is (or will be) on it: skip this frame rather
+            # than stall the loop with a synchronous decode
             raise _PrecacheMiss(key)
         lay, ev = self._decode_frame(clip, n)
         if self.precache_depth:
@@ -940,12 +955,45 @@ class Player:
         # frame number
         return (id(clip), getattr(clip, "version", 0), n)
 
+    def _lane(self, clip, frames):
+        """(the decoder, its frames for `frames`) when the compressed lane
+        takes them: an MJPG decoder with `get_frames_device` (a raw-DIB
+        AVI has the method too, but nothing to decode), the pref on, and
+        every frame a virtual one; else None."""
+        from ..prefs import pref
+        dec = getattr(getattr(clip, "cdata", None), "decoder", None)
+        if not hasattr(dec, "get_frames_device") \
+                or getattr(dec, "fourcc", "") != "MJPG" \
+                or str(pref("mjpeg_device_decode", "1")) == "0":
+            return None
+        virt = getattr(clip, "is_virtual_frame", lambda _n: True)
+        if not all(virt(f) for f in frames):
+            return None
+        fi = getattr(clip, "frame_index", None)
+        return dec, [int(fi[f]) if fi is not None else f for f in frames]
+
+    def _lane_failed(self, clip, e: Exception):
+        self.lane_errors += 1
+        if id(clip) not in self._lane_warned:
+            self._lane_warned.add(id(clip))
+            warnings.warn(f"Player: the compressed lane failed on "
+                          f"{getattr(clip, 'name', clip)!r} ({e!r}); its "
+                          "frames decode on the host")
+
     def _decode_frame(self, clip, n):
         """(frame n of `clip` on the player's device, the copy's event or
-        None). A clip that knows its frame's planes (`frame_config`) is
-        read straight into a pinned slot of the upload ring; other host
+        None). The compressed lane decodes a frame of an MJPEG clip onto
+        the device; a clip that knows its frame's planes (`frame_config`)
+        is read straight into a pinned slot of the upload ring; other host
         frames are copied into one; a frame already on the device passes
         through. Shared by `_pull` and the precache worker."""
+        lane = self._lane(clip, [n])
+        if lane is not None:
+            try:
+                return lane[0].get_frame_device(lane[1][0],
+                                                device=self.device), None
+            except Exception as e:
+                self._lane_failed(clip, e)
         cfg = getattr(clip, "frame_config", None)
         cfg = cfg(n) if cfg is not None else None
         if self._ring is not None and cfg is not None:
@@ -973,10 +1021,18 @@ class Player:
         return lay.replace(planes=planes), ev
 
     def _decode_frames_batched(self, clip, fs):
-        """The whole-window compressed-domain decode (the MJPEG device
-        lane, `get_frames_device`) is not ported (item 18): None, and the
-        worker decodes frame by frame."""
-        return None
+        """Frames `fs` of `clip` through the compressed lane in one
+        `get_frames_device` call, on the player's device; None when the
+        lane does not take them (the worker then decodes frame by
+        frame)."""
+        lane = self._lane(clip, fs)
+        if lane is None:
+            return None
+        try:
+            return lane[0].get_frames_device(lane[1], device=self.device)
+        except Exception as e:
+            self._lane_failed(clip, e)
+            return None
 
     def _request_precache(self, target: int):
         st = self.state
@@ -1050,11 +1106,12 @@ class Player:
                     if self._pc_state == state:
                         self._pc_cv.wait(0.05)
                 continue
-            for c, f in [(bg[0], f) for f in bmiss] + \
-                    [(clip, f) for f in missing]:
-                if self._pc_stop:
-                    break
-                self._store(c, f)
+            for c, fs in ((bg[0] if bg else None, bmiss), (clip, missing)):
+                step = max(1, int(self.precache_chunk))
+                for k in range(0, len(fs), step):
+                    if self._pc_stop:
+                        break
+                    self._store(c, fs[k:k + step])
             # bound the cache (racy vs _pull's pop-reinsert on the main
             # thread: a KeyError here would silently kill the worker)
             while len(self._precache) > 4 * self.precache_depth:
@@ -1065,19 +1122,27 @@ class Player:
                 self._precache.pop(k, None)
                 self._copies.pop(k, None)
 
-    def _store(self, clip, f):
-        """Decode and upload frame f of `clip` into the precache (the copy
-        event first, so the serving loop never sees a frame without it)."""
-        k = self._ck(clip, f)
-        if k not in self._precache:
-            try:
-                lay, ev = self._decode_frame(clip, f)
-                if ev is not None:
-                    self._copies[k] = ev
-                self._precache[k] = lay
-            except Exception:
-                pass  # a frame that fails to decode is pulled inline later
-        self._inflight.discard(k)
+    def _store(self, clip, fs):
+        """Decode frames fs of `clip` into the precache: through the
+        compressed lane in one call where it takes them, else each decoded
+        and uploaded (the copy event first, so the serving loop never sees
+        a frame without it)."""
+        todo = [f for f in fs if self._ck(clip, f) not in self._precache]
+        lays = self._decode_frames_batched(clip, todo) if todo else None
+        for j, f in enumerate(todo):
+            k = self._ck(clip, f)
+            if lays is not None:
+                self._precache[k] = lays[j]
+            else:
+                try:
+                    lay, ev = self._decode_frame(clip, f)
+                    if ev is not None:
+                        self._copies[k] = ev
+                    self._precache[k] = lay
+                except Exception:
+                    pass  # a frame that fails is pulled inline later
+        for f in fs:
+            self._inflight.discard(self._ck(clip, f))
 
     def _fetch_host_layers(self, group):
         """A group of pipelined output Layers on the host in ONE copy: every

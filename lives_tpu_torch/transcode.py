@@ -2,11 +2,12 @@
 
 Counterpart of `lives_tpu/transcode.py:70-93` (`render_to_encoder`;
 reference `src/transcode.c` with events.c:4994, without the intermediate
-clip). With an encoder that takes device frames (`Y4MEncoder`), the
-rendered frames never cross to the host as raw RGB: such an encoder gets
-each chunk whole, a (B, C, H, W) device tensor, so it converts and copies
-once a chunk. Any other encoder gets host frames one at a time, as the
-JAX package hands them. `transcode` (a clip
+clip). With an encoder that takes device frames (`Y4MEncoder`, and
+`MJPEGDeviceEncoder`, the default "mjpeg": an MJPEG AVI through the
+compressed lane), the rendered frames never cross to the host as raw RGB:
+such an encoder gets each chunk whole, a (B, C, H, W) device tensor, and
+converts or encodes it on the device. Any other encoder gets host frames
+one at a time, as the JAX package hands them. `transcode` (a clip
 through a chain into an encoder, `transcode.py:19-67`) is not ported yet
 (ROADMAP Queue 1 item 11).
 """

@@ -4,7 +4,9 @@ the composite kernel and K6, the fused-multiply-add probe (within a
 relative error of K * 2^-23); the live path (`FrameGraph.run`,
 `GeneratorClip`) on the card against the CPU; and the realtime player
 (decoded clips: K2/K3 launches, its Y4M file byte-identical to the plain
-versions'; the upload ring; `NullSink`'s bounded lag).
+versions'; the upload ring; `NullSink`'s bounded lag); the MJPEG lanes'
+encoder and decoder at 1080p on the card against the CPU, and their
+block products in full precision whatever the TF32 switch.
 
 These tests need an NVIDIA GPU and skip without one. They import neither
 jax nor lives_tpu, so they also run where only PyTorch is installed:
@@ -1527,3 +1529,81 @@ def test_position_twins_on_the_card_match_cpu(cuda):
             640, 360) for d in (cuda, torch.device("cpu"))]
         for x, y in zip(*got):
             assert torch.equal(x.cpu(), y), mode
+
+
+def _jpeg_frames_1080p(device, B=4):
+    """Four 1080p frames of config D's source (chip_smoke phase 19a)."""
+    return DeviceSyntheticSource(1080, 1920, device=device).get_batch(
+        list(range(1, B + 1)), [0, 5, 10, 15][:B]).planes[0]
+
+
+@pytest.mark.cuda
+def test_jpeg_encoder_card_matches_cpu_at_1080p(cuda):
+    """The coefficient stage on the card within +-1 of the CPU's on under
+    2e-3 of coefficients; both wires packed on the card from the CPU's
+    coefficients byte for byte the CPU's."""
+    from lives_tpu_torch.io import jpeg_encode as je
+    cpu = torch.device("cpu")
+    rgb = _jpeg_frames_1080p(cuda)
+    encs = {d: je.JpegDeviceEncoder(1920, 1080, quality=90, batch=4,
+                                    device=d) for d in (cuda, cpu)}
+    (dcd, acd), (dcc, acc) = (encs[d].coefs(rgb.to(d)) for d in (cuda, cpu))
+    d = torch.cat([(dcd.cpu().int() - dcc.int()).abs().reshape(-1),
+                   (acd.cpu() - acc).abs().reshape(-1)])
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) < 2e-3
+    lay3 = encs[cpu].clayout
+    for pack, lay in ((je.pack_wire,
+                       je.WireLayout(lay3.nb, lay3.capacity, lay3.esc_cap)),
+                      (je.pack_compact, lay3)):
+        assert torch.equal(pack(dcc.to(cuda), acc.to(cuda), lay).cpu(),
+                           pack(dcc, acc, lay))
+
+
+@pytest.mark.cuda
+def test_jpeg_decoder_card_matches_cpu_at_1080p(cuda):
+    """The decoder's planes on the card within 1 LSB of the CPU's and of
+    the float64 twin; no frame past the capacity."""
+    from lives_tpu_torch.io import jpeg_encode as je
+    from lives_tpu_torch.io import jpeg_ingest as ji
+    cpu = torch.device("cpu")
+    rgb = _jpeg_frames_1080p(cpu)
+    jpegs = je.JpegDeviceEncoder(1920, 1080, quality=90, batch=4,
+                                 device=cpu).encode_batch(rgb)
+    srcs = {d: ji.JpegStreamSource(jpegs, device=d) for d in (cuda, cpu)}
+    got, ref = (srcs[d].get_batch_planes(range(4)) for d in (cuda, cpu))
+    twins = [ji.decode_frame_ref(ji.read_coefficients(j)) for j in jpegs]
+    for k, (a, b) in enumerate(zip(got.planes, ref.planes)):
+        assert a.device.type == "cuda"
+        assert int((a.cpu().int() - b.int()).abs().max()) <= 1
+        t = torch.from_numpy(np.stack([x[k][:a.shape[1], :a.shape[2]]
+                                       for x in twins]))
+        assert int((a.cpu().int() - t.int()).abs().max()) <= 1
+    assert srcs[cuda].fallbacks == 0
+
+
+@pytest.mark.cuda
+def test_jpeg_lane_products_in_full_precision(cuda):
+    """The lane's block products are float64 rounded once to float32
+    whatever the process's TF32 switch says: within 2^-23 of the exact
+    products where a TF32 float32 product is not, and the lane's
+    coefficients and planes unchanged with the switch on."""
+    from lives_tpu_torch.io import jpeg_encode as je
+    from lives_tpu_torch.io import jpeg_ingest as ji
+    rgb = _jpeg_frames_1080p(cuda, 2)
+    enc = je.JpegDeviceEncoder(1920, 1080, quality=90, batch=2, device=cuda)
+    src = ji.JpegStreamSource(enc.encode_batch(rgb), device=cuda)
+    co, planes = enc.coefs(rgb), src.get_batch_planes([0, 1]).planes
+    A = torch.from_numpy(ji._idct_basis(np.float64)).to(cuda)
+    blocks = torch.cat([co[1].new_full((co[1].shape[1], 1), 100),
+                        co[1][0]], 1).float().view(-1, 8, 8) * 16.0
+    exact = A @ blocks.double() @ A.T
+    torch.set_float32_matmul_precision("high")
+    try:
+        lane = ji.block_products(A, blocks, A.T)
+        co2, planes2 = enc.coefs(rgb), src.get_batch_planes([0, 1]).planes
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    scale = exact.abs().max()
+    assert float(((lane.double() - exact).abs() / scale).max()) <= 2 ** -23
+    assert torch.equal(co[0], co2[0]) and torch.equal(co[1], co2[1])
+    assert all(torch.equal(a, b) for a, b in zip(planes, planes2))
