@@ -47,7 +47,11 @@ plain PyTorch version:
 - the MJPEG lanes (`io/jpeg_ingest.py`, `io/jpeg_encode.py`, the AVI
   reader and writer): config D from MJPEG AVIs through the compressed
   ingest lane (K2, K4) into `render_to_encoder`'s default "mjpeg"
-  encoder, and the player on MJPEG clips through the lane (K2, K3).
+  encoder, and the player on MJPEG clips through the lane (K2, K3);
+- data connections: the 25 filters they carry, each alone against the
+  CPU, a wired render (cconx recorded on init events) from decoded clips
+  on the frame loop (K2, K3), and the player with a wired keymap loaded
+  from datacons.map (K2, K3).
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --config-d   # config D alone (phase 11's render
@@ -57,6 +61,7 @@ plain PyTorch version:
     python3 chip_smoke.py --roofline   # phase 13 alone, no result line
     python3 chip_smoke.py --live       # phase 14 alone, no result line
     python3 chip_smoke.py --vocabulary # phases 1-2 and 15, no result line
+    python3 chip_smoke.py --datacons   # phase 20 alone, no result line
     python3 chip_smoke.py --guard      # K1 u8, K4 and K5 on their main
                                        # paths' chunks and the ptxas report
                                        # of the three, no result line
@@ -303,6 +308,37 @@ Phases, one line each:
       decode through `get_frames_device` (counted; no host decode, no lane
       error), K2 and K3 as designed, the three files byte-identical,
       process_one p50, p99 and max, the device's busy share.
+20. data connections (`effects/data.py`, cconx through `FrameGraph`, the
+   renderer and the player) at 1920x1080:
+   a. each of the slice's 25 filters (`DATA_FILTERS`: alpha.py's 6,
+      analysers.py's 9, dataplugins.py's 7, depth_key, image_stabilizer,
+      neural_net) on the card against the same call on the CPU, on the
+      same seeded frames, per-frame values and alpha planes (B = 2; a
+      stateful filter two frames, each side carrying its own state):
+      frames and A8 channels within 1 LSB, float out-values, AFLOAT
+      channels and float state within `DATA_REL` of the larger magnitude,
+      the rest bit for bit (`DATA_EXACT`); each filter's ms a 1080p frame
+      by CUDA events;
+   b. `wired_timeline` (phase 11's clips 1 and 2, `WIRED_CHAIN` with its
+      `cconx` props: fg_bg_removal's mask into alpha_means, motion_mask's
+      into mask_overlay, farneback's flow into vector_visualiser, then
+      image_stabilizer) through `render_to_encoder(..., "yuv4mpeg")`, 192
+      frames in 96-frame chunks, twice: K2 two launches a chunk, K3 one,
+      K1, K4 and K5 none; its first 4 frames against the same render on
+      the CPU port within 1 LSB outside the pixels whose
+      vector_visualiser gate flips (counted); frames/s and the
+      `get_batch` split;
+   c. phase 16's clips on the player with `DATA_KEYS` (motion_mask's mask
+      into mask_overlay by cconx, alpha_means' mean_r into vignette's
+      amount by pconx with autoscale), the connections saved to
+      datacons.map and loaded back, `data_script` (reverse and nervous
+      spans, no toggle or switch) on the scripted clock,
+      recorded: plain versions, kernels twice, kernels profiled, the four
+      Y4M files byte-identical, K2 and K3 launches as designed,
+      process_one p50, p99 and max, the device's busy share and its
+      device-to-host copies a cycle; the take's re-render (its wired
+      init rebuilt from the recorded `cconx` props) within
+      `PLAYER_RERENDER_BOUND`.
 Then a `resources` line for K1 (both builds), K4, K5 and K6 (the path's
 entry: ptxas registers and spills, blocks an SM), a JSON line of the kernels
 (with each one's bound: the larger of its bytes over 3.35 TB/s and its
@@ -3474,6 +3510,421 @@ def mjpeg_phase(dev, card, launches):
          **{k: f"{b - a:.1f}" for k, a, b in zip(steps, marks, marks[1:])})
 
 
+# -- phase 20: data connections ----------------------------------------------
+
+#: phase 20a's filters, the slice's 25, with the values fixed in every
+#: call (the other num params draw seeded per-frame values in range)
+DATA_FILTERS = [
+    ("motion_mask", {}), ("farneback_analyser", {}),
+    ("fg_bg_removal", {"type": 1}), ("alpha_visualizer", {}),
+    ("vector_visualiser", {}), ("alpha_to_grey", {}),
+    ("blank_frame_detector", {}), ("alpha_means", {}), ("histogram", {}),
+    ("edge_analyser", {}), ("motion_analyser", {}), ("scene_change", {}),
+    ("spot_tracker", {}), ("template_tracker", {}),
+    ("haar_analyser", {"nco": 40}), ("data_unpacker", {}), ("log_sig", {}),
+    ("data_counter", {}), ("nn_programmer", {}), ("smoother", {}),
+    ("integrator", {}), ("timer", {}), ("depth_key", {}),
+    ("image_stabilizer", {}), ("neural_net", {})]
+#: out-values held bit for bit between the card and the CPU (the others
+#: within DATA_REL of the larger magnitude); every integer or boolean value
+#: and state is exact too
+DATA_EXACT = {"blank", "histogram", "cut", "sig_y", "sig_u", "sig_v", "x",
+              "y", "out0", "out1", "out2", "out3", "was_reset"}
+DATA_REL = 1e-5
+#: phase 20b's wired chains, in chain order: (filter, values, in_tracks)
+#: and the channel edges between them (src, out-channel, dst, slot)
+WIRED_CHAIN = [("fg_bg_removal", {"threshold": 0.05}, [0]),
+               ("alpha_means", {}, [0]),
+               ("motion_mask", {"threshold": 0.03}, [0]),
+               ("mask_overlay", {}, [0, 1]),
+               ("farneback_analyser", {"scale": 4.0}, [0]),
+               ("vector_visualiser", {"scale": 1.0}, [0]),
+               ("image_stabilizer", {"strength": 1.0}, [0])]
+WIRED_CCONX = [(0, "mask", 1, 0), (2, "mask", 3, 0), (4, "flow_x", 5, 0),
+               (4, "flow_y", 5, 1)]
+#: phase 20c's keys: key -> (filter, per-key defaults); key 0's mask
+#: feeds key 1 (cconx), key 2's mean_r feeds key 3's amount (pconx,
+#: autoscale)
+DATA_KEYS = {0: ("motion_mask", {"threshold": 0.04}),
+             1: ("mask_overlay", {}), 2: ("alpha_means", {}),
+             3: ("vignette", {})}
+
+
+def wired_timeline(n_frames):
+    """Phase 20b's timeline: `WIRED_CHAIN` recorded as init events, the
+    channel wiring as `cconx` props on each destination's init (as the
+    JAX player's `_annotate_rec_cconx` writes them), tracks 0 and 1
+    playing clips 1 and 2 at frame i % CLIP_FRAMES."""
+    from lives_tpu_torch.events.event_list import (EventList,
+                                                   TICKS_PER_SECOND,
+                                                   filter_init_event,
+                                                   filter_map_event,
+                                                   frame_event)
+    el = EventList(fps=FPS, width=W, height=H)
+    inits = [filter_init_event(0, f, in_tracks=tr, out_tracks=[0],
+                               values=v) for f, v, tr in WIRED_CHAIN]
+    for si, name, di, slot in WIRED_CCONX:
+        inits[di].props.setdefault("cconx", []).append(
+            [inits[si].event_id, name, slot])
+    for e in inits:
+        el.insert(e)
+    el.insert(filter_map_event(0, [e.event_id for e in inits]))
+    tpf = int(TICKS_PER_SECOND / FPS)
+    for i in range(n_frames):
+        el.insert(frame_event(i * tpf, [1, 2], [i % CLIP_FRAMES] * 2))
+    return el
+
+
+def data_script(cycles, every):
+    """{cycle: [action, ...]} of phase 20c: phase 16's reversed and
+    nervous spans, no key toggle and no fg switch. The renderer starts a
+    segment, with fresh instances, where the filter map or the clips a
+    frame plays change, so a stateful filter (motion_mask) kept on across
+    either re-renders its first frame there from a fresh state, in both
+    packages (a hard switch measured 192 LSB at that one frame)."""
+    acts = {c: [a for a in v if a[0] not in ("toggle", "switch")]
+            for c, v in player_script(cycles, every).items()}
+    return {c: v for c, v in acts.items() if v}
+
+
+def data_setup(p, clips, map_path, record=True, data=None):
+    """Phase 20c's set-up: `DATA_KEYS` on and their wiring (mask_overlay
+    over the fg and bg tracks), the connections saved to `map_path` with
+    `save_datacons` and loaded back with `load_datacons` as the player's
+    `datacons`; clips a (fg) and b (bg), precache 8, pipeline 2, fetch
+    groups of 4, the seeded nervous generator, recording on, playing.
+    `data` is the `effects.data` module of the player's package (the
+    port's by default)."""
+    import numpy as np
+    if data is None:
+        from lives_tpu_torch.effects import data
+    for k, (name, vals) in DATA_KEYS.items():
+        p.keymap.set_key(k, 0, name)
+        if vals:
+            p.keymap.set_key_defaults(k, 0, **vals)
+        p.key_toggle(k, True)
+    i = p.keymap.instances
+    dc = data.DataConnections()
+    dc.add_channel(i[0], "mask", i[1], 0)
+    dc.add(i[2], "mean_r", i[3], "amount", autoscale=True)
+    data.save_datacons(dc, p.keymap, map_path)
+    p.datacons = data.load_datacons(p.keymap, map_path)
+    p.state.fg_clip, p.state.bg_clip = clips
+    p.precache_depth, p.pipeline_depth, p.fetch_batch = 8, 2, 4
+    p._nervous_rng = np.random.default_rng(PLAYER_SEED)
+    if record:
+        p.record_start(clips[0].width, clips[0].height)
+    p.start()
+
+
+def _data_params(filt, rng, B, device):
+    """Seeded per-frame values of a filter's num params ((B,) float32 on
+    `device`), the other kinds at their defaults."""
+    import torch
+    return {p.name: torch.from_numpy(rng.uniform(p.min, p.max, B).astype(
+        "float32")).to(device) if p.kind == "num" else p.default
+        for p in filt.params}
+
+
+def _alpha_inputs(name, rng, B):
+    """Seeded alpha planes (B, H, W) for a filter's alpha in-slots, with
+    their palettes: an A8 mask, or AFLOAT flow or depth."""
+    import numpy as np
+    import torch
+
+    from lives_tpu_torch.constants import Palette
+    if name in ("alpha_visualizer", "alpha_means"):
+        return [(torch.from_numpy(rng.integers(0, 256, (B, H, W),
+                                               dtype=np.uint8)),
+                 int(Palette.A8))]
+    if name == "vector_visualiser":
+        return [(torch.from_numpy(rng.normal(0, 3, (B, H, W)).astype(
+            np.float32)), int(Palette.AFLOAT)) for _ in range(2)]
+    if name == "depth_key":
+        return [(torch.from_numpy(rng.uniform(0, 1, (B, H, W)).astype(
+            np.float32)), int(Palette.AFLOAT))]
+    return []
+
+
+def _values_held(name, got, ref):
+    """Every out-value of the card (`got`) against the CPU's (`ref`):
+    (worst relative difference of the float ones, all exact ones equal)."""
+    import torch
+    worst, same = 0.0, True
+    assert set(got) == set(ref), (name, sorted(got), sorted(ref))
+    for k in ref:
+        a, b = torch.as_tensor(got[k]).cpu(), torch.as_tensor(ref[k])
+        if k in DATA_EXACT or not b.is_floating_point():
+            same = same and torch.equal(a, b)
+        else:
+            d = (a.double() - b.double()).abs().max().item()
+            worst = max(worst, d / max(1.0, b.double().abs().max().item()))
+    return worst, same
+
+
+def _states_held(got, ref):
+    """(worst relative float difference, integer leaves equal) of two
+    states."""
+    import torch
+    if got is None:
+        return 0.0, ref is None
+    if isinstance(got, dict):
+        parts = [_states_held(got[k], ref[k]) for k in ref]
+    elif isinstance(got, tuple):
+        parts = [_states_held(g, r) for g, r in zip(got, ref)]
+    else:
+        a, b = got.cpu(), ref
+        if not b.is_floating_point():
+            return 0.0, torch.equal(a, b)
+        d = (a.double() - b.double()).abs().max().item()
+        return d / max(1.0, b.double().abs().max().item()), True
+    return max((w for w, _ in parts), default=0.0), all(s for _, s in parts)
+
+
+def datacons_phase(dev, card, launches):
+    """20. data connections at 1920x1080 on the card: the slice's 25
+    filters alone against the port on the CPU, a wired render from
+    decoded clips, the player with a wired keymap."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.effects.builtin import alpha as alpha_mod
+    from lives_tpu_torch.effects.host import (_REGISTRY, FILTER_STATEFUL,
+                                              FrameContext, Instance,
+                                              apply_instance, get_filter)
+    from lives_tpu_torch.io.decoders import try_decoders
+    from lives_tpu_torch.layer import Layer
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+
+    os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "0"   # the default prefs
+    os.environ["LIVES_TPU_FUSED_STATEFUL"] = "0"
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    steps = {}
+
+    def ctx_on(device, frames):
+        fr = torch.tensor(frames, dtype=torch.int32)
+        return FrameContext(tc=(fr.float() / FPS).to(device),
+                            frame=fr.to(device), fps=FPS, width=W, height=H,
+                            device=device)
+
+    def lsb(a, b):
+        return int((a.cpu().int() - b.cpu().int()).abs().max())
+
+    # 20a. each filter alone, the card against the CPU
+    for name, static in DATA_FILTERS:
+        f = get_filter(name)
+        stateful = bool(f.flags & FILTER_STATEFUL)
+        rng = np.random.default_rng(sum(map(ord, name)))
+        B = 2
+        fr = [torch.from_numpy(rng.integers(0, 256, (B, 3, H, W),
+                                            dtype=np.uint8))
+              for _ in range(max(f.n_in, 1))]
+        alphas = _alpha_inputs(name, rng, B)
+        pars = {**_data_params(f, rng, B, cpu), **static}
+        ins = {d: ([x.to(d) for x in fr],
+                   [(a.to(d), pal) for a, pal in alphas],
+                   {k: v.to(d) if isinstance(v, torch.Tensor) else v
+                    for k, v in pars.items()}) for d in (dev, cpu)}
+
+        def run(device, sel, state=None):
+            lays, al, p = ins[device]
+            lays = [Layer(planes=(x[sel],), palette=int(Palette.RGB24))
+                    for x in lays]
+            a = {j: Layer(planes=(x[sel],), palette=pal)
+                 for j, (x, pal) in enumerate(al)}
+            p = {k: v[sel] if isinstance(v, torch.Tensor) else v
+                 for k, v in p.items()}
+            inst = Instance(filter=f, values=p, state=state,
+                            in_tracks=tuple(range(f.n_in)))
+            out = apply_instance(inst, lays, ctx_on(device, list(range(B))[
+                sel]), alpha_ins=a or None)
+            return out[0].planes[0], inst
+        sels = [slice(0, 1), slice(1, 2)] if stateful else [slice(0, B)]
+        st = {dev: None, cpu: None}
+        err = chan_err = 0
+        worst, same = 0.0, True
+        for sel in sels:
+            (a, ia), (b, ib) = run(dev, sel, st[dev]), run(cpu, sel, st[cpu])
+            st[dev], st[cpu] = ia.state, ib.state
+            err = max(err, lsb(a, b))
+            w, s = _values_held(name, ia.out_values, ib.out_values)
+            worst, same = max(worst, w), same and s
+            for k, lay in ib.out_channels.items():
+                got = ia.out_channels[k].planes[0]
+                if lay.palette == int(Palette.A8):
+                    chan_err = max(chan_err, lsb(got, lay.planes[0]))
+                else:
+                    d = (got.cpu() - lay.planes[0]).abs().max().item()
+                    chan_err = max(chan_err, d / max(
+                        1.0, lay.planes[0].abs().max().item()))
+            if stateful:
+                w, s = _states_held(st[dev], st[cpu])
+                worst, same = max(worst, w), same and s
+        state1 = st[dev]
+        ms = time_ms(lambda: run(dev, sels[-1], state1 if stateful
+                                 else None), 5)
+        line("20a filter", name=name, frames=B, max_abs_err=err, bound=1,
+             out_values_rel=f"{worst:.3g}", exact_values=same,
+             channels_err=f"{chan_err:.3g}", card=repr(card),
+             ms_per_1080p_frame=f"{ms * (1 if stateful else 1 / B):.3f}")
+        assert err <= 1 and same and worst <= DATA_REL and chan_err <= 1, \
+            (name, err, same, worst, chan_err)
+    steps["filters"] = time.perf_counter()
+
+    # 20b. the wired render from decoded clips: K2 twice a chunk, K3 once,
+    # no K1, K4 or K5; its first frames against the same render on the CPU
+    src = DeviceSyntheticSource(H, W, device=dev)
+    n_chunks = -(-N_FRAMES // CHUNK)
+    want = {"yuv420_to_rgb": 2 * n_chunks, "rgb_to_yuv420": n_chunks}
+    el = wired_timeline(N_FRAMES)
+    gates = []   # each frame's vector_visualiser gate, (1, H, W) on the host
+    vv = _REGISTRY["vector_visualiser"]
+
+    def gated(ins, p, ctx):
+        if ins[1] is not None and ins[2] is not None:
+            sm_h, sm_w = max(H // 20, 1), max(W // 20, 1)
+            sc = torch.as_tensor(p["scale"], dtype=torch.float32,
+                                 device=ins[0].device).reshape(-1, 1, 1)
+            vx, vy = (alpha_mod._cells(
+                (a.planes[0].to(torch.float32) * sc)[
+                    :, sm_h::2 * sm_h, sm_w::2 * sm_w],
+                2 * sm_h, 2 * sm_w, H, W) for a in ins[1:3])
+            gates.append(
+                (torch.sqrt(alpha_mod.fma32(vx, vx, vy * vy)) > 0.25).cpu())
+        return vv.process(ins, p, ctx)
+    with tempfile.TemporaryDirectory() as tmp:
+        clips, size, secs = write_clips(tmp, src, 2)
+        line("20b clips", clips=2, frames=CLIP_FRAMES, mb=f"{size / 1e6:.1f}",
+             seconds=f"{secs:.2f}")
+        import dataclasses
+        _REGISTRY["vector_visualiser"] = dataclasses.replace(vv,
+                                                             process=gated)
+        try:
+            for k in range(2):   # the first warms
+                gates.clear()
+                out = os.path.join(tmp, "wired.y4m")
+                counts, wall_s, host_s = decoded_pass(clips, el, out, dev)
+                assert counts == want, (counts, want)
+            line("20b wired_render", card=repr(card), frames=N_FRAMES,
+                 chunks=n_chunks, launches=counts, wall_s=f"{wall_s:.4f}",
+                 get_batch_s=f"{host_s:.4f}",
+                 frames_per_s=f"{N_FRAMES / wall_s:.1f}",
+                 x_realtime=f"{N_FRAMES / wall_s / FPS:.2f}")
+            for kname in ("yuv420_to_rgb", "rgb_to_yuv420"):
+                launches[kname] += counts[kname]
+            # the same render's first 4 frames on the CPU port
+            from lives_tpu_torch.events.renderer import ClipFrameSource
+            from lives_tpu_torch.transcode import render_to_encoder
+            card_gates = gates[:4]
+            gates.clear()
+            short = wired_timeline(4)
+            cpu_out = os.path.join(tmp, "wired_cpu.y4m")
+            t0 = time.perf_counter()
+            assert render_to_encoder(short, ClipFrameSource(clips,
+                                                            device=cpu),
+                                     cpu_out, encoder="yuv4mpeg",
+                                     batch_size=4)
+            cpu_s = time.perf_counter() - t0
+        finally:
+            _REGISTRY["vector_visualiser"] = vv
+        got = y4m_planes(out, dev)[:4]
+        ref = y4m_planes(cpu_out, dev)
+        flips = [(g ^ c)[0] for g, c in zip(card_gates, gates)]
+        worst, outside = 0, 0
+        for (gp, rp), flip in zip(zip(got, ref), flips):
+            for k, (a, b) in enumerate(zip(gp, rp)):
+                d = (a.int() - b.int()).abs().cpu()
+                m = flip if k == 0 else flip[::2, ::2]
+                outside += int(((d > 1) & ~m[:d.shape[0], :d.shape[1]])
+                               .sum())
+                worst = max(worst, int(d.max()))
+        line("20b vs_cpu", frames=4, max_abs_err=worst, bound=1,
+             gate_flip_pixels=int(sum(int(f.sum()) for f in flips)),
+             beyond_bound_outside_flips=outside, cpu_s=f"{cpu_s:.2f}")
+        assert outside == 0, outside
+        for c in clips.values():
+            c.close()
+    steps["wired_render"] = time.perf_counter()
+
+    # 20c. the player with a wired keymap, the connections through
+    # datacons.map
+    yk.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        allc, size, secs = write_clips(tmp, src, 2, PLAYER_CLIP_FRAMES)
+        clips = (allc[1], allc[2])
+        map_path = os.path.join(tmp, "datacons.map")
+        files, res = {}, {}
+        for label, plain, prof in (("plain", True, False),
+                                   ("kernels", False, False),
+                                   ("again", False, False),
+                                   ("profiled", False, True)):
+            path = os.path.join(tmp, f"{label}.y4m")
+            p, ms, counts, _, trace = player_pass(
+                dev, clips, path, lambda p: data_setup(p, clips, map_path),
+                script=data_script, clock=ScriptedClock(), plain=plain,
+                prof=prof)
+            files[label], res[label] = path, (p, counts)
+            runs = counts.pop("runs")
+            want = {k: 0 for k in counts} if plain else player_design(runs)
+            assert counts == want, (label, counts, want)
+            assert p.datacons is not None and p._cconx_sig() == \
+                ((0, "mask", 1, 0),)
+            cd = try_decoders(path)
+            assert cd.nframes == p.frames_shown, (cd.nframes, p.frames_shown)
+            cd.decoder.close()
+            lat = np.asarray(ms)
+            extra = {}
+            if prof:
+                busy, top = device_busy(trace)
+                n_dtoh = dtoh_copies(trace)
+                pageable = sum(
+                    1 for e in trace.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.name.startswith("Memcpy HtoD (Pageable"))
+                extra = dict(
+                    dtoh_copies=n_dtoh, htod_pageable_copies=pageable,
+                    dtoh_per_cycle=f"{n_dtoh / PLAYER_CYCLES:.3f}",
+                    wall_ms=f"{trace.wall_ms:.1f}",
+                    device_busy_ms=f"{busy:.1f}",
+                    busy_share=f"{busy / trace.wall_ms:.3f}", top=top)
+            line("20c pass", card=repr(card), run=label,
+                 cycles=PLAYER_CYCLES, frames_shown=p.frames_shown,
+                 k2_launches=counts["yuv420_to_rgb"],
+                 k3_launches=counts["rgb_to_yuv420"],
+                 p50_ms=f"{np.percentile(lat, 50):.3f}",
+                 p99_ms=f"{np.percentile(lat, 99):.3f}",
+                 max_ms=f"{lat.max():.3f}", **extra)
+        plain_bytes = np.fromfile(files["plain"], np.uint8)
+        same = {label: np.array_equal(plain_bytes,
+                                      np.fromfile(path, np.uint8))
+                for label, path in files.items() if label != "plain"}
+        line("20c bit_identity", against="plain", **same)
+        assert all(same.values()), same
+        p, counts = res["kernels"]
+        for k in ("yuv420_to_rgb", "rgb_to_yuv420"):
+            launches[k] += counts[k]
+        take = p.last_recording
+        wired = [e for e in take.events if e.props.get("cconx")]
+        n, rerender_counts, secs, err = rerender_gap(
+            p, take, clips, files["kernels"], dev)
+        line("20c rerender", card=repr(card), frames=n,
+             wired_inits=len(wired), launches=rerender_counts,
+             seconds=f"{secs:.3f}", frames_per_s=f"{n / secs:.1f}",
+             max_abs_err=err, bound=PLAYER_RERENDER_BOUND)
+        assert len(wired) == 1 and err <= PLAYER_RERENDER_BOUND, \
+            (len(wired), err)
+        for c in allc.values():
+            c.close()
+    steps["player"] = time.perf_counter()
+    marks = [t_phase, *steps.values()]
+    line("20 wall", seconds=f"{time.perf_counter() - t_phase:.1f}",
+         **{k: f"{b - a:.1f}" for k, a, b in zip(steps, marks, marks[1:])})
+
+
 def synced_calls(fn):
     """(fn's result, the synchronizing CUDA calls it made, as the warnings
     of torch's sync debug mode)."""
@@ -3548,6 +3999,9 @@ def main(argv) -> int:
         return 0
     if argv == ["--mjpeg"]:
         mjpeg_phase(dev, card, dict.fromkeys(NAMES, 0))
+        return 0
+    if argv == ["--datacons"]:
+        datacons_phase(dev, card, dict.fromkeys(NAMES, 0))
         return 0
     if argv and argv not in (["--vocabulary"], ["--vjfilters"],
                              ["--titles"]):
@@ -4129,6 +4583,7 @@ def main(argv) -> int:
     vj_filters(dev, card, launches)
     titles(dev, card, launches)
     mjpeg_phase(dev, card, launches)
+    datacons_phase(dev, card, launches)
     vel = timeline_v(1)
     vspec, _, _, vrows = chunk_of(vel, dev, 1)
     v_geom = fused_sweep.plan_geometry(

@@ -2,14 +2,16 @@
 
 Counterpart of `lives_tpu/effects/builtin/__init__.py:8-16`, which
 registers the JAX package's 147 filters. The port holds every filter of
-`blends`, `blur`, `colour`, `effectv`, `extra`, `generators`, `geometry`
-and `keying`, and four of `effects/compound.py`'s six compounds: 117
-filters. `effects.host.DEFERRED` names why a missing one is missing;
-`puretext.FILTER` is written but deferred.
+`alpha`, `analysers`, `blends`, `blur`, `colour`, `dataplugins`,
+`effectv`, `extra`, `generators`, `geometry` and `keying`, `io/kinect.py`'s
+depth_key and the six compounds of `effects/compound.py`: 142 filters.
+`effects.host.DEFERRED` names why a missing one is missing: puretext
+(written, `puretext.FILTER`) and `effects/milkdrop.py`'s four presets.
 """
 
-from . import (blends, blur, colour, effectv, extra,  # noqa: F401
-               generators, geometry, keying)
+from . import (alpha, analysers, blends, blur, colour,  # noqa: F401
+               dataplugins, effectv, extra, generators, geometry, keying)
+from ...io import kinect  # noqa: F401  (registers `depth_key`)
 from ..compound import register_builtin_compounds
 from ..host import DEFERRED
 
@@ -21,3 +23,8 @@ DEFERRED["puretext"] = (
     "depends on the letter count, the batch size and the fusion; "
     "effects/builtin/puretext.py is exact below 56 letters "
     "(tools/puretext_positions.py)")
+for _name in ("milk_geometry", "milk_pulse", "milk_spin", "milk_tunnel"):
+    DEFERRED[_name] = (
+        "ROADMAP Queue 1 item 21: effects/milkdrop.py's presets run HLSL "
+        "that effects/milkshader.py translates to jnp; they need a torch "
+        "emitter")

@@ -9,10 +9,10 @@ scribbler (`:356-401`), textfun (`:407-481`), photo_censor (`:486-522`),
 xeffect (`:528-563`) and haip (`:567-609`). Views are ``(B, C, H, W)`` and
 a per-frame parameter a ``(B,)`` tensor or a number.
 
-mask_overlay's third input, a connected alpha channel (cconx), raises
-until data connections come (ROADMAP Queue 1 item 21); so does an alpha
-out-channel of an analyser. The fused sweep kernel's vocabulary holds
-mask_overlay (`graph/fused_sweep.py`); no other filter here is in it.
+mask_overlay's third input is an optional alpha in-channel: a connected
+alpha layer (cconx) is its mask in place of the bg's luma. The fused
+sweep kernel's vocabulary holds mask_overlay (`graph/fused_sweep.py`),
+its two-input form; no other filter here is in it.
 
 Text is rasterised on the host by `text.render_text_mask` and kept on the
 device in a cache keyed by (text, width, height, size, device).
@@ -141,14 +141,17 @@ register_filter(Filter(
 # -- mask overlay ------------------------------------------------------------
 
 def _mask_overlay_process(ins, p, ctx):
-    if len(ins) > 2 and ins[2] is not None:
-        raise NotImplementedError(
-            "mask_overlay with a connected alpha channel (cconx) is not "
-            "ported yet (ROADMAP Queue 1 item 21)")
     fg, bg = ins[0], ins[1]
     argb, aal = split_alpha(to_f01(fg))
-    brgb, _ = split_alpha(to_f01(bg))
-    g = luma(brgb)  # the mask from bg's luma (a mask clip on track 1)
+    alpha_in = ins[2] if len(ins) > 2 else None
+    if alpha_in is not None:
+        # a connected alpha channel (cconx) is the mask: an analyser
+        # (motion_mask, fg_bg_removal) drives the overlay live
+        from .alpha import alpha_f01
+        g = alpha_f01(alpha_in)[:, None]
+    else:
+        brgb, _ = split_alpha(to_f01(bg))
+        g = luma(brgb)  # the mask from bg's luma (a mask clip on track 1)
     m = torch.clamp((g - bparam(p["threshold"]))
                     / (bparam(p["softness"]) + 1e-4), 0.0, 1.0)
     inv = bparam(p["invert"])
@@ -158,11 +161,15 @@ def _mask_overlay_process(ins, p, ctx):
 
 register_filter(Filter(
     name="mask_overlay", process=_mask_overlay_process, in_channels=_TWO_IN,
+    alpha_ins=(ChannelTemplate(
+        "mask", (Palette.A8, Palette.AFLOAT, Palette.A1),
+        optional=True),),
     params=(Param("threshold", "num", 0.5, 0.0, 1.0),
             Param("softness", "num", 0.05, 0.0, 1.0),
             Param("invert", "num", 0.0, 0.0, 1.0)),
     flags=FILTER_IS_TRANSITION,
-    description="mask fg by bg luma (gdk/mask_overlay.c)"))
+    description="mask fg by bg luma, or by a connected alpha channel "
+                "(gdk/mask_overlay.c + cconx, effects-data.c:1730)"))
 
 
 # -- push transition (true slide: fg pushes bg out) --------------------------

@@ -9,19 +9,21 @@ into a later step's parameter (`connections`). A compound of stateless
 filters takes a batch, as they do; a compound with a stateful step is
 stateful, its state the tuple of its steps' states, one frame at a time.
 
-`register_builtin_compounds` registers dream, night_vision, comic and vhs
-(stateful through rgb_delay). image_stabilizer and neural_net wire
-analysers and data plugins through connections, which come with ROADMAP
-Queue 1 item 21: they stand in `effects.host.DEFERRED`, so a timeline that
-names one raises `NotImplementedError` naming the item.
+`register_builtin_compounds` registers the JAX package's six: dream,
+night_vision, comic, vhs (stateful through rgb_delay), and
+image_stabilizer and neural_net, which wire an analyser's and the data
+plugins' out-params into later steps through `connections`, the
+transforms reading a compound-level param and the frame geometry. A
+connection's value is a tensor on the frame's device and its transform
+stays there.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
-from .host import (DEFERRED, FILTER_STATEFUL, Filter, Instance, Param,
-                   apply_instance, get_filter, register_filter)
+from .host import (FILTER_STATEFUL, Filter, Instance, Param, apply_instance,
+                   get_filter, register_filter)
 
 
 class Export:
@@ -126,8 +128,7 @@ def make_compound(name: str, steps: Sequence[tuple[str, dict]],
 
 
 def register_builtin_compounds():
-    """The stock compounds of `lives_tpu/effects/compound.py:134-194` whose
-    steps the port holds; the two that wire analysers are deferred."""
+    """The stock compounds of `lives_tpu/effects/compound.py:134-194`."""
     from .host import _REGISTRY
     if "dream" in _REGISTRY:
         return
@@ -155,9 +156,34 @@ def register_builtin_compounds():
         ("sharpen", {"radius": 2, "amount": Export("strength")}),
         ("saturation", {"saturation": 1.4}),
     ], description="comic-book look (comic.script)")
-    for name, steps in (
-            ("image_stabilizer", "motion_analyser -> integrator -> shift"),
-            ("neural_net", "data_unpacker -> nn_programmer -> log_sig")):
-        DEFERRED[name] = (f"ROADMAP Queue 1 item 21: the compound wires "
-                          f"{steps} through out-parameter connections, "
-                          f"which come with the analysers and data plugins")
+    # plugins/effects/compound/image_stabilizer: motion estimate -> EMA
+    # smoothing -> counter-shift
+    make_compound("image_stabilizer", [
+        ("motion_analyser", {}),
+        ("integrator", {"decay": 0.95}),
+        ("shift", {"dx": 0.0, "dy": 0.0}),
+    ], connections=[
+        (0, "flow_x", 1, "in0"),
+        (0, "flow_y", 1, "in1"),
+        # flow is measured on 8x-downsampled luma: x8 to full-res pixels,
+        # then to a frame fraction
+        (1, "o0", 2, "dx",
+         lambda v, p, c: -v * 8.0 * p["strength"] / max(c.width, 1)),
+        (1, "o1", 2, "dy",
+         lambda v, p, c: -v * 8.0 * p["strength"] / max(c.height, 1)),
+    ], extra_params=(Param("strength", "num", 1.0, 0.0, 4.0),),
+       description="counter-shift accumulated motion "
+                   "(compound/image_stabilizer)")
+    # plugins/effects/compound/neural_net: unpack -> evolving net -> sigmoid
+    make_compound("neural_net", [
+        ("data_unpacker", {"in0": Export("a"), "in1": Export("b"),
+                           "in2": Export("c"), "in3": Export("d")}),
+        ("nn_programmer", {"fitness": Export("fitness")}),
+        ("log_sig", {}),
+    ], connections=[
+        (0, "o0", 1, "a"), (0, "o1", 1, "b"),
+        (0, "o2", 1, "c"), (0, "o3", 1, "d"),
+        (1, "o0", 2, "in0"), (1, "o1", 2, "in1"),
+        (1, "o2", 2, "in2"), (1, "o3", 2, "in3"),
+    ], description="evolving net over unpacked data "
+                   "(compound/neural_net)")

@@ -18,9 +18,14 @@ geometry on first use, and `process(ins, params, ctx, state)` returns
 reports out-params (`host.py:327-329`). An analyser's
 `analyse(ins, params, ctx)` runs after `process` and returns a dict that
 `apply_instance` splits as `host.py:309-335` `_split_outs` does: a
-non-Layer value is an out-param value (`Instance.out_values`); a Layer
-value would be an alpha out-channel (cconx), which raises until data
-connections come (ROADMAP Queue 1 item 21), as alpha in-channels do.
+non-Layer value is an out-param value (`Instance.out_values`), a Layer
+value an alpha out-channel (`Instance.out_channels`), the source of a
+channel connection (cconx, `effects/data.py`). A filter's `alpha_ins`
+are optional alpha inputs: `apply_instance(..., alpha_ins=)` negotiates
+each connected one to its template's palette and the first input's size
+and appends it to the inputs after the regular channels, None for an
+unconnected slot (`host.py:296-303`). An alpha layer's plane is
+``(B, H, W)``.
 
 A generator has no input layer to take its device from, so `FrameContext`
 carries one (`device`, None by default): `apply_instance` fills it from
@@ -104,8 +109,14 @@ class Filter:
     # (width, height, palette, device) -> state, for FILTER_STATEFUL
     init_state: Callable | None = None
     preferred_gamma: int | None = None
-    # analyser hook: (ins, params, ctx) -> {out-param name: value}
+    # analyser hook: (ins, params, ctx) -> {out-param name: value}; a
+    # Layer value is an alpha out-channel
     analyse: Callable | None = None
+    # alpha channel templates, the cconx endpoints: the channels the
+    # filter exports, and its optional alpha inputs, appended to `ins`
+    # after the regular channels (a negotiated alpha Layer, or None)
+    alpha_outs: tuple[ChannelTemplate, ...] = ()
+    alpha_ins: tuple[ChannelTemplate, ...] = ()
 
     @property
     def hashname(self) -> str:
@@ -144,6 +155,8 @@ class Instance:
     # the latest out-param values (an analyser's, or a stateful filter's
     # third result)
     out_values: dict[str, Any] = field(default_factory=dict)
+    # the latest exported alpha out-channels: name -> Layer (cconx sources)
+    out_channels: dict[str, Any] = field(default_factory=dict)
 
     def param_values(self) -> dict[str, Any]:
         return {p.name: self.values.get(p.name, p.default)
@@ -273,26 +286,27 @@ def negotiate_layer(layer: Layer, tmpl: ChannelTemplate,
 
 
 def _split_outs(inst: Instance, outs) -> None:
-    """An analyser's outputs (`lives_tpu/effects/host.py:309-335`): every
-    non-Layer value is an out-param value; a Layer value is an alpha
-    out-channel, a cconx source, which is not ported."""
+    """An analyser's outputs (`lives_tpu/effects/host.py:309-317`): a
+    Layer value is an alpha out-channel (a cconx source), every other
+    value an out-param value."""
     outs = dict(outs)
-    chans = [k for k, v in outs.items() if isinstance(v, Layer)]
+    inst.out_values = {k: v for k, v in outs.items()
+                       if not isinstance(v, Layer)}
+    chans = {k: v for k, v in outs.items() if isinstance(v, Layer)}
     if chans:
-        raise NotImplementedError(
-            f"{inst.filter.name}: alpha out-channels {chans} (cconx) are not "
-            "ported yet (ROADMAP Queue 1 item 21)")
-    inst.out_values = outs
+        inst.out_channels = chans
 
 
 def apply_instance(inst: Instance, layers: Sequence[Layer],
-                   ctx: FrameContext | None = None) -> list[Layer]:
+                   ctx: FrameContext | None = None,
+                   alpha_ins: dict[int, Layer] | None = None) -> list[Layer]:
     """Apply one instance to a layer stack; returns the new stack
     (`lives_tpu/effects/host.py:265`, weed_apply_instance). inst.in_tracks
     selects the inputs; the result replaces the layer at out_tracks[0]. A
     stateful instance takes one frame, creates its state on first use at
     the input's geometry and device, and stores the new state in
-    inst.state. A ctx without a device takes the stack's."""
+    inst.state. A ctx without a device takes the stack's. `alpha_ins`
+    maps an alpha-in slot to its connected alpha Layer (cconx)."""
     f = inst.filter
     layers = list(layers)
     if not inst.enabled:
@@ -308,6 +322,14 @@ def apply_instance(inst: Instance, layers: Sequence[Layer],
         ins = [negotiate_layer(l, f.in_channels[min(i, f.n_in - 1)], w, h,
                                f.preferred_gamma)
                for i, l in enumerate(ins)]
+    if f.alpha_ins:
+        w = ins[0].width if ins else 0
+        h = ins[0].height if ins else 0
+        for j, tmpl in enumerate(f.alpha_ins):
+            a = (alpha_ins or {}).get(j)
+            if a is not None:
+                a = negotiate_layer(a, tmpl, w or None, h or None)
+            ins.append(a)
     if ctx is None:
         ctx = FrameContext(width=ins[0].width if ins else 0,
                            height=ins[0].height if ins else 0)

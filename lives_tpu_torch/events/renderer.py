@@ -11,8 +11,9 @@ state carries from one chunk to the next, as in the JAX package.
 `ClipFrameSource` and `render_recording` (`renderer.py:304-346`) render
 decoded clips: each track's chunk of frames is read on the host, uploaded
 once and converted on the source's device (K2 for YUV420P clips). The
-cconx wiring of recorded init events is not ported yet (ROADMAP Queue 1
-item 21).
+channel wiring a recorded take carries on its init events (`cconx` props,
+`player._annotate_rec_cconx`) becomes the segment graph's cconx
+(`_cconx_for`), so a re-render re-applies the performance's wiring.
 """
 
 from __future__ import annotations
@@ -133,8 +134,8 @@ def _chain_for(inits: list[Event], el: EventList,
         try:
             f = get_filter(name)
         except KeyError:
-            why = DEFERRED.get(name, "ROADMAP Queue 1 items 14 and 21 port "
-                                     "the rest of the effect library")
+            why = DEFERRED.get(name, "not a filter of the JAX package "
+                                     "either")
             raise NotImplementedError(
                 f"filter {name!r} is not ported yet ({why})") from None
         values = dict(init.props.get("values", {}))
@@ -158,6 +159,21 @@ def _chain_for(inits: list[Event], el: EventList,
         kept.append(init)
         chain.append(inst)
     return kept, chain
+
+
+def _cconx_for(kept: list[Event]) -> list[tuple]:
+    """The channel wiring recorded on init events
+    (`lives_tpu/events/renderer.py:167-180`): [[src_init_event_id,
+    out_channel, slot], ...] on the destination's init -> (src_idx, name,
+    dst_idx, slot) over the kept chain, forward edges only."""
+    idx = {init.event_id: i for i, init in enumerate(kept)}
+    edges = []
+    for di, init in enumerate(kept):
+        for src_eid, name, slot in init.props.get("cconx", ()):
+            si = idx.get(src_eid)
+            if si is not None and si < di:
+                edges.append((si, name, di, slot))
+    return edges
 
 
 def _interp_arrays(el: EventList, inits: list[Event],
@@ -219,11 +235,7 @@ def render_events(el: EventList, source, sink: SinkSpec | None = None,
             segs.pop()
     for seg in segs:
         inits, chain = _chain_for(seg.inits, el, seg.frames[0].tc)
-        if any(init.props.get("cconx") for init in inits):
-            raise NotImplementedError(
-                "recorded channel wiring (cconx) is not ported yet "
-                "(ROADMAP Queue 1 item 21)")
-        graph = FrameGraph(chain, sink, fps=fps)
+        graph = FrameGraph(chain, sink, fps=fps, cconx=_cconx_for(inits))
         n_tracks = max((len(f.clips) for f in seg.frames), default=0)
         for ofs in range(0, len(seg.frames), batch_size):
             chunk = seg.frames[ofs: ofs + batch_size]

@@ -51,8 +51,17 @@ sweep kernel's op table on the device (route a), to None or the composite
 kernel's `CompositePlan` (route b), or to a `StatefulRoute` of op tables
 (route c). A plan never holds state. The
 inter-stage comps are float32 (the JAX package's bf16 comp is a TPU
-bandwidth choice). cconx wiring raises `NotImplementedError` naming the
-ROADMAP item that brings it; nothing quietly runs another path.
+bandwidth choice).
+
+A graph's `cconx` (`nodemodel.py:110-131`) wires alpha out-channels into
+later instances' alpha in-channels: (src_idx, out_channel, dst_idx,
+in_slot) edges over the chain, forward only, validated at construction.
+`run_chain` carries each frame's exported channels to their destinations
+(`nodemodel.py:811-829`). The wiring is part of every plan key, and a
+graph with cconx takes none of the kernels' routes, as in the JAX package
+(`nodemodel.py:436,488`): no fused sweep, no composite kernel, no fused
+stateful sweep; its chain runs on route (b) or, stateful, through the
+frame loop over the whole chain.
 """
 
 from __future__ import annotations
@@ -186,7 +195,8 @@ def run_chain(chain_spec: Sequence[tuple], layers: Sequence[Layer | None],
               packed: torch.Tensor, rows_key: Sequence[tuple], fps: float,
               sink: SinkSpec, *, idx_base: int = 0,
               states: list | None = None, float_chain: bool | None = None,
-              emit_comp: bool = False, origin: tuple | None = None) -> Layer:
+              emit_comp: bool = False, origin: tuple | None = None,
+              cconx: Sequence[tuple] = ()) -> Layer:
     """Route (b): a chain over batched track layers.
 
     `packed` (P+2, B) float32 holds the traced rows named by `rows_key`
@@ -201,7 +211,10 @@ def run_chain(chain_spec: Sequence[tuple], layers: Sequence[Layer | None],
     band, with its halo): the effects see the frame's geometry and their
     rows' place in it, and the sink step is pointwise only (gamma,
     palette), since the frame's geometry belongs to the caller
-    (`nodemodel.py:773-783,841-847`)."""
+    (`nodemodel.py:773-783,841-847`). `cconx` edges (over chain indices,
+    chain_spec[0] being `idx_base`) hand each alpha out-channel an
+    instance exports to the alpha in-slots of the later instances wired
+    to it, within the call (`nodemodel.py:811-829`)."""
     tps: list[dict[str, Any]] = [dict() for _ in chain_spec]
     for r, (i, k) in enumerate(rows_key):
         if 0 <= i - idx_base < len(chain_spec):
@@ -228,14 +241,21 @@ def run_chain(chain_spec: Sequence[tuple], layers: Sequence[Layer | None],
                   for l in layers]
     if not layers:
         layers = [None]
+    alpha_store: dict[tuple[int, str], Layer] = {}
     for j, ((filt, static, in_tr, out_tr, enabled), tp) in enumerate(
             zip(chain_spec, tps)):
+        i = j + idx_base
+        a_ins = {slot: alpha_store[(si, name)]
+                 for (si, name, di, slot) in cconx
+                 if di == i and (si, name) in alpha_store} or None
         inst = Instance(filter=filt, values={**static, **tp}, enabled=enabled,
                         in_tracks=in_tr, out_tracks=out_tr,
                         state=states[j] if states is not None else None)
-        layers = apply_instance(inst, layers, ctx)
+        layers = apply_instance(inst, layers, ctx, alpha_ins=a_ins)
         if states is not None:
             states[j] = inst.state
+        for name, lay in inst.out_channels.items():
+            alpha_store[(i, name)] = lay
     if emit_comp:
         return convert_layer(layers[0], Palette.RGBFLOAT)
     return _to_sink(layers[0], sink, geometry=origin is None)
@@ -257,7 +277,8 @@ def source_frames(source, src_ids: torch.Tensor, chain_spec):
 
 def frame_loop(chain_spec, start: int, stop: int, frame_layers, B: int,
                packed: torch.Tensor, rows_key, fps: float, sink: SinkSpec,
-               states: list, emit_comp: bool = False):
+               states: list, emit_comp: bool = False,
+               cconx: Sequence[tuple] = ()):
     """The stateful middle, frame by frame: instances [start, stop) of the
     chain run at B=1 on `frame_layers(b)`, with frame b's columns of
     `packed`, threading `states` (one entry per chain instance) from frame
@@ -267,7 +288,7 @@ def frame_loop(chain_spec, start: int, stop: int, frame_layers, B: int,
     st = list(states[start:stop])
     outs = [run_chain(sub, frame_layers(b), packed[:, b:b + 1], rows_key,
                       fps, sink, idx_base=start, states=st,
-                      emit_comp=emit_comp) for b in range(B)]
+                      emit_comp=emit_comp, cconx=cconx) for b in range(B)]
     planes = tuple(torch.cat([o.planes[i] for o in outs])
                    for i in range(len(outs[0].planes)))
     return (outs[0].replace(planes=planes),
@@ -356,11 +377,26 @@ class FrameGraph:
 
     def __init__(self, chain: Sequence[Instance], sink: SinkSpec | None = None,
                  fps: float = 25.0, cconx: Sequence[tuple] = ()):
-        if cconx:
-            raise NotImplementedError(
-                "cconx channel wiring is not ported yet (ROADMAP Queue 1 "
-                "item 21)")
+        """`cconx`: alpha-channel wiring (reference cconx,
+        effects-data.c:1730) as (src_idx, out_channel_name, dst_idx,
+        in_slot) edges over chain indices, run forward (src_idx <
+        dst_idx), the channel named among the source's alpha_outs, the
+        slot among the destination's alpha_ins (`nodemodel.py:110-131`)."""
         self.chain = list(chain)
+        self.cconx = tuple(tuple(c) for c in cconx)
+        for (si, name, di, slot) in self.cconx:
+            if not si < di:
+                raise ValueError(
+                    f"cconx edge {si}->{di} must run forward in the chain "
+                    "(effects apply in key order; a backward edge would "
+                    "read a frame-stale channel)")
+            if not any(t.name == name
+                       for t in self.chain[si].filter.alpha_outs):
+                raise KeyError(f"{self.chain[si].filter.name}: no alpha "
+                               f"out-channel {name!r}")
+            if not 0 <= slot < len(self.chain[di].filter.alpha_ins):
+                raise IndexError(f"{self.chain[di].filter.name}: no alpha "
+                                 f"in-channel slot {slot}")
         self.sink = sink or SinkSpec()
         self.fps = fps
         self.states: list[Any] = [inst.state for inst in self.chain]
@@ -432,8 +468,8 @@ class FrameGraph:
         # a host number makes another configuration
         packable = all(isinstance(v, numbers.Number)
                        for d in (*traced, *gen_traced) for v in d.values())
-        key = (_chain_static_key(self.chain), tuple(l.config for l in real),
-               self.sink.key(), self.fps,
+        key = (_chain_static_key(self.chain), self.cconx,
+               tuple(l.config for l in real), self.sink.key(), self.fps,
                tuple((i, c.inst.filter.hashname, c.width, c.height,
                       n is None,
                       tuple(sorted(_split_params(c.inst)[0].items())))
@@ -462,7 +498,7 @@ class FrameGraph:
         states = list(self.states) if mirror_state else \
             [_copy_state(st) for st in self.states]
         out = run_chain(chain_spec_of(self.chain), lays, packed, rows_key,
-                        self.fps, self.sink, states=states)
+                        self.fps, self.sink, states=states, cconx=self.cconx)
         if mirror_state:
             self.states = states
             for inst, st in zip(self.chain, states):
@@ -471,7 +507,10 @@ class FrameGraph:
 
     def _route(self, n_tracks: int) -> tuple[int, int, bool]:
         """(pre_n, suf_n, sf_eligible) of a stateful chain over a
-        traceable source (`nodemodel.py:444-485`)."""
+        traceable source (`nodemodel.py:444-485`); (0, 0, False) with
+        cconx, which keeps the chain off the kernels (`:436`)."""
+        if self.cconx:
+            return 0, 0, False
         chain = self.chain
         pre_n = suf_n = 0
         cand_s = fused_sweep.sweep_suffix_len(chain)
@@ -541,7 +580,7 @@ class FrameGraph:
             return self._run_stateful(spec, layers, packed, rows_key, source,
                                       src_dev, device)
         comp_n = self._composite_len(layers) if source is None else 0
-        key = ("batch", _chain_static_key(self.chain),
+        key = ("batch", _chain_static_key(self.chain), self.cconx,
                tuple(l.config for l in layers), self.sink.key(), self.fps,
                rows_key,
                source.source_key() if source is not None else None,
@@ -549,7 +588,7 @@ class FrameGraph:
                str(device), comp_n)
         if key not in _PLANS:
             plan = None
-            if source is not None:
+            if source is not None and not self.cconx:
                 plan = fused_sweep.build_fused_sweep(
                     spec, src_dev.shape[1], source.h, source.w, rows_key,
                     self.fps, source, self.sink, device)
@@ -579,14 +618,14 @@ class FrameGraph:
                 + layers[1:]
             start = comp_n
         return run_chain(spec[start:], layers, packed, rows_key, self.fps,
-                         self.sink, idx_base=start)
+                         self.sink, idx_base=start, cconx=self.cconx)
 
     def _composite_len(self, layers: Sequence[Layer]) -> int:
         """comp_n, the prefix the composite kernel takes over decoded
         layers, or 0 (`nodemodel.py:486-506`): a stateless chain without
         cconx under `pref("pallas_composite") == "1"`, every layer RGB24
         u8 (B, 3, H, W), a splittable prefix of three or more."""
-        if pref("pallas_composite") != "1" or not layers:
+        if pref("pallas_composite") != "1" or not layers or self.cconx:
             return 0
         if not all(l.palette == Palette.RGB24 and l.dtype == torch.uint8
                    and l.planes[0].ndim == 4 for l in layers):
@@ -616,7 +655,7 @@ class FrameGraph:
         route = (0, 0, False)
         if source is not None:
             route = self._route(src_dev.shape[1])
-        key = ("batch", _chain_static_key(self.chain),
+        key = ("batch", _chain_static_key(self.chain), self.cconx,
                tuple(l.config for l in layers), self.sink.key(), self.fps,
                rows_key,
                source.source_key() if source is not None else None,
@@ -662,7 +701,7 @@ class FrameGraph:
             out, self.states = frame_loop(
                 spec, start, stop, frame_layers, B, packed, rows_key,
                 self.fps, self.sink, self.states,
-                emit_comp=route.suf is not None)
+                emit_comp=route.suf is not None, cconx=self.cconx)
             if route.suf is not None:
                 # the suffix: the other tracks regenerated in the kernel,
                 # the trailing point ops, the sink quantise

@@ -41,12 +41,22 @@ decodes each clip's missing window with one `get_frames_device` call a
 the lane falls back to the host decode, as in the JAX package, and is
 counted (`lane_errors`) and warned once a clip.
 
+Data connections (`datacons`, an `effects.data.DataConnections`, JAX
+`:306-309,482-510,912-962,1442-1444`): each cycle pushes the connected
+out-values into the active chain's instances before the run
+(`chain_data`, on the values' device), and the channel connections
+between members of the chain become the graph's cconx (forward edges
+only) and join the graph's cache key, so a cconx edit is a new graph.
+While recording, the wiring is stamped on the destinations' FILTER_INIT
+events as `cconx` props at each filter-map refresh and at `record_stop`,
+so `render_recording` rebuilds it.
+
 Left out, each raising `NotImplementedError` naming its ROADMAP Queue 1
 item: scrap capture of live sources while recording (a stateful
-generator or a `scrap_on_record` clip; item 21; stateless generators ride
-as `GenSlot`s and decoded clips need none), data connections and cconx
-(item 21), audio, `time_source="audio"` and the audio of a
-recorded frame (item 23); the JACK transport that mirrors start and stop
+generator or a `scrap_on_record` clip: `io/scrap.py`, item 21;
+stateless generators ride as `GenSlot`s and decoded clips need none),
+audio, `time_source="audio"` and the audio of a recorded frame
+(item 23); the JACK transport that mirrors start and stop
 (`transport`, item 23) is absent. The JAX worker's fixed decode batch
 sizes {4, `precache_chunk`} existed so that XLA compiled two templates;
 the port decodes the window as it stands, in chunks of `precache_chunk`.
@@ -382,7 +392,15 @@ class Player:
         # diagnostics.c:97): attach a diagnostics.FrameLadder to collect
         # queued->loaded->applied->displayed stage times per frame
         self.ladder = None
+        # the latest warm-up's thread; the handle stays after the job ends,
+        # so a caller that joins it never races with the job
         self._compile_thread = None
+        # set when the latest warm-up has landed (its graph registered) or
+        # failed; failures are counted in `warm_failures`, the last one
+        # kept in `warm_error`
+        self.warm_landed = threading.Event()
+        self.warm_failures = 0
+        self.warm_error: BaseException | None = None
         self._compile_key: Any = None      # chain key warming right now
         self._compile_adopt = False        # adopt-on-finish flag (upgradable)
         # predictive frame cache (pred_frame/precache, player.c:2185-2230)
@@ -414,7 +432,10 @@ class Player:
         # seconds (an external transport)
         self.time_source = "system"
         self._precache_thread = None
-        # data connections (effects/data.py): not ported (item 21)
+        # optional data connections (effects/data.py): out-param values
+        # pushed into active instances each frame (pconx_chain_data before
+        # each instance runs, effects-weed.c:3322), channel connections
+        # wired into the graph (cconx)
         self.datacons = None
         # frame listeners: called (frame, tc) after each shown frame
         # (reference lives_notify, player.c:1295)
@@ -457,12 +478,6 @@ class Player:
             else load_sub(path, fps=abs(self.state.pb_fps) or 25.0)
         self.subtitles = SubtitleOverlay(subs, **style)
         return self.subtitles
-
-    def _check_datacons(self):
-        if self.datacons is not None:
-            raise NotImplementedError(
-                "data connections and cconx (effects/data.py) are not "
-                f"ported yet ({_ITEM21})")
 
     # -- clock / frame targeting ------------------------------------------
     def _now_ticks(self) -> int:
@@ -597,9 +612,27 @@ class Player:
         self._annotate_rec_cconx()
 
     def _annotate_rec_cconx(self):
-        """Channel-connection wiring onto recorded init events: a no-op
-        without data connections, which are not ported (item 21)."""
-        self._check_datacons()
+        """Stamp channel-connection wiring onto recorded init events, so a
+        re-render rebuilds the same cconx (`lives_tpu/player/player.py:
+        482-510`): [[src_event_id, out_channel, slot], ...] on the
+        destination's FILTER_INIT. The wiring is per-performance state, not
+        timestamped, re-annotated at each map refresh."""
+        if self.datacons is None or self.event_list is None:
+            return
+        by_inst = {}
+        for k, init in self._rec_inits.items():
+            inst = self.keymap.instances[k]
+            if inst is not None:
+                by_inst[id(inst)] = init
+        for init in self._rec_inits.values():
+            init.props.pop("cconx", None)
+        for c in getattr(self.datacons, "chan_conns", ()):
+            src_init = by_inst.get(id(c.src))
+            dst_init = by_inst.get(id(c.dst))
+            if src_init is None or dst_init is None:
+                continue
+            dst_init.props.setdefault("cconx", []).append(
+                [src_init.event_id, c.out_channel, c.in_slot])
 
     # -- recording ---------------------------------------------------------
     def record_start(self, width: int = 0, height: int = 0,
@@ -853,10 +886,17 @@ class Player:
         self.sink.exit_screen()
 
     def _cconx_sig(self):
-        """Channel-connection topology: part of the graph cache key; empty
-        without data connections (item 21)."""
-        self._check_datacons()
-        return ()
+        """Channel-connection topology over keymap slots: part of the
+        graph cache key, since a cconx edit is a new configuration
+        (`lives_tpu/player/player.py:912-924`)."""
+        dc = self.datacons
+        if dc is None or not getattr(dc, "chan_conns", None):
+            return ()
+        pos = {id(inst): k for k, inst in enumerate(self.keymap.instances)
+               if inst is not None}
+        return tuple((pos.get(id(c.src)), c.out_channel,
+                      pos.get(id(c.dst)), c.in_slot)
+                     for c in dc.chan_conns)
 
     def _chain_cache_key(self):
         # bg presence changes the built chain (_build_graph appends the
@@ -872,7 +912,6 @@ class Player:
         return g
 
     def _build_graph(self, key, register: bool = True) -> FrameGraph:
-        self._check_datacons()
         chain = list(self.keymap.active_chain())
         # fg/bg blend: if a bg clip is present and no transition in the
         # chain consumes track 1, append the blend (player fg/bg mix)
@@ -882,8 +921,17 @@ class Player:
             auto_mix = instantiate("crossfade", amount=self.state.blend_amount)
             auto_mix.in_tracks = (0, 1)
             chain.append(auto_mix)
+        # cconx: channel connections between chain members, as the graph's
+        # wiring (forward edges only: the chain applies in key order)
+        cconx = []
+        if self.datacons is not None:
+            idx = {id(inst): i for i, inst in enumerate(chain)}
+            for c in getattr(self.datacons, "chan_conns", ()):
+                si, di = idx.get(id(c.src)), idx.get(id(c.dst))
+                if si is not None and di is not None and si < di:
+                    cconx.append((si, c.out_channel, di, c.in_slot))
         g = FrameGraph(chain, self.sink_spec,
-                       fps=abs(self.state.pb_fps) or 25.0)
+                       fps=abs(self.state.pb_fps) or 25.0, cconx=cconx)
         # blend_amount is a traced param: keep a handle so process_one can
         # refresh it per frame without a new graph
         g.auto_mix = auto_mix
@@ -1185,6 +1233,7 @@ class Player:
         time."""
         self._compile_key = key
         self._compile_adopt = adopt
+        landed = self.warm_landed = threading.Event()
         main = torch.cuda.current_stream(self.device) \
             if self._warm_stream is not None else None
 
@@ -1197,12 +1246,14 @@ class Player:
                 # exact chain while it is in flight
                 if self._compile_adopt:
                     self._served_key = key
-            except Exception:
+            except Exception as e:
+                self.warm_failures += 1
+                self.warm_error = e
                 if self._compile_adopt:
                     self._served_key = key  # fall through to sync path
             finally:
                 self._compile_key = None
-                self._compile_thread = None
+                landed.set()
 
         self._compile_thread = threading.Thread(target=compile_job,
                                                 daemon=True)
@@ -1300,14 +1351,14 @@ class Player:
                     and isinstance(lay, Layer):
                 raise NotImplementedError(
                     "recording a live source needs scrap capture "
-                    f"(io/scrap.py), which is not ported yet ({_ITEM21})")
+                    f"(io/scrap.py), which is not ported yet ({_ITEM21}, "
+                    "with rfx.py)")
 
     def process_one(self) -> bool:
         """One player cycle (player.c:2185). Returns False when stopped."""
         st = self.state
         if not st.playing or st.fg_clip is None:
             return False
-        self._check_datacons()
         t_start = time.monotonic()
         self._autotrans_step()
         target = self.clamp_frame(self._target_frame_f())
@@ -1366,6 +1417,9 @@ class Player:
         if self.ladder is not None:
             self.ladder.mark("loaded")
         graph = self._select_graph(layers)
+        if self.datacons is not None:
+            for inst in self.keymap.active_chain():
+                self.datacons.chain_data(inst)
         mix = getattr(graph, "auto_mix", None)
         if mix is not None:  # live blend factor (traced param)
             mix.values["amount"] = st.blend_amount

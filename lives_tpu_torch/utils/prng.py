@@ -10,7 +10,8 @@ for JAX's default configuration (`jax_threefry_partitionable=True`):
 - `random_bits`, the partitionable 32-bit draw (`prng.py:1184`): the
   hash of each element's flat index, split into 32-bit halves, its two
   words xor-ed;
-- `uniform` (`jax/_src/random.py:435` `_uniform`) for float32, and
+- `uniform` (`jax/_src/random.py:435` `_uniform`) for float32, with its
+  bounds, and
   `randint` (`random.py:581` `_randint`) for int32.
 
 A key is an int64 tensor of shape (..., 2) holding two 32-bit words; every
@@ -25,7 +26,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from .xla_exp import fma32
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -90,12 +94,18 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     return (y1 ^ y2).reshape(lead + shape)
 
 
-def uniform(key: torch.Tensor, shape) -> torch.Tensor:
-    """`jax.random.uniform(key, shape)` in float32, in [0, 1): the top 23
-    bits as the mantissa of a float in [1, 2), less 1."""
+def uniform(key: torch.Tensor, shape, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, minval=, maxval=)` in float32, in
+    [minval, maxval): the top 23 bits as the mantissa of a float in
+    [1, 2), less 1, times (maxval - minval) plus minval in one FMA (as
+    XLA contracts the jitted `_uniform`), at least minval
+    (`random.py:435-470`)."""
     bits = (random_bits(key, shape) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp(floats, min=0.0)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return torch.clamp(fma32(floats, float(hi - lo), float(lo)),
+                       min=float(lo))
 
 
 def _mul32(a, b: int):

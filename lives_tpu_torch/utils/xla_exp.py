@@ -45,11 +45,14 @@ _TINY = _f32(0x00800000)                             # 2^-126
 def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
     """a * b + c for float32 operands (tensors or Python floats that are
     float32 values), rounded once to float32, as an FMA instruction
-    computes it. Any device."""
+    computes it. Any device; a Python number never becomes a tensor on
+    it (a copy from the host's pageable memory would wait for the card's
+    queue)."""
     a = torch.as_tensor(a, dtype=torch.float32)
     p = a.to(torch.float64) * b          # exact: 24 + 24 bits
-    c = torch.as_tensor(c, dtype=torch.float32, device=a.device) \
-        .to(torch.float64)
+    c = c.to(torch.float32).to(torch.float64) \
+        if isinstance(c, torch.Tensor) else float(struct.unpack(
+            "<f", struct.pack("<f", c))[0])
     s = p + c
     bb = s - p
     t = (p - (s - bb)) + (c - bb)        # p + c == s + t exactly

@@ -45,6 +45,20 @@ def test_effects_lists_the_ports_filters(capsys):
     assert set(got) <= set(_listing(jcli.main, capsys))
 
 
+def test_effects_lists_every_jax_filter_but_the_deferred(capsys):
+    """142 of the JAX console's 147 builtins: all but puretext and the
+    four milkdrop presets, each of which `DEFERRED` names with its item
+    (the JAX registry may also hold filters another test registered)."""
+    from lives_tpu_torch.effects.host import DEFERRED
+    got = _listing(cli.main, capsys)
+    ref = _listing(jcli.main, capsys)
+    assert len(got) == 142 and set(got) <= set(ref)
+    assert sorted(DEFERRED) == ["milk_geometry", "milk_pulse", "milk_spin",
+                                "milk_tunnel", "puretext"]
+    assert set(DEFERRED) <= set(ref) - set(got)
+    assert all("ROADMAP" in why for why in DEFERRED.values())
+
+
 def test_build_player_matches_the_jax_console(y4m_clip, tmp_path):
     """A clip into a Y4M sink: the same sink spec and playback settings as
     the JAX console's build_player."""

@@ -245,8 +245,15 @@ def test_composite_eligibility_rules(monkeypatch):
     monkeypatch.setenv("LIVES_TPU_PALLAS_COMPOSITE", "0")
     assert TGraph(tchain, TSink())._composite_len(u8) == 0
     monkeypatch.setenv("LIVES_TPU_PALLAS_COMPOSITE", "1")
-    with pytest.raises(NotImplementedError, match="item 21"):
-        TGraph(tchain, TSink(), cconx=[(0, "mask", 1, 0)])
+    # a graph with cconx takes no composite prefix (`nodemodel.py:488`);
+    # the same chain without its wiring does
+    from lives_tpu_torch.effects.host import ChannelTemplate, Filter
+    probe = Filter(name="probe_alpha_out", process=lambda ins, p, c: ins[0],
+                   alpha_outs=(ChannelTemplate("mask"),))
+    wired = tchain + [instantiate(probe), instantiate("mask_overlay")]
+    assert TGraph(wired, TSink())._composite_len(u8) == 5
+    assert TGraph(wired, TSink(), cconx=[(5, "mask", 6, 0)]) \
+        ._composite_len(u8) == 0
 
     # a stateful chain takes route (c), never the composite
     stateful = [instantiate("crossfade"), instantiate("blend_add"),

@@ -311,15 +311,27 @@ def test_pixel_hash_matches_jax_exactly(salt, tile):
 
 
 def test_mask_overlay_connected_alpha_raises():
-    """mask_overlay's two-input form is ported; a third input (a connected
-    alpha channel, cconx) raises, naming its ROADMAP item."""
+    """mask_overlay's third input, a connected alpha channel (cconx), is
+    its mask in place of the bg's luma, as in the JAX filter (it raised
+    until data connections were ported)."""
     filt = t_get_filter("mask_overlay")
-    lay = TLayer(planes=(torch.rand(1, 3, 4, 6),),
-                 palette=int(Palette.RGBFLOAT))
-    mask = TLayer(planes=(torch.rand(1, 1, 4, 6),),
-                  palette=int(Palette.AFLOAT))
+    rng = np.random.default_rng(5)
+    fg = rng.random((1, 3, 4, 6), dtype=np.float32)
+    bg = rng.random((1, 3, 4, 6), dtype=np.float32)
+    m = rng.random((1, 4, 6), dtype=np.float32)
+    lay, under = (TLayer(planes=(torch.from_numpy(a),),
+                         palette=int(Palette.RGBFLOAT)) for a in (fg, bg))
+    mask = TLayer(planes=(torch.from_numpy(m),), palette=int(Palette.AFLOAT))
     p = {"threshold": 0.5, "softness": 0.05, "invert": 0.0}
-    assert filt.process([lay, lay], p, TContext()).planes[0].shape == \
+    assert filt.process([lay, under], p, TContext()).planes[0].shape == \
         (1, 3, 4, 6)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        filt.process([lay, lay, mask], p, TContext())
+    got = filt.process([lay, under, mask], p, TContext()).planes[0]
+    jf = j_get_filter("mask_overlay")
+    ref = jf.process([JLayer(planes=(jnp.asarray(a[0]),),
+                             palette=int(Palette.RGBFLOAT)) for a in (fg, bg)]
+                     + [JLayer(planes=(jnp.asarray(m[0]),),
+                               palette=int(Palette.AFLOAT))], p, JContext())
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref.planes[0]),
+                               atol=1e-6)
+    assert [t.name for t in filt.alpha_ins] == \
+        [t.name for t in jf.alpha_ins]

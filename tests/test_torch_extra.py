@@ -228,14 +228,27 @@ def test_randomiser_matches_jax_bit_for_bit(frame):
 
 def test_analyser_alpha_out_channel_raises():
     """A Layer among an analyser's outputs is an alpha out-channel (cconx),
-    which names its ROADMAP item."""
+    kept in `Instance.out_channels` and apart from the out-values, as the
+    JAX host splits them (`host.py:309-317`); it raised until data
+    connections were ported."""
+    from lives_tpu.effects.host import Filter as JFilter
+    from lives_tpu.effects.host import Instance as JInstance
     from lives_tpu_torch.effects.host import Filter, Instance
-    f = Filter(name="probe_alpha", process=lambda ins, p, c: ins[0],
-               analyse=lambda ins, p, c: {"mask": ins[0]})
-    lay = TLayer(planes=(torch.zeros(1, 3, 4, 4),),
-                 palette=int(Palette.RGBFLOAT))
-    with pytest.raises(NotImplementedError, match="item 21"):
-        t_apply(Instance(filter=f), [lay])
+    outs = {}
+    for pkg, filt, inst, apply, lay in (
+            ("torch", Filter, Instance, t_apply,
+             TLayer(planes=(torch.zeros(1, 3, 4, 4),),
+                    palette=int(Palette.RGBFLOAT))),
+            ("jax", JFilter, JInstance, j_apply,
+             JLayer(planes=(jnp.zeros((3, 4, 4)),),
+                    palette=int(JPalette.RGBFLOAT)))):
+        f = filt(name="probe_alpha", process=lambda ins, p, c: ins[0],
+                 analyse=lambda ins, p, c: {"mask": ins[0], "level": 0.5})
+        i = inst(filter=f)
+        apply(i, [lay])
+        outs[pkg] = (sorted(i.out_values), sorted(i.out_channels),
+                     i.out_channels["mask"] is not None)
+    assert outs["torch"] == outs["jax"] == (["level"], ["mask"], True)
 
 
 def test_haip_trails_and_scatters_bit_for_bit():

@@ -566,9 +566,36 @@ def test_prewarm_warms_one_toggle_away():
     th = p._compile_thread
     assert th is not None
     th.join(timeout=60)
+    assert p.warm_landed.is_set() and p.warm_failures == 0, p.warm_error
     assert len(p._graphs) == 2
     base = sink.frames[-1]
     p.key_toggle(0, True)
+    show(p, 0)
+    np.testing.assert_array_equal(sink.frames[-1], 255 - base)
+    p.stop()
+
+
+def test_failed_warm_up_is_counted(monkeypatch):
+    """A warm-up that raises is counted and kept (`warm_failures`,
+    `warm_error`), its landing still signalled; the toggle then builds
+    the chain on the serving thread."""
+    run = FrameGraph.run
+
+    def failing(self, layers, *a, **kw):
+        if threading.current_thread() is not threading.main_thread():
+            raise RuntimeError("warm-up failed")
+        return run(self, layers, *a, **kw)
+    monkeypatch.setattr(FrameGraph, "run", failing)
+    p, sink = make_player("torch")
+    p.keymap.set_key(0, 0, "negate")
+    p.start()
+    show(p, 0)
+    assert p.warm_landed.wait(timeout=60)
+    assert p.warm_failures == 1
+    assert str(p.warm_error) == "warm-up failed"
+    base = sink.frames[-1]
+    p.key_toggle(0, True)
+    show(p, 0)
     show(p, 0)
     np.testing.assert_array_equal(sink.frames[-1], 255 - base)
     p.stop()
@@ -1160,19 +1187,11 @@ def _stateful_generator_take():
     p.process_one()
 
 
-def _cconx_player():
-    p, _ = make_player("torch")
-    p.datacons = object()
-    p.start()
-    p.process_one()
-
-
 LEFT_OUT = {
     "attach_audio": (lambda: make_player("torch")[0].attach_audio(), 23),
     "time_source_audio": (
         lambda: setattr(make_player("torch")[0], "time_source", "audio"),
         23),
-    "datacons": (_cconx_player, 21),
     "scrap_capture": (_stateful_generator_take, 21),
     "png_sink": (lambda: t_sinks.PNGSink("frames"), 11),
     "av_stream_sink": (lambda: t_sinks.AVStreamSink("udp://x:1"), 23),
@@ -1185,6 +1204,35 @@ def test_left_out_features_raise_naming_their_item(feature):
     fn, item = LEFT_OUT[feature]
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         fn()
+
+
+def test_datacons_wire_the_served_graph():
+    """Data connections, refused until they were ported, wire the served
+    chain: the channel connection between two active keys is the graph's
+    cconx and part of its cache key, and each cycle pushes connected
+    out-values before the run."""
+    from lives_tpu_torch.effects.data import DataConnections
+    p, sink = make_player("torch")
+    p.async_compile = False
+    for k, name in enumerate(("motion_mask", "mask_overlay", "vignette")):
+        p.keymap.set_key(k, 0, name)
+        p.key_toggle(k, True)
+    i = p.keymap.instances
+    i[1].in_tracks = (0, 0)
+    dc = DataConnections()
+    dc.add_channel(i[0], "mask", i[1], 0)
+    dc.add(i[0], "motion", i[2], "amount", autoscale=True)
+    i[0].out_values = {"motion": torch.tensor(0.5)}
+    p.datacons = dc
+    p.start()
+    show(p, 0)
+    show(p, 1)
+    g = p._graphs[p._served_key]
+    assert g.cconx == ((0, "mask", 1, 0),)
+    assert p._served_key[-1] == ((0, "mask", 1, 0),)
+    assert float(i[2].values["amount"]) == 0.5
+    assert len(sink.frames) == 2
+    p.stop()
 
 
 def test_batched_device_decode_lane_is_absent():

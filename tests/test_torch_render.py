@@ -147,10 +147,11 @@ def test_golden_reproduced_by_both_packages(jax_f32_path):
 def test_run_batch_refuses_what_is_not_ported(jax_f32_path):
     """blurzoom, refused until ROADMAP item 15 ported it, renders as the
     JAX package renders it: a timeline holding it within 1 LSB of the JAX
-    render, its glow state carried across chunks. cconx wiring still
-    raises, naming item 21."""
+    render, its glow state carried across chunks. A timeline whose
+    recorded inits carry cconx props (raised until data connections were
+    ported) renders from the synthetic source as the JAX package renders
+    it, through the frame loop."""
     from lives_tpu.events.event_list import EventList, frame_event
-    from lives_tpu_torch.graph import FrameGraph
     el = EventList(fps=25.0, width=40, height=24)
     inits = [filter_init_event(0, "blurzoom", values={"amount": 0.9}),
              filter_init_event(0, "crossfade", in_tracks=[0, 1],
@@ -169,8 +170,23 @@ def test_run_batch_refuses_what_is_not_ported(jax_f32_path):
     assert tcs == ref_tcs
     diff = np.abs(got.astype(int) - np.asarray(ref).astype(int))
     assert diff.max() <= 1, diff.max()
-    with pytest.raises(NotImplementedError, match="item 21"):
-        FrameGraph([], cconx=[(0, "mask", 1, 0)])
+    el = EventList(fps=25.0, width=40, height=24)
+    mm = filter_init_event(0, "motion_mask", values={"threshold": 0.02})
+    mo = filter_init_event(0, "mask_overlay", in_tracks=[0, 1],
+                           out_tracks=[0])
+    mo.props["cconx"] = [[mm.event_id, "mask", 0]]
+    for e in (mm, mo):
+        el.insert(e)
+    el.insert(filter_map_event(0, [mm.event_id, mo.event_id]))
+    for i in range(8):
+        el.insert(frame_event(i * tpf, [1, 2], [i, 3 * i]))
+    ref, _ = jr.render_to_arrays(el, JSource(24, 40), JSink(40, 24),
+                                 batch_size=3)
+    got, _ = tr.render_to_arrays(TEventList.from_json(el.to_json()),
+                                 TSource(24, 40, device="cpu"),
+                                 TSink(40, 24), batch_size=3)
+    diff = np.abs(got.astype(int) - np.asarray(ref).astype(int))
+    assert diff.max() <= 1, diff.max()
 
 
 def test_port_never_imports_jax():

@@ -175,14 +175,22 @@ def test_edge_and_blurzoom_wrap():
 
 
 def test_registry_is_a_subset_of_jax():
-    """117 of the JAX package's 147 filters, each with the JAX hashname,
-    flags and params."""
+    """142 of the JAX package's 147 filters (117 before data connections
+    were ported), each with the JAX hashname, flags, params, out-params
+    and alpha channel templates."""
     from lives_tpu.effects.host import list_filters as j_list_filters
     names = t_host.list_filters()
-    assert len(names) == 117 and set(names) <= set(j_list_filters())
+    assert len(names) == 142 and set(names) <= set(j_list_filters())
     for name in names:
         jf, tf = j_get_filter(name), t_host.get_filter(name)
         assert (tf.hashname, tf.flags) == (jf.hashname, jf.flags), name
+        assert [p.name for p in tf.out_params] == \
+            [p.name for p in jf.out_params], name
+        for side in ("alpha_ins", "alpha_outs"):
+            assert [(t.name, t.palettes, t.optional)
+                    for t in getattr(tf, side)] == \
+                [(t.name, tuple(int(p) for p in t.palettes), t.optional)
+                 for t in getattr(jf, side)], (name, side)
         assert [(p.name, p.kind, p.default, p.min, p.max, p.choices)
                 for p in tf.params] == [(p.name, p.kind, p.default, p.min,
                                          p.max, p.choices)
@@ -192,9 +200,11 @@ def test_registry_is_a_subset_of_jax():
 # -- compounds ----------------------------------------------------------------
 
 def test_compound_registry_matches_jax():
-    """dream, night_vision, comic and vhs as the JAX package registers
-    them; image_stabilizer and neural_net deferred, naming item 21."""
-    for name in ("dream", "night_vision", "comic", "vhs"):
+    """The six compounds as the JAX package registers them (image_stabilizer
+    and neural_net, deferred until data connections were ported,
+    included)."""
+    for name in ("dream", "night_vision", "comic", "vhs", "image_stabilizer",
+                 "neural_net"):
         jf, tf = j_get_filter(name), t_host.get_filter(name)
         assert (tf.hashname, tf.flags, tf.description) == \
             (jf.hashname, jf.flags, jf.description)
@@ -202,8 +212,8 @@ def test_compound_registry_matches_jax():
                 for p in tf.params] == [(p.name, p.kind, p.default, p.min,
                                          p.max) for p in jf.params]
     for name in ("image_stabilizer", "neural_net"):
-        assert name not in t_host.list_filters()
-        assert "item 21" in t_host.DEFERRED[name]
+        assert name in t_host.list_filters()
+        assert name not in t_host.DEFERRED
 
 
 @pytest.fixture
@@ -260,21 +270,39 @@ def test_make_compound_exports_extra_params_and_connections(
                                connections=[(0, "level", 1, "gain")])
 
 
-def test_deferred_compound_raises_naming_its_item():
-    """A timeline naming image_stabilizer raises through the renderer's
-    deferral lookup."""
+def test_deferred_compound_raises_naming_its_item(monkeypatch):
+    """A timeline naming image_stabilizer (deferred until data connections
+    were ported) renders as the JAX package renders it; one naming a
+    filter still deferred (a milkdrop preset) raises through the
+    renderer's deferral lookup, naming its item."""
+    from lives_tpu.events import renderer as jr
+    from lives_tpu.events.event_list import EventList as JEventList
     from lives_tpu_torch.events import renderer as tr
     from lives_tpu_torch.events.event_list import (EventList,
                                                    filter_init_event,
                                                    filter_map_event,
                                                    frame_event)
-    el = EventList(fps=25.0, width=16, height=8)
-    init = filter_init_event(0, "image_stabilizer")
-    el.insert(init)
-    el.insert(filter_map_event(0, [init.event_id]))
-    el.insert(frame_event(0, [1], [0]))
+    monkeypatch.setenv("LIVES_TPU_CHAIN_DTYPE", "f32")
+
+    def timeline(name, n):
+        el = EventList(fps=25.0, width=32, height=16)
+        init = filter_init_event(0, name, values={"strength": 2.0}
+                                 if name == "image_stabilizer" else {})
+        el.insert(init)
+        el.insert(filter_map_event(0, [init.event_id]))
+        for i in range(n):
+            el.insert(frame_event(i * 4_000_000, [1], [i]))
+        return el
+    el = timeline("image_stabilizer", 5)
+    got, _ = tr.render_to_arrays(el, TSource(16, 32, device="cpu"),
+                                 TSink(32, 16), batch_size=3)
+    ref, _ = jr.render_to_arrays(JEventList.from_json(el.to_json()),
+                                 JSource(16, 32), JSink(32, 16),
+                                 batch_size=3)
+    assert np.abs(got.astype(int) - np.asarray(ref).astype(int)).max() <= 1
     with pytest.raises(NotImplementedError, match="item 21"):
-        list(tr.render_events(el, TSource(8, 16, device="cpu")))
+        list(tr.render_events(timeline("milk_spin", 1),
+                              TSource(8, 16, device="cpu")))
 
 
 # -- phase 17b's chain through run_batch --------------------------------------
