@@ -51,7 +51,11 @@ plain PyTorch version:
 - data connections: the 25 filters they carry, each alone against the
   CPU, a wired render (cconx recorded on init events) from decoded clips
   on the frame loop (K2, K3), and the player with a wired keymap loaded
-  from datacons.map (K2, K3).
+  from datacons.map (K2, K3);
+- the clip editor: rendered effects and RFX scripts on decoded clips
+  (K2 a batch), clipboard edits and merges with undo, `transcode` (K2 and
+  K3 a batch), the encoders, the console's `rfx`, and the player's PNG
+  sink and scrap capture.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --config-d   # config D alone (phase 11's render
@@ -69,6 +73,7 @@ plain PyTorch version:
     python3 chip_smoke.py --vjfilters  # phases 1-2 and 17, no result line
     python3 chip_smoke.py --titles     # phases 1-2 and 18, no result line
     python3 chip_smoke.py --mjpeg      # phase 19 alone, no result line
+    python3 chip_smoke.py --clipedit   # phase 21 alone, no result line
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
@@ -339,6 +344,39 @@ Phases, one line each:
       device-to-host copies a cycle; the take's re-render (its wired
       init rebuilt from the recorded `cconx` props) within
       `PLAYER_RERENDER_BOUND`.
+21. the clip editor at 1920x1080, 30 fps, on two 96-frame YUV4MPEG clips
+   (phase 11's `write_clips`) and a seeded 48 kHz stereo WAV ripped into
+   them through `WavDecoder`; every step on the card is held against the
+   same call with `device="cpu"` on a second opening of the clip, and its
+   K2, K3 and K4 launches are counted from 0 just before it:
+   a. `apply_rendered_effect` saturation over the 96 frames with a
+      per-frame ramp: K2 one launch a batch of 32, the PNGs of its first
+      batch within 1 LSB of the CPU's (the same call over those frames)
+      and byte-identical where the pixels are equal,
+      `undo_rendered_effect` restoring the tree byte for byte; then the
+      scripts `EDIT_SCRIPTS` over 12 frames (sepia, swirl, posterize,
+      transition_bwthresh with clip 2, jumble with a seed): within 1 LSB,
+      0 values more than 1 LSB apart, jumble's frame order the seed's;
+   b. `copy_frames` 24 frames of clip 2 (one K2 launch), `paste_insert`
+      into clip 1, `merge_clipboard` crossfade over 48 frames under
+      LIVES_TPU_PALLAS_COMPOSITE=1 and without it, each against the CPU:
+      K4 launches what the route gives (`FrameGraph._composite_len`: 0,
+      a one-instance chain is below its three), then `undo_edit` twice,
+      the trees byte for byte before and after the merge;
+      `resample_clip_fps` 30 -> 25 and `reverse_clip`; fade_in,
+      normalize, insert_silence and append_audio sample-exact;
+   c. `transcode` into YUV4MPEG through gaussian_blur and vignette with
+      the clip's audio: K2 and K3 one launch a batch, the first 16 frames
+      within 1 LSB of the CPU's transcode, the WAV beside it byte for
+      byte; the pngseq and pdf encoders over 8 frames; `python -m
+      lives_tpu_torch.cli rfx sepia <clipdir>` in a subprocess;
+   d. the player: 30 cycles of a decoded clip through vignette into a
+      `PNGSink` on a scripted clock; a take of the stateful beat_rings
+      generator at 1080p with scrap capture (`scrap_take`): every FRAME
+      event references the scrap clip, its re-render at least
+      `SCRAP_PSNR_DB` from the frames the sink showed;
+   frames/s, PIL's share of each step's wall, and the launches, each line
+   with the card's name and power limit.
 Then a `resources` line for K1 (both builds), K4, K5 and K6 (the path's
 entry: ptxas registers and spills, blocks an SM), a JSON line of the kernels
 (with each one's bound: the larger of its bytes over 3.35 TB/s and its
@@ -1944,6 +1982,37 @@ def perform(p, clips, fps, cycles, every, clock=None, realtime=False,
         if clock is not None:
             clock.now = (c + 1) / fps
     return ms
+
+
+#: the least PSNR of a scrap take's re-render against the frames the sink
+#: showed (phase 21d); the JAX player's own take of `scrap_take` at 64x36
+#: shows 32.2 dB (tests/test_torch_scrap.py holds it and the port's to
+#: this bound)
+SCRAP_PSNR_DB = 30.0
+
+
+def scrap_take(p, gen, cycles, fps, clock=None, beat_every=6, ms=None):
+    """Record `cycles` cycles of `gen` (a stateful beat_rings
+    GeneratorClip of either package) as the fg of a started-fresh player
+    with scrap capture on, a beat every `beat_every` cycles; with `clock`
+    (a ScriptedClock) each cycle sees it advanced 1 / fps; `ms`, a list,
+    gets each cycle's host ms. Returns the take (the recorded
+    EventList)."""
+    p.state.fg_clip = gen
+    p.set_pb_fps(fps)
+    p.start()
+    p.record_start(gen.width, gen.height, scrap_generators=True)
+    for c in range(cycles):
+        gen.inst.values["beat"] = 1.0 if c % beat_every == 0 else 0.0
+        t0 = time.perf_counter()
+        p.process_one()
+        if ms is not None:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if clock is not None:
+            clock.now = (c + 1) / fps
+    el = p.record_stop()
+    p.stop()
+    return el
 
 
 def rerender_index(el, fps):
@@ -3925,6 +3994,411 @@ def datacons_phase(dev, card, launches):
          **{k: f"{b - a:.1f}" for k, a, b in zip(steps, marks, marks[1:])})
 
 
+# ---------------------------------------------------------------------------
+# 21. the clip editor
+# ---------------------------------------------------------------------------
+
+#: phase 21's clips (frames), each script's range, the frames the CPU
+#: renders of the rendered effect and of the transcode (their first
+#: batch), the audio rate, the PNG sink's cycles and the scrap take's
+EDIT_FRAMES, EDIT_SCRIPT_FRAMES, EDIT_CPU_FRAMES = 96, 12, 32
+EDIT_CPU_TRANSCODE = 16
+EDIT_ARATE, EDIT_SINK_CYCLES, EDIT_SCRAP_CYCLES = 48000, 30, 60
+#: phase 21a's scripts, card against CPU: (name, parameters, flips are
+#: values more than 1 LSB apart and must be 0)
+EDIT_SCRIPTS = (("sepia", {}), ("swirl", {}), ("posterize", {"levels": 3}),
+                ("transition_bwthresh", {"thresh": 0.45}),
+                ("jumble", {"seed": 21}))
+
+
+def dir_tree(d) -> dict:
+    """{relative path: bytes} of every file under a directory."""
+    d = Path(d)
+    return {str(p.relative_to(d)): p.read_bytes()
+            for p in sorted(d.rglob("*")) if p.is_file()}
+
+
+def editor_audio(seconds):
+    """A seeded 48 kHz stereo track: float32 (n, 2)."""
+    import numpy as np
+    rng = np.random.default_rng(21)
+    t = np.arange(int(seconds * EDIT_ARATE)) / EDIT_ARATE
+    tone = 0.4 * np.sin(2 * np.pi * 440.0 * t)
+    return np.stack([tone, 0.5 * tone], 1).astype(np.float32) \
+        + rng.normal(0.0, 0.02, (len(t), 2)).astype(np.float32)
+
+
+def editor_clip(path, workdir, wav=None, uid=None):
+    """`open_clip` of a YUV4MPEG file into `workdir`, with the audio a WAV
+    rips (through `WavDecoder`) and a set unique_id."""
+    from lives_tpu_torch.io.clips import open_clip
+    from lives_tpu_torch.io.decoders import try_decoders
+    c = open_clip(str(path), workdir)
+    if wav is not None:
+        cd = try_decoders(str(wav))
+        assert cd.decoder.rip_audio(str(c.audio_path))
+        c.achans, c.arate = cd.achans, cd.arate
+    if uid is not None:
+        c.unique_id = uid
+    c.save_header()
+    return c
+
+
+def png_gap(a, b, frames=None):
+    """(max |diff|, values more than 1 LSB apart, frames whose PNG bytes
+    differ though their pixels are equal) over the image frames of two
+    clips."""
+    import numpy as np
+    from PIL import Image
+    worst, flips, bytes_off = 0, 0, 0
+    for n in (range(a.frames) if frames is None else frames):
+        if a.is_virtual_frame(n) or b.is_virtual_frame(n):
+            assert a.is_virtual_frame(n) == b.is_virtual_frame(n), n
+            continue
+        x = np.asarray(Image.open(a.image_path(n))).astype(np.int16)
+        y = np.asarray(Image.open(b.image_path(n))).astype(np.int16)
+        d = np.abs(x - y)
+        worst, flips = max(worst, int(d.max())), flips + int((d > 1).sum())
+        if not d.any() and a.image_path(n).read_bytes() != \
+                b.image_path(n).read_bytes():
+            bytes_off += 1
+    return worst, flips, bytes_off
+
+
+def clipedit_phase(dev, card, launches):
+    """21. the clip editor at 1920x1080, 30 fps: rendered effects and
+    scripts, clip edits with undo, transcode and the encoders, the
+    player's PNG sink and scrap capture; card against CPU throughout."""
+    import numpy as np
+    import torch
+
+    from lives_tpu_torch import audioedit, clipedit, resample, rfx
+    from lives_tpu_torch import rfx_scripts
+    from lives_tpu_torch.effects.host import instantiate
+    from lives_tpu_torch.events.renderer import render_recording
+    from lives_tpu_torch.graph import FrameGraph, SinkSpec, composite
+    from lives_tpu_torch.io.clips import read_rgb_batch
+    from lives_tpu_torch.io.decoders import PIL_SECONDS, try_decoders
+    from lives_tpu_torch.io.encoders import get_encoder
+    from lives_tpu_torch.io.genclip import GeneratorClip
+    from lives_tpu_torch.layer import Layer
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.player import CollectSink, Player
+    from lives_tpu_torch.player import player as player_mod
+    from lives_tpu_torch.player.sinks import PNGSink
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+    from lives_tpu_torch.transcode import transcode
+
+    yk.build()
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    steps = {}
+    batches = -(-EDIT_FRAMES // 32)   # the entry points' batch of 32
+    at_start = dict(launches)
+
+    def zero():
+        yk.LAUNCHES.update(dict.fromkeys(yk.LAUNCHES, 0))
+        composite.LAUNCHES = 0
+        torch.cuda.synchronize()
+        return time.perf_counter(), dict(PIL_SECONDS)
+
+    def read(start):
+        """(K2, K3, K4 launches, wall s, PIL share of it) since `start`."""
+        torch.cuda.synchronize()
+        t0, pil0 = start
+        wall = time.perf_counter() - t0
+        pil = sum(PIL_SECONDS[k] - pil0[k] for k in PIL_SECONDS)
+        return (yk.LAUNCHES["yuv420_to_rgb"], yk.LAUNCHES["rgb_to_yuv420"],
+                composite.LAUNCHES, wall, pil / wall)
+
+    src = DeviceSyntheticSource(H, W, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        made, size, secs = write_clips(str(tmp), src, 2, EDIT_FRAMES)
+        paths = {c: made[c].source_uri for c in made}
+        for c in made.values():
+            c.close()
+        wav = tmp / "audio.wav"
+        assert get_encoder("wav").encode(
+            str(wav), [], FPS, editor_audio(EDIT_FRAMES / FPS), EDIT_ARATE)
+        line("21 inputs", clips=2, frames=EDIT_FRAMES,
+             mb=f"{size / 1e6:.1f}", seconds=f"{secs:.2f}",
+             wav_bytes=wav.stat().st_size)
+
+        def pair(k, name, audio=False, uid=None):
+            """Clip k opened twice: for the card and for the CPU."""
+            return tuple(editor_clip(paths[k], tmp / name / side,
+                                     wav if audio else None, uid or k)
+                         for side in ("card", "cpu"))
+
+        # 21a. a rendered effect with a per-frame ramp, its undo; scripts
+        a, a_cpu = pair(1, "a", audio=True)
+        before = dir_tree(a.clip_dir)
+        ramp = {"saturation": lambda f: 0.5 + f / EDIT_FRAMES}
+        mark = zero()
+        assert rfx.apply_rendered_effect(a, "saturation", 0, EDIT_FRAMES,
+                                         values=ramp, device=dev) \
+            == EDIT_FRAMES
+        k2, k3, k4, wall, pil = read(mark)
+        assert (k2, k3, k4) == (batches, 0, 0), (k2, k3, k4)
+        launches["yuv420_to_rgb"] += k2
+        t0 = time.perf_counter()
+        rfx.apply_rendered_effect(a_cpu, "saturation", 0, EDIT_CPU_FRAMES,
+                                  values=ramp, device=cpu)
+        cpu_s = time.perf_counter() - t0
+        worst, flips, bytes_off = png_gap(a, a_cpu, range(EDIT_CPU_FRAMES))
+        line("21a rendered_effect", card=repr(card), frames=EDIT_FRAMES,
+             k2=k2, batches=batches, wall_s=f"{wall:.3f}",
+             frames_per_s=f"{EDIT_FRAMES / wall:.1f}",
+             pil_share=f"{pil:.3f}", frames_vs_cpu=EDIT_CPU_FRAMES,
+             cpu_s=f"{cpu_s:.2f}", max_abs_err=worst, bound=1,
+             png_bytes_differing_at_equal_pixels=bytes_off)
+        assert worst <= 1 and bytes_off == 0
+        assert rfx.undo_rendered_effect(a)
+        assert rfx.undo_rendered_effect(a_cpu)
+        assert dir_tree(a.clip_dir) == before, "undo changed the tree"
+        line("21a undo", files=len(before), tree="byte for byte")
+        for name, params in EDIT_SCRIPTS:
+            s, s_cpu = pair(1, name)
+            kw = dict(params)
+            if name == "transition_bwthresh":
+                o, o_cpu = pair(2, name + "_other")
+            mark = zero()
+            n = rfx_scripts.apply_script(
+                s, name, 0, EDIT_SCRIPT_FRAMES, device=dev,
+                **({"other": o} if name.startswith("transition") else {}),
+                **kw)
+            k2, _, _, wall, pil = read(mark)
+            t0 = time.perf_counter()
+            rfx_scripts.apply_script(
+                s_cpu, name, 0, EDIT_SCRIPT_FRAMES, device=cpu,
+                **({"other": o_cpu} if name.startswith("transition")
+                   else {}), **kw)
+            cpu_s = time.perf_counter() - t0
+            launches["yuv420_to_rgb"] += k2
+            worst, flips, bytes_off = png_gap(s, s_cpu,
+                                              range(EDIT_SCRIPT_FRAMES))
+            order = ""
+            if name == "jumble":
+                want = np.random.default_rng(kw["seed"]).integers(
+                    0, EDIT_SCRIPT_FRAMES, EDIT_SCRIPT_FRAMES)
+                fresh, _ = pair(1, "jumble_src")
+                ref = read_rgb_batch(fresh, range(EDIT_SCRIPT_FRAMES),
+                                     dev).cpu()
+                got = read_rgb_batch(s, range(EDIT_SCRIPT_FRAMES),
+                                     dev).cpu()
+                assert all(torch.equal(got[i], ref[int(j)])
+                           for i, j in enumerate(want)), "jumble order"
+                order = "equal"
+            line("21a script", card=repr(card), name=name, frames=n,
+                 k2=k2, wall_s=f"{wall:.3f}", cpu_s=f"{cpu_s:.2f}",
+                 max_abs_err=worst, flips=flips,
+                 png_bytes_differing_at_equal_pixels=bytes_off,
+                 **({"order": order} if order else {}))
+            assert worst <= 1 and flips == 0 and bytes_off == 0, name
+        steps["rendered_effects"] = time.perf_counter()
+
+        # 21b. copy + paste, merge on both routes, undo and redo, resample,
+        # reverse, the audio ops
+        b, b_cpu = pair(2, "b", audio=True)
+        mark = zero()
+        cb = clipedit.copy_frames(b, 0, 24, device=dev)
+        k2, _, _, wall, _ = read(mark)
+        assert k2 == 1, k2
+        launches["yuv420_to_rgb"] += k2
+        cb_cpu = clipedit.copy_frames(b_cpu, 0, 24, device=cpu)
+        assert all(int(np.abs(x.astype(np.int16) - y).max()) <= 1
+                   for x, y in zip(cb.frames, cb_cpu.frames))
+        np.testing.assert_array_equal(cb.audio, cb_cpu.audio)
+        clipedit.paste_insert(a, 48, cb)
+        clipedit.paste_insert(a_cpu, 48, cb_cpu)
+        line("21b paste", frames=len(cb), at=48, clip_frames=a.frames,
+             k2_copy=k2, copy_s=f"{wall:.3f}")
+        for pref in ("1", "0"):
+            os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = pref
+            probe = FrameGraph([instantiate("crossfade")], SinkSpec())
+            comp_n = probe._composite_len(
+                [Layer(planes=(torch.zeros((1, 3, H, W), dtype=torch.uint8,
+                                           device=dev),))] * 2)
+            pre = dir_tree(a.clip_dir)
+            mark = zero()
+            n = clipedit.merge_clipboard(a, cb, "crossfade", 24, 72,
+                                         device=dev)
+            k2, _, k4, wall, pil = read(mark)
+            merged = dir_tree(a.clip_dir)
+            t0 = time.perf_counter()
+            clipedit.merge_clipboard(a_cpu, cb_cpu, "crossfade", 24, 72,
+                                     device=cpu)
+            cpu_s = time.perf_counter() - t0
+            worst, flips, bytes_off = png_gap(a, a_cpu, range(24, 72))
+            want_k4 = -(-n // 32) if comp_n else 0
+            line("21b merge", card=repr(card), pref=pref, frames=n, k2=k2,
+                 k4=k4, k4_route=want_k4, composite_prefix=comp_n,
+                 wall_s=f"{wall:.3f}", frames_per_s=f"{n / wall:.1f}",
+                 pil_share=f"{pil:.3f}", cpu_s=f"{cpu_s:.2f}",
+                 max_abs_err=worst, flips=flips,
+                 png_bytes_differing_at_equal_pixels=bytes_off)
+            assert k4 == want_k4 and worst <= 1 and bytes_off == 0
+            launches["yuv420_to_rgb"] += k2
+            launches["composite"] += k4
+            for want, what in ((pre, "undo"), (merged, "redo")):
+                assert clipedit.undo_edit(a)
+                keep = {k: v for k, v in dir_tree(a.clip_dir).items()
+                        if not k.startswith(clipedit.EDIT_UNDO_DIR)}
+                assert keep == {k: v for k, v in want.items()
+                                if not k.startswith(clipedit.EDIT_UNDO_DIR)
+                                }, what
+            line("21b undo_redo", pref=pref, files=len(merged),
+                 trees="byte for byte")
+        os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "0"
+        for c in (a, a_cpu):
+            resample.resample_clip_fps(c, 25.0)
+            resample.reverse_clip(c)
+        assert (a.frames, a.fps) == (a_cpu.frames, a_cpu.fps)
+        np.testing.assert_array_equal(a.frame_index, a_cpu.frame_index)
+        worst, flips, _ = png_gap(a, a_cpu)
+        line("21b resample_reverse", frames=a.frames, fps=a.fps,
+             max_abs_err=worst)
+        assert worst <= 1
+        extra = editor_audio(0.5)
+        for c in (a, a_cpu):
+            audioedit.fade_in(c, 1.0)
+            audioedit.normalize(c)
+            audioedit.insert_silence(c, 0.5, 1.0)
+            audioedit.append_audio(c, extra, EDIT_ARATE)
+        assert a.audio_path.read_bytes() == a_cpu.audio_path.read_bytes()
+        assert (a.clip_dir / "header.lives").read_bytes() == \
+            (a_cpu.clip_dir / "header.lives").read_bytes()
+        line("21b audioedit", ops=4, samples=len(a.read_audio()),
+             audio="sample-exact")
+        steps["edits"] = time.perf_counter()
+
+        # 21c. transcode into YUV4MPEG with audio; the PNG and PDF encoders
+        t, t_cpu = pair(1, "t", audio=True)
+        chain = lambda: [instantiate("gaussian_blur"),   # noqa: E731
+                         instantiate("vignette")]
+        out = tmp / "out.y4m"
+        mark = zero()
+        assert transcode(t, str(out), chain=chain(), include_audio=True,
+                         device=dev)
+        k2, k3, k4, wall, _ = read(mark)
+        assert (k2, k3, k4) == (batches, batches, 0), (k2, k3, k4)
+        launches["yuv420_to_rgb"] += k2
+        launches["rgb_to_yuv420"] += k3
+        cpu_out = tmp / "cpu.y4m"
+        t0 = time.perf_counter()
+        assert transcode(t_cpu, str(cpu_out), chain=chain(),
+                         end=EDIT_CPU_TRANSCODE, include_audio=True,
+                         batch_size=EDIT_CPU_TRANSCODE, device=cpu)
+        cpu_s = time.perf_counter() - t0
+        got, ref = y4m_planes(str(out), dev), y4m_planes(str(cpu_out), dev)
+        assert len(got) == EDIT_FRAMES and len(ref) == EDIT_CPU_TRANSCODE
+        worst = max(int((x.int() - y.int()).abs().max())
+                    for g, r in zip(got, ref) for x, y in zip(g, r))
+        same_wav = out.with_suffix(".wav").read_bytes() == \
+            cpu_out.with_suffix(".wav").read_bytes()
+        line("21c transcode", card=repr(card), frames=EDIT_FRAMES,
+             batches=batches, k2=k2, k3=k3, wall_s=f"{wall:.3f}",
+             frames_per_s=f"{EDIT_FRAMES / wall:.1f}",
+             max_abs_err=worst, bound=1, frames_vs_cpu=EDIT_CPU_TRANSCODE,
+             cpu_s=f"{cpu_s:.2f}",
+             wav="byte for byte" if same_wav else "DIFFERS")
+        assert worst <= 1 and same_wav
+        for enc, dst in (("pngseq", tmp / "seq"), ("pdf", tmp / "o.pdf")):
+            mark = zero()
+            assert transcode(t, str(dst), enc, end=8, device=dev)
+            k2, _, _, wall, pil = read(mark)
+            launches["yuv420_to_rgb"] += k2
+            if enc == "pngseq":
+                cd = try_decoders(str(dst))
+                ok = (cd.nframes, cd.width, cd.height) == (8, W, H)
+            else:
+                raw = dst.read_bytes()
+                ok = raw.startswith(b"%PDF") and \
+                    raw.count(b"/Type /Page\n") == 8
+            line("21c encoder", card=repr(card), encoder=enc, frames=8,
+                 k2=k2, wall_s=f"{wall:.3f}", pil_share=f"{pil:.3f}",
+                 ok=ok)
+            assert ok, enc
+        cli_clip, _ = pair(2, "cli")
+        cmd = [sys.executable, "-m", "lives_tpu_torch.cli", "rfx", "sepia",
+               str(cli_clip.clip_dir), "--end", "8", "--device", str(dev)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=300)
+        line("21c cli_rfx", rc=res.returncode, seconds=
+             f"{time.perf_counter() - t0:.1f}", out=repr(res.stdout.strip()))
+        assert res.returncode == 0 and "sepia: 8 frames" in res.stdout, \
+            res.stderr[-2000:]
+        steps["transcode"] = time.perf_counter()
+
+        # 21d. the player: a PNG sink; a take of a stateful generator with
+        # scrap capture
+        saved_time = player_mod.time
+        clock = ScriptedClock()
+        player_mod.time = clock
+        try:
+            sink_dir = tmp / "sink"
+            p = Player(PNGSink(sink_dir), SinkSpec(), fps=FPS, device=dev)
+            p.async_compile = False
+            p.state.fg_clip = editor_clip(paths[1], tmp / "play")
+            p.keymap.set_key(0, 0, "vignette")
+            p.key_toggle(0, True)
+            p.start()
+            mark = zero()
+            for c in range(EDIT_SINK_CYCLES):
+                p.process_one()
+                clock.now = (c + 1) / FPS
+            k2, k3, _, wall, pil = read(mark)
+            p.stop()
+            written = len(list(sink_dir.glob("*.png")))
+            line("21d png_sink", card=repr(card), cycles=EDIT_SINK_CYCLES,
+                 frames=written, k2=k2, wall_s=f"{wall:.3f}",
+                 pil_share=f"{pil:.3f}")
+            assert written == p.sink.n == EDIT_SINK_CYCLES
+            launches["yuv420_to_rgb"] += k2
+            clock.now = 0.0
+            gen = GeneratorClip("beat_rings", W, H, fps=FPS, device=dev)
+            sink = CollectSink()
+            p = Player(sink, SinkSpec(width=W, height=H), fps=FPS,
+                       device=dev)
+            p.async_compile = False
+            p.scrap_dir = str(tmp / "work")
+            cycle_ms = []
+            t0 = time.perf_counter()
+            el = scrap_take(p, gen, EDIT_SCRAP_CYCLES, FPS, clock,
+                            ms=cycle_ms)
+            take_s = time.perf_counter() - t0
+        finally:
+            player_mod.time = saved_time
+        cycle_ms.sort()
+        uid, scrap = next(iter(p.rec_scrap_clips.items()))
+        refs = [e for e in el.events if e.type.name == "FRAME"]
+        assert [(e.clips[0], e.frames[0]) for e in refs] == \
+            [(uid, i) for i in range(EDIT_SCRAP_CYCLES)]
+        assert scrap.frames == EDIT_SCRAP_CYCLES
+        frames, _ = render_recording(el, p.recording_uid_map(),
+                                     batch_size=8, device=dev)
+        shown = torch.from_numpy(np.stack(sink.frames))
+        rr = torch.from_numpy(frames[rerender_index(el, FPS)])
+        db = float(psnr(rr, shown).min())
+        line("21d scrap_take", card=repr(card), cycles=EDIT_SCRAP_CYCLES,
+             scrap_frames=scrap.frames, refs=len(refs),
+             take_s=f"{take_s:.2f}",
+             cycle_ms_p50=f"{cycle_ms[len(cycle_ms) // 2]:.2f}",
+             cycle_ms_max=f"{cycle_ms[-1]:.2f}", rerender_min_psnr_db=
+             f"{db:.2f}", bound_db=SCRAP_PSNR_DB)
+        assert db >= SCRAP_PSNR_DB, db
+        scrap.close()
+        steps["player"] = time.perf_counter()
+    marks = [t_phase, *steps.values()]
+    line("21 launches", card=repr(card), **{
+        k: launches[k] - at_start[k]
+        for k in ("yuv420_to_rgb", "rgb_to_yuv420", "composite")})
+    line("21 wall", seconds=f"{time.perf_counter() - t_phase:.1f}",
+         **{k: f"{b - a:.1f}" for k, a, b in zip(steps, marks, marks[1:])})
+
+
 def synced_calls(fn):
     """(fn's result, the synchronizing CUDA calls it made, as the warnings
     of torch's sync debug mode)."""
@@ -4002,6 +4476,9 @@ def main(argv) -> int:
         return 0
     if argv == ["--datacons"]:
         datacons_phase(dev, card, dict.fromkeys(NAMES, 0))
+        return 0
+    if argv == ["--clipedit"]:
+        clipedit_phase(dev, card, dict.fromkeys(NAMES, 0))
         return 0
     if argv and argv not in (["--vocabulary"], ["--vjfilters"],
                              ["--titles"]):
@@ -4584,6 +5061,7 @@ def main(argv) -> int:
     titles(dev, card, launches)
     mjpeg_phase(dev, card, launches)
     datacons_phase(dev, card, launches)
+    clipedit_phase(dev, card, launches)
     vel = timeline_v(1)
     vspec, _, _, vrows = chunk_of(vel, dev, 1)
     v_geom = fused_sweep.plan_geometry(

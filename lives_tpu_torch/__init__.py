@@ -25,9 +25,14 @@ and `GenSlot`s, with the generators of `effects/builtin/generators.py`.
 (`csrc/fma_chain.cu`), which `chip_smoke.py` runs to read the card's
 float32 ceiling. The clip editor's realtime player (ROADMAP Queue 1 item
 20) is `player` (`Player`, `KeyMap`, the sinks), with `diagnostics` and
-the console `cli` (`python -m lives_tpu_torch.cli play clip.y4m`). Every
-entry point takes its device explicitly (a `GeneratorClip` and a `Player`
-default to "cuda"); nothing picks a device on its own.
+the console `cli` (`python -m lives_tpu_torch.cli play clip.y4m`). The
+clip editor's editing half (ROADMAP items 11, 21 and 23) is the clip
+store (`io/clips.py`, image and WAV decoders, the PNG, PDF and WAV
+encoders), `rfx`, `rfx_scripts`, `rfx_builder`, `clipedit`, `resample`,
+`audioedit`, `transcode.transcode` and `io/scrap.py` with the player's
+scrap capture. Every entry point takes its device explicitly (a
+`GeneratorClip`, a `Player` and the editor's entry points default to
+"cuda" and raise without it); nothing picks a device on its own.
 """
 
 from .constants import (Gamma, Palette, YUVClamping, YUVSampling,

@@ -1,22 +1,23 @@
 """Headless VJ console: the terminal front-end.
 
-Counterpart of `lives_tpu/cli.py:23-175,214-221` (`build_player`,
-`run_interactive`, the `play` and `effects` subcommands). It opens a clip,
-binds effect keys, starts playback with a live status line (inst fps /
-p99 / effort) and takes single-key commands on stdin (the clip editor's
-hotkey map). Also usable non-interactively:
+Counterpart of `lives_tpu/cli.py:23-175,195-221,287-311` (`build_player`,
+`run_interactive`, the `play`, `effects` and `rfx` subcommands). It opens
+a clip, binds effect keys, starts playback with a live status line (inst
+fps / p99 / effort) and takes single-key commands on stdin (the clip
+editor's hotkey map). Also usable non-interactively:
 
     python -m lives_tpu_torch.cli play file.y4m --fx gaussian_blur,vignette --seconds 5
     python -m lives_tpu_torch.cli play --fx saturation --seconds 5   # plasma
     python -m lives_tpu_torch.cli effects
+    python -m lives_tpu_torch.cli rfx sepia clipdir     # a rendered effect
 
 Playback runs on `--device` (default `cuda`; without CUDA it raises, it
-does not fall back): YUV4MPEG clips into a null or Y4M sink, or the plasma
-generator without a clip. Not ported yet, each raising
-`NotImplementedError` naming its ROADMAP Queue 1 item: the png sink
-(item 11), the stream, l2l, sdl, vjack and av sinks and `--osc` (item 23),
-and the `render`, `selftest`, `recover`, `rfx` and `webui` subcommands
-(items 21 and 23).
+does not fall back): YUV4MPEG clips into a null, Y4M or PNG sink, or the
+plasma generator without a clip; `rfx` applies a rendered-effect script
+on `--device` (default `cuda`). Not ported yet, each raising
+`NotImplementedError` naming its ROADMAP Queue 1 item: the stream, l2l,
+sdl, vjack and av sinks and `--osc`, and the `render`, `selftest`,
+`recover` and `webui` subcommands (item 23).
 
 Keys: space=play/stop  0-8=toggle fx key  r=record  R=stop rec+save
       [ ]=fps down/up  v=reverse  p=ping-pong  q=quit
@@ -31,14 +32,13 @@ import time
 
 #: sink kinds `play --sink` names, and the item that ports each one not
 #: ported yet
-UNPORTED_SINKS = {"png": 11, "stream": 23, "l2l": 23, "sdl": 23,
+UNPORTED_SINKS = {"stream": 23, "l2l": 23, "sdl": 23,
                   "vjack": 23, "av": 23}
 #: subcommands of the JAX console not ported yet, and their items
 UNPORTED_COMMANDS = {
     "render": "multitrack/model.py layouts (ROADMAP Queue 1 item 23)",
     "selftest": "diagnostics.run_startup_tests (ROADMAP Queue 1 item 23)",
     "recover": "api.py and sets.py (ROADMAP Queue 1 item 23)",
-    "rfx": "rfx.py and rfx_scripts.py (ROADMAP Queue 1 items 21 and 23)",
     "webui": "webui.py and the OSC server (ROADMAP Queue 1 item 23)",
 }
 
@@ -58,6 +58,10 @@ def build_player(uri: str | None, fx: list[str], width: int, height: int,
         sink = Y4MSink(out or "out.y4m")
         spec = SinkSpec(width=width, height=height,
                         palette=int(Palette.YUV420P))
+    elif sink_kind == "png":
+        from .player.sinks import PNGSink
+        sink = PNGSink(out or "frames")
+        spec = SinkSpec(width=width, height=height)
     else:
         sink = NullSink()
         spec = SinkSpec(width=width, height=height)
@@ -170,6 +174,19 @@ def main(argv=None):
                            "fallback)")
 
     sub.add_parser("effects", help="list registered filters")
+
+    rfx = sub.add_parser("rfx", help="list/apply rendered-effect scripts")
+    rfx.add_argument("script", nargs="?", default=None,
+                     help="script name (omit to list)")
+    rfx.add_argument("clip", nargs="?", default=None,
+                     help="media file / clip dir to apply to")
+    rfx.add_argument("--param", action="append", default=[],
+                     metavar="K=V", help="script parameter")
+    rfx.add_argument("--start", type=int, default=0)
+    rfx.add_argument("--end", type=int, default=None)
+    rfx.add_argument("--device", default="cuda",
+                     help="the device the script's pixel work runs on "
+                          "(default cuda; no fallback)")
     for cmd in UNPORTED_COMMANDS:
         sub.add_parser(cmd, help="not ported yet").add_argument(
             "rest", nargs="*")
@@ -182,6 +199,8 @@ def main(argv=None):
                 continue
             print(f"{name:24s} {get_filter(name).description}")
         return 0
+    if args.cmd == "rfx":
+        return _rfx(args)
     if args.cmd in UNPORTED_COMMANDS:
         raise NotImplementedError(
             f"`{args.cmd}` needs {UNPORTED_COMMANDS[args.cmd]}, not ported "
@@ -193,6 +212,35 @@ def main(argv=None):
     p = build_player(args.uri, fx, args.width, args.height, args.sink,
                      args.out, device=args.device)
     run_interactive(p, args.seconds)
+    return 0
+
+
+def _rfx(args) -> int:
+    """`rfx`: list the scripts, show a script's parameters, or apply it to
+    a clip directory or a media file (`lives_tpu/cli.py:287-311`)."""
+    from .rfx_scripts import (apply_script, get_script, list_scripts,
+                              parse_param_value)
+    if args.script is None:
+        for name in list_scripts():
+            print(f"{name:28s} {get_script(name).filter}")
+        return 0
+    if args.clip is None:
+        for q in get_script(args.script).params_spec():
+            print(f"{q['name']:20s} {q.get('kind', 'num'):12s} "
+                  f"default={q.get('default')}")
+        return 0
+    import pathlib
+    from .io.clips import Clip, open_clip
+    path = pathlib.Path(args.clip)
+    clip = Clip.load(path) if (path / "header.lives").is_file() \
+        else open_clip(args.clip, path.parent)
+    params = {}
+    for kv in args.param:
+        k, _, v = kv.partition("=")
+        params[k] = parse_param_value(v)
+    n = apply_script(clip, args.script, start=args.start, end=args.end,
+                     device=args.device, **params)
+    print(f"{args.script}: {n} frames -> {clip.clip_dir}")
     return 0
 
 

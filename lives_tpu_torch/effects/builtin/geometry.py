@@ -251,19 +251,25 @@ _chan_filter("swirl", _swirl,
 _SPREAD_U, _SPREAD_V = float(_F32(12.9898)), float(_F32(78.233))
 
 
-def spread_hash(u, v, k, seed):
+def spread_hash(u, v, k, seed, fused: bool = True):
     """`fract(sin(u * 12.9898 + v * 78.233 + k * 0.317 + seed) *
     43758.5453) * 2 - 1` (`geometry.py:226-228`) on float32 pixel
     coordinates u (1, w) and v (h, 1) and per-frame seeds (B, 1, 1), as
-    the JAX package's jitted route computes it: XLA contracts the first
-    multiply-add into a fused one, fma(u, 12.9898, v * 78.233). Its
-    product of an integer coordinate below 2^13 and a float32 is exact in
-    float64 and so is the sum with a float32 below 2^17, so one rounding
-    to float32 gives the fused result. `sin` is `utils.sinf`, the C
+    the JAX package's jitted routes compute it. A one-frame plan (the
+    filter alone, `FrameGraph.run`) contracts the first multiply-add into
+    a fused one, fma(u, 12.9898, v * 78.233): its product of an integer
+    coordinate below 2^13 and a float32 is exact in float64 and so is the
+    sum with a float32 below 2^17, so one rounding to float32 gives the
+    fused result. The batch plan (`run_batch`, `fused=False`) computes
+    the frame-invariant u * 12.9898 + v * 78.233 in a fusion of its own,
+    two products and a sum, each rounded. `sin` is `utils.sinf`, the C
     library's `sinf` that XLA calls. Returns float32 (B, h, w) in [-1,
     1)."""
-    vv = (v * _F32(78.233)).to(torch.float64)
-    arg = (u.to(torch.float64) * _SPREAD_U + vv).to(torch.float32)
+    if fused:
+        vv = (v * _F32(78.233)).to(torch.float64)
+        arg = (u.to(torch.float64) * _SPREAD_U + vv).to(torch.float32)
+    else:
+        arg = u * _SPREAD_U + v * _SPREAD_V
     s = sinf(arg + float(_F32(k * 0.317)) + seed) * 43758.5453
     return (s - torch.floor(s)) * 2.0 - 1.0
 
@@ -275,8 +281,9 @@ def _spread(a, p, c):
     y, x = _axes(a)
     seed = _col(torch.as_tensor(getattr(c, "frame", 0), device=a.device)
                 .to(torch.float32), a)
-    yy = y + amt * spread_hash(x, y, 1.0, seed)
-    xx = x + amt * spread_hash(x, y, 2.0, seed)
+    fused = not getattr(c, "batched", False)
+    yy = y + amt * spread_hash(x, y, 1.0, seed, fused)
+    xx = x + amt * spread_hash(x, y, 2.0, seed, fused)
     return _warp(a, yy, xx)
 
 

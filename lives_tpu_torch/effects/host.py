@@ -192,7 +192,10 @@ class FrameContext:
     """Per-frame info handed to process fns. `tc`/`frame` may be ``(B,)``
     tensors. width/height are the FULL frame dims; (y0, x0) is the origin
     of a tile inside it (0 for a whole frame). `device` is where a
-    generator makes its frame."""
+    generator makes its frame. `batched` is True inside `FrameGraph.
+    run_batch`'s chain: the JAX package's batch plan, where XLA hoists a
+    frame-invariant subexpression into a fusion of its own and so rounds
+    it otherwise than its one-frame plan (spread's hash)."""
     tc: Any = 0.0
     frame: Any = 0
     fps: float = 25.0
@@ -201,6 +204,7 @@ class FrameContext:
     y0: int = 0
     x0: int = 0
     device: Any = None
+    batched: bool = False
 
 
 # ---------------------------------------------------------------------------

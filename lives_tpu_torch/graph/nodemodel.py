@@ -196,7 +196,7 @@ def run_chain(chain_spec: Sequence[tuple], layers: Sequence[Layer | None],
               sink: SinkSpec, *, idx_base: int = 0,
               states: list | None = None, float_chain: bool | None = None,
               emit_comp: bool = False, origin: tuple | None = None,
-              cconx: Sequence[tuple] = ()) -> Layer:
+              cconx: Sequence[tuple] = (), batched: bool = False) -> Layer:
     """Route (b): a chain over batched track layers.
 
     `packed` (P+2, B) float32 holds the traced rows named by `rows_key`
@@ -214,7 +214,9 @@ def run_chain(chain_spec: Sequence[tuple], layers: Sequence[Layer | None],
     (`nodemodel.py:773-783,841-847`). `cconx` edges (over chain indices,
     chain_spec[0] being `idx_base`) hand each alpha out-channel an
     instance exports to the alpha in-slots of the later instances wired
-    to it, within the call (`nodemodel.py:811-829`)."""
+    to it, within the call (`nodemodel.py:811-829`). `batched` marks
+    the call as the JAX package's batch plan (`run_batch`), which XLA
+    fuses otherwise than a one-frame plan (`FrameContext.batched`)."""
     tps: list[dict[str, Any]] = [dict() for _ in chain_spec]
     for r, (i, k) in enumerate(rows_key):
         if 0 <= i - idx_base < len(chain_spec):
@@ -226,11 +228,12 @@ def run_chain(chain_spec: Sequence[tuple], layers: Sequence[Layer | None],
     if origin is not None:
         y0, full_h, full_w = origin
         ctx = FrameContext(tc=tc, frame=frame, fps=fps, width=full_w,
-                           height=full_h, y0=y0, device=packed.device)
+                           height=full_h, y0=y0, device=packed.device,
+                           batched=batched)
     else:
         ctx = FrameContext(tc=tc, frame=frame, fps=fps,
                            width=w0 or sink.width, height=h0 or sink.height,
-                           device=packed.device)
+                           device=packed.device, batched=batched)
     layers = list(layers)
     if float_chain is None:
         float_chain = len(chain_spec) >= 2
@@ -618,7 +621,8 @@ class FrameGraph:
                 + layers[1:]
             start = comp_n
         return run_chain(spec[start:], layers, packed, rows_key, self.fps,
-                         self.sink, idx_base=start, cconx=self.cconx)
+                         self.sink, idx_base=start, cconx=self.cconx,
+                         batched=True)
 
     def _composite_len(self, layers: Sequence[Layer]) -> int:
         """comp_n, the prefix the composite kernel takes over decoded

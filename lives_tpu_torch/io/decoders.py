@@ -1,16 +1,26 @@
-"""Decoder services, host side: the decoder-plugin contract and the
-YUV4MPEG2 decoder and writer.
+"""Decoder services, host side: the decoder-plugin contract, the
+image-sequence, YUV4MPEG2, WAV and AVI decoders, the YUV4MPEG2 fifo
+reader and the writers.
 
-Counterpart of `lives_tpu/io/decoders.py:41-114,166-295,353-367,462-661`
-(`ClipData`, `Decoder`, `register_decoder`, `try_decoders`, `Y4MDecoder`,
-`write_y4m`, `write_mjpeg_avi`, `AVIDecoder`); reference decoder-plugin
-API, LiVES
+Counterpart of `lives_tpu/io/decoders.py:41-461,462-661` (`ClipData`,
+`Decoder` with `rip_audio` and `estimate_delay`, `register_decoder`,
+`try_decoders`, `ImageSeqDecoder`, `Y4MDecoder`, `Y4MStreamSource`,
+`write_y4m`, `WavDecoder`, `write_mjpeg_avi`, `AVIDecoder`); reference
+decoder-plugin API, LiVES
 `lives-plugins/plugins/decoders/decplugin.h`. A decoder claims a URI, returns
 its clip data and serves frames by index as Layers of host (CPU) planes;
-the device upload happens once a chunk, in `events.renderer.
-ClipFrameSource`. `get_frame(n, out=...)` reads a frame's planes straight
-into caller-owned arrays, the rows of a chunk's stacked planes, so a chunk
-is read with no further host copy.
+the device upload happens once a chunk (`events.renderer.ClipFrameSource`,
+`io.clips.read_rgb_batch`). `get_frame(n, out=...)` reads a frame's
+planes straight into caller-owned arrays, the rows of a chunk's stacked
+planes, so a chunk is read with no further host copy.
+
+`ImageSeqDecoder` opens a directory of numbered PNG/JPEG images in
+numeric order through PIL; `WavDecoder` opens a RIFF WAVE file as an
+audio-only clip and rips it to the clip store's s16le (float32 WAVs at
+`* 32767`, as the JAX package). `Y4MStreamSource` reads a YUV4MPEG2
+stream that cannot seek (a fifo, stdin): `get_frame` returns the next
+frame, and the player captures it to a scrap clip while recording
+(`scrap_on_record`).
 
 `AVIDecoder` opens MJPEG and raw-DIB AVIs (the JAX package's own
 compressed clip format, `write_mjpeg_avi`): `get_frame` decodes through
@@ -20,9 +30,8 @@ the rest on the device), which the player's precache takes.
 
 Plain Python file IO. Not ported yet (ROADMAP Queue 1 item 11): the JAX
 decoder's optional native prefetch cache (`enable_prefetch`, `:191-205`),
-`Y4MStreamSource`, the image-sequence, WAV and ffmpeg decoders, and the
-contract's `rip_audio` and `estimate_delay` (`:80-90`), which only audio
-and the player's prefetcher call.
+the libav bridge and the ffmpeg decoder, which need a native library and
+an `ffmpeg` binary.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from __future__ import annotations
 import io
 import mmap
 import os
+import re
 import struct
 import threading
 from dataclasses import dataclass
@@ -84,6 +94,18 @@ class Decoder:
         writable uint8 array a plane to read them into."""
         raise NotImplementedError
 
+    def rip_audio(self, path: str) -> bool:
+        """Extract raw pcm audio to path; False if no audio."""
+        return False
+
+    def estimate_delay(self, from_frame: int, to_frame: int) -> float:
+        """Seek+decode cost estimate in seconds (decplugin.h:305)."""
+        cd = self.cdata
+        if to_frame >= from_frame and to_frame - from_frame < cd.kframe_dist:
+            return (to_frame - from_frame) * cd.const_time_per_frame
+        back = to_frame % max(cd.kframe_dist, 1)
+        return (back + 1) * cd.const_time_per_frame
+
     def close(self):
         pass
 
@@ -107,6 +129,77 @@ def try_decoders(uri: str) -> Optional[ClipData]:
         if cd is not None:
             return cd
     return None
+
+
+# ---------------------------------------------------------------------------
+# Image sequence decoder (the reference's CLIP_TYPE_DISK path)
+# ---------------------------------------------------------------------------
+
+@register_decoder
+class ImageSeqDecoder(Decoder):
+    """Directory of numbered images (00000001.png ...), in numeric order
+    (`decoders.py:122-160`)."""
+
+    name = "imageseq"
+
+    def __init__(self, cdata: ClipData, files: list[Path]):
+        self.cdata = cdata
+        self.files = files
+
+    @classmethod
+    def get_clip_data(cls, uri: str):
+        from PIL import Image
+        p = Path(uri)
+        if not p.is_dir():
+            return None
+        # numeric sort: unpadded sequences (1, 2, ..., 10) must not play
+        # in lexicographic order
+        files = sorted([f for f in p.iterdir()
+                        if re.fullmatch(r"\d+\.(png|jpg|jpeg)", f.name)],
+                       key=lambda f: int(f.stem))
+        if not files:
+            return None
+        with Image.open(files[0]) as im:
+            w, h = im.size
+        cd = ClipData(uri=uri, nframes=len(files), width=w, height=h,
+                      palette=int(Palette.RGB24), fps=25.0)
+        cd.decoder = cls(cd, files)
+        return cd
+
+    def get_frame(self, n: int, out=None) -> Layer:
+        """Frame n as a host RGB24 (or RGBA32, for an image with alpha)
+        (C, H, W) plane; read into `out` (one writable (C, H, W) uint8
+        array, its C channels kept) when given."""
+        return image_layer(self.files[n], out,
+                           lambda im: im.mode in ("RGBA", "LA", "PA"))
+
+
+#: wall seconds the host spent in PIL coding frame images, summed over the
+#: process: "decode" (`clips.read_rgb_batch`'s image runs), "encode"
+#: (`clips.Clip.put_frames`, `PNGSink`, the PNG and PDF encoders)
+PIL_SECONDS = {"decode": 0.0, "encode": 0.0}
+
+
+def image_layer(path, out=None, has_alpha=None) -> Layer:
+    """An image file through PIL as a Layer of one host (C, H, W) uint8
+    plane: RGBA32 where `has_alpha(image)` (default: an "A" band), else
+    RGB24. With `out` (one writable (C, H, W) array) the pixels land there,
+    C channels of them."""
+    from PIL import Image
+    with Image.open(path) as im:
+        has_a = has_alpha(im) if has_alpha else "A" in im.getbands()
+        if out is not None:
+            has_a = out[0].shape[0] == 4
+        arr = np.asarray(im.convert("RGBA" if has_a else "RGB"))
+    chans = np.moveaxis(arr, -1, 0)
+    if out is None:
+        out = (np.ascontiguousarray(chans),)
+    else:
+        out[0][...] = chans
+    pal = Palette.RGBA32 if has_a else Palette.RGB24
+    return Layer(planes=(torch.from_numpy(out[0]),), palette=int(pal),
+                 gamma=int(Gamma.SRGB))
+
 
 
 @register_decoder
@@ -214,6 +307,62 @@ class Y4MDecoder(Decoder):
         self._fh.close()
 
 
+class Y4MStreamSource:
+    """Sequential YUV4MPEG2 reader for inputs that cannot seek (named pipes,
+    stdin): the reference's yuv4mpeg fifo ingest (src/lives-yuv4mpeg.c),
+    `decoders.py:298-350`. Clip-like: `get_frame(n)` returns the NEXT
+    frame of the stream as host planes, and holds the last frame once
+    the stream ends."""
+
+    def __init__(self, fh_or_path):
+        self._fh = open(fh_or_path, "rb") if isinstance(fh_or_path,
+                                                        (str, Path)) \
+            else fh_or_path
+        header = self._fh.readline()
+        if not header.startswith(b"YUV4MPEG2"):
+            raise ValueError("not a YUV4MPEG2 stream")
+        self.width = self.height = 0
+        self.fps = 25.0
+        for tok in header.split()[1:]:
+            t = tok.decode()
+            if t[0] == "W":
+                self.width = int(t[1:])
+            elif t[0] == "H":
+                self.height = int(t[1:])
+            elif t[0] == "F":
+                num, den = t[1:].split(":")
+                self.fps = int(num) / int(den)
+        self.frames = 1 << 30
+        self.unique_id = 0x59344D  # 'Y4M'
+        self.scrap_on_record = True  # live feed: recordings scrap frames
+        self._last = None
+
+    def get_frame(self, n: int = 0) -> Layer:
+        line = self._fh.readline()
+        if not line.startswith(b"FRAME"):
+            if self._last is not None:
+                return self._last  # EOF: hold last frame
+            raise EOFError("y4m stream ended")
+        w, h = self.width, self.height
+        buf = self._fh.read(w * h * 3 // 2)
+        if len(buf) < w * h * 3 // 2:
+            if self._last is not None:
+                return self._last  # stream died mid-frame: hold
+            raise EOFError("y4m stream ended mid-frame")
+        a = np.frombuffer(buf, np.uint8)
+        cs = (w // 2) * (h // 2)
+        y = a[: w * h].reshape(h, w)
+        u = a[w * h: w * h + cs].reshape(h // 2, w // 2)
+        v = a[w * h + cs: w * h + 2 * cs].reshape(h // 2, w // 2)
+        self._last = Layer(
+            planes=tuple(torch.from_numpy(p.copy()) for p in (y, u, v)),
+            palette=int(Palette.YUV420P))
+        return self._last
+
+    def close(self):
+        self._fh.close()
+
+
 def write_y4m(path: str, frames_yuv420: Iterable, fps: float = 25.0):
     """Write (Y,U,V) planar uint8 frame tuples (host arrays) as YUV4MPEG2,
     4:2:0 JPEG siting; any iterable, written as it is consumed."""
@@ -229,6 +378,93 @@ def write_y4m(path: str, frames_yuv420: Iterable, fps: float = 25.0):
             fh.write(b"FRAME\n")
             for p in (y, u, v):
                 fh.write(np.ascontiguousarray(p, np.uint8).tobytes())
+
+
+@register_decoder
+class WavDecoder(Decoder):
+    """RIFF WAVE pcm: audio-only clips (the reference opens audio files as
+    zero-video clips with audio), `decoders.py:370-456`."""
+
+    name = "wav"
+
+    def __init__(self, cdata, path, data_ofs, data_len, fmt=(1, 16)):
+        self.cdata = cdata
+        self.path = path
+        self.data_ofs = data_ofs
+        self.data_len = data_len
+        self._fmt = fmt
+
+    @classmethod
+    def get_clip_data(cls, uri: str):
+        p = Path(uri)
+        if not (p.is_file() and p.suffix.lower() == ".wav"):
+            return None
+        with open(p, "rb") as fh:
+            try:
+                data = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
+            except (ValueError, OSError):
+                return None
+            try:
+                return cls._probe_wav(uri, p, data)
+            finally:
+                data.close()
+
+    @classmethod
+    def _probe_wav(cls, uri, p, data):
+        if data[:4] != b"RIFF" or data[8:12] != b"WAVE":
+            return None
+        pos = 12
+        fmt = None
+        data_ofs = data_len = 0
+        while pos + 8 <= len(data):
+            cid = data[pos:pos + 4]
+            (sz,) = struct.unpack("<I", data[pos + 4:pos + 8])
+            if cid == b"fmt ":
+                fmt = struct.unpack("<HHIIHH", data[pos + 8:pos + 24])
+            elif cid == b"data":
+                data_ofs, data_len = pos + 8, sz
+            pos += 8 + sz + (sz & 1)
+        if fmt is None or not data_len:
+            return None
+        tag, channels, rate, _, _, bits = fmt
+        if tag not in (1, 3) or bits not in (8, 16, 24, 32):
+            return None  # 1=PCM, 3=IEEE float; exotic formats -> libav
+        cd = ClipData(uri=uri, nframes=0, fps=25.0, width=0, height=0,
+                      arate=rate, achans=channels, asamps=16)
+        cd.decoder = cls(cd, p, data_ofs, data_len, (tag, bits))
+        return cd
+
+    def get_frame(self, n: int, out=None) -> Layer:
+        raise RuntimeError("wav clips have no video frames")
+
+    def rip_audio(self, path: str) -> bool:
+        """Clip audio is s16le by contract (`Clip.read_audio` parses
+        '<i2'); 8/24/32-bit PCM and 32-bit float convert on the way."""
+        with open(self.path, "rb") as fh:
+            fh.seek(self.data_ofs)
+            raw = fh.read(self.data_len)
+        tag, bits = self._fmt
+        if tag == 3 and bits == 32:  # IEEE float
+            f = np.frombuffer(raw, "<f4")
+            pcm = np.clip(f * 32767.0, -32768, 32767).astype("<i2")
+        elif bits == 8:              # unsigned 8-bit
+            pcm = ((np.frombuffer(raw, np.uint8).astype(np.int16) - 128)
+                   << 8).astype("<i2")
+        elif bits == 24:
+            b = np.frombuffer(raw[: len(raw) - len(raw) % 3], np.uint8)
+            b = b.reshape(-1, 3)
+            v = (b[:, 0].astype(np.int32)
+                 | (b[:, 1].astype(np.int32) << 8)
+                 | (b[:, 2].astype(np.int32) << 16))
+            v = np.where(v >= 1 << 23, v - (1 << 24), v)
+            pcm = (v >> 8).astype("<i2")
+        elif bits == 32:             # 32-bit int PCM
+            pcm = (np.frombuffer(raw, "<i4") >> 16).astype("<i2")
+        else:                        # already s16le
+            Path(path).write_bytes(raw)
+            return True
+        Path(path).write_bytes(pcm.tobytes())
+        return True
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
-"""Encoder plugins: the capability-query contract, the YUV4MPEG2 encoder
-and the MJPEG AVI encoder.
+"""Encoder plugins: the capability-query contract, the YUV4MPEG2, MJPEG
+AVI, PNG-sequence, PDF and WAV encoders.
 
-Counterpart of `lives_tpu/io/encoders.py:24-99,295-364` (`Encoder`,
-`register_encoder`, `get_encoder`, `Y4MEncoder`, `MJPEGDeviceEncoder`);
-the reference drives
+Counterpart of `lives_tpu/io/encoders.py:24-169,295-364` (`Encoder`,
+`register_encoder`, `get_encoder`, `Y4MEncoder`, `PNGSeqEncoder`,
+`PDFEncoder`, `WavEncoder`, `MJPEGDeviceEncoder`); the reference drives
 encoder scripts over a stdout protocol (`get_capabilities` / `get_formats`
 / `encode`, LiVES src/plugins.c:1813). `Y4MEncoder` sets
 `accepts_device_frames`, the flag the JAX base class defines
@@ -19,15 +19,25 @@ through the compressed lane (`io/jpeg_encode.py`) in batches of its fixed
 `batch`, whatever the items' sizes, so a chunk writes the same bytes as
 its frames one at a time.
 
-Not ported yet (ROADMAP Queue 1 item 11): `WavEncoder` (so the audio of
-`Y4MEncoder` and `MJPEGDeviceEncoder` raises), `PNGSeqEncoder` and the
-ffmpeg encoder. `get_encoder` names the item for each.
+The PNG and PDF encoders take host frames and code them through PIL,
+with the array layout the JAX package hands PIL (so equal pixels give
+equal files); `WavEncoder` writes s16le RIFF WAVE at `a * 32767`, as the
+JAX package does (the clip store's `write_audio` scales by 32768). The
+audio of the YUV4MPEG2 and MJPEG encoders goes through `WavEncoder` into
+the file beside the video (`.wav` for the video's suffix).
+
+Not ported (ROADMAP Queue 1 item 11): the ffmpeg encoder (an `ffmpeg`
+binary) and the libav encoder (`io/av.py`); `get_encoder("ffmpeg")`
+raises naming the item.
 """
 
 from __future__ import annotations
 
+import struct
+import time
 import warnings
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Iterable
 
 import numpy as np
@@ -37,12 +47,11 @@ from ..constants import Palette
 from ..layer import Layer
 
 CAP_VIDEO = 1
+CAP_AUDIO = 2
 
 #: the JAX package's other encoders, and why the port lacks them
 DEFERRED = {
-    "pngseq": "ROADMAP Queue 1 item 11 (PNG images need PIL)",
-    "wav": "ROADMAP Queue 1 item 11",
-    "ffmpeg": "ROADMAP Queue 1 item 11",
+    "ffmpeg": "ROADMAP Queue 1 item 11 (an ffmpeg binary)",
 }
 
 
@@ -90,9 +99,28 @@ def get_encoder(name: str) -> Encoder:
     return _ENCODERS[name]()
 
 
+def list_encoders() -> list[str]:
+    return sorted(_ENCODERS)
+
+
 def _chw(f: torch.Tensor) -> torch.Tensor:
     """A frame (C, H, W) or a chunk (B, C, H, W), channels first."""
     return f if f.shape[-3] in (3, 4) else f.movedim(-1, -3)
+
+
+def _host_hwc(f) -> np.ndarray:
+    """A host frame as the (H, W, 3) uint8 array the JAX package hands PIL
+    (`np.moveaxis(_chw(f)[:3], 0, -1)`, `encoders.py:113,130`)."""
+    f = f.cpu().numpy() if isinstance(f, torch.Tensor) else np.asarray(f)
+    chw = f if f.shape[0] in (3, 4) else np.moveaxis(f, -1, 0)
+    return np.moveaxis(chw[:3], 0, -1)
+
+
+def _write_audio_beside(out_path, fps, audio, arate):
+    """The video's audio as a WAV file beside it (`encoders.py:91-93`)."""
+    if audio is not None:
+        WavEncoder().encode(str(Path(out_path).with_suffix(".wav")), [],
+                            fps, audio, arate)
 
 
 @register_encoder
@@ -107,10 +135,6 @@ class Y4MEncoder(Encoder):
     def encode(self, out_path, frames, fps, audio=None, arate=44100):
         from ..ops.colorspace import convert_layer
         from .decoders import write_y4m
-        if audio is not None:
-            raise NotImplementedError(
-                "audio beside a YUV4MPEG2 stream needs WavEncoder, which is "
-                "not ported yet (ROADMAP Queue 1 item 11)")
 
         def planar():
             for f in frames:
@@ -129,6 +153,86 @@ class Y4MEncoder(Encoder):
                 else:
                     yield from zip(y, u, v)
         write_y4m(out_path, planar(), fps)
+        _write_audio_beside(out_path, fps, audio, arate)
+        return True
+
+
+@register_encoder
+class PNGSeqEncoder(Encoder):
+    """Numbered PNG images in a directory (`encoders.py:103-118`)."""
+
+    name = "pngseq"
+
+    @classmethod
+    def get_formats(cls):
+        return [EncFormat("png_sequence", "png", "numbered PNG images")]
+
+    def encode(self, out_path, frames, fps, audio=None, arate=44100):
+        from PIL import Image
+        from .decoders import PIL_SECONDS
+        d = Path(out_path)
+        d.mkdir(parents=True, exist_ok=True)
+        for i, f in enumerate(frames):
+            arr = _host_hwc(f)
+            t0 = time.perf_counter()
+            Image.fromarray(arr).save(d / f"{i + 1:08d}.png")
+            PIL_SECONDS["encode"] += time.perf_counter() - t0
+        return True
+
+
+@register_encoder
+class PDFEncoder(Encoder):
+    """One page per frame (the reference pdf_encoder plugin,
+    lives-plugins/plugins/encoders/pdf_encoder; `encoders.py:121-141`)."""
+
+    name = "pdf"
+
+    @classmethod
+    def get_formats(cls):
+        return [EncFormat("pdf", "pdf", "one page per frame")]
+
+    def encode(self, out_path, frames, fps, audio=None, arate=44100):
+        from PIL import Image
+        from .decoders import PIL_SECONDS
+        imgs = [Image.fromarray(_host_hwc(f)) for f in frames]
+        if not imgs:
+            return False
+        t0 = time.perf_counter()
+        imgs[0].save(out_path, format="PDF", save_all=True,
+                     append_images=imgs[1:],
+                     resolution=72.0)
+        PIL_SECONDS["encode"] += time.perf_counter() - t0
+        return True
+
+
+@register_encoder
+class WavEncoder(Encoder):
+    """RIFF WAVE pcm s16le (`encoders.py:144-169`): `a * 32767`, clipped
+    and truncated, as the JAX package writes it."""
+
+    name = "wav"
+
+    @classmethod
+    def get_capabilities(cls):
+        return CAP_AUDIO
+
+    @classmethod
+    def get_formats(cls):
+        return [EncFormat("wav", "wav", "RIFF WAVE pcm s16le")]
+
+    def encode(self, out_path, frames, fps, audio=None, arate=44100):
+        if audio is None:
+            return False
+        a = np.atleast_2d(np.asarray(audio, np.float32))
+        if a.shape[0] < a.shape[1]:
+            a = a.T
+        ch = a.shape[1]
+        pcm = np.clip(a * 32767, -32768, 32767).astype("<i2").tobytes()
+        hdr = b"RIFF" + struct.pack("<I", 36 + len(pcm)) + b"WAVEfmt " \
+            + struct.pack("<IHHIIHH", 16, 1, ch, arate, arate * ch * 2,
+                          ch * 2, 16) + b"data" \
+            + struct.pack("<I", len(pcm))
+        Path(out_path).write_bytes(hdr + pcm)
         return True
 
 
@@ -164,10 +268,6 @@ class MJPEGDeviceEncoder(Encoder):
     def encode(self, out_path, frames, fps, audio=None, arate=44100):
         from .decoders import write_mjpeg_avi
         from .jpeg_encode import JpegDeviceEncoder
-        if audio is not None:
-            raise NotImplementedError(
-                "audio beside an MJPEG AVI needs WavEncoder, which is not "
-                "ported yet (ROADMAP Queue 1 item 11)")
         enc = None
         datas: list[bytes] = []
         pending: list[torch.Tensor] = []   # (n, 3, H, W) pieces, in order
@@ -204,4 +304,5 @@ class MJPEGDeviceEncoder(Encoder):
         self.overflows += enc.overflows
         h, w = enc.meta.height, enc.meta.width
         write_mjpeg_avi(out_path, datas, w, h, fps)
+        _write_audio_beside(out_path, fps, audio, arate)
         return True

@@ -58,16 +58,7 @@ import torch
 from ..constants import Gamma, Palette, YUVClamping, YUVSubspace
 from ..layer import Layer
 from ..native import load_jpegcoef
-
-
-def resolve_device(device, who: str) -> torch.device:
-    """`device` as a torch.device; a CUDA device raises without CUDA, as
-    `Player` does (`player/player.py:314-323`)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{who}: device 'cuda' was asked for but CUDA is "
-                           "not available; pass device='cpu' for the CPU")
-    return dev
+from ..utils.device import resolve_device  # noqa: F401 (re-exported)
 
 
 @dataclass

@@ -51,11 +51,20 @@ While recording, the wiring is stamped on the destinations' FILTER_INIT
 events as `cconx` props at each filter-map refresh and at `record_stop`,
 so `render_recording` rebuilds it.
 
+Scrap capture (JAX `:509-630,1493-1533`): while recording with
+`scrap_generators` on, a live source that cannot replay (a stateful
+generator, or a clip with `scrap_on_record` such as a YUV4MPEG fifo)
+has each pulled device layer queued to an `io.scrap.MJPEGScrapRecorder`
+of its own, whose worker encodes it on a side stream through the device
+JPEG lane; the FRAME event references the scrap clip's frame, and
+`record_stop` finalizes each capture into an MJPEG AVI clip under
+`scrap_dir` (else the pref `workdir`, else a temporary directory) in
+`rec_scrap_clips`, rewriting the references of frames a failed capture
+lost back to the live source. Stateless generators ride as `GenSlot`s
+and replay from the clip reference; decoded clips need no capture.
+
 Left out, each raising `NotImplementedError` naming its ROADMAP Queue 1
-item: scrap capture of live sources while recording (a stateful
-generator or a `scrap_on_record` clip: `io/scrap.py`, item 21;
-stateless generators ride as `GenSlot`s and decoded clips need none),
-audio, `time_source="audio"` and the audio of a recorded frame
+item: audio, `time_source="audio"` and the audio of a recorded frame
 (item 23); the JACK transport that mirrors start and stop
 (`transport`, item 23) is absent. The JAX worker's fixed decode batch
 sizes {4, `precache_chunk`} existed so that XLA compiled two templates;
@@ -89,7 +98,6 @@ from .sinks import NullSink, Sink
 N_KEYS = 64          # prefs::rte_keys_virtual ceiling (mainwindow.h:228)
 MODES_PER_KEY = 32   # mainwindow.h:229
 
-_ITEM21 = "ROADMAP Queue 1 item 21"
 _ITEM23 = "ROADMAP Queue 1 item 23"
 
 
@@ -356,6 +364,10 @@ class Player:
         self._nervous_rng = np.random.default_rng()
         self._rec_inits: dict[int, Any] = {}
         self._scrap_generators = False
+        self._scrap_recs: dict[int, Any] = {}
+        self.rec_scrap_clips: dict[int, Any] = {}
+        #: where record_stop writes scrap clips (its `scrap` folder)
+        self.scrap_dir: str | None = None
         self.last_recording: EventList | None = None
         self._backup_lock = threading.Lock()
         # stats ladder (diagnostics.c:97 get_inst_fps)
@@ -641,14 +653,21 @@ class Player:
         """backup_path: autosave the recording there periodically so a crash
         never loses a performance (reference backup_recording,
         events.c:5547). scrap_generators: capture live-source output to
-        scrap clips while recording; a take that needs a capture (a
-        stateful generator or a `scrap_on_record` clip) raises, since
-        scrap capture is not ported (item 21)."""
+        MJPEG scrap clips so re-renders replay the performance exactly;
+        recorded FRAME events then reference the scrap clip.
+        rec_scrap_clips after record_stop maps their unique_ids to clips:
+        merge it into the clips_by_uid given to render_recording
+        (`recording_uid_map` does)."""
         if self.record:
-            # restarting mid-take must not silently drop the old take's
-            # events: finish it properly
+            # restarting mid-take must not leak the old take's encode
+            # workers or silently drop its events: finish it properly
             self.record_stop()
+        for clip in self.rec_scrap_clips.values():
+            if hasattr(clip, "close"):
+                clip.close()
         self._scrap_generators = scrap_generators
+        self._scrap_recs = {}
+        self.rec_scrap_clips = {}
         self.event_list = EventList(fps=abs(self.state.pb_fps) or 25.0,
                                     width=width, height=height)
         self.record = True
@@ -688,6 +707,7 @@ class Player:
         self._rec_inits.clear()
         self._rec_automix = None
         self._rec_automix_amt = None
+        self._finalize_scraps(el)
         if el is not None:
             # kept for the render-choice surface (deal_with_render_choice,
             # events.c:5101); a stray second stop (el None) must not
@@ -704,10 +724,54 @@ class Player:
                     pass
         return el
 
+    def _finalize_scraps(self, el) -> None:
+        """Finalize each scrap capture into an MJPEG clip keyed by the
+        unique_id the recorded FRAME events reference (`player.py:
+        574-605`); the frames of a failed capture go back to the live
+        source's reference."""
+        import tempfile
+        from pathlib import Path
+        from ..prefs import pref
+        for rec in self._scrap_recs.values():
+            base = self.scrap_dir or pref("workdir")
+            if not base:
+                base = tempfile.mkdtemp(prefix="lives_tpu_scrap_")
+            try:
+                clip = rec.finalize(
+                    Path(base) / "scrap"
+                    / (f"scrap_{rec.unique_id:016x}_"
+                       f"{int(time.monotonic() * 1000) & 0xFFFFFF:06x}"
+                       ".avi"))  # the full uid in the name (recovery keys
+                # on it); a take suffix: never overwrite a file an earlier
+                # take's open clip still reads
+            except Exception:
+                clip = None
+            if clip is not None:
+                self.rec_scrap_clips[rec.unique_id] = clip
+            n_ok = clip.frames if clip is not None else 0
+            if el is not None:
+                self._rewrite_scrap_refs(el, rec, n_ok)
+        self._scrap_recs = {}
+
+    @staticmethod
+    def _rewrite_scrap_refs(el: EventList, rec, n_ok: int) -> None:
+        """Point FRAME events referencing scrap indices >= n_ok back at
+        the live-source (clip, frame) captured at record time."""
+        if n_ok >= len(rec.origs):
+            return
+        for e in el:
+            cl = getattr(e, "clips", None)
+            if not cl:
+                continue
+            for i, (c, f) in enumerate(zip(cl, e.frames)):
+                if c == rec.unique_id and f >= n_ok:
+                    e.clips[i], e.frames[i] = rec.origs[f]
+
     # -- render-choice helpers ---------------------------------------------
     def recording_uid_map(self, clips=()) -> dict:
-        """clips_by_uid for re-rendering the last take: the given clips and
-        the live fg/bg sources."""
+        """clips_by_uid for re-rendering the last take: the given clips,
+        the live fg/bg sources (the scrap-overflow fallback) and the take's
+        scrap clips."""
         uid_map = {}
         for clip in clips:
             uid_map[getattr(clip, "unique_id", id(clip))] = clip
@@ -718,6 +782,7 @@ class Player:
             if st_clip is not None:
                 uid_map.setdefault(getattr(st_clip, "unique_id", dflt),
                                    st_clip)
+        uid_map.update(self.rec_scrap_clips)
         return uid_map
 
     def render_last_recording(self, uid_map: dict, batch_size: int = 8):
@@ -817,7 +882,9 @@ class Player:
         start = self._backup_count
         if start > n:
             start = 0   # list was rebuilt: fall back to a full rewrite
-        lines = [EventList.event_json(e) for e in el.events[start:n]]
+        recs = {rec.unique_id: rec for rec in self._scrap_recs.values()}
+        lines = [EventList.event_json(self._live_refs(e, recs))
+                 for e in el.events[start:n]]
         if not lines:
             self._backup_count = n
             return
@@ -833,6 +900,30 @@ class Player:
             pass
 
     @staticmethod
+    def _live_refs(e, recs):
+        """`e` with its scrap references that are not durable yet replaced
+        by the live-source references (a crash mid-take replays from the
+        sources), `player.py:781-799`."""
+        cl = getattr(e, "clips", None)
+        if not cl or not recs:
+            return e
+        sub, frs = list(cl), list(e.frames)
+        changed = False
+        for i, (c, f) in enumerate(zip(sub, frs)):
+            rec = recs.get(c)
+            if rec is not None and f < len(rec.origs):
+                sub[i], frs[i] = rec.origs[f]
+                changed = True
+        if not changed:
+            return e
+        import copy
+        e = copy.copy(e)
+        e.props = dict(e.props)
+        e.props["clips"] = sub
+        e.props["frames"] = frs
+        return e
+
+    @staticmethod
     def _atomic_write(path, text: str) -> None:
         """tmp + os.replace: a crash mid-write must never destroy the
         previous good autosave (the exact window the file exists for)."""
@@ -843,12 +934,26 @@ class Player:
         os.replace(tmp, str(path))
 
     def discard_recording(self) -> bool:
-        """Drop the last take and its autosave (the "discard" arm of the
-        render choice, events.c:5955). Returns True when something was
-        discarded."""
+        """Drop the last take, its autosave and its scrap clips (the
+        "discard" arm of the render choice, events.c:5955). Returns True
+        when something was discarded."""
         import os
         had = self.last_recording is not None
         self.last_recording = None
+        for clip in self.rec_scrap_clips.values():
+            # a discarded take's scrap capture is dead weight: close the
+            # decoder and remove the AVI
+            src = getattr(clip, "source_uri", "") or getattr(
+                getattr(clip, "cdata", None), "uri", "")
+            if hasattr(clip, "close"):
+                clip.close()
+            if src:
+                try:
+                    os.unlink(src)
+                except OSError:
+                    pass
+            had = True
+        self.rec_scrap_clips = {}
         path = self._rec_backup_path
         if path:
             with self._backup_lock:
@@ -1340,19 +1445,35 @@ class Player:
             finally:
                 km.active[k] = was
 
-    def _refuse_scrap(self, srcs, layers):
-        """A live source that a recording would capture to a scrap clip (a
-        stateful generator, or a clip with `scrap_on_record`): not ported
-        (item 21). Stateless generators ride as GenSlots and replay from
-        the clip reference; decoded clips need no capture."""
-        for sclip, lay in zip(srcs, layers):
-            if (hasattr(sclip, "inst")
-                    or getattr(sclip, "scrap_on_record", False)) \
-                    and isinstance(lay, Layer):
-                raise NotImplementedError(
-                    "recording a live source needs scrap capture "
-                    f"(io/scrap.py), which is not ported yet ({_ITEM21}, "
-                    "with rfx.py)")
+    def _scrap_capture(self, srcs, layers, clips, frames):
+        """Queue the pulled layer of each live source that cannot replay (a
+        stateful generator, a `scrap_on_record` clip) to its scrap
+        recorder, and point the FRAME event's entry at the scrap frame
+        (`player.py:1497-1533`). A stateless generator rides as a GenSlot,
+        a pure function of (n, params): its clip reference replays
+        exactly, nothing to scrap. On queue overflow the entry keeps the
+        live source's reference."""
+        for i, sclip in enumerate(srcs):
+            if not (hasattr(sclip, "inst")
+                    or getattr(sclip, "scrap_on_record", False)):
+                continue
+            if not isinstance(layers[i], Layer):
+                continue
+            rec = self._scrap_recs.get(id(sclip))
+            if rec is None:
+                from ..io.scrap import MJPEGScrapRecorder
+                rec = MJPEGScrapRecorder(
+                    sclip.width, sclip.height,
+                    fps=abs(self.state.pb_fps) or 25.0, device=self.device)
+                self._scrap_recs[id(sclip)] = rec
+            idx = rec.put(layers[i])
+            if idx is not None:
+                # the live-source reference per index: if the encode
+                # worker fails mid-take, record_stop rewrites the FRAME
+                # events back to it
+                rec.origs.append((clips[i], frames[i]))
+                clips[i] = rec.unique_id
+                frames[i] = idx
 
     def process_one(self) -> bool:
         """One player cycle (player.c:2185). Returns False when stopped."""
@@ -1412,8 +1533,6 @@ class Player:
         # this target pulled fine: a later re-miss of the same frame key
         # is a NEW drop episode and must count again
         self._last_missed = None
-        if self.record and self._scrap_generators:
-            self._refuse_scrap(srcs, layers)
         if self.ladder is not None:
             self.ladder.mark("loaded")
         graph = self._select_graph(layers)
@@ -1471,6 +1590,8 @@ class Player:
             if st.bg_clip is not None:
                 clips.append(getattr(st.bg_clip, "unique_id", 2))
                 frames.append(self._bg_frame(target))
+            if self._scrap_generators:
+                self._scrap_capture(srcs, layers, clips, frames)
             el.insert(frame_event(self._rec_tc(), clips, frames))
             if self._rec_backup_path and \
                     time.monotonic() - self._rec_last_backup \

@@ -13,12 +13,15 @@ before, so at most about two `sync_every` windows of frames are queued.
 (The JAX version fetched a tiny device value on a helper thread, because
 its attachment's `block_until_ready` did not wait; PyTorch's events do.)
 
-Not ported: `PNGSink` (PIL, ROADMAP Queue 1 item 11), `AVStreamSink` and
-`VLoopbackSink` (libav and v4l2, item 23); each raises naming its item.
+`PNGSink` (`sinks.py:93-106`) writes numbered PNGs through PIL on the
+host, the frame crossing in one copy. Not ported: `AVStreamSink` and
+`VLoopbackSink` (libav and v4l2, ROADMAP Queue 1 item 23); each raises
+naming its item.
 """
 
 from __future__ import annotations
 
+import time
 from pathlib import Path
 
 import numpy as np
@@ -111,12 +114,23 @@ class CollectSink(Sink):
 
 
 class PNGSink(Sink):
-    """Numbered PNGs (the render-to-images path): not ported."""
+    """Writes numbered PNGs (render-to-images path); the bytes are the JAX
+    sink's for equal pixels."""
 
     def __init__(self, out_dir: str | Path):
-        raise NotImplementedError(
-            "PNGSink needs PIL image IO, which is not ported yet (ROADMAP "
-            "Queue 1 item 11)")
+        self.out_dir = Path(out_dir)
+        self.out_dir.mkdir(parents=True, exist_ok=True)
+        self.n = 0
+
+    def play_frame(self, layer: Layer, tc: float) -> bool:
+        from PIL import Image
+        from ..io.decoders import PIL_SECONDS
+        arr = np.moveaxis(layer.planes[0].cpu().numpy(), 0, -1)
+        t0 = time.perf_counter()
+        Image.fromarray(arr).save(self.out_dir / f"{self.n + 1:08d}.png")
+        PIL_SECONDS["encode"] += time.perf_counter() - t0
+        self.n += 1
+        return True
 
 
 class Y4MSink(Sink):

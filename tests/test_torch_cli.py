@@ -3,7 +3,10 @@ CPU: `effects` lists the port's registered filters, `build_player` sets a
 player up as the JAX console does, `play` runs a clip or the plasma
 generator on the device it is given and, with no `--device`, refuses when
 CUDA is absent instead of falling back; what is not ported raises naming
-its ROADMAP item."""
+its ROADMAP item; `rfx` lists the rendered-effect scripts, shows a
+script's parameters and applies it to a clip directory or a media file
+on the device it is given, as the JAX console does (the frames within
+the JAX script's tolerance, tests/test_torch_rfx.py)."""
 
 import numpy as np
 import pytest
@@ -15,6 +18,7 @@ from lives_tpu_torch.constants import Palette
 from lives_tpu_torch.effects.host import get_filter, list_filters
 from lives_tpu_torch.io.decoders import try_decoders, write_y4m
 from lives_tpu_torch.player import NullSink, Y4MSink
+from lives_tpu_torch.player.sinks import PNGSink
 
 
 @pytest.fixture
@@ -78,9 +82,9 @@ def test_build_player_matches_the_jax_console(y4m_clip, tmp_path):
     assert int(p.sink_spec.palette) == int(Palette.YUV420P)
 
 
-@pytest.mark.parametrize("sink", ["y4m", "null"])
+@pytest.mark.parametrize("sink", ["y4m", "null", "png"])
 def test_build_player_plays_a_clip_on_the_cpu(y4m_clip, tmp_path, sink):
-    out = str(tmp_path / "out.y4m")
+    out = str(tmp_path / ("out.y4m" if sink != "png" else "frames"))
     p = cli.build_player(y4m_clip, ["negate"], 0, 0, sink, out,
                          device="cpu")
     p.key_toggle(0, True)
@@ -95,6 +99,11 @@ def test_build_player_plays_a_clip_on_the_cpu(y4m_clip, tmp_path, sink):
         cd = try_decoders(out)
         assert (cd.nframes, cd.width, cd.height) == (6, 32, 16)
         cd.decoder.close()
+    elif sink == "png":
+        assert isinstance(p.sink, PNGSink) and p.sink.n == 6
+        cd = try_decoders(out)
+        assert (cd.decoder.name, cd.nframes, cd.width, cd.height) == \
+            ("imageseq", 6, 32, 16)
     else:
         assert isinstance(p.sink, NullSink) and p.sink.count == 6
 
@@ -140,3 +149,56 @@ def test_unported_subcommands_raise_naming_their_item(cmd):
 def test_osc_raises_naming_its_item():
     with pytest.raises(NotImplementedError, match="item 23"):
         cli.main(["play", "--osc", "9000", "--device", "cpu"])
+
+
+def _out(main, argv, capsys):
+    assert main(argv) == 0
+    return capsys.readouterr().out
+
+
+def test_rfx_lists_the_scripts_like_jax(capsys):
+    got = _out(cli.main, ["rfx"], capsys)
+    assert got == _out(jcli.main, ["rfx"], capsys)
+    assert len(got.splitlines()) == 52 and "sepia" in got
+
+
+@pytest.mark.parametrize("script", ["blur", "fade_in_out",
+                                    "transition_fade", "textover"])
+def test_rfx_shows_a_scripts_params_like_jax(capsys, script):
+    assert _out(cli.main, ["rfx", script], capsys) == \
+        _out(jcli.main, ["rfx", script], capsys)
+
+
+@pytest.mark.parametrize("target", ["media_file", "clip_dir"])
+def test_rfx_applies_a_script_like_jax(y4m_clip, tmp_path, capsys, target):
+    """`rfx posterize <target> --param levels=3 --start 2 --end 9`: the
+    frames the JAX console writes, byte for byte."""
+    import shutil
+    from lives_tpu.io.clips import Clip as JClip
+    from lives_tpu_torch.io.clips import Clip, open_clip
+    outs = {}
+    for pkg, main in (("t", cli.main), ("j", jcli.main)):
+        d = tmp_path / pkg
+        d.mkdir()
+        src = shutil.copy(y4m_clip, d / "clip.y4m")
+        if target == "clip_dir":
+            src = open_clip(str(src), d).clip_dir
+        argv = ["rfx", "posterize", str(src), "--param", "levels=3",
+                "--start", "2", "--end", "9"]
+        out = _out(main, argv + (["--device", "cpu"] if pkg == "t" else []),
+                   capsys)
+        assert out.startswith("posterize: 7 frames -> ")
+        cdir = out.strip().rsplit(" ", 1)[1]
+        outs[pkg] = (Clip if pkg == "t" else JClip).load(cdir)
+    t, j = outs["t"], outs["j"]
+    assert [t.is_virtual_frame(n) for n in range(12)] == \
+        [not 2 <= n < 9 for n in range(12)]
+    for n in range(2, 9):
+        assert t.image_path(n).read_bytes() == j.image_path(n).read_bytes()
+
+
+def test_rfx_without_device_refuses_when_cuda_is_absent(y4m_clip):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the refusal is for one without")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["rfx", "sepia", y4m_clip])

@@ -1607,3 +1607,127 @@ def test_jpeg_lane_products_in_full_precision(cuda):
     assert float(((lane.double() - exact).abs() / scale).max()) <= 2 ** -23
     assert torch.equal(co[0], co2[0]) and torch.equal(co[1], co2[1])
     assert all(torch.equal(a, b) for a, b in zip(planes, planes2))
+
+
+# -- the clip editor ----------------------------------------------------------
+
+def _editor_clip(tmp_path, name, n=6, h=36, w=50, seed=0):
+    """A YUV4MPEG clip of n seeded frames opened with open_clip."""
+    from lives_tpu_torch.io.clips import open_clip
+    from lives_tpu_torch.io.decoders import write_y4m
+    rng = np.random.default_rng(seed)
+    tmp_path.mkdir(parents=True, exist_ok=True)
+    path = tmp_path / f"{name}.y4m"
+    write_y4m(str(path), [(rng.integers(16, 236, (h, w), np.uint8),
+                           rng.integers(16, 241, (h // 2, w // 2), np.uint8),
+                           rng.integers(16, 241, (h // 2, w // 2), np.uint8))
+                          for _ in range(n)], 30.0)
+    return open_clip(str(path), tmp_path / name)
+
+
+def _images(clip):
+    from PIL import Image
+    return [np.asarray(Image.open(clip.image_path(n))).astype(int)
+            for n in range(clip.frames) if not clip.is_virtual_frame(n)]
+
+
+@pytest.mark.cuda
+def test_rendered_effect_on_the_card_launches_k2_a_batch(cuda, tmp_path):
+    """apply_rendered_effect on a YUV4MPEG clip: one K2 launch a batch on
+    the card, the PNGs within 1 LSB of the same call on the CPU (byte for
+    byte where the pixels are equal)."""
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.rfx import apply_rendered_effect
+    clips = {d: _editor_clip(tmp_path, d) for d in ("cuda", "cpu")}
+    vals = {"saturation": lambda f: 0.3 * f}
+    for d, c in clips.items():
+        yk.LAUNCHES["yuv420_to_rgb"] = 0
+        assert apply_rendered_effect(c, "saturation", 0, 6, values=vals,
+                                     batch_size=4, device=d) == 6
+        assert yk.LAUNCHES["yuv420_to_rgb"] == (2 if d == "cuda" else 0)
+    for (a, b, pa, pb) in zip(_images(clips["cuda"]), _images(clips["cpu"]),
+                              (clips["cuda"].image_path(n) for n in range(6)),
+                              (clips["cpu"].image_path(n) for n in range(6))):
+        d = int(np.abs(a - b).max())
+        assert d <= 1
+        if d == 0:
+            assert pa.read_bytes() == pb.read_bytes()
+
+
+@pytest.mark.cuda
+def test_transcode_on_the_card_launches_k2_and_k3_a_batch(cuda, tmp_path):
+    """transcode into YUV4MPEG with a chain and the clip's audio: K2 and
+    K3 once a batch on the card, the frames within 1 LSB of the CPU's
+    transcode and the WAV beside it byte for byte."""
+    from lives_tpu_torch.effects.host import instantiate
+    from lives_tpu_torch.io.decoders import try_decoders
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.transcode import transcode
+    outs = {}
+    for d in ("cuda", "cpu"):
+        c = _editor_clip(tmp_path, d, n=7)
+        c.write_audio(np.random.default_rng(1).random((700, 2)
+                                                      ).astype(np.float32)
+                      - 0.5, 8000)
+        yk.LAUNCHES.update(dict.fromkeys(yk.LAUNCHES, 0))
+        out = tmp_path / f"out_{d}.y4m"
+        assert transcode(c, str(out), chain=[instantiate("gaussian_blur"),
+                                             instantiate("vignette")],
+                         batch_size=4, device=d)
+        want = 2 if d == "cuda" else 0
+        assert yk.LAUNCHES == {"yuv420_to_rgb": want, "rgb_to_yuv420": want}
+        cd = try_decoders(str(out))
+        outs[d] = [cd.decoder.get_frame(n).planes for n in range(7)]
+        cd.decoder.close()
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        for p, q in zip(a, b):
+            assert (p.int() - q.int()).abs().max().item() <= 1
+    assert (tmp_path / "out_cuda.wav").read_bytes() == \
+        (tmp_path / "out_cpu.wav").read_bytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pref", ["0", "1"])
+def test_merge_on_the_card_takes_no_composite(cuda, tmp_path, monkeypatch,
+                                              pref):
+    """merge_clipboard's one-instance chain is below the composite route's
+    three, with the pref on or off: no K4 launch; the frames within 1 LSB
+    of the CPU's merge."""
+    from lives_tpu_torch.clipedit import copy_frames, merge_clipboard
+    from lives_tpu_torch.graph import composite
+    monkeypatch.setenv("LIVES_TPU_PALLAS_COMPOSITE", pref)
+    got = {}
+    for d in ("cuda", "cpu"):
+        a = _editor_clip(tmp_path / d, "a")
+        b = _editor_clip(tmp_path / d, "b", seed=4)
+        cb = copy_frames(b, 0, 3, device=d)
+        composite.LAUNCHES = 0
+        assert merge_clipboard(a, cb, start=1, end=6, batch_size=4,
+                               device=d) == 5
+        assert composite.LAUNCHES == 0
+        got[d] = _images(a)
+    for x, y in zip(got["cuda"], got["cpu"]):
+        assert int(np.abs(x - y).max()) <= 1
+
+
+def test_editor_entry_points_refuse_cuda_without_it(tmp_path):
+    """device="cuda" (the default) on a machine without CUDA raises; no
+    entry point runs on the CPU instead."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the refusal is for one without")
+    from lives_tpu_torch.clipedit import Clipboard, merge_clipboard
+    from lives_tpu_torch.rfx import apply_rendered_effect, resize_all
+    from lives_tpu_torch.rfx_scripts import apply_script
+    from lives_tpu_torch.transcode import transcode
+    c = _editor_clip(tmp_path, "c", n=2)
+    cb = Clipboard(frames=[np.zeros((3, 36, 50), np.uint8)])
+    for call in (lambda: apply_rendered_effect(c, "negate"),
+                 lambda: resize_all(c, 20, 10),
+                 lambda: apply_script(c, "sepia"),
+                 lambda: apply_script(c, "jumble"),
+                 lambda: merge_clipboard(c, cb),
+                 lambda: transcode(c, str(tmp_path / "o.y4m")),
+                 lambda: c.realize()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert c.is_virtual_frame(0) and not list(c.clip_dir.glob("*.png"))

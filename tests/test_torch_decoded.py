@@ -389,9 +389,16 @@ def test_clip_frame_access(tmp_path):
     hdr = (tc.clip_dir / "header.lives").read_text()
     assert f"<unique_id>\n{tc.unique_id}\n</unique_id>" in hdr
     tc.insert_frames(0, np.array([-1]))
+    jc.insert_frames(0, np.array([-1]))
     assert not tc.is_virtual_frame(0) and tc.frame_config(0) is None
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tc.get_frame(0)
+    # an image frame: written through PIL and read back as the JAX clip
+    # reads its own
+    img = np.random.default_rng(0).integers(0, 256, (3, H, W), np.uint8)
+    tc.put_frame(0, tclips.rgb_layer(img))
+    jc.put_frame(0, JLayer(planes=(jnp.asarray(img),)))
+    assert tc.image_path(0).read_bytes() == jc.image_path(0).read_bytes()
+    assert tc.get_frame(0).palette == jc.get_frame(0).palette
+    assert np.array_equal(tc.get_frame(0).planes[0].numpy(), img)
     tc.close()
     jc.close()
 
@@ -516,16 +523,19 @@ def test_render_to_encoder_matches_jax(tmp_path, pref, jax_composite,
 
 def test_encoders_refuse_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="item 11"):
-        tenc.get_encoder("pngseq")
-    # the MJPEG encoder is ported (tests/test_torch_mjpeg.py)
+        tenc.get_encoder("ffmpeg")
+    # the MJPEG, PNG, PDF and WAV encoders are ported
+    # (tests/test_torch_mjpeg.py, tests/test_torch_clips.py)
     assert isinstance(tenc.get_encoder("mjpeg"), tenc.MJPEGDeviceEncoder)
+    assert isinstance(tenc.get_encoder("pngseq"), tenc.PNGSeqEncoder)
     with pytest.raises(KeyError):
         tenc.get_encoder("no-such-encoder")
     enc = tenc.get_encoder("yuv4mpeg")
     assert enc.accepts_device_frames
-    with pytest.raises(NotImplementedError, match="WavEncoder"):
-        enc.encode(str(tmp_path / "a.y4m"), [], 30.0,
-                   audio=np.zeros((4, 2), np.float32))
+    # audio goes beside the stream, through WavEncoder
+    assert enc.encode(str(tmp_path / "a.y4m"), [], 30.0,
+                      audio=np.zeros((4, 2), np.float32))
+    assert (tmp_path / "a.wav").read_bytes()[:4] == b"RIFF"
     # (H, W, 3) numpy frames and (3, H, W) tensors alike
     frames = [np.zeros((H, W, 3), np.uint8),
               torch.full((3, H, W), 255, dtype=torch.uint8)]

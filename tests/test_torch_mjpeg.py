@@ -194,9 +194,11 @@ def test_get_encoder_mjpeg_is_the_device_encoder(tmp_path):
     assert enc.accepts_device_frames and "mjpeg" not in tenc.DEFERRED
     assert (enc.quality, enc.batch) == (90, 8)
     assert [f.extension for f in enc.get_formats()] == ["avi"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        enc.encode(str(tmp_path / "a.avi"), [], 25.0,
-                   audio=np.zeros((10, 2), np.float32))
+    # no frames, no file: the audio beside it is not written either, as
+    # in the JAX encoder (its WAV goes beside a written AVI)
+    assert not enc.encode(str(tmp_path / "a.avi"), [], 25.0,
+                          audio=np.zeros((10, 2), np.float32))
+    assert not (tmp_path / "a.wav").exists()
     assert not enc.encode(str(tmp_path / "b.avi"), [], 25.0)
 
 

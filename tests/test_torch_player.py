@@ -1179,21 +1179,11 @@ def test_generator_fg_rides_as_genslot_matches_jax(monkeypatch):
 
 # -- what the slice leaves out ----------------------------------------------
 
-def _stateful_generator_take():
-    p, _ = make_player("torch")
-    p.state.fg_clip = GeneratorClip("beat_rings", 32, 16, device="cpu")
-    p.record_start(32, 16)
-    p.start()
-    p.process_one()
-
-
 LEFT_OUT = {
     "attach_audio": (lambda: make_player("torch")[0].attach_audio(), 23),
     "time_source_audio": (
         lambda: setattr(make_player("torch")[0], "time_source", "audio"),
         23),
-    "scrap_capture": (_stateful_generator_take, 21),
-    "png_sink": (lambda: t_sinks.PNGSink("frames"), 11),
     "av_stream_sink": (lambda: t_sinks.AVStreamSink("udp://x:1"), 23),
     "vloopback_sink": (lambda: t_sinks.VLoopbackSink(), 23),
 }
