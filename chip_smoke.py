@@ -55,7 +55,11 @@ plain PyTorch version:
 - the clip editor: rendered effects and RFX scripts on decoded clips
   (K2 a batch), clipboard edits and merges with undo, `transcode` (K2 and
   K3 a batch), the encoders, the console's `rfx`, and the player's PNG
-  sink and scrap capture.
+  sink and scrap capture;
+- the multitrack workbench: a timeline built, saved and loaded through the
+  `Multitrack` model and rendered (K1), the console's `render` of that
+  layout from MJPEG AVIs with its audio (K2, K4, K3), and the player with
+  the realtime audio feeder as its clock.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --config-d   # config D alone (phase 11's render
@@ -74,6 +78,7 @@ plain PyTorch version:
     python3 chip_smoke.py --titles     # phases 1-2 and 18, no result line
     python3 chip_smoke.py --mjpeg      # phase 19 alone, no result line
     python3 chip_smoke.py --clipedit   # phase 21 alone, no result line
+    python3 chip_smoke.py --multitrack # phase 22 alone, no result line
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
@@ -377,6 +382,35 @@ Phases, one line each:
       `SCRAP_PSNR_DB` from the frames the sink showed;
    frames/s, PIL's share of each step's wall, and the launches, each line
    with the card's name and power limit.
+22. the multitrack workbench at 1920x1080, 30 fps, 192 frames:
+   a. BASELINE config 4's timeline built through the `Multitrack` API
+      (`config4_model`: ten tracks each filled with its clip in 24-frame
+      blocks, the nine transitions folding track t into track 0, the four
+      filters, a keyframed crossfade, a WAV on the backing track under a
+      volume envelope), saved as `.lay` and loaded back (the event lists
+      equal as the reader returns them), rendered by `Multitrack.render`
+      over `DeviceSyntheticSource` in 96-frame chunks: K1 u8 once a chunk
+      and no chunk on the plain route, twice (the second timed), every
+      frame within 1 LSB of the same render with K1 swapped for its plain
+      version;
+   b. the console, `cli.main(["render", layout, "--audio", "--clip", ...])`
+      over ten 24-frame MJPEG AVIs (`write_mjpeg_clips`) and the 48 kHz
+      WAV under LIVES_TPU_PALLAS_COMPOSITE=1 (the console renders in
+      batches of 32): first with K2, K4 and K3 swapped for their plain
+      versions, then timed with the kernels, K2 ten launches a batch, K4
+      and K3 one, no host decode, the two Y4M files within 1 LSB, the
+      host's entropy decode as a share of the wall; the WAV beside the
+      file byte for byte the mix `Multitrack.render_audio` gives directly,
+      its samples the engine's count; then `python -m
+      lives_tpu_torch.cli render ...` in a subprocess, its file byte for
+      byte the first;
+   c. phase 16's clips with audio (a WAV as long as each), the player
+      with `attach_audio(WavAudioSink)` and `time_source="audio"`, phase
+      16's set-up and performance for 240 cycles on the wall clock,
+      recording: process_one p50 and p99, the feeder's drift from the
+      shown frame (`sync_delta`), every FRAME of the take carrying the
+      feeder's seeks, `render_audio_from_seeks` of the take as long as
+      the take.
 Then a `resources` line for K1 (both builds), K4, K5 and K6 (the path's
 entry: ptxas registers and spills, blocks an SM), a JSON line of the kernels
 (with each one's bound: the larger of its bytes over 3.35 TB/s and its
@@ -1235,6 +1269,35 @@ def make_timeline(n_tracks, n_frames, width, height, fps, fx, trans=TRANS,
         el.insert(frame_event(i * tpf, list(range(1, n_tracks + 1)),
                               [i] * n_tracks))
     return el
+
+
+def config4_model(Multitrack, n_frames, width=W, height=H, audio_uid=None,
+                  clip_frames=CLIP_FRAMES):
+    """BASELINE config 4's timeline built through a `Multitrack` API (the
+    class is passed in): ten tracks, track t filled end to end with clip
+    t + 1 in blocks of `clip_frames` frames (the clip looped: phase 19's
+    AVIs hold 24 frames), each block with its audio; the nine transitions
+    `TRANS` as `add_effect(name, [0, t])`, folding track t into track 0
+    (an effect writes its first track); the four `FX_FULL` filters on track
+    0; the crossfade's amount keyframed 0 -> 1 over the timeline. With
+    `audio_uid`, that clip's audio on the first backing track under a
+    volume envelope 1 -> 0.25."""
+    mt = Multitrack(fps=FPS, width=width, height=height, n_tracks=TRACKS)
+    for t in range(TRACKS):
+        for start in range(0, n_frames, clip_frames):
+            mt.insert_block(t, t + 1, start,
+                            min(clip_frames, n_frames - start))
+    if audio_uid is not None:
+        mt.insert_audio_block(-1, audio_uid, 0, n_frames)
+        mt.set_track_volume(-1, 1.0, frame=0)
+        mt.set_track_volume(-1, 0.25, frame=n_frames - 1)
+    ids = [mt.add_effect(name, [0, t], 0, n_frames, values=dict(vals))
+           for t, (name, vals) in enumerate(TRANS, 1)]
+    for name, vals in FX_FULL:
+        mt.add_effect(name, [0], 0, n_frames, values=dict(vals))
+    mt.set_keyframe(ids[0], 0, "amount", 0.0)
+    mt.set_keyframe(ids[0], n_frames - 1, "amount", 1.0)
+    return mt
 
 
 #: timeline V (phase 15): tracks 1-9 fold into track 0 by the transitions
@@ -4399,6 +4462,343 @@ def clipedit_phase(dev, card, launches):
          **{k: f"{b - a:.1f}" for k, a, b in zip(steps, marks, marks[1:])})
 
 
+#: phase 22: the backing track's clip (a 48 kHz WAV) and the cycles of the
+#: player's audio pass
+MT_AUDIO_UID, MT_PLAYER_CYCLES = 11, PLAYER_CYCLES
+
+
+def canon_events(el):
+    """An event list's events with ids replaced by their order of first
+    appearance: [(tc, type, id, props)], props as JSON text would hold
+    them."""
+    ids = {}
+    for e in el.events:
+        ids.setdefault(e.event_id, len(ids))
+
+    def ref(i):
+        return ids.setdefault(i, len(ids))
+    out = []
+    for e in el.events:
+        props = json.loads(json.dumps(e.props))
+        if "init_event" in props:
+            props["init_event"] = ref(props["init_event"])
+        if "init_events" in props:
+            props["init_events"] = [ref(i) for i in props["init_events"]]
+        out.append((e.tc, int(e.type), ids[e.event_id], props))
+    return out
+
+
+def layout_read_back(el):
+    """`canon_events` of `el` as the binary reader returns it: a
+    FILTER_INIT written with no out_tracks reads back with [0]
+    (`weed_binary.load_event_list_binary`, as the JAX package's)."""
+    out = canon_events(el)
+    for tc, kind, i, props in out:
+        if kind == 2 and not props.get("out_tracks"):
+            props["out_tracks"] = [0]
+    return out
+
+
+def multitrack_phase(dev, card, launches):
+    """22. the multitrack workbench at 1920x1080, 30 fps, 192 frames: the
+    model's render, the console's `render` from MJPEG AVIs with audio, and
+    the player's audio."""
+    import numpy as np
+    import torch
+
+    from lives_tpu_torch import cli
+    from lives_tpu_torch.audio.engine import render_audio_from_seeks
+    from lives_tpu_torch.audio.fx import WavAudioSink
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.events.event_list import TICKS_PER_SECOND
+    from lives_tpu_torch.graph import (SinkSpec, composite, fused_sweep,
+                                       nodemodel, stateful_sweep)
+    from lives_tpu_torch.io import jpeg_ingest as ji
+    from lives_tpu_torch.io.clips import open_clip
+    from lives_tpu_torch.io.decoders import try_decoders
+    from lives_tpu_torch.io.encoders import get_encoder
+    from lives_tpu_torch.multitrack import Multitrack
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.player import Player, Y4MSink
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+
+    if torch.device(dev).type == "cuda":
+        for built in (fused_sweep.build(), yk.build(), composite.build()):
+            assert built is not None
+    t_phase = time.perf_counter()
+    steps = {}
+    n_chunks = -(-N_FRAMES // CHUNK)
+
+    def zero():
+        fused_sweep.MODE_LAUNCHES.update(
+            dict.fromkeys(fused_sweep.MODE_LAUNCHES, 0))
+        stateful_sweep.LAUNCHES = 0
+        yk.LAUNCHES.update(dict.fromkeys(yk.LAUNCHES, 0))
+        composite.LAUNCHES = 0
+        sync(dev)
+        return time.perf_counter(), nodemodel.PLAIN_CHUNKS
+
+    def counts():
+        sync(dev)
+        got = {**{f"k1_{k}": v for k, v in fused_sweep.MODE_LAUNCHES.items()},
+               "k5": stateful_sweep.LAUNCHES, "k2": yk.LAUNCHES[
+                   "yuv420_to_rgb"], "k3": yk.LAUNCHES["rgb_to_yuv420"],
+               "k4": composite.LAUNCHES}
+        return {k: v for k, v in got.items() if v}
+
+    src = DeviceSyntheticSource(H, W, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # 22a. the model: built, saved as .lay, loaded back, rendered
+        t0 = time.perf_counter()
+        mt = config4_model(Multitrack, N_FRAMES, W, H,
+                           audio_uid=MT_AUDIO_UID)
+        build_s = time.perf_counter() - t0
+        lay = tmp / "layout.lay"
+        mt.save_layout(str(lay))
+        back = Multitrack.load_layout(str(lay))
+        same = canon_events(back.el) == layout_read_back(mt.el)
+        line("22a layout", card=repr(card), events=len(mt.el.events),
+             build_s=f"{build_s:.3f}",
+             lay_bytes=lay.stat().st_size, tracks=back.n_tracks,
+             audio_tracks=back.n_audio_tracks, read_back_equal=same)
+        assert same and back.n_tracks == TRACKS
+        sink = SinkSpec(W, H)
+        runs = {}
+        for label in ("first", "timed"):
+            mark = zero()
+            frames, tcs = back.render(src, sink, batch_size=CHUNK)
+            runs[label] = (counts(), time.perf_counter() - mark[0],
+                           nodemodel.PLAIN_CHUNKS - mark[1])
+        got, wall_s, plain_chunks = runs["timed"]
+        want = {"k1_u8": n_chunks}
+        line("22a render", card=repr(card), frames=len(frames),
+             chunks=n_chunks, launches=got, plain_chunks=plain_chunks,
+             route="K1 u8: 9 transitions and 4 filters over 10 generated "
+                   "tracks, one launch a chunk",
+             first_pass_s=f"{runs['first'][1]:.3f}", wall_s=f"{wall_s:.4f}",
+             frames_per_s=f"{N_FRAMES / wall_s:.1f}",
+             x_realtime=f"{N_FRAMES / wall_s / FPS:.2f}")
+        assert len(frames) == N_FRAMES and frames.shape[1:] == (3, H, W)
+        assert runs["first"][0] == got == want and plain_chunks == 0, \
+            (runs, want)
+        launches["fused_sweep"] += got["k1_u8"]
+        # where the time goes: the same list through `render_events`, the
+        # frames left on the device (render_to_arrays copies each chunk to
+        # the host and joins them)
+        rendered, _, ev_counts, ev_wall = render_path(back.el, src, sink,
+                                                      check=False)
+        line("22a render_events", card=repr(card), frames=rendered,
+             launches=ev_counts, wall_s=f"{ev_wall:.4f}",
+             frames_per_s=f"{rendered / ev_wall:.1f}",
+             host_copy_and_join_s=f"{wall_s - ev_wall:.4f}")
+        assert ev_counts == {"u8": n_chunks}, ev_counts
+        # the same render with K1 swapped for its plain version
+        kern = fused_sweep.fused_sweep
+        fused_sweep.fused_sweep = \
+            lambda plan, ids, packed, comp=None: fused_sweep.plain_sweep(
+                plan, ids, packed, comp)
+        try:
+            mark = zero()
+            plain, _ = back.render(src, sink, batch_size=CHUNK)
+            plain_s = time.perf_counter() - mark[0]
+        finally:
+            fused_sweep.fused_sweep = kern
+        worst, share = diff_stats(torch.from_numpy(frames),
+                                  torch.from_numpy(plain))
+        line("22a vs_plain", card=repr(card), frames=N_FRAMES,
+             max_abs_err=f"{worst:.6g}", differing_share=f"{share:.3g}",
+             bound=1, plain_wall_s=f"{plain_s:.3f}")
+        assert worst <= 1, worst
+        del frames, plain
+        steps["22a"] = time.perf_counter()
+
+        # 22b. the console's render from ten MJPEG AVIs and a WAV
+        made, size, secs = write_mjpeg_clips(str(tmp), src)
+        for c in made.values():
+            c.close()
+        wav = tmp / "audio.wav"
+        assert get_encoder("wav").encode(
+            str(wav), [], FPS, editor_audio(N_FRAMES / FPS), EDIT_ARATE)
+        argv = ["render", str(lay), "--audio", "--device", str(dev),
+                "--clip", f"{MT_AUDIO_UID}={wav}"] + [
+            a for c in range(1, TRACKS + 1)
+            for a in ("--clip", f"{c}={tmp / f'clip{c}.avi'}")]
+        line("22b inputs", card=repr(card), clips=TRACKS, frames=CLIP_FRAMES,
+             mb=f"{size / 1e6:.1f}", encode_s=f"{secs:.2f}",
+             wav_bytes=wav.stat().st_size, console=" ".join(
+                 ["python -m lives_tpu_torch.cli"] + argv[:6] + ["..."]))
+        os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "1"
+        made_src = []
+        entropy = [0.0]
+        saved = (ji.MJPEGMultiClipSource, ji.JpegStreamSource.entropy_pack)
+
+        class Kept(saved[0]):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made_src.append(self)
+
+        def timed_entropy(self, idx):
+            t = time.perf_counter()
+            out = saved[1](self, idx)
+            entropy[0] += time.perf_counter() - t
+            return out
+
+        def console(out, plain=False):
+            kernels = (yk.yuv420_to_rgb, yk.rgb_to_yuv420,
+                       composite.composite)
+            if plain:
+                yk.yuv420_to_rgb = yk.plain_yuv420_to_rgb
+                yk.rgb_to_yuv420 = yk.plain_rgb_to_yuv420
+                composite.composite = composite.plain_composite
+            ji.MJPEGMultiClipSource = Kept
+            ji.JpegStreamSource.entropy_pack = timed_entropy
+            entropy[0] = 0.0
+            try:
+                mark = zero()
+                assert cli.main(argv + ["--out", str(out)]) == 0
+                wall = time.perf_counter() - mark[0]
+                return counts(), wall, made_src[-1], entropy[0]
+            finally:
+                ji.MJPEGMultiClipSource, \
+                    ji.JpegStreamSource.entropy_pack = saved
+                yk.yuv420_to_rgb, yk.rgb_to_yuv420, composite.composite = \
+                    kernels
+        paths = {k: tmp / f"{k}.y4m" for k in ("plain", "kern")}
+        got, _, msrc, _ = console(paths["plain"], plain=True)
+        assert not got, got
+        batches = -(-N_FRAMES // 32)   # the console's render_events batch
+        want = {"k2": TRACKS * batches, "k4": batches, "k3": batches}
+        got, wall_s, msrc, ent_s = console(paths["kern"])
+        line("22b console", card=repr(card), frames=N_FRAMES,
+             batches=batches, launches=got, host_decoded=msrc.host_decoded,
+             fallbacks=msrc.fallbacks, wall_s=f"{wall_s:.4f}",
+             frames_per_s=f"{N_FRAMES / wall_s:.1f}",
+             x_realtime=f"{N_FRAMES / wall_s / FPS:.2f}",
+             entropy_s=f"{ent_s:.4f}",
+             entropy_share=f"{ent_s / wall_s:.3f}")
+        assert got == want, (got, want)
+        assert msrc.host_decoded == 0 and msrc.fallbacks == 0
+        for k, name in (("k2", "yuv420_to_rgb"), ("k3", "rgb_to_yuv420"),
+                        ("k4", "composite")):
+            launches[name] += got[k]
+        kern_frames, plain_frames = (y4m_planes(str(paths[k]), dev)
+                                     for k in ("kern", "plain"))
+        assert len(kern_frames) == len(plain_frames) == N_FRAMES
+        err = max(int((a.int() - b.int()).abs().max())
+                  for x, y in zip(kern_frames, plain_frames)
+                  for a, b in zip(x, y))
+        line("22b vs_plain", frames=N_FRAMES, max_abs_err=err, bound=1)
+        assert err <= 1, err
+        del kern_frames, plain_frames
+        # the audio beside the file: the mix the model gives directly
+        wav_out = paths["kern"].with_suffix(".wav")
+        cd = try_decoders(str(wav_out))
+        n_samples = cd.decoder.data_len // (2 * cd.achans)
+        direct = Multitrack.load_layout(str(lay)).render_audio(
+            {MT_AUDIO_UID: open_clip(str(wav), tmp / "direct")})
+        ref = tmp / "direct.wav"
+        assert get_encoder("wav").encode(str(ref), [], FPS, direct, 44100)
+        equal = ref.read_bytes() == wav_out.read_bytes()
+        # the mix spans the timeline to its last FRAME event (the backing
+        # track's off marker at frame 192) plus one frame, and one sample
+        n_want = int(np.ceil((N_FRAMES + 1) / FPS * 44100)) + 1
+        line("22b audio", samples=n_samples, frames_over_fps_x_44100=int(
+            N_FRAMES / FPS * 44100), engine_samples=n_want,
+             rate=cd.arate, channels=cd.achans, equal_to_direct=equal,
+             peak=f"{float(np.abs(direct).max()):.4f}")
+        assert n_samples == len(direct) == n_want and equal
+        assert float(np.abs(direct).max()) > 0.05
+        # the console as a user runs it: its file byte for byte the same
+        sub = tmp / "sub.y4m"
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "lives_tpu_torch.cli",
+                            *argv, "--out", str(sub)], cwd=ROOT,
+                           capture_output=True, text=True, timeout=600)
+        line("22b subprocess", card=repr(card), rc=r.returncode,
+             seconds=f"{time.perf_counter() - t0:.2f}",
+             out=r.stdout.strip()[-80:],
+             identical=r.returncode == 0
+             and sub.read_bytes() == paths["kern"].read_bytes())
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert sub.read_bytes() == paths["kern"].read_bytes()
+        os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "0"
+        steps["22b"] = time.perf_counter()
+
+        # 22c. the player's audio: the feeder is the clock, recorded
+        allc, _, _ = write_clips(str(tmp), src, 2, PLAYER_CLIP_FRAMES)
+        clip_wav = tmp / "clip_audio.wav"   # as long as the clips
+        assert get_encoder("wav").encode(
+            str(clip_wav), [], FPS, editor_audio(PLAYER_CLIP_FRAMES / FPS),
+            EDIT_ARATE)
+        clips = tuple(editor_clip(allc[c].source_uri, tmp / "pc", clip_wav,
+                                  c) for c in (1, 2))
+        for c in allc.values():
+            c.close()
+        played = tmp / "played.wav"
+        p = Player(Y4MSink(str(tmp / "player.y4m")),
+                   SinkSpec(palette=int(Palette.YUV420P)), fps=FPS,
+                   device=dev)
+        p.attach_audio(WavAudioSink(str(played)))
+        p.time_source = "audio"
+        drift = []
+
+        def listen(frame, tc):
+            d = p.audio.sync_delta()
+            if d is not None:
+                drift.append(abs(d))
+        p.frame_listeners.append(listen)
+        ms, serve = [], p.process_one
+
+        def timed_process_one():
+            t = time.perf_counter()
+            shown = serve()
+            ms.append((time.perf_counter() - t) * 1e3)
+            return shown
+        p.process_one = timed_process_one
+        player_setup(p, clips, FPS, PLAYER_EVERY)
+        t0 = time.perf_counter()
+        perform(p, clips, FPS, MT_PLAYER_CYCLES, PLAYER_EVERY, realtime=True)
+        wall = time.perf_counter() - t0
+        take = p.record_stop()
+        p.stop()
+        frames = take.frame_events()
+        seeks = all(e.props.get("audio_clips", [None])[0] == -1
+                    and len(e.props.get("audio_seeks", ())) == 2
+                    for e in frames)
+        by_uid = {c.unique_id: c for c in clips}
+        audio = render_audio_from_seeks(take, by_uid)
+        n_take = int(np.ceil(take.duration_ticks / TICKS_PER_SECOND
+                             * 44100)) + 1
+        cd = try_decoders(str(played))
+        fed = cd.decoder.data_len // (2 * cd.achans)
+        lat = np.asarray(ms)
+        line("22c player_audio", card=repr(card), cycles=MT_PLAYER_CYCLES,
+             frames_shown=p.frames_shown, dropped=p.frames_dropped,
+             wall_s=f"{wall:.3f}", process_one_calls=len(ms),
+             p50_ms=f"{np.percentile(lat, 50):.3f}",
+             p99_ms=f"{np.percentile(lat, 99):.3f}",
+             max_drift_s=f"{max(drift):.4f}",
+             p50_drift_s=f"{np.percentile(drift, 50):.4f}",
+             p99_drift_s=f"{np.percentile(drift, 99):.4f}",
+             fed_samples=fed, fed_s=f"{fed / 44100:.3f}",
+             take_frames=len(frames), frames_with_seeks=seeks,
+             rerender_samples=len(audio), take_samples=n_take,
+             peak=f"{float(np.abs(audio).max()):.4f}")
+        assert p.frames_shown > 0 and seeks and len(frames) > 0
+        assert len(audio) == n_take and float(np.abs(audio).max()) > 0.05
+        assert fed > 0
+        for c in clips:
+            c.close()
+        steps["22c"] = time.perf_counter()
+    t = t_phase
+    for k, v in steps.items():
+        line("22 step", card=repr(card), step=k, seconds=f"{v - t:.2f}")
+        t = v
+    line("22 phase", card=repr(card),
+         seconds=f"{time.perf_counter() - t_phase:.2f}")
+
+
 def synced_calls(fn):
     """(fn's result, the synchronizing CUDA calls it made, as the warnings
     of torch's sync debug mode)."""
@@ -4479,6 +4879,9 @@ def main(argv) -> int:
         return 0
     if argv == ["--clipedit"]:
         clipedit_phase(dev, card, dict.fromkeys(NAMES, 0))
+        return 0
+    if argv == ["--multitrack"]:
+        multitrack_phase(dev, card, dict.fromkeys(NAMES, 0))
         return 0
     if argv and argv not in (["--vocabulary"], ["--vjfilters"],
                              ["--titles"]):
@@ -5062,6 +5465,7 @@ def main(argv) -> int:
     mjpeg_phase(dev, card, launches)
     datacons_phase(dev, card, launches)
     clipedit_phase(dev, card, launches)
+    multitrack_phase(dev, card, launches)
     vel = timeline_v(1)
     vspec, _, _, vrows = chunk_of(vel, dev, 1)
     v_geom = fused_sweep.plan_geometry(

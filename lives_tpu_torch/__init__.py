@@ -30,9 +30,15 @@ clip editor's editing half (ROADMAP items 11, 21 and 23) is the clip
 store (`io/clips.py`, image and WAV decoders, the PNG, PDF and WAV
 encoders), `rfx`, `rfx_scripts`, `rfx_builder`, `clipedit`, `resample`,
 `audioedit`, `transcode.transcode` and `io/scrap.py` with the player's
-scrap capture. Every entry point takes its device explicitly (a
-`GeneratorClip`, a `Player` and the editor's entry points default to
-"cuda" and raise without it); nothing picks a device on its own.
+scrap capture. The multitrack workbench (ROADMAP Queue 1 item 23) is
+`multitrack` (the headless timeline model: blocks, audio blocks, volume
+envelopes, effects, keyframes, undo, layouts), `events.weed_binary` (the
+reference's binary layout format), `audio` (`engine`'s mix-down, `fx`'s
+filters, sinks and the player's realtime feeder, `analysers`) and the
+console's `render` (`python -m lives_tpu_torch.cli render layout.lay`).
+Every entry point takes its device explicitly (a `GeneratorClip`, a
+`Player`, the editor's entry points and the console default to "cuda" and
+raise without it); nothing picks a device on its own.
 """
 
 from .constants import (Gamma, Palette, YUVClamping, YUVSampling,

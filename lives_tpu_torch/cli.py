@@ -1,7 +1,8 @@
 """Headless VJ console: the terminal front-end.
 
-Counterpart of `lives_tpu/cli.py:23-175,195-221,287-311` (`build_player`,
-`run_interactive`, the `play`, `effects` and `rfx` subcommands). It opens
+Counterpart of `lives_tpu/cli.py:23-175,195-221,243-311` (`build_player`,
+`run_interactive`, the `play`, `effects`, `render` and `rfx`
+subcommands). It opens
 a clip, binds effect keys, starts playback with a live status line (inst
 fps / p99 / effort) and takes single-key commands on stdin (the clip
 editor's hotkey map). Also usable non-interactively:
@@ -10,14 +11,19 @@ editor's hotkey map). Also usable non-interactively:
     python -m lives_tpu_torch.cli play --fx saturation --seconds 5   # plasma
     python -m lives_tpu_torch.cli effects
     python -m lives_tpu_torch.cli rfx sepia clipdir     # a rendered effect
+    python -m lives_tpu_torch.cli render layout.lay --clip 1=a.avi --audio --out out.y4m
 
 Playback runs on `--device` (default `cuda`; without CUDA it raises, it
 does not fall back): YUV4MPEG clips into a null, Y4M or PNG sink, or the
 plasma generator without a clip; `rfx` applies a rendered-effect script
-on `--device` (default `cuda`). Not ported yet, each raising
-`NotImplementedError` naming its ROADMAP Queue 1 item: the stream, l2l,
-sdl, vjack and av sinks and `--osc`, and the `render`, `selftest`,
-`recover` and `webui` subcommands (item 23).
+on `--device` (default `cuda`); `render` renders a multitrack layout
+(`.json` or binary `.lay`) on `--device` (default `cuda`) over the clips
+`--clip` maps, or the synthetic source, into a YUV4MPEG file, with
+`--audio` its mixed audio as a WAV beside it. Not ported yet, each
+raising `NotImplementedError` naming its ROADMAP Queue 1 item: the
+stream, l2l, sdl, vjack and av sinks and `--osc`, and the `selftest`,
+`recover` and `webui` subcommands (item 23); the av encoder (item 11), so
+`render` writes YUV4MPEG whatever the output's suffix.
 
 Keys: space=play/stop  0-8=toggle fx key  r=record  R=stop rec+save
       [ ]=fps down/up  v=reverse  p=ping-pong  q=quit
@@ -36,7 +42,6 @@ UNPORTED_SINKS = {"stream": 23, "l2l": 23, "sdl": 23,
                   "vjack": 23, "av": 23}
 #: subcommands of the JAX console not ported yet, and their items
 UNPORTED_COMMANDS = {
-    "render": "multitrack/model.py layouts (ROADMAP Queue 1 item 23)",
     "selftest": "diagnostics.run_startup_tests (ROADMAP Queue 1 item 23)",
     "recover": "api.py and sets.py (ROADMAP Queue 1 item 23)",
     "webui": "webui.py and the OSC server (ROADMAP Queue 1 item 23)",
@@ -187,6 +192,18 @@ def main(argv=None):
     rfx.add_argument("--device", default="cuda",
                      help="the device the script's pixel work runs on "
                           "(default cuda; no fallback)")
+    rend = sub.add_parser("render", help="batch-render an event list")
+    rend.add_argument("layout", help=".json or binary .lay layout")
+    rend.add_argument("--out", default="render.y4m")
+    rend.add_argument("--clip", action="append", default=[],
+                      metavar="UID=PATH",
+                      help="map a timeline clip uid to a media file "
+                           "(omit for the synthetic source)")
+    rend.add_argument("--audio", action="store_true",
+                      help="mix timeline audio into the output")
+    rend.add_argument("--device", default="cuda",
+                      help="the device to render on (default cuda; no "
+                           "fallback)")
     for cmd in UNPORTED_COMMANDS:
         sub.add_parser(cmd, help="not ported yet").add_argument(
             "rest", nargs="*")
@@ -201,6 +218,8 @@ def main(argv=None):
         return 0
     if args.cmd == "rfx":
         return _rfx(args)
+    if args.cmd == "render":
+        return _render(args)
     if args.cmd in UNPORTED_COMMANDS:
         raise NotImplementedError(
             f"`{args.cmd}` needs {UNPORTED_COMMANDS[args.cmd]}, not ported "
@@ -212,6 +231,53 @@ def main(argv=None):
     p = build_player(args.uri, fx, args.width, args.height, args.sink,
                      args.out, device=args.device)
     run_interactive(p, args.seconds)
+    return 0
+
+
+def _render(args) -> int:
+    """`render` (`lives_tpu/cli.py:243-285`): the layout's event list over
+    the clips `--clip` maps (their MJPEG lanes through
+    `MJPEGMultiClipSource`) or, with none, `DeviceSyntheticSource`, both on
+    `--device`, rendered chunk by chunk into the YUV4MPEG encoder, which
+    converts each chunk on the device. `--audio` mixes the timeline's
+    audio from the clips (`Multitrack.render_audio`) into a WAV beside
+    it."""
+    import tempfile
+    from .events.renderer import render_events
+    from .io.clips import open_clip
+    from .io.encoders import get_encoder
+    from .multitrack import Multitrack
+    from .utils.device import resolve_device
+    device = resolve_device(args.device, "render")
+    mt = Multitrack.load_layout(args.layout)   # .json OR binary .lay
+    el = mt.el
+    clips = {}
+    for spec in args.clip:
+        uid, _, path = spec.partition("=")
+        clips[int(uid)] = open_clip(
+            path, tempfile.mkdtemp(prefix="lives_tpu_render_"))
+    if clips:
+        from .io.jpeg_ingest import MJPEGMultiClipSource
+        w = el.width or max(c.width for c in clips.values())
+        h = el.height or max(c.height for c in clips.values())
+        src = MJPEGMultiClipSource(clips, w, h, device=device)
+    else:
+        from .scenes import DeviceSyntheticSource
+        src = DeviceSyntheticSource(el.height or 360, el.width or 640,
+                                    device=device)
+
+    def frames():
+        for _, lay in render_events(el, src):
+            yield lay.planes[0]
+    audio = None
+    if args.audio and clips:
+        audio = mt.render_audio(
+            {getattr(c, "unique_id", uid): c
+             for uid, c in clips.items()} | clips)
+    get_encoder("yuv4mpeg").encode(args.out, frames(), el.fps, audio=audio,
+                                   arate=44100)
+    print(f"rendered -> {args.out} (yuv4mpeg"
+          f"{', audio mixed' if audio is not None else ''})")
     return 0
 
 

@@ -18,6 +18,7 @@ channel wiring a recorded take carries on its init events (`cconx` props,
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Iterator, Protocol, Sequence
 
@@ -122,10 +123,12 @@ def _chain_for(inits: list[Event], el: EventList,
                start_tc: int | None = None
                ) -> "tuple[list[Event], list[Instance]]":
     """Instances for a segment's active inits, aligned pairwise with the
-    inits kept (`lives_tpu/events/renderer.py:122`). The JAX package skips
-    a filter its registry lacks; the port's registry does not hold every
-    filter of the JAX package yet, so skipping would render something else
-    than the reference, and an unknown filter raises instead."""
+    inits kept (`lives_tpu/events/renderer.py:122`). A filter neither
+    registry holds (an imported reference layout naming a plugin the JAX
+    package does not ship) is skipped with a warning, as the JAX package
+    skips it. A filter the JAX package registers and the port defers
+    (`DEFERRED`) raises naming its item: skipping it would render
+    something else than the reference."""
     kept, chain = [], []
     for init in inits:
         if init.props.get("audio"):
@@ -134,10 +137,13 @@ def _chain_for(inits: list[Event], el: EventList,
         try:
             f = get_filter(name)
         except KeyError:
-            why = DEFERRED.get(name, "not a filter of the JAX package "
-                                     "either")
-            raise NotImplementedError(
-                f"filter {name!r} is not ported yet ({why})") from None
+            if name in DEFERRED:
+                raise NotImplementedError(
+                    f"filter {name!r} is not ported yet ({DEFERRED[name]})"
+                ) from None
+            warnings.warn(f"skipping unknown filter {name!r} "
+                          "(not in the registry)")
+            continue
         values = dict(init.props.get("values", {}))
         if start_tc is not None:
             # fold in recorded STATIC-kind param changes effective at the

@@ -291,7 +291,8 @@ def frame_loop(chain_spec, start: int, stop: int, frame_layers, B: int,
     st = list(states[start:stop])
     outs = [run_chain(sub, frame_layers(b), packed[:, b:b + 1], rows_key,
                       fps, sink, idx_base=start, states=st,
-                      emit_comp=emit_comp, cconx=cconx) for b in range(B)]
+                      emit_comp=emit_comp, cconx=cconx, batched=True)
+            for b in range(B)]
     planes = tuple(torch.cat([o.planes[i] for o in outs])
                    for i in range(len(outs[0].planes)))
     return (outs[0].replace(planes=planes),

@@ -63,10 +63,16 @@ JPEG lane; the FRAME event references the scrap clip's frame, and
 lost back to the live source. Stateless generators ride as `GenSlot`s
 and replay from the clip reference; decoded clips need no capture.
 
-Left out, each raising `NotImplementedError` naming its ROADMAP Queue 1
-item: audio, `time_source="audio"` and the audio of a recorded frame
-(item 23); the JACK transport that mirrors start and stop
-(`transport`, item 23) is absent. The JAX worker's fixed decode batch
+Audio (`lives_tpu/player/player.py:318-356,413-416,881-900,1535-1546`):
+`attach_audio` attaches `audio.fx.AudioPlayer`, the pull-model feeder
+velocity-matched to `pb_fps`. `start` loads the fg clip's audio and
+starts the feeder, an autotransition's clip switch loads the new clip's,
+and `stop` stops it first. `time_source="audio"` takes the feeder's
+position as the clock, and a recorded FRAME carries the feeder's
+`audio_clips`/`audio_seeks` pair (track -1, the source clip) that
+`audio.engine.render_audio_from_seeks` re-renders. The JACK transport
+that mirrors start and stop (`transport`, ROADMAP Queue 1 item 23) is
+absent. The JAX worker's fixed decode batch
 sizes {4, `precache_chunk`} existed so that XLA compiled two templates;
 the port decodes the window as it stands, in chunks of `precache_chunk`.
 """
@@ -97,9 +103,6 @@ from .sinks import NullSink, Sink
 
 N_KEYS = 64          # prefs::rte_keys_virtual ceiling (mainwindow.h:228)
 MODES_PER_KEY = 32   # mainwindow.h:229
-
-_ITEM23 = "ROADMAP Queue 1 item 23"
-
 
 class _PrecacheMiss(Exception):
     """A frame the precache worker is decoding was not ready: the
@@ -440,9 +443,13 @@ class Player:
         self.effort = 0
         self._lbox_wanted: bool | None = None  # user's letterbox intent
         self._precache_saved = 0
-        # clock source: "system" (monotonic) or a callable returning
-        # seconds (an external transport)
+        # clock source: "system" (monotonic), "audio" (the audio feeder's
+        # clip position, reference soundcard time source) or a callable
+        # returning seconds (an external transport)
         self.time_source = "system"
+        # optional realtime audio feeder (audio/fx.AudioPlayer), attached
+        # by attach_audio()
+        self.audio = None
         self._precache_thread = None
         # optional data connections (effects/data.py): out-param values
         # pushed into active instances each frame (pconx_chain_data before
@@ -463,22 +470,22 @@ class Player:
         self._rec_backup_path = None
         self._last_missed = None
 
-    @property
-    def time_source(self):
-        return self._time_source
-
-    @time_source.setter
-    def time_source(self, src):
-        if src == "audio":
-            raise NotImplementedError(
-                "time_source='audio' needs the realtime audio feeder "
-                f"(audio/fx.py), which is not ported yet ({_ITEM23})")
-        self._time_source = src
-
     def attach_audio(self, sink=None, rate: int = 44100):
-        raise NotImplementedError(
-            f"the realtime audio feeder (audio/fx.py) is not ported yet "
-            f"({_ITEM23})")
+        """Attach the realtime audio feeder (pull-model, velocity-matched)
+        (`lives_tpu/player/player.py:318-322`)."""
+        from ..audio.fx import AudioPlayer
+        self.audio = AudioPlayer(self, sink, rate=rate)
+        return self.audio
+
+    def _load_audio(self, clip) -> bool:
+        """Load `clip`'s audio into the feeder, when one is attached and
+        the clip has audio (PCM or an audio generator)."""
+        if self.audio is None or not (
+                hasattr(clip, "read_audio")
+                or getattr(clip, "audio_source", None) is not None):
+            return False
+        self.audio.load_clip_audio(clip)
+        return True
 
     def load_subtitles(self, path, **style):
         """Attach .srt/.sub subtitles composited during playback
@@ -507,6 +514,13 @@ class Player:
             self._clock0 = time.monotonic()
 
     def _target_frame_f(self) -> float:
+        # soundcard time source (reference time_source=soundcard,
+        # player.c): the audio feeder's clip position IS the clock, so
+        # video can never drift from audio
+        if self.time_source == "audio" and self.audio is not None \
+                and self.audio._data is not None:
+            base = getattr(self.state.fg_clip, "fps", 25.0) or 25.0
+            return self.audio._pos / self.audio._src_rate * base
         if callable(self.time_source):
             # external transport clock (jack transport slave,
             # src/jack.c transport model): seconds -> clip frames at the
@@ -561,6 +575,7 @@ class Player:
         self._autotrans_t0 = time.monotonic()
         if not self.keymap.active[key]:
             self.key_toggle(key, True)
+        self._load_audio(clip)
 
     def _autotrans_step(self):
         t0 = self._autotrans_t0
@@ -974,6 +989,8 @@ class Player:
             w = self.sink_spec.width or clip.width
             h = self.sink_spec.height or clip.height
             self.sink.init_screen(w, h, abs(self.state.pb_fps))
+            if self._load_audio(clip):
+                self.audio.start()
 
     def stop(self):
         """Stop playback: drain the pipeline into the sink, stop the
@@ -982,6 +999,10 @@ class Player:
         for o, t in self._pending:
             self.sink.play_frame(o, t)
         self._pending.clear()
+        # silence audio first: joining a warm-up below must not extend
+        # audible playback
+        if self.audio is not None:
+            self.audio.stop()
         self._pc_stop = True
         with self._pc_cv:
             self._pc_cv.notify_all()
@@ -1587,12 +1608,24 @@ class Player:
             self._record_automix(st.bg_clip is not None and not uses_bg)
             clips = [getattr(st.fg_clip, "unique_id", 1)]
             frames = [target]
+            src_uid = clips[0]  # pre-scrap fg reference (audio follows it)
             if st.bg_clip is not None:
                 clips.append(getattr(st.bg_clip, "unique_id", 2))
                 frames.append(self._bg_frame(target))
             if self._scrap_generators:
                 self._scrap_capture(srcs, layers, clips, frames)
-            el.insert(frame_event(self._rec_tc(), clips, frames))
+            extra = {}
+            if self.audio is not None and self.audio._data is not None:
+                # the feeder's state a frame (reference audio_clips/
+                # audio_seeks pairs, track -1 = the performance audio,
+                # events.c:5665): a scratch re-renders with the audio it
+                # made. Audio follows the source clip, not the scrap clip
+                base = getattr(st.fg_clip, "fps", 25.0) or 25.0
+                vel = (st.pb_fps or base) / base
+                extra["audio_clips"] = [-1, src_uid]
+                extra["audio_seeks"] = [self.audio._pos
+                                        / self.audio._src_rate, vel]
+            el.insert(frame_event(self._rec_tc(), clips, frames, **extra))
             if self._rec_backup_path and \
                     time.monotonic() - self._rec_last_backup \
                     > self._rec_backup_every:

@@ -6,7 +6,12 @@ CUDA is absent instead of falling back; what is not ported raises naming
 its ROADMAP item; `rfx` lists the rendered-effect scripts, shows a
 script's parameters and applies it to a clip directory or a media file
 on the device it is given, as the JAX console does (the frames within
-the JAX script's tolerance, tests/test_torch_rfx.py)."""
+the JAX script's tolerance, tests/test_torch_rfx.py); `render` renders a
+`.lay` or `.json` layout over the synthetic source or MJPEG AVIs with a
+WAV on the backing track: the Y4M frames within 1 LSB of the JAX
+console's, the WAV beside it byte for byte the JAX console's and the
+model's own mix, and without `--device` it refuses when CUDA is
+absent."""
 
 import numpy as np
 import pytest
@@ -202,3 +207,99 @@ def test_rfx_without_device_refuses_when_cuda_is_absent(y4m_clip):
         pytest.skip("this machine has CUDA: the refusal is for one without")
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["rfx", "sepia", y4m_clip])
+
+
+# -- render ---------------------------------------------------------------------
+
+def _y4m_frames(path):
+    cd = try_decoders(str(path))
+    out = [np.concatenate([np.asarray(p).reshape(-1) for p in
+                           (cd.decoder.get_frame(n).planes)])
+           for n in range(cd.nframes)]
+    cd.decoder.close()
+    return np.stack(out)
+
+
+def _layout(tmp_path, suffix, n_frames=10, w=64, h=32, audio_uid=None,
+            clip_frames=4):
+    """Phase 22's model layout (`chip_smoke.config4_model`) at a small
+    size, saved by the port."""
+    import chip_smoke as cs
+    from lives_tpu_torch.multitrack import Multitrack
+    mt = cs.config4_model(Multitrack, n_frames, w, h, audio_uid=audio_uid,
+                          clip_frames=clip_frames)
+    path = tmp_path / f"layout{suffix}"
+    mt.save_layout(str(path))
+    return path
+
+
+def _render_both(monkeypatch, tmp_path, argv, capsys):
+    """`render` through both consoles into their own outputs: (port's Y4M,
+    JAX's Y4M), the port's on the CPU."""
+    monkeypatch.setenv("LIVES_TPU_FUSED_SWEEP", "0")
+    monkeypatch.setenv("LIVES_TPU_CHAIN_DTYPE", "f32")
+    outs = {}
+    for pkg, main in (("t", cli.main), ("j", jcli.main)):
+        out = tmp_path / f"{pkg}.y4m"
+        extra = ["--device", "cpu"] if pkg == "t" else []
+        assert main(["render", *argv, "--out", str(out), *extra]) == 0
+        assert capsys.readouterr().out.startswith(f"rendered -> {out}")
+        outs[pkg] = out
+    return outs["t"], outs["j"]
+
+
+@pytest.mark.parametrize("suffix", [".lay", ".json"])
+def test_render_synthetic_layout_matches_jax(monkeypatch, tmp_path, capsys,
+                                             suffix):
+    """A `.lay` or `.json` layout with no clip: the synthetic source, the
+    frames within 1 LSB of the JAX console's."""
+    lay = _layout(tmp_path, suffix)
+    t, j = _render_both(monkeypatch, tmp_path, [str(lay)], capsys)
+    a, b = _y4m_frames(t), _y4m_frames(j)
+    assert a.shape == b.shape and len(a) == 10
+    assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+
+def test_render_clips_and_audio_match_jax(monkeypatch, tmp_path, capsys):
+    """Ten MJPEG AVIs (`chip_smoke.write_mjpeg_clips`) and a 48 kHz WAV on
+    the backing track: the frames within 1 LSB of the JAX console's; the
+    WAV beside the output byte for byte the JAX console's, and the mix
+    `Multitrack.render_audio` gives called directly."""
+    import chip_smoke as cs
+    from lives_tpu_torch.io.clips import open_clip
+    from lives_tpu_torch.io.encoders import get_encoder
+    from lives_tpu_torch.multitrack import Multitrack
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+    monkeypatch.setattr(cs, "W", 64)
+    monkeypatch.setattr(cs, "H", 32)
+    cs.write_mjpeg_clips(str(tmp_path), DeviceSyntheticSource(
+        32, 64, device="cpu"), 10, 4)
+    wav = tmp_path / "audio.wav"
+    assert get_encoder("wav").encode(str(wav), [], 30.0,
+                                     cs.editor_audio(0.5), 48000)
+    lay = _layout(tmp_path, ".lay", audio_uid=11)
+    argv = [str(lay), "--audio", "--clip", f"11={wav}"] + [
+        a for c in range(1, 11)
+        for a in ("--clip", f"{c}={tmp_path / f'clip{c}.avi'}")]
+    t, j = _render_both(monkeypatch, tmp_path, argv, capsys)
+    a, b = _y4m_frames(t), _y4m_frames(j)
+    assert a.shape == b.shape and len(a) == 10 and a.std() > 10
+    assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+    tw, jw = t.with_suffix(".wav").read_bytes(), \
+        j.with_suffix(".wav").read_bytes()
+    assert tw == jw
+    direct = Multitrack.load_layout(str(lay)).render_audio(
+        {11: open_clip(str(wav), tmp_path / "w")})
+    assert np.abs(direct).max() > 0.05
+    ref = tmp_path / "direct.wav"
+    assert get_encoder("wav").encode(str(ref), [], 30.0, direct, 44100)
+    assert ref.read_bytes() == tw
+
+
+def test_render_without_device_refuses_when_cuda_is_absent(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the refusal is for one without")
+    lay = _layout(tmp_path, ".lay", n_frames=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["render", str(lay), "--out", str(tmp_path / "o.y4m")])
+    assert not (tmp_path / "o.y4m").exists()

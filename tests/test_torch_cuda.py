@@ -1731,3 +1731,35 @@ def test_editor_entry_points_refuse_cuda_without_it(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert c.is_virtual_frame(0) and not list(c.clip_dir.glob("*.png"))
+
+
+# -- the multitrack workbench (phase 22) -----------------------------------
+
+@pytest.mark.cuda
+def test_multitrack_model_render_takes_k1_once_a_chunk(cuda, tmp_path):
+    """Phase 22a's model timeline (`chip_smoke.config4_model`) at 256x48
+    over 16 frames, saved as `.lay` and loaded back, rendered over the
+    synthetic source on the card in chunks of 8: K1 u8 once a chunk, no
+    chunk on the plain route, the frames within 1 LSB of the same render
+    on the CPU (K1's plain version)."""
+    import chip_smoke as cs
+    from lives_tpu_torch.graph import nodemodel
+    from lives_tpu_torch.multitrack import Multitrack
+    mt = cs.config4_model(Multitrack, 16, 256, 48, audio_uid=11,
+                          clip_frames=6)
+    path = tmp_path / "layout.lay"
+    mt.save_layout(str(path))
+    back = Multitrack.load_layout(str(path))
+    fused_sweep.MODE_LAUNCHES.update(
+        dict.fromkeys(fused_sweep.MODE_LAUNCHES, 0))
+    plain_before = nodemodel.PLAIN_CHUNKS
+    got, _ = back.render(DeviceSyntheticSource(48, 256, device=cuda),
+                         batch_size=8)
+    torch.cuda.synchronize()
+    assert fused_sweep.MODE_LAUNCHES["u8"] == 2
+    assert nodemodel.PLAIN_CHUNKS == plain_before
+    ref, _ = back.render(DeviceSyntheticSource(48, 256, device="cpu"),
+                         batch_size=8)
+    assert got.shape == ref.shape == (16, 3, 48, 256)
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+

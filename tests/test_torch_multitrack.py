@@ -1,0 +1,835 @@
+"""The port's multitrack model (`lives_tpu_torch.multitrack`) against
+lives_tpu's, on the CPU.
+
+Each case of the JAX package's `tests/test_multitrack.py` is a scenario
+here, run once through each package with the same inputs: event ids come
+from a counter in both (`same_ids`), so the edits must write the same event
+list, `to_json` text equal after each step the scenario records; block and
+audio-block views equal; `render` frames within 1 LSB of the JAX model's
+(the JAX package's XLA path in float32, `LIVES_TPU_FUSED_SWEEP=0`,
+`LIVES_TPU_CHAIN_DTYPE=f32`); `render_audio` sample-exact. The JAX test's
+own assertions hold on both runs. `tests/test_multitrack_fuzz.py`'s random
+edit sequences run through both models op for op: `to_json` equal after
+every op, and after each undo and redo, and the structural invariants
+hold. Layouts save byte for byte both ways, JSON and binary (audio
+blocks, avol envelopes, keyframes, split markers)."""
+
+import io
+import random
+import time
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import lives_tpu.events.event_list as j_elmod
+import lives_tpu.multitrack as jmt
+import lives_tpu_torch.events.event_list as t_elmod
+import lives_tpu_torch.multitrack as tmt
+from lives_tpu.constants import Palette as JPalette
+from lives_tpu.io.clips import create_clip as j_create_clip
+from lives_tpu.layer import Layer as JLayer
+from lives_tpu_torch.constants import Palette
+from lives_tpu_torch.events.event_list import EventType
+from lives_tpu_torch.io.clips import create_clip as t_create_clip
+from lives_tpu_torch.layer import Layer
+import chip_smoke as cs
+from test_torch_weed_binary import _Counter
+
+
+@pytest.fixture(autouse=True)
+def same_ids(monkeypatch):
+    for mod in (j_elmod, t_elmod):
+        monkeypatch.setattr(mod, "uuid", _Counter())
+
+
+@pytest.fixture(autouse=True)
+def scan_env(monkeypatch):
+    monkeypatch.setenv("LIVES_TPU_FUSED_SWEEP", "0")
+    monkeypatch.setenv("LIVES_TPU_CHAIN_DTYPE", "f32")
+
+
+class Src:
+    """Random frames a (clip, frame), as either package's Layer batch
+    (`tests/test_multitrack.py:15-27`)."""
+
+    def __init__(self, pkg, h=16, w=32):
+        self.pkg, self.h, self.w = pkg, h, w
+
+    def frame(self, c, f):
+        if c < 0:
+            return np.zeros((3, self.h, self.w), np.uint8)
+        rng = np.random.default_rng(c * 1000 + f)
+        return rng.integers(0, 256, (3, self.h, self.w), np.uint8)
+
+    def get_batch(self, clip_ids, frame_nums):
+        arr = np.stack([self.frame(c, f)
+                        for c, f in zip(clip_ids, frame_nums)])
+        if self.pkg == "j":
+            return JLayer(planes=(jnp.asarray(arr),),
+                          palette=int(JPalette.RGB24))
+        return Layer(planes=(torch.from_numpy(arr),),
+                     palette=int(Palette.RGB24))
+
+
+def namespace(pkg, tmp_path):
+    m = jmt if pkg == "j" else tmt
+    d = tmp_path / pkg
+    d.mkdir(exist_ok=True)
+    obs: list = []
+    return types.SimpleNamespace(
+        pkg=pkg, Multitrack=m.Multitrack, Block=m.Block,
+        AudioBlock=m.AudioBlock, Gravity=m.Gravity, InsertMode=m.InsertMode,
+        Src=lambda h=16, w=32: Src(pkg, h, w), tmp=d, obs=obs,
+        create_clip=lambda w=16, h=8: (j_create_clip if pkg == "j"
+                                       else t_create_clip)(d, w, h),
+        note=lambda kind, v: obs.append((kind, v)))
+
+
+def observe(P, mt, what=("json",)):
+    """Record the model's state: its event list's text, and the block and
+    audio-block views of every track."""
+    if "json" in what:
+        P.note("json", mt.el.to_json())
+    P.note("blocks", [[tuple(b.__dict__.values()) for b in mt.blocks(t)]
+                      for t in range(mt.n_tracks)])
+    P.note("audio_blocks", [[tuple(b.__dict__.values())
+                             for b in mt.audio_blocks(t)]
+                            for t in range(-mt.n_audio_tracks, 0)])
+
+
+def render(P, mt, src, batch_size):
+    out, tcs = mt.render(src, batch_size=batch_size)
+    out = np.asarray(out)
+    P.note("frames", out)
+    P.note("tcs", list(tcs))
+    return out
+
+
+def mix(P, mt, clips, **kw):
+    out = mt.render_audio(clips, **kw)
+    P.note("audio", out)
+    return out
+
+
+# -- the JAX package's cases as scenarios --------------------------------------
+
+def s_insert_and_blocks(P):
+    mt = P.Multitrack(n_tracks=2, width=32, height=16)
+    b = mt.insert_block(0, clip=5, start=0, length=10)
+    assert b == P.Block(0, 0, 10, 5, 0) and mt.blocks(0) == [b]
+    assert mt.n_frames == 10
+    b2 = mt.insert_block(1, clip=7, start=5, length=10, offset=3)
+    assert mt.blocks(1) == [b2] and mt.n_frames == 15
+    observe(P, mt)
+
+
+def s_delete_block_and_tail_prune(P):
+    mt = P.Multitrack(n_tracks=1, width=32, height=16)
+    b = mt.insert_block(0, 5, 0, 10)
+    mt.delete_block(b)
+    assert mt.blocks(0) == [] and mt.n_frames == 0
+    observe(P, mt)
+
+
+def s_move_block(P):
+    mt = P.Multitrack(n_tracks=2, width=32, height=16)
+    b = mt.insert_block(0, 5, 0, 6)
+    mt.move_block(b, 1, 4)
+    assert mt.blocks(0) == [] and mt.blocks(1) == [P.Block(1, 4, 6, 5, 0)]
+    observe(P, mt)
+
+
+def s_gravity_left(P):
+    mt = P.Multitrack(n_tracks=1, width=32, height=16)
+    mt.insert_block(0, 1, 0, 5)
+    mt.gravity = P.Gravity.LEFT
+    assert mt.insert_block(0, 2, 20, 5).start == 5
+    observe(P, mt)
+
+
+def s_split_block(P):
+    mt = P.Multitrack(n_tracks=1, width=32, height=16)
+    b = mt.insert_block(0, 1, 0, 10, offset=2)
+    a, c = mt.split_block(b, 4)
+    assert a.length == 4 and c.start == 4 and c.offset == 6
+    observe(P, mt)
+
+
+def s_undo_redo(P):
+    mt = P.Multitrack(n_tracks=1, width=32, height=16)
+    mt.insert_block(0, 1, 0, 5)
+    mt.insert_block(0, 2, 5, 5)
+    assert len(mt.blocks(0)) == 2
+    assert mt.undo()
+    observe(P, mt)
+    assert mt.redo()
+    observe(P, mt)
+    assert mt.undo() and mt.undo() and mt.blocks(0) == []
+    observe(P, mt)
+
+
+def s_effect_region_and_filter_maps(P):
+    mt = P.Multitrack(n_tracks=1, width=32, height=16)
+    mt.insert_block(0, 1, 0, 10)
+    fid = mt.add_effect("negate", [0], start=3, length=4)
+    assert len(mt.el.active_inits_at(mt.frame_tc(3))) == 1
+    assert len(mt.el.active_inits_at(mt.frame_tc(8))) == 0
+    src = P.Src()
+    out = render(P, mt, src, 4)
+    np.testing.assert_array_equal(out[0], src.frame(1, 0))
+    np.testing.assert_array_equal(out[3], 255 - src.frame(1, 3))
+    mt.remove_effect(fid)
+    assert len(mt.el.active_inits_at(mt.frame_tc(3))) == 0
+    observe(P, mt)
+
+
+def s_keyframed_param_render(P):
+    mt = P.Multitrack(n_tracks=1, width=32, height=16)
+    mt.insert_block(0, 1, 0, 11)
+    fid = mt.add_effect("brightness_contrast", [0], 0, 11,
+                        values={"brightness": -1.0})
+    mt.set_keyframe(fid, 0, "brightness", -1.0)
+    mt.set_keyframe(fid, 10, "brightness", 0.0)
+    out = render(P, mt, P.Src(), 6)
+    assert out[0].max() == 0
+    assert out[10].mean() > out[5].mean() > out[1].mean()
+    P.note("keyframes", mt.keyframes(fid, "brightness"))
+    observe(P, mt)
+
+
+def s_transition_between_tracks(P):
+    mt = P.Multitrack(n_tracks=2, width=32, height=16)
+    mt.insert_block(0, 1, 0, 8)
+    mt.insert_block(1, 2, 0, 8)
+    mt.add_effect("crossfade", [0, 1], 0, 8, values={"amount": 0.5})
+    src = P.Src()
+    out = render(P, mt, src, 8)
+    a, b = src.frame(1, 0).astype(np.float32), src.frame(2, 0)
+    exp = np.floor((a + b) / 2 / 255 * 255 + 0.5)
+    assert np.abs(out[0].astype(np.float32) - exp).max() <= 1
+
+
+def s_layout_roundtrip(P):
+    mt = P.Multitrack(n_tracks=2, width=32, height=16)
+    mt.insert_block(0, 1, 0, 5)
+    mt.insert_block(1, 2, 2, 5)
+    mt.add_effect("vignette", [0], 0, 7)
+    p = P.tmp / "layout.json"
+    mt.save_layout(str(p))
+    P.note("file", p.read_bytes())
+    mt2 = P.Multitrack.load_layout(str(p))
+    assert mt2.n_tracks == 2
+    assert mt2.blocks(0) == mt.blocks(0) and mt2.blocks(1) == mt.blocks(1)
+    observe(P, mt2)
+
+
+def _const_clip(P, val, n=44100):
+    c = P.create_clip()
+    c.write_audio(np.full((n, 2), val, np.float32), 44100)
+    return c
+
+
+def s_multitrack_audio_mix(P):
+    mt = P.Multitrack(n_tracks=2, width=16, height=8)
+    c1, c2 = _const_clip(P, 0.5), _const_clip(P, 0.5)
+    mt.insert_block(0, 1, 0, 25)
+    mt.insert_block(1, 2, 0, 25)
+    mt.set_track_volume(1, 0.0)
+    out = mix(P, mt, {1: c1, 2: c2})
+    assert np.abs(out[:44000] - 0.5).max() < 1e-3
+    mt.set_track_volume(1, 1.0)
+    out2 = mix(P, mt, {1: c1, 2: c2})
+    assert np.abs(out2[:44000] - 1.0).max() < 1e-2
+    observe(P, mt)
+
+
+def s_gravity_right(P):
+    mt = P.Multitrack(n_tracks=1, width=32, height=16)
+    mt.insert_block(0, 1, 20, 5)
+    mt.gravity = P.Gravity.RIGHT
+    b = mt.insert_block(0, 2, 0, 5)
+    assert b.start == 15 and b.end == 20
+    observe(P, mt)
+
+
+def s_gravity_right_clamps_to_previous(P):
+    mt = P.Multitrack(n_tracks=1, width=32, height=16)
+    mt.insert_block(0, 1, 0, 8)
+    mt.insert_block(0, 2, 10, 5)
+    mt.gravity = P.Gravity.RIGHT
+    b = mt.insert_block(0, 3, 9, 5, mode=P.InsertMode.NORMAL)
+    assert b.start == 8 and b.length == 2
+    observe(P, mt)
+
+
+def s_insert_mode_normal_fits_gap(P):
+    mt = P.Multitrack(n_tracks=1, width=32, height=16)
+    mt.insert_block(0, 1, 0, 5)
+    mt.insert_block(0, 2, 10, 5)
+    b = mt.insert_block(0, 3, 5, 100)
+    assert b.start == 5 and b.length == 5
+    assert mt.insert_block(0, 4, 2, 3) is None
+    observe(P, mt)
+
+
+def s_insert_mode_fill_selection(P):
+    mt = P.Multitrack(n_tracks=1, width=32, height=16)
+    mt.insert_block(0, 1, 0, 5)
+    mt.insert_block(0, 2, 20, 5)
+    mt.select_region([0], 8, 16)
+    b = mt.insert_block(0, 3, 9, 100, mode=P.InsertMode.FILL)
+    assert b.start == 8 and b.end == 16
+    observe(P, mt)
+    mt.undo()
+    mt.gravity = P.Gravity.RIGHT
+    b = mt.insert_block(0, 3, 9, 4, mode=P.InsertMode.FILL)
+    assert b.end == 16 and b.length == 4
+    observe(P, mt)
+
+
+def s_insert_and_remove_gap(P):
+    mt = P.Multitrack(n_tracks=1, width=32, height=16)
+    mt.insert_block(0, 1, 0, 5)
+    mt.insert_block(0, 2, 5, 5)
+    mt.insert_gap([0], 5, 3)
+    assert [(b.start, b.clip) for b in mt.blocks(0)] == [(0, 1), (8, 2)]
+    observe(P, mt)
+    mt.remove_gaps([0], 0, mt.n_frames)
+    assert [(b.start, b.clip) for b in mt.blocks(0)] == [(0, 1), (5, 2)]
+    observe(P, mt)
+
+
+def s_insert_gap_shifts_effects(P):
+    mt = P.Multitrack(n_tracks=1, width=32, height=16)
+    mt.insert_block(0, 1, 0, 10)
+    fid = mt.add_effect("negate", [0], 4, 4)
+    mt.insert_gap([0], 2, 5)
+    assert mt.tc_frame(mt.el.get(fid).tc) == 9
+    P.note("effects", mt.effects())
+    observe(P, mt)
+
+
+def s_audio_block_views_and_state(P):
+    mt = P.Multitrack(n_tracks=1, width=32, height=16)
+    ab = mt.insert_audio_block(-1, 9, 5, 10, seek=2.0)
+    assert ab == P.AudioBlock(-1, 5, 10, 9, 2.0, 1.0)
+    assert mt.audio_blocks(-1) == [ab]
+    st = mt._audio_state_at(-1, mt.frame_tc(10))
+    assert st is not None and st[0] == 9 and abs(st[1] - 2.2) < 1e-6
+    P.note("state", st)
+    assert mt._audio_state_at(-1, mt.frame_tc(16)) is None
+    observe(P, mt)
+    mt.delete_audio_block(ab)
+    assert mt.audio_blocks(-1) == []
+    observe(P, mt)
+
+
+def s_audio_block_under_video_mixdown(P):
+    mt = P.Multitrack(n_tracks=1, width=16, height=8)
+    cv, ca = _const_clip(P, 0.25), _const_clip(P, 0.5)
+    mt.insert_block(0, 1, 0, 25)
+    mt.insert_audio_block(-1, 2, 0, 25)
+    out = mix(P, mt, {1: cv, 2: ca})
+    assert np.abs(out[1000:20000] - 0.75).max() < 1e-2
+    mt.set_track_volume(-1, 0.5)
+    out = mix(P, mt, {1: cv, 2: ca})
+    assert np.abs(out[1000:20000] - 0.5).max() < 1e-2
+    observe(P, mt)
+
+
+def s_avol_volume_keyframes_audible(P):
+    mt = P.Multitrack(n_tracks=1, width=16, height=8)
+    c = _const_clip(P, 0.5, 88200)
+    mt.insert_block(0, 1, 0, 50)
+    mt.set_track_volume(0, 1.0, frame=0)
+    mt.set_track_volume(0, 0.0, frame=50)
+    out = mix(P, mt, {1: c})
+    n = len(out)
+    assert np.abs(out[: n // 8]).mean() > 0.35
+    assert np.abs(out[-n // 8:]).mean() < 0.15
+    mt.set_track_volume(0, 0.7)
+    assert abs(mt.track_volume(0) - 0.7) < 1e-9
+    P.note("volumes", [mt.track_volume(0, f) for f in (0, 10, 33, 50)])
+    observe(P, mt)
+
+
+def s_audio_block_velocity_reverse(P):
+    mt = P.Multitrack(n_tracks=1, width=16, height=8)
+    c = P.create_clip()
+    ramp = np.linspace(0, 1, 44100, dtype=np.float32)
+    c.write_audio(np.stack([ramp, ramp], 1), 44100)
+    mt.insert_audio_block(-1, 1, 0, 25, seek=1.0, vel=-1.0)
+    out = mix(P, mt, {1: c})
+    assert out[100, 0] > out[20000, 0] > out[40000, 0]
+    observe(P, mt)
+
+
+def s_audio_trim_and_block_termination(P):
+    mt = P.Multitrack(n_tracks=2, width=16, height=8)
+    c = _const_clip(P, 0.5, 88200)
+    mt.insert_block(1, 3, 0, 50, with_audio=False)
+    b = mt.insert_block(0, 1, 0, 50)
+    assert mt.trim_block(b, 25).length == 25
+    out = mix(P, mt, {1: c})
+    assert np.abs(out[:42000]).mean() > 0.4
+    assert np.abs(out[46000:]).max() < 1e-6
+    observe(P, mt)
+
+
+def s_avol_add_track_widens_keyframes(P):
+    mt = P.Multitrack(n_tracks=1, width=32, height=16)
+    mt.set_track_volume(0, 0.5, frame=10)
+    mt.add_track()
+    init = mt.el.get(mt._avol_id)
+    assert init.props["in_tracks"] == [-1, 0, 1]
+    assert all(len(pc.props["value"]) == 3
+               for pc in mt.el.pchain(mt._avol_id, "volume"))
+    assert mt.track_volume(1) == 1.0
+    mt.add_audio_track()
+    observe(P, mt)
+
+
+def s_avol_binary_roundtrip(P):
+    mt = P.Multitrack(n_tracks=2, width=32, height=16)
+    mt.insert_block(0, 1, 0, 10)
+    mt.set_track_volume(0, 0.25)
+    p = P.tmp / "layout.lay"
+    mt.save_layout(str(p))
+    P.note("file", p.read_bytes())
+    mt2 = P.Multitrack.load_layout(str(p))
+    assert abs(mt2.track_volume(0) - 0.25) < 1e-9
+    assert mt2.el.get(mt2._avol_id).props.get("audio") is True
+    observe(P, mt2)
+
+
+def s_editor_ops_fast_on_long_timeline(P):
+    """A 20k-frame timeline: a window edit costs a fraction of building it
+    (`tests/test_multitrack.py:323-361`, relative bounds)."""
+    mt = P.Multitrack(n_tracks=2, width=32, height=16)
+    t0 = time.monotonic()
+    for i in range(20_000):
+        e = mt._ensure_frame_event(i)
+        e.props["clips"][0] = 1
+        e.props["frames"][0] = i
+    build = max(time.monotonic() - t0, 0.05)
+    dts = []
+    for k in range(3):
+        t0 = time.monotonic()
+        mt.insert_block(1, 2, 15_000 + k * 1000, 200,
+                        mode=P.InsertMode.OVERWRITE)
+        dts.append(time.monotonic() - t0)
+    assert min(dts) < build * 0.5
+    P.note("blocks", [tuple(b.__dict__.values()) for b in mt.blocks(1)])
+    P.note("n", (mt.n_frames, len(mt.el.events)))
+
+
+def s_silent_blocks_stay_silent_through_edits(P):
+    mt = P.Multitrack(n_tracks=2, width=16, height=8)
+    c = _const_clip(P, 0.5, 88200)
+    b = mt.insert_block(0, 1, 0, 25, with_audio=False)
+    assert np.abs(mix(P, mt, {1: c})).max() < 1e-6
+    nb = mt.move_block(b, 1, 5)
+    assert np.abs(mix(P, mt, {1: c})).max() < 1e-6
+    mt.trim_block(nb, 10, from_start=True)
+    assert np.abs(mix(P, mt, {1: c})).max() < 1e-6
+    b2 = mt.insert_block(0, 1, 0, 25)
+    mt.move_block(b2, 0, 10)
+    assert np.abs(mix(P, mt, {1: c})).max() > 0.4
+    observe(P, mt)
+
+
+def s_timeline_audio_effects(P):
+    mt = P.Multitrack(n_tracks=1, width=16, height=8)
+    c = _const_clip(P, 0.5, 88200)
+    mt.insert_block(0, 1, 0, 50)
+    fid = mt.add_audio_effect("gain", [0], 25, 25, values={"gain": 0.5})
+    out = mix(P, mt, {1: c})
+    assert np.abs(out[:42000] - 0.5).max() < 1e-3
+    assert np.abs(out[46000:86000] - 0.25).max() < 1e-3
+    mt.set_keyframe(fid, 25, "gain", 1.0)
+    mt.set_keyframe(fid, 50, "gain", 0.0)
+    out2 = mix(P, mt, {1: c})
+    assert out2[46000].mean() > out2[66000].mean() > out2[85000].mean()
+    mt.remove_effect(fid)
+    mt.add_audio_effect("gain", [], 0, 50, values={"gain": 0.1})
+    mt.add_audio_effect("reverb", [0], 10, 20, values={"wet": 0.5})
+    out3 = mix(P, mt, {1: c})
+    assert np.abs(out3[1000:8000] - 0.05).max() < 1e-2
+    observe(P, mt)
+
+
+def s_autotransition_on_overlap(P):
+    mt = P.Multitrack(n_tracks=2, width=32, height=16)
+    mt.autotrans_filter = "crossfade"
+    mt.insert_block(0, 1, 0, 10)
+    mt.insert_block(1, 2, 5, 10)
+    fx = mt.effects()
+    assert len(fx) == 1 and fx[0]["filter"] == "crossfade"
+    assert fx[0]["start"] == 5 and fx[0]["end"] == 10
+    kfs = mt.keyframes(fx[0]["id"], "amount")
+    assert kfs[0] == (5, 0.0) and kfs[-1][0] == 10
+    src = P.Src()
+    out = render(P, mt, src, 8)
+    mid = out[7].astype(int)
+    assert np.abs(mid - src.frame(1, 7)).mean() > 4
+    assert np.abs(mid - src.frame(2, 2)).mean() > 4
+    observe(P, mt)
+    assert mt.undo()
+    assert mt.effects() == [] and mt.blocks(1) == []
+    observe(P, mt)
+
+
+def s_split_block_is_durable(P):
+    mt = P.Multitrack(n_tracks=1, width=32, height=16)
+    b = mt.insert_block(0, 1, 0, 10, offset=2)
+    a, c = mt.split_block(b, 4)
+    got = mt.blocks(0)
+    assert got == [a, c]
+    mt.delete_block(got[0])
+    assert mt.blocks(0) == [c]
+    assert mt.undo() and mt.blocks(0) == [a, c]
+    p = P.tmp / "layout.lay"
+    mt.save_layout(str(p))
+    P.note("file", p.read_bytes())
+    mt2 = P.Multitrack.load_layout(str(p))
+    assert mt2.blocks(0) == [a, c]
+    observe(P, mt2)
+
+
+def s_audio_fx_keyframe_without_init_value(P):
+    mt = P.Multitrack(n_tracks=1, width=16, height=8)
+    c = _const_clip(P, 0.5, 88200)
+    mt.insert_block(0, 1, 0, 50)
+    fid = mt.add_audio_effect("gain", [0], 0, 50)
+    mt.set_keyframe(fid, 0, "gain", 0.2)
+    mt.set_keyframe(fid, 50, "gain", 0.2)
+    out = mix(P, mt, {1: c})
+    assert np.abs(out[2000:80000] - 0.1).max() < 0.02
+
+
+def s_region_effect_and_keyframe_edits(P):
+    """Region selection, a region effect, keyframe removal, legacy
+    (schema 1) layouts mixing by clip placement."""
+    mt = P.Multitrack(n_tracks=3, width=32, height=16)
+    for t in range(3):
+        mt.insert_block(t, t + 1, t * 2, 8)
+    with pytest.raises(ValueError):
+        mt.add_region_effect("negate")
+    mt.select_region([0, 2], 2, 7)
+    fid = mt.add_region_effect("crossfade", values={"amount": 0.25})
+    mt.set_keyframe(fid, 3, "amount", 0.9)
+    assert mt.remove_keyframe(fid, 3, "amount")
+    assert not mt.remove_keyframe(fid, 3, "amount")
+    mt.clear_selection()
+    render(P, mt, P.Src(), 5)
+    observe(P, mt)
+    mt.el.schema = 1
+    for e in mt.el.frame_events():
+        e.props.pop("audio_clips", None)
+        e.props.pop("audio_seeks", None)
+    mix(P, mt, {1: _const_clip(P, 0.3), 2: _const_clip(P, -0.2)})
+
+
+SCENARIOS = {name[2:]: fn for name, fn in globals().items()
+             if name.startswith("s_") and callable(fn)}
+
+
+def run_both(fn, tmp_path):
+    out = {}
+    for pkg in ("j", "t"):
+        for mod in (j_elmod, t_elmod):
+            mod.uuid.n = 0
+        P = namespace(pkg, tmp_path)
+        fn(P)
+        out[pkg] = P.obs
+    return out
+
+
+def assert_same_obs(j, t):
+    assert [k for k, _ in j] == [k for k, _ in t]
+    for (kind, a), (_, b) in zip(j, t):
+        if kind == "frames":
+            a, b = np.asarray(a).astype(int), np.asarray(b).astype(int)
+            assert a.shape == b.shape and np.abs(a - b).max() <= 1
+        elif kind == "audio":
+            assert a.dtype == b.dtype == np.float32
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert a == b, kind
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_multitrack_matches_jax(name, tmp_path):
+    got = run_both(SCENARIOS[name], tmp_path)
+    assert got["t"]
+    assert_same_obs(got["j"], got["t"])
+
+
+# -- layouts byte for byte -----------------------------------------------------
+
+@pytest.mark.parametrize("suffix", [".lay", ".json"])
+@pytest.mark.parametrize("writer", ["j", "t"])
+def test_layout_files_both_ways(tmp_path, suffix, writer):
+    """The config-4 model layout with audio blocks, avol envelopes and
+    keyframes: the same file from either package; each loads the other's
+    into the same model (event list text, track counts, avol id)."""
+    files = {}
+    for pkg, M in (("j", jmt.Multitrack), ("t", tmt.Multitrack)):
+        for mod in (j_elmod, t_elmod):
+            mod.uuid.n = 0
+        mt = cs.config4_model(M, 6, 64, 32, audio_uid=11)
+        p = tmp_path / f"{pkg}{suffix}"
+        mt.save_layout(str(p))
+        files[pkg] = p
+    assert files["j"].read_bytes() == files["t"].read_bytes()
+    loaded = {}
+    for pkg, M in (("j", jmt.Multitrack), ("t", tmt.Multitrack)):
+        for mod in (j_elmod, t_elmod):
+            mod.uuid.n = 0
+        mt = M.load_layout(str(files[writer]))
+        loaded[pkg] = (mt.el.to_json(), mt.n_tracks, mt.n_audio_tracks,
+                       mt._avol_id)
+    assert loaded["j"] == loaded["t"]
+    assert loaded["t"][1:3] == (10, 1)
+
+
+def test_config4_model_renders_like_jax(tmp_path):
+    """Phase 22a's timeline at 64x32 over the synthetic source: the event
+    list the JAX model writes, frames within 1 LSB of its render, and the
+    route K1's plain version takes (one segment, one chunk a batch)."""
+    from lives_tpu.scenes import DeviceSyntheticSource as JSource
+    from lives_tpu_torch.graph import nodemodel
+    from lives_tpu_torch.scenes import DeviceSyntheticSource as TSource
+    els, frames = {}, {}
+    for pkg, M, src in (("j", jmt.Multitrack, JSource(32, 64)),
+                        ("t", tmt.Multitrack,
+                         TSource(32, 64, device="cpu"))):
+        for mod in (j_elmod, t_elmod):
+            mod.uuid.n = 0
+        mt = cs.config4_model(M, 7, 64, 32)
+        els[pkg] = mt.el.to_json()
+        before = nodemodel.PLAIN_CHUNKS
+        frames[pkg], _ = mt.render(src, batch_size=4)
+        if pkg == "t":
+            assert nodemodel.PLAIN_CHUNKS == before   # K1's route
+    assert els["j"] == els["t"]
+    a, b = np.asarray(frames["j"]).astype(int), frames["t"].astype(int)
+    assert a.shape == b.shape == (7, 3, 32, 64)
+    assert np.abs(a - b).max() <= 1
+
+
+# -- the fuzz -------------------------------------------------------------------
+
+def check_invariants(mt):
+    """`tests/test_multitrack_fuzz.py:17-43`."""
+    evs = mt.el.frame_events()
+    tcs = [e.tc for e in evs]
+    assert tcs == sorted(tcs)
+    for e in evs:
+        assert len(e.props["clips"]) == len(e.props["frames"])
+        ac = e.props.get("audio_clips", [])
+        asx = e.props.get("audio_seeks", [])
+        assert len(ac) % 2 == 0 and len(asx) == len(ac)
+        tracks_seen = [ac[i] for i in range(0, len(ac), 2)]
+        assert len(set(tracks_seen)) == len(tracks_seen)
+    for t in range(mt.n_tracks):
+        last = -1
+        for b in sorted(mt.blocks(t), key=lambda b: b.start):
+            assert b.length > 0 and b.start >= last
+            last = b.end
+    for t in range(-mt.n_audio_tracks, mt.n_tracks):
+        assert all(ab.length > 0 for ab in mt.audio_blocks(t))
+    ids = [e.event_id for e in mt.el.events]
+    mt.el.reindex()
+    assert [e.event_id for e in mt.el.events] == ids
+
+
+def fuzz_ops(mt, rng, G, I):
+    """`tests/test_multitrack_fuzz.py:54-121`'s ops on one model."""
+    def op_insert():
+        mt.gravity = G(rng.choice([0, 1, 2]))
+        mt.insert_mode = I(rng.choice([0, 2, 4]))
+        mt.insert_block(rng.randrange(3), rng.randint(1, 4),
+                        rng.randrange(60), rng.randint(1, 20),
+                        offset=rng.randrange(5),
+                        with_audio=rng.random() < 0.7)
+
+    def op_audio_insert():
+        mt.insert_audio_block(-1, rng.randint(1, 4), rng.randrange(60),
+                              rng.randint(1, 20), seek=rng.uniform(0, 2),
+                              vel=rng.choice([1.0, -1.0, 0.5, 2.0]))
+
+    def pick(cond):
+        for t in range(3):
+            bs = [b for b in mt.blocks(t) if cond(b)]
+            if bs:
+                return rng.choice(bs)
+        return None
+
+    def op_move():
+        b = pick(lambda b: True)
+        if b is not None:
+            mt.move_block(b, rng.randrange(3), rng.randrange(60))
+
+    def op_trim():
+        b = pick(lambda b: b.length > 2)
+        if b is not None:
+            mt.trim_block(b, rng.randint(1, b.length - 1),
+                          from_start=rng.random() < 0.5)
+
+    def op_delete():
+        b = pick(lambda b: True)
+        if b is not None:
+            mt.delete_block(b)
+
+    def op_adelete():
+        abs_ = mt.audio_blocks(-1)
+        if abs_:
+            mt.delete_audio_block(rng.choice(abs_))
+
+    def op_split():
+        b = pick(lambda b: b.length > 2)
+        if b is not None:
+            mt.split_block(b, b.start + rng.randint(1, b.length - 1))
+
+    def op_gap():
+        if rng.random() < 0.5:
+            mt.insert_gap([rng.randrange(3)], rng.randrange(40),
+                          rng.randint(1, 8))
+        else:
+            mt.remove_gaps([rng.randrange(3)], 0, mt.n_frames or 1)
+
+    def op_volume():
+        mt.set_track_volume(rng.choice([-1, 0, 1, 2]), rng.uniform(0, 1.2),
+                            frame=rng.choice([None, rng.randrange(60)]))
+
+    def op_fx():
+        mt.add_effect("negate", [rng.randrange(3)], rng.randrange(40),
+                      rng.randint(1, 10))
+
+    return ([op_insert] * 6 + [op_audio_insert] * 2 + [op_move] * 3
+            + [op_trim] * 2 + [op_delete] * 2 + [op_adelete]
+            + [op_split] * 2 + [op_gap] * 2 + [op_volume] * 2
+            + [op_fx] + [mt.undo] * 2 + [mt.redo])
+
+
+class FakeClip:
+    arate = 44100
+
+    def read_audio(self):
+        return np.full((44100, 2), 0.3, np.float32)
+
+
+@pytest.mark.parametrize("seed", [1, 7, 42])
+def test_fuzz_edit_sequences(seed):
+    """120 random edits op for op on both models: the event lists equal
+    after every op; then undo walks back through equal valid states, and
+    the final mixes are equal."""
+    models = {"j": jmt.Multitrack(n_tracks=3, width=32, height=16),
+              "t": tmt.Multitrack(n_tracks=3, width=32, height=16)}
+    ops = {p: fuzz_ops(models[p], random.Random(seed),
+                       (jmt if p == "j" else tmt).Gravity,
+                       (jmt if p == "j" else tmt).InsertMode)
+           for p in models}
+    pick = random.Random(seed * 31)
+    for k in range(120):
+        i = pick.randrange(len(ops["t"]))
+        res = {p: ops[p][i]() for p in models}
+        assert res["j"] == res["t"]
+        assert models["j"].el.to_json() == models["t"].el.to_json(), k
+        if k % 10 == 9:
+            check_invariants(models["t"])
+    for _ in range(10):
+        done = {p: models[p].undo() for p in models}
+        assert done["j"] == done["t"]
+        assert models["j"].el.to_json() == models["t"].el.to_json()
+        if not done["t"]:
+            break
+        check_invariants(models["t"])
+    for _ in range(3):
+        assert models["j"].redo() == models["t"].redo()
+        assert models["j"].el.to_json() == models["t"].el.to_json()
+    mixes = {p: models[p].render_audio({c: FakeClip() for c in range(1, 5)})
+             for p in models}
+    np.testing.assert_array_equal(mixes["j"], mixes["t"])
+    assert np.isfinite(mixes["t"]).all()
+
+
+@pytest.mark.parametrize("seed", [9, 13])
+def test_fuzz_grid_completeness(seed):
+    """`tests/test_multitrack_fuzz.py:151-192` op for op on both models:
+    the event lists equal after every op, every grid slot below the last
+    FRAME has an event, and the final timelines render alike (within 1
+    LSB, n_frames frames)."""
+    from lives_tpu.scenes import DeviceSyntheticSource as JSource
+    from lives_tpu_torch.scenes import DeviceSyntheticSource as TSource
+    models = {"j": jmt.Multitrack(n_tracks=3, width=32, height=16),
+              "t": tmt.Multitrack(n_tracks=3, width=32, height=16)}
+
+    def step(mt, mod, rng):
+        r = rng.random()
+        try:
+            if r < 0.3:
+                mt.gravity = mod.Gravity(rng.choice([0, 1, 2]))
+                mt.insert_mode = mod.InsertMode(rng.choice([0, 2, 4]))
+                mt.insert_block(rng.randrange(3), rng.randint(1, 4),
+                                rng.randrange(80), rng.randint(1, 20))
+            elif r < 0.4:
+                mt.insert_audio_block(-1, rng.randint(1, 4),
+                                      rng.randrange(80), rng.randint(1, 20))
+            elif r < 0.5:
+                bs = mt.blocks(rng.randrange(3))
+                if bs:
+                    mt.move_block(rng.choice(bs), rng.randrange(3),
+                                  rng.randrange(80))
+            elif r < 0.6:
+                bs = mt.blocks(rng.randrange(3))
+                if bs:
+                    mt.delete_block(rng.choice(bs))
+            elif r < 0.7:
+                mt.insert_gap([rng.randrange(3)], rng.randrange(40),
+                              rng.randint(1, 8))
+            elif r < 0.8:
+                mt.remove_gaps([rng.randrange(3)], 0, mt.n_frames or 1)
+            elif r < 0.9:
+                mt.undo()
+            else:
+                mt.redo()
+        except ValueError:
+            pass
+    rngs = {p: random.Random(seed) for p in models}
+    for k in range(150):
+        for p, mod in (("j", jmt), ("t", tmt)):
+            step(models[p], mod, rngs[p])
+        assert models["j"].el.to_json() == models["t"].el.to_json(), k
+        evs = {models["t"].tc_frame(e.tc)
+               for e in models["t"].el.frame_events()}
+        if evs:
+            assert not set(range(max(evs))) - evs, k
+    n = models["t"].n_frames
+    a, _ = models["j"].render(JSource(16, 32), batch_size=32)
+    b, _ = models["t"].render(TSource(16, 32, device="cpu"), batch_size=32)
+    assert len(b) == n
+    assert np.abs(np.asarray(a).astype(int) - b.astype(int)).max() <= 1
+
+
+def test_load_layout_counts_tracks(tmp_path):
+    """`load_layout` of a binary `.lay` written from a bare event list: the
+    track count from the widest FRAME, one backing track without avol."""
+    from lives_tpu_torch.events import save_event_list_binary
+    el = t_elmod.EventList(fps=30.0, width=64, height=32)
+    for i in range(4):
+        el.insert(t_elmod.frame_event(i * 3_333_333, [1, 2, -1], [i] * 3))
+    p = tmp_path / "x.lay"
+    with open(p, "wb") as fh:
+        save_event_list_binary(el, fh)
+    for M in (tmt.Multitrack, jmt.Multitrack):
+        mt = M.load_layout(str(p))
+        assert (mt.n_tracks, mt.n_audio_tracks, mt.n_frames) == (3, 1, 4)
+    buf = io.BytesIO()
+    save_event_list_binary(tmt.Multitrack.load_layout(str(p)).el, buf)
+    assert buf.getvalue() == p.read_bytes()
+    assert EventType.FRAME == 1

@@ -153,24 +153,9 @@ def same_frames(jf, tf):
         within_1(a, b)
 
 
-def canon(el):
-    """An event list's events with ids replaced by their order of first
-    appearance: [(tc, type, id, props)]."""
-    ids = {}
-    for e in el.events:
-        ids.setdefault(e.event_id, len(ids))
-
-    def ref(i):
-        return ids.setdefault(i, len(ids))
-    out = []
-    for e in el.events:
-        props = json.loads(json.dumps(e.props))
-        if "init_event" in props:
-            props["init_event"] = ref(props["init_event"])
-        if "init_events" in props:
-            props["init_events"] = [ref(i) for i in props["init_events"]]
-        out.append((e.tc, int(e.type), ids[e.event_id], props))
-    return out
+#: an event list's events with ids replaced by their order of first
+#: appearance: [(tc, type, id, props)]
+canon = cs.canon_events
 
 
 def same_events(jel, tel):
@@ -1180,10 +1165,6 @@ def test_generator_fg_rides_as_genslot_matches_jax(monkeypatch):
 # -- what the slice leaves out ----------------------------------------------
 
 LEFT_OUT = {
-    "attach_audio": (lambda: make_player("torch")[0].attach_audio(), 23),
-    "time_source_audio": (
-        lambda: setattr(make_player("torch")[0], "time_source", "audio"),
-        23),
     "av_stream_sink": (lambda: t_sinks.AVStreamSink("udp://x:1"), 23),
     "vloopback_sink": (lambda: t_sinks.VLoopbackSink(), 23),
 }
