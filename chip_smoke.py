@@ -59,7 +59,12 @@ plain PyTorch version:
 - the multitrack workbench: a timeline built, saved and loaded through the
   `Multitrack` model and rendered (K1), the console's `render` of that
   layout from MJPEG AVIs with its audio (K2, K4, K3), and the player with
-  the realtime audio feeder as its clock.
+  the realtime audio feeder as its clock;
+- the last two clip sources: the MilkDrop presets (`effects/milkdrop.py`,
+  `effects/milkshader.py`) as `GeneratorClip`s on the card against the
+  CPU route, the synthetic preset corpus, the player on a preset playlist
+  over a decoded clip (K2, K3), and the in-process libav lane
+  (`io/av.py`) where the host has libav.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --config-d   # config D alone (phase 11's render
@@ -79,6 +84,7 @@ plain PyTorch version:
     python3 chip_smoke.py --mjpeg      # phase 19 alone, no result line
     python3 chip_smoke.py --clipedit   # phase 21 alone, no result line
     python3 chip_smoke.py --multitrack # phase 22 alone, no result line
+    python3 chip_smoke.py --milk       # phase 23 alone, no result line
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
@@ -411,6 +417,27 @@ Phases, one line each:
       shown frame (`sync_delta`), every FRAME of the take carrying the
       feeder's seeks, `render_audio_from_seeks` of the take as long as
       the take.
+23. the MilkDrop presets and the libav lane:
+   a. each built-in preset (`milkdrop.BUILTIN_PRESETS`) as a
+      `GeneratorClip` at 1920x1080, 30 fps, on the card for
+      `MILK_FRAMES` frames with band levels from `MILK_SEED`, against the
+      same clip on the CPU for the first `MILK_CPU_FRAMES` (the CPU route
+      runs in a pool of worker processes, one thread each): u8 within
+      1 LSB, q-vars equal, the canvas gap; ms a frame (synchronized);
+      CUDA kernel launches a frame (a profiled frame); the basic
+      waveform's 48-point splat alone (`milkdrop.wave_splat`, CUDA
+      events), its launches and its share of each preset's frame;
+   b. the 80 presets of tools/milk_corpus.py's `build_corpus(20)` at
+      640x360, 2 frames each on the card against the CPU: parse, compile,
+      run and shader_ok counts by era, the largest u8 error;
+   c. the player: a milk `GeneratorClip` playing the four presets, cycling
+      every `MILK_CYCLE_S` s, over phase 16's Y4M clip under a crossfade
+      key, into a Y4M sink, 240 wall-clock cycles: process_one p50 and
+      p99, frames shown, K2 and K3 launches;
+   d. the libav lane: whether the bridge loads, and why not; where it
+      loads, `AV_FRAMES` 1080p frames encoded to `.mkv` by the "av"
+      encoder, decoded by `AVDecoder`, uploaded and converted by K2 on the
+      card, 0 LSB from K2's plain version.
 Then a `resources` line for K1 (both builds), K4, K5 and K6 (the path's
 entry: ptxas registers and spills, blocks an SM), a JSON line of the kernels
 (with each one's bound: the larger of its bytes over 3.35 TB/s and its
@@ -4799,6 +4826,311 @@ def multitrack_phase(dev, card, launches):
          seconds=f"{time.perf_counter() - t_phase:.2f}")
 
 
+# -- phase 23: the MilkDrop presets and the libav lane ---------------------
+
+MILK_PRESETS = ("geometry", "pulse", "spin", "tunnel")
+#: card frames a preset (23a), and the first of them the CPU route makes
+#: too: a 1080p frame takes the CPU route seconds (PERF.md, phase 23)
+MILK_FRAMES, MILK_CPU_FRAMES = 8, 2
+MILK_SEED = 23
+MILK_BANDS = ("bass", "mid", "treb", "vol")
+#: 23b's size and frames, 23c's preset cycle and cycles, 23d's frames
+MILK_CORPUS_W, MILK_CORPUS_H, MILK_CORPUS_FRAMES = 640, 360, 2
+MILK_CYCLE_S = 2.0
+MILK_PLAYER_CYCLES = 240
+AV_FRAMES = 48
+
+
+def milk_levels(seed, n):
+    """n frames of band levels in [0, 1.5) from a numpy seed."""
+    import numpy as np
+    return np.random.default_rng(seed).uniform(0.0, 1.5, (n, 4))
+
+
+def milk_cpu_route(job):
+    """A pool worker's job: (filter name, preset text to register or "",
+    width, height, band levels (n, 4)) -> for each frame the CPU route's
+    (u8 frame, canvas, q-vars), one thread, as numpy arrays."""
+    name, text, w, h, levels = job
+    sys.path.insert(0, str(ROOT))
+    import torch
+    torch.set_num_threads(1)
+    from lives_tpu_torch.effects import milkdrop
+    from lives_tpu_torch.io.genclip import GeneratorClip
+    if text:
+        milkdrop.register_milk_preset(text, name[len("milk_"):])
+    clip = GeneratorClip(name, w, h, fps=FPS, device="cpu")
+    out = []
+    for i, lv in enumerate(levels):
+        clip.inst.set(**dict(zip(MILK_BANDS, map(float, lv))))
+        frame = clip.get_frame(i).planes[0].numpy()
+        out.append((frame, clip._state[0].numpy(), clip._state[1].numpy()))
+    return out
+
+
+def milk_card_run(clip, levels, timed=False):
+    """The card's frames of `clip` with `levels`: [(u8, canvas, q)] on the
+    host, and each frame's synchronized ms where `timed`."""
+    import torch
+    out, ms = [], []
+    for i, lv in enumerate(levels):
+        clip.inst.set(**dict(zip(MILK_BANDS, map(float, lv))))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = clip.get_frame(i).planes[0]
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append((frame.cpu().numpy(), clip._state[0].cpu().numpy(),
+                    clip._state[1].cpu().numpy()))
+    return (out, ms) if timed else out
+
+
+def milk_splat_cost(dev, reps=10):
+    """(ms, kernel launches) of one basic-waveform splat at 1080p on the
+    card (`milkdrop.wave_splat`, 48 points on a circle), by CUDA events
+    over `reps` calls after a warm one, and the profiler for one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lives_tpu_torch.effects import milkdrop
+    grid = milkdrop._Grid(H, W, dev)
+    ang = torch.linspace(0, 6.28, milkdrop._WAVE_POINTS, device=dev)
+    wxs, wys = 0.5 + 0.2 * torch.cos(ang), 0.5 + 0.25 * torch.sin(ang)
+
+    def splat():
+        return milkdrop.wave_splat(grid.xs, grid.ys, wxs, wys, W / H, H)
+    splat()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        splat()
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        splat()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return start.elapsed_time(end) / reps, n
+
+
+def milk_gaps(card, cpu):
+    """(largest u8 error, largest canvas gap, q-vars equal) of two runs."""
+    import numpy as np
+    err = gap = 0
+    q_equal = True
+    for (a, ca, qa), (b, cb, qb) in zip(card, cpu):
+        err = max(err, int(np.abs(a.astype(int) - b.astype(int)).max()))
+        gap = max(gap, float(np.abs(ca - cb).max()))
+        q_equal &= bool(np.array_equal(qa, qb))
+    return err, gap, q_equal
+
+
+def milk_phase(dev, card, launches):
+    """23. the MilkDrop presets at 1920x1080 on the card against the CPU
+    route, the preset corpus at 640x360, the player on a preset playlist,
+    and the libav lane."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lives_tpu_torch.effects import milkdrop
+    from lives_tpu_torch.io.genclip import GeneratorClip
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from tools.milk_corpus import build_corpus
+
+    yk.build()
+    t_phase = time.perf_counter()
+    steps = {}
+    # 23a on the card first, alone on the host: its times are the card's
+    card_runs, levels = {}, {}
+    for k, name in enumerate(MILK_PRESETS):
+        levels[name] = milk_levels(MILK_SEED + k, MILK_FRAMES + 1)
+        clip = GeneratorClip(f"milk_{name}", W, H, fps=FPS, device=dev)
+        card_runs[name], ms = milk_card_run(clip, levels[name][:MILK_FRAMES],
+                                            timed=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            clip.inst.set(**dict(zip(MILK_BANDS,
+                                     map(float, levels[name][-1]))))
+            clip.get_frame(MILK_FRAMES)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy, top = device_busy(prof)
+        card_runs[name] = (card_runs[name], ms, len(kernels), busy, top)
+    splat_ms, splat_launches = milk_splat_cost(dev)
+    line("23a splat", card=repr(card), size=f"{W}x{H}",
+         points=milkdrop._WAVE_POINTS, ms=f"{splat_ms:.3f}",
+         launches=splat_launches,
+         share_of_frames=",".join(
+             f"{n}={splat_ms / np.mean(card_runs[n][1][1:]):.3f}"
+             for n in MILK_PRESETS))
+    steps["23a_card"] = time.perf_counter()
+    corpus = build_corpus(20)
+    clevels = milk_levels(MILK_SEED - 1, MILK_CORPUS_FRAMES)
+    jobs = [(f"milk_{name}", "", W, H, levels[name][:MILK_CPU_FRAMES])
+            for name in MILK_PRESETS]
+    jobs += [(f"milk_{name}", text, MILK_CORPUS_W, MILK_CORPUS_H, clevels)
+             for name, _era, text in corpus]
+    workers = max(1, (os.cpu_count() or 2) - 1)
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        cpu_runs = ex.map(milk_cpu_route, jobs)
+        # 23b on the card while the pool makes the CPU route's frames
+        counts, card_corpus = {}, []
+        for name, era, text in corpus:
+            c = counts.setdefault(era, dict(n=0, parse=0, compile=0, run=0,
+                                            shaders=0, shader_ok=0))
+            c["n"] += 1
+            pre = milkdrop.parse_preset(text, name)
+            c["parse"] += 1
+            milkdrop.build_preset_process(pre)
+            c["compile"] += 1
+            milkdrop.register_milk_preset(text, name)
+            clip = GeneratorClip(f"milk_{name}", MILK_CORPUS_W,
+                                 MILK_CORPUS_H, fps=FPS, device=dev)
+            run = milk_card_run(clip, clevels)
+            c["run"] += all(np.isfinite(cv).all() for _, cv, _ in run)
+            if pre.warp_code.strip() or pre.comp_code.strip():
+                c["shaders"] += 1
+                c["shader_ok"] += not pre.shader_fallback
+            card_corpus.append(run)
+        steps["23b_card"] = time.perf_counter()
+        cpu_runs = list(cpu_runs)
+    steps["23_cpu_pool"] = time.perf_counter()
+    for k, name in enumerate(MILK_PRESETS):
+        run, ms, n_kernels, busy, top = card_runs[name]
+        err, gap, q_equal = milk_gaps(run, cpu_runs[k])
+        line("23a preset", card=repr(card), preset=name, size=f"{W}x{H}",
+             frames=MILK_FRAMES, cpu_frames=MILK_CPU_FRAMES,
+             max_abs_err=err, canvas_gap=f"{gap:.3g}", q_equal=q_equal,
+             ms_per_frame=f"{np.mean(ms[1:]):.2f}",
+             first_frame_ms=f"{ms[0]:.1f}",
+             launches_per_frame=n_kernels, device_busy_ms=f"{busy:.2f}",
+             top=top)
+        assert err <= 1 and q_equal, (name, err, q_equal)
+    worst = 0
+    for run, cpu in zip(card_corpus, cpu_runs[len(MILK_PRESETS):]):
+        err, _gap, _q = milk_gaps(run, cpu)
+        worst = max(worst, err)
+    for era, c in counts.items():
+        line("23b corpus", era=era, **c)
+    line("23b corpus_gap", card=repr(card), presets=len(corpus),
+         size=f"{MILK_CORPUS_W}x{MILK_CORPUS_H}",
+         frames=MILK_CORPUS_FRAMES, max_abs_err=worst)
+    assert all(c["run"] == c["n"] for c in counts.values()), counts
+    assert worst <= 1, worst
+    with tempfile.TemporaryDirectory() as tmp:
+        milk_player(dev, card, launches, tmp)
+        steps["23c"] = time.perf_counter()
+        libav_lane(dev, card, launches, tmp)
+        steps["23d"] = time.perf_counter()
+    marks = [t_phase, *steps.values()]
+    line("23 wall", seconds=f"{time.perf_counter() - t_phase:.1f}",
+         **{k: f"{b - a:.1f}" for k, a, b in zip(steps, marks, marks[1:])})
+
+
+def milk_player(dev, card, launches, tmp):
+    """23c. a milk `GeneratorClip` cycling the four presets over a decoded
+    Y4M clip under a crossfade key, into a Y4M sink, on the wall clock."""
+    import numpy as np
+
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.graph import SinkSpec
+    from lives_tpu_torch.io.decoders import try_decoders
+    from lives_tpu_torch.io.genclip import GeneratorClip
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.player import Player, Y4MSink
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+
+    allc, _, _ = write_clips(tmp, DeviceSyntheticSource(H, W, device=dev),
+                             1, PLAYER_CLIP_FRAMES)
+    presets = [f"milk_{n}" for n in MILK_PRESETS]
+    fg = GeneratorClip(presets[0], W, H, fps=FPS, device=dev)
+    fg.playlist, fg.autocycle_secs = presets, MILK_CYCLE_S
+    path = os.path.join(tmp, "milk.y4m")
+    p = Player(Y4MSink(path), SinkSpec(palette=int(Palette.YUV420P)),
+               fps=FPS, device=dev)
+    p.keymap.set_key(0, 0, "crossfade")
+    p.state.fg_clip, p.state.bg_clip = fg, allc[1]
+    p.key_toggle(0, True)
+    yk.LAUNCHES.update(dict.fromkeys(yk.LAUNCHES, 0))
+    p.start()
+    names = set()
+    for _ in range(MILK_PLAYER_CYCLES):
+        p.play_n_cycles(1, realtime=True)
+        names.add(fg.name)
+    p.stop()
+    counts = dict(yk.LAUNCHES)
+    ft = np.asarray(p._frame_times) * 1e3
+    cd = try_decoders(path)
+    n_file = cd.nframes
+    cd.decoder.close()
+    line("23c player", card=repr(card), cycles=MILK_PLAYER_CYCLES,
+         frames_shown=p.frames_shown, frames_dropped=p.frames_dropped,
+         presets_shown=len(names), k2_launches=counts["yuv420_to_rgb"],
+         k3_launches=counts["rgb_to_yuv420"],
+         p50_ms=f"{np.percentile(ft, 50):.3f}",
+         p99_ms=f"{np.percentile(ft, 99):.3f}", max_ms=f"{ft.max():.3f}",
+         file_frames=n_file)
+    assert n_file == p.frames_shown > 0, (n_file, p.frames_shown)
+    assert counts["yuv420_to_rgb"] > 0 and counts["rgb_to_yuv420"] > 0, \
+        counts
+    assert len(names) > 1, names
+    for k in counts:
+        launches[k] += counts[k]
+    allc[1].close()
+
+
+def libav_lane(dev, card, launches, tmp):
+    """23d. the libav lane where the host has libav: 1080p frames through
+    the "av" encoder into `.mkv`, `AVDecoder`, K2 on the card against its
+    plain version; elsewhere one line saying why the lane is absent."""
+    import numpy as np
+    import torch
+
+    from lives_tpu_torch.io import av
+    from lives_tpu_torch.io.decoders import try_decoders
+    from lives_tpu_torch.io.encoders import get_encoder
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+
+    if av.load_avbridge() is None:
+        line("23d libav", loads=False, reason=repr(av.absent_reason()))
+        return
+    src = DeviceSyntheticSource(H, W, device=dev)
+    rgb = src.get_batch([1] * AV_FRAMES, range(AV_FRAMES)).planes[0]
+    path = os.path.join(tmp, "lane.mkv")
+    t0 = time.perf_counter()
+    assert get_encoder("av").encode(path, rgb.cpu(), FPS)
+    enc_s = time.perf_counter() - t0
+    cd = try_decoders(path)
+    assert type(cd.decoder).__name__ == "AVDecoder", cd.decoder
+    assert (cd.nframes, cd.width, cd.height) == (AV_FRAMES, W, H)
+    yk.LAUNCHES.update(dict.fromkeys(yk.LAUNCHES, 0))
+    err = 0
+    t0 = time.perf_counter()
+    for i in range(AV_FRAMES):
+        lay = cd.decoder.get_frame(i)
+        y, u, v = (p.to(dev) for p in lay.planes)
+        got = yk.yuv420_to_rgb(y, u, v, lay.subspace, lay.clamping)
+        ref = yk.plain_yuv420_to_rgb(y, u, v, lay.subspace, lay.clamping)
+        err = max(err, int((got.int() - ref.int()).abs().max()))
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    k2 = yk.LAUNCHES["yuv420_to_rgb"]
+    cd.decoder.close()
+    line("23d libav", loads=True, card=repr(card), codec="h264",
+         frames=AV_FRAMES, encode_s=f"{enc_s:.2f}",
+         decode_and_k2_s=f"{dec_s:.2f}", k2_launches=k2,
+         max_abs_err=err, file_mb=f"{os.path.getsize(path) / 1e6:.2f}")
+    assert err == 0 and k2 == AV_FRAMES, (err, k2)
+    launches["yuv420_to_rgb"] += k2
+
+
 def synced_calls(fn):
     """(fn's result, the synchronizing CUDA calls it made, as the warnings
     of torch's sync debug mode)."""
@@ -4882,6 +5214,9 @@ def main(argv) -> int:
         return 0
     if argv == ["--multitrack"]:
         multitrack_phase(dev, card, dict.fromkeys(NAMES, 0))
+        return 0
+    if argv == ["--milk"]:
+        milk_phase(dev, card, dict.fromkeys(NAMES, 0))
         return 0
     if argv and argv not in (["--vocabulary"], ["--vjfilters"],
                              ["--titles"]):
@@ -5466,6 +5801,7 @@ def main(argv) -> int:
     datacons_phase(dev, card, launches)
     clipedit_phase(dev, card, launches)
     multitrack_phase(dev, card, launches)
+    milk_phase(dev, card, launches)
     vel = timeline_v(1)
     vspec, _, _, vrows = chunk_of(vel, dev, 1)
     v_geom = fused_sweep.plan_geometry(

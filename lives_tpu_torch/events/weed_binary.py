@@ -4,13 +4,13 @@ interchange format.
 Counterpart of `lives_tpu/events/weed_binary.py:1-468`, copied (pure
 Python; importing it from `lives_tpu` would import jax); both packages
 write the same bytes for the same event list and read each other's files.
-The filter registry it reads is the port's, which lacks the filters
-`effects.host.DEFERRED` names (puretext and the four milkdrop presets):
-their in-parameter names are kept here (`DEFERRED_PARAMS`), so a layout
-that names one serialises, imports and maps names as the JAX package's
-does, and the renderer then refuses it naming its ROADMAP item rather than
-rendering something else. A name neither registry holds keeps the JAX
-package's path: imported verbatim, skipped with a warning at render.
+The filter registry it reads is the port's, which lacks the filter
+`effects.host.DEFERRED` names (puretext): its in-parameter names are
+`puretext.FILTER`'s, so a layout that names it serialises, imports and
+maps names as the JAX package's does, and the renderer then refuses it
+naming its ROADMAP item rather than rendering something else. A name
+neither registry holds keeps the JAX package's path: imported verbatim,
+skipped with a warning at render.
 
 Byte format (reference `weed_plant_serialise`, src/effects-weed.c:10969 and
 `weed_leaf_serialise` :10807, deserialise :11613):
@@ -168,14 +168,6 @@ def read_plants(fh: BinaryIO):
 # EventList <-> weed binary
 # ---------------------------------------------------------------------------
 
-#: in-parameter names of the filters the JAX package registers and the port
-#: defers (`effects.host.DEFERRED`): puretext's are `puretext.FILTER`'s,
-#: the milkdrop presets' `lives_tpu/effects/milkdrop.py:1237-1240`
-DEFERRED_PARAMS: dict[str, tuple[str, ...]] = {
-    name: ("bass", "mid", "treb", "vol")
-    for name in ("milk_geometry", "milk_pulse", "milk_spin", "milk_tunnel")}
-
-
 def _filter_params(name: str) -> list[str] | None:
     """In-parameter names of a filter of the JAX package's registry, or
     None for a name it does not hold."""
@@ -184,10 +176,10 @@ def _filter_params(name: str) -> list[str] | None:
         return [p.name for p in get_filter(name).params]
     except KeyError:
         pass
-    if name == "puretext":
+    if name == "puretext":  # deferred (`effects.host.DEFERRED`)
         from ..effects.builtin.puretext import FILTER
         return [p.name for p in FILTER.params]
-    return list(DEFERRED_PARAMS[name]) if name in DEFERRED_PARAMS else None
+    return None
 
 
 def _param_index(filter_hashname: str, param_name: str) -> int:

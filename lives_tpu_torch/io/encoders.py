@@ -26,9 +26,12 @@ JAX package does (the clip store's `write_audio` scales by 32768). The
 audio of the YUV4MPEG2 and MJPEG encoders goes through `WavEncoder` into
 the file beside the video (`.wav` for the video's suffix).
 
-Not ported (ROADMAP Queue 1 item 11): the ffmpeg encoder (an `ffmpeg`
-binary) and the libav encoder (`io/av.py`); `get_encoder("ffmpeg")`
-raises naming the item.
+`AVEncoder` ("av", `encoders.py:203-290`) encodes through the in-process
+libav bridge (`io/av.py`); it is registered where the bridge loads, which
+the registry finds out on its first lookup, not at import (the bridge
+builds with g++ on first use). Not ported (ROADMAP Queue 1 item 11): the
+ffmpeg encoder (an `ffmpeg` binary); `get_encoder("ffmpeg")` raises
+naming the item.
 """
 
 from __future__ import annotations
@@ -92,7 +95,21 @@ def register_encoder(cls):
     return cls
 
 
+_AV_CHECKED = False
+
+
+def _register_av():
+    """Register `AVEncoder` once, where the libav bridge loads."""
+    global _AV_CHECKED
+    if not _AV_CHECKED:
+        _AV_CHECKED = True
+        from .av import load_avbridge
+        if load_avbridge() is not None:
+            register_encoder(AVEncoder)
+
+
 def get_encoder(name: str) -> Encoder:
+    _register_av()
     if name not in _ENCODERS and name in DEFERRED:
         raise NotImplementedError(f"encoder {name!r} is not ported yet "
                                   f"({DEFERRED[name]})")
@@ -100,6 +117,7 @@ def get_encoder(name: str) -> Encoder:
 
 
 def list_encoders() -> list[str]:
+    _register_av()
     return sorted(_ENCODERS)
 
 
@@ -306,3 +324,73 @@ class MJPEGDeviceEncoder(Encoder):
         write_mjpeg_avi(out_path, datas, w, h, fps)
         _write_audio_beside(out_path, fps, audio, arate)
         return True
+
+
+class AVEncoder(Encoder):
+    """In-process libav encoder (`encoders.py:211-290`): H.264/MKV/MP4,
+    VP8/WebM, Theora/OGV, MPEG-4/AVI, GIF, DV through the bridge
+    (`io/av.py`). Frames go to libav as host RGB, as the JAX package's,
+    so the same frames give the same stream."""
+
+    name = "av"
+
+    @classmethod
+    def get_capabilities(cls):
+        return CAP_VIDEO | CAP_AUDIO
+
+    @classmethod
+    def get_formats(cls):
+        from .av import ENC_CODECS, load_avbridge
+        lib = load_avbridge()
+        return [EncFormat(vc, ext) for ext, (vc, _) in ENC_CODECS.items()
+                if lib.avb_have_encoder(vc.encode())]
+
+    def encode(self, out_path, frames, fps, audio=None, arate=44100):
+        from .av import AVEncodeSession, host_rgb
+        frames = iter(frames)
+        try:
+            first = host_rgb(next(frames))
+        except StopIteration:
+            return False
+        h, w = first.shape[:2]
+        achans = 0
+        if audio is not None:
+            audio = np.asarray(audio)
+            achans = 1 if audio.ndim == 1 else audio.shape[-1]
+        sess = AVEncodeSession(out_path, w, h, fps,
+                               arate=arate if achans else 0,
+                               achans=max(achans, 1))
+        if sess.achans == 0:
+            achans = 0   # the container refused audio (gif/dv)
+        pcm = None
+        if achans:
+            pcm = np.clip(audio, -1.0, 1.0) * 32767 \
+                if np.issubdtype(audio.dtype, np.floating) else audio
+            pcm = np.asarray(pcm, np.int16).reshape(-1, achans)
+        apos = 0
+        spf = int(arate / fps) if achans else 0  # samples a frame
+
+        def feed_audio(nframes):
+            # audio interleaved with video keeps the muxer's buffer small
+            nonlocal apos
+            if pcm is None:
+                return
+            want = min(int(nframes * spf), len(pcm))
+            if want > apos:
+                sess.write_audio(pcm[apos:want])
+                apos = want
+
+        n = 0
+        try:
+            sess.write_frame(first)
+            n = 1
+            feed_audio(1)
+            for f in frames:
+                sess.write_frame(host_rgb(f))
+                n += 1
+                feed_audio(n)
+            if pcm is not None and apos < len(pcm):
+                sess.write_audio(pcm[apos:])
+        finally:
+            sess.close()
+        return n > 0

@@ -22,11 +22,20 @@ library and nothing else) builds against the jpeg62 API headers kept in
 `native/jpeg62/` and the jpeg62 libjpeg-turbo that Pillow's wheel carries,
 after checking that library's versions against the headers'. Either way
 the loaded library must read a JPEG before it is handed out.
+
+`load_avbridge` builds the in-process libav bridge the JAX package's
+`lives_tpu/io/av.py:46-107` builds, `native/avbridge.cpp` at the root of
+the checkout, with g++ into `build/lives_tpu_torch/libavbridge-<hash>.so`
+(a hash of the source, the flags, the preprocessed libav headers and the
+libraries' bytes). A host without libavformat, or without the libav
+headers, has no libav lane: it returns None and `AVBRIDGE_ABSENT` says
+why. Where both are there, a failed build raises with g++'s stderr.
 """
 
 from __future__ import annotations
 
 import ctypes
+import ctypes.util
 import hashlib
 import os
 import shutil
@@ -292,3 +301,60 @@ def load_jpegcoef() -> ctypes.CDLL:
         _LOADED["jpegcoef"] = build_jpegcoef(system_libjpeg()
                                              or pillow_libjpeg())
     return _LOADED["jpegcoef"].lib
+
+
+AVBRIDGE_SRC = Path(__file__).resolve().parents[2] / "native" / "avbridge.cpp"
+AVBRIDGE_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+AVBRIDGE_LIBS = ("avformat", "avcodec", "avutil", "swscale", "swresample")
+#: why the libav lane is absent on this host ("" while it is not)
+AVBRIDGE_ABSENT = ""
+_AVBRIDGE_HEADERS = "".join(
+    f"#include <{h}>\n" for h in (
+        "libavcodec/avcodec.h", "libavformat/avformat.h",
+        "libavutil/imgutils.h", "libavutil/opt.h",
+        "libswresample/swresample.h", "libswscale/swscale.h"))
+
+
+def load_avbridge() -> ctypes.CDLL | None:
+    """The libav bridge, built (if needed) and loaded, or None where the
+    host has no libavformat or no libav headers (`AVBRIDGE_ABSENT` then
+    names what is missing). A failed build raises with g++'s stderr."""
+    global AVBRIDGE_ABSENT
+    if "avbridge" in _LOADED:
+        return _LOADED["avbridge"].lib
+    if AVBRIDGE_ABSENT:
+        return None
+    if ctypes.util.find_library("avformat") is None:
+        AVBRIDGE_ABSENT = "no libavformat on this host"
+        return None
+    pre = subprocess.run(["g++", "-E", "-x", "c++", "-"],
+                         input='extern "C" {\n' + _AVBRIDGE_HEADERS + "}\n",
+                         capture_output=True, text=True, timeout=60)
+    if pre.returncode != 0:
+        first = (pre.stderr.strip().splitlines() or ["?"])[0]
+        AVBRIDGE_ABSENT = f"no libav headers on this host ({first})"
+        return None
+    libs = [subprocess.run(["g++", f"-print-file-name=lib{n}.so"],
+                           capture_output=True, text=True,
+                           timeout=60).stdout.strip() for n in AVBRIDGE_LIBS]
+    identity = pre.stdout.encode() + b"".join(
+        Path(p).resolve().read_bytes() for p in libs if os.path.isabs(p))
+    link = tuple(f"-l{n}" for n in AVBRIDGE_LIBS)
+    digest = hashlib.sha256(
+        AVBRIDGE_SRC.read_bytes() + identity
+        + " ".join(AVBRIDGE_FLAGS + link).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"libavbridge-{digest}.so"
+    t0, log, seconds = time.perf_counter(), "", 0.0
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        r = subprocess.run(["g++", *AVBRIDGE_FLAGS, "-o", str(tmp),
+                            str(AVBRIDGE_SRC), *link],
+                           capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            raise RuntimeError(f"g++ failed on {AVBRIDGE_SRC}:\n{r.stderr}")
+        log, seconds = r.stderr, time.perf_counter() - t0
+        os.replace(tmp, so)
+    AVBRIDGE_ABSENT = ""
+    _LOADED["avbridge"] = Built(ctypes.CDLL(str(so)), so, log, seconds)
+    return _LOADED["avbridge"].lib

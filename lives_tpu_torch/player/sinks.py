@@ -14,9 +14,10 @@ before, so at most about two `sync_every` windows of frames are queued.
 its attachment's `block_until_ready` did not wait; PyTorch's events do.)
 
 `PNGSink` (`sinks.py:93-106`) writes numbered PNGs through PIL on the
-host, the frame crossing in one copy. Not ported: `AVStreamSink` and
-`VLoopbackSink` (libav and v4l2, ROADMAP Queue 1 item 23); each raises
-naming its item.
+host, the frame crossing in one copy. `AVStreamSink` (`sinks.py:140`)
+encodes RGB frames through the libav bridge (`io/av.py`) to a file or a
+network target. Not ported: `VLoopbackSink` (v4l2, ROADMAP Queue 1 item
+23), which raises naming its item.
 """
 
 from __future__ import annotations
@@ -167,12 +168,52 @@ class Y4MSink(Sink):
 
 
 class AVStreamSink(Sink):
-    """Network / container streaming through libav: not ported."""
+    """Network / container streaming through the libav bridge
+    (`lives_tpu/player/sinks.py:140`): frames encode to any avformat
+    target, `udp://host:port` (MPEG-TS, the lives2lives-class network
+    path), `icecast://` / `http://` (Theora/OGG), `rtp://`, `srt://` or a
+    file. Container defaults: udp/rtp/srt mean mpegts, icecast/http mean
+    ogg, any other target is guessed from its extension. The session
+    opens at the first frame's size when init_screen was not called."""
 
-    def __init__(self, url: str, *args, **kw):
-        raise NotImplementedError(
-            "AVStreamSink needs the libav bridge (io/av.py), which is not "
-            "ported yet (ROADMAP Queue 1 item 23)")
+    palette_list = (Palette.RGB24,)
+
+    def __init__(self, url: str, fps: float = 25.0, bitrate: int = 0,
+                 container: str = "", vcodec: str | None = None):
+        self.url = url
+        self.fps = fps
+        self.bitrate = bitrate
+        if not container:
+            if url.startswith(("udp://", "rtp://", "srt://")):
+                container = "mpegts"
+            elif url.startswith(("icecast://", "http://", "https://")):
+                container = "ogg"
+        self.container = container
+        self.vcodec = vcodec
+        self._sess = None
+        self.frames = 0
+
+    def init_screen(self, width, height, fps):
+        from ..io.av import AVEncodeSession
+        self.fps = fps or self.fps
+        self._sess = AVEncodeSession(self.url, width, height, self.fps,
+                                     vcodec=self.vcodec,
+                                     bitrate=self.bitrate,
+                                     container=self.container)
+
+    def play_frame(self, layer: Layer, tc: float) -> bool:
+        (frame,) = host_planes(layer.replace(planes=layer.planes[:1]))
+        if self._sess is None:
+            c, h, w = frame.shape[-3:]
+            self.init_screen(w, h, self.fps)
+        self._sess.write_frame(frame.reshape(frame.shape[-3:]))
+        self.frames += 1
+        return True
+
+    def exit_screen(self):
+        if self._sess is not None:
+            self._sess.close()
+            self._sess = None
 
 
 class VLoopbackSink(Sink):

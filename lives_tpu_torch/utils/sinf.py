@@ -103,11 +103,12 @@ def _reduce_large(xi):
     return (hi * (1 << 32) + lo).to(torch.float64) * _PI63, n
 
 
-def _sincosf(y: torch.Tensor, cos: bool) -> torch.Tensor:
+def _sincosf(y: torch.Tensor, cos) -> torch.Tensor:
     """s_sinf.c's `sinf` (cos False) or s_cosf.c's `cosf` (cos True): the
     same reductions, and the other polynomial for cos (`sinf_poly` of n ^
-    1), which below pi/4 is the cosine polynomial of x itself."""
-    name = "cosf" if cos else "sinf"
+    1), which below pi/4 is the cosine polynomial of x itself. `cos` may
+    be a bool tensor that broadcasts with y: cos where it is True."""
+    name = "cosf" if cos is True else "sinf"
     if y.dtype != torch.float32:
         raise TypeError(f"{name} takes float32, got {y.dtype}")
     xi = y.view(torch.int32).to(torch.int64) & _M32
@@ -124,10 +125,15 @@ def _sincosf(y: torch.Tensor, cos: bool) -> torch.Tensor:
     n = torch.where(small, 0, torch.where(fast, nf, nl))
     q = torch.where(fast, n, n + (xi >> 31)) & 3       # the sign's quadrant
     sgn = torch.where((q == 1) | (q == 2), -1.0, 1.0).to(torch.float64)
-    odd = (n & 1) == (0 if cos else 1)
+    if isinstance(cos, torch.Tensor):
+        odd = (n & 1) == torch.where(cos, 0, 1)
+        tiny = torch.where(cos, torch.ones_like(y), y)
+    else:
+        odd = (n & 1) == (0 if cos else 1)
+        tiny = torch.ones_like(y) if cos else y
     out = _poly(r * sgn, r * r, odd, (q & 2) == 2).to(torch.float32)
     # |y| < 2^-12: y (sin), 1 (cos)
-    out = torch.where(top < 0x398, torch.ones_like(y) if cos else y, out)
+    out = torch.where(top < 0x398, tiny, out)
     return torch.where(top >= 0x7F8, y - y, out)       # inf, nan: nan
 
 
@@ -141,3 +147,12 @@ def cosf(y: torch.Tensor) -> torch.Tensor:
     """float32 cos, bit for bit the C library's `cosf` (`__cosf_fma`),
     which XLA's CPU backend calls for `jnp.cos`. Any shape and device."""
     return _sincosf(y, True)
+
+
+def sincosf(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cosf(y), sinf(y)) bit for bit, through one pass of the reductions
+    over y stacked twice (half the kernel launches of the two calls)."""
+    cos = (torch.arange(2, device=y.device) == 0).reshape(
+        (2,) + (1,) * y.dim())
+    out = _sincosf(torch.stack([y, y]), cos)
+    return out[0], out[1]

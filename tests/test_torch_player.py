@@ -1165,7 +1165,6 @@ def test_generator_fg_rides_as_genslot_matches_jax(monkeypatch):
 # -- what the slice leaves out ----------------------------------------------
 
 LEFT_OUT = {
-    "av_stream_sink": (lambda: t_sinks.AVStreamSink("udp://x:1"), 23),
     "vloopback_sink": (lambda: t_sinks.VLoopbackSink(), 23),
 }
 

@@ -175,12 +175,12 @@ def test_edge_and_blurzoom_wrap():
 
 
 def test_registry_is_a_subset_of_jax():
-    """142 of the JAX package's 147 filters (117 before data connections
-    were ported), each with the JAX hashname, flags, params, out-params
-    and alpha channel templates."""
+    """146 of the JAX package's 147 filters (117 before data connections
+    were ported, 142 before the milkdrop presets), each with the JAX
+    hashname, flags, params, out-params and alpha channel templates."""
     from lives_tpu.effects.host import list_filters as j_list_filters
     names = t_host.list_filters()
-    assert len(names) == 142 and set(names) <= set(j_list_filters())
+    assert len(names) == 146 and set(names) <= set(j_list_filters())
     for name in names:
         jf, tf = j_get_filter(name), t_host.get_filter(name)
         assert (tf.hashname, tf.flags) == (jf.hashname, jf.flags), name
@@ -273,8 +273,8 @@ def test_make_compound_exports_extra_params_and_connections(
 def test_deferred_compound_raises_naming_its_item(monkeypatch):
     """A timeline naming image_stabilizer (deferred until data connections
     were ported) renders as the JAX package renders it; one naming a
-    filter still deferred (a milkdrop preset) raises through the
-    renderer's deferral lookup, naming its item."""
+    filter still deferred (puretext) raises through the renderer's
+    deferral lookup, naming its item."""
     from lives_tpu.events import renderer as jr
     from lives_tpu.events.event_list import EventList as JEventList
     from lives_tpu_torch.events import renderer as tr
@@ -300,9 +300,40 @@ def test_deferred_compound_raises_naming_its_item(monkeypatch):
                                  JSource(16, 32), JSink(32, 16),
                                  batch_size=3)
     assert np.abs(got.astype(int) - np.asarray(ref).astype(int)).max() <= 1
-    with pytest.raises(NotImplementedError, match="item 21"):
-        list(tr.render_events(timeline("milk_spin", 1),
+    with pytest.raises(NotImplementedError, match="Queue 3"):
+        list(tr.render_events(timeline("puretext", 1),
                               TSource(8, 16, device="cpu")))
+
+
+def test_milk_preset_timeline_renders_as_jax(monkeypatch):
+    """A timeline whose chain is the milk_spin preset (a stateful
+    generator, once deferred) renders through the port's renderer as the
+    JAX renderer renders it: 7 frames in chunks of 3, the preset's state
+    carried across chunks, within 1 LSB."""
+    from lives_tpu.events import renderer as jr
+    from lives_tpu.events.event_list import EventList as JEventList
+    from lives_tpu_torch.events import renderer as tr
+    from lives_tpu_torch.events.event_list import (EventList,
+                                                   filter_init_event,
+                                                   filter_map_event,
+                                                   frame_event,
+                                                   param_change_event)
+    monkeypatch.setenv("LIVES_TPU_CHAIN_DTYPE", "f32")
+    el = EventList(fps=25.0, width=48, height=32)
+    init = filter_init_event(0, "milk_spin", values={"treb": 0.9})
+    el.insert(init)
+    el.insert(filter_map_event(0, [init.event_id]))
+    el.insert(param_change_event(3 * 4_000_000, init.event_id, "treb", 0.2))
+    for i in range(7):
+        el.insert(frame_event(i * 4_000_000, [1], [i]))
+    got, _ = tr.render_to_arrays(el, TSource(32, 48, device="cpu"),
+                                 TSink(48, 32), batch_size=3)
+    ref, _ = jr.render_to_arrays(JEventList.from_json(el.to_json()),
+                                 JSource(32, 48), JSink(48, 32),
+                                 batch_size=3)
+    assert got.shape == np.asarray(ref).shape and got.shape[0] == 7
+    assert np.abs(got.astype(int) - np.asarray(ref).astype(int)).max() <= 1
+    assert any(not np.array_equal(got[i], got[i + 1]) for i in range(6))
 
 
 # -- phase 17b's chain through run_batch --------------------------------------

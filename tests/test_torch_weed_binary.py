@@ -5,11 +5,13 @@ same bytes, each package reads the other's files into the same event list
 random and truncated bytes fail or parse alike, and layouts render within
 1 LSB of the JAX renderer. Event ids come from a counter in both packages
 (`same_ids`), so lists built or read step for step are equal as text. A layout
-naming a filter the JAX package registers and the port defers (puretext,
-the milkdrop presets) serialises with the JAX package's parameter indices
-and imports the same way; the port's renderer then refuses it naming its
-ROADMAP item. A name neither registry holds renders with a warning, the
-unknown filter skipped, as in the JAX package."""
+naming a filter the JAX package registers and the port defers (puretext)
+serialises with the JAX package's parameter indices and imports the same
+way; the port's renderer then refuses it naming its ROADMAP item. The
+milkdrop presets, registered in both packages, round-trip byte for byte
+and render within 1 LSB of the JAX renderer. A name neither registry
+holds renders with a warning, the unknown filter skipped, as in the JAX
+package."""
 
 import io
 import random
@@ -306,7 +308,6 @@ def test_unknown_filter_layout_renders_with_warning(scan_env):
 
 @pytest.mark.parametrize("name,values,item", [
     ("puretext", {"text": "hi", "size": 12, "speed": 0.5}, "Queue 3"),
-    ("milk_tunnel", {"bass": 0.7, "vol": 0.1}, "item 21"),
 ])
 def test_deferred_filter_layout(name, values, item):
     """A layout naming a filter the port defers: the bytes are the JAX
@@ -336,6 +337,43 @@ def test_deferred_filter_layout(name, values, item):
     with pytest.raises(NotImplementedError, match=item):
         t_render(load("t", data), TSource(32, 64, device="cpu"),
                  TSink(width=64, height=32))
+
+
+@pytest.mark.parametrize("name", ["milk_geometry", "milk_pulse",
+                                  "milk_spin", "milk_tunnel"])
+def test_milk_preset_layout(name, scan_env):
+    """A layout naming a milkdrop preset (a stateful generator the port
+    once deferred): the same bytes from both packages, the parameter
+    indices of the registered filter, both read it to the same list, and
+    the port renders it within 1 LSB of the JAX renderer."""
+    from lives_tpu.scenes import DeviceSyntheticSource as JSource
+    from lives_tpu_torch.effects.host import get_filter
+    from lives_tpu_torch.scenes import DeviceSyntheticSource as TSource
+    values = {"bass": 0.7, "vol": 0.1}
+    els = {}
+    for pkg in PKGS:
+        elmod = PKGS[pkg][0]
+        el = elmod.EventList(fps=25.0, width=48, height=32)
+        init = elmod.filter_init_event(0, name, values=values)
+        el.insert(init)
+        el.insert(elmod.filter_map_event(0, [init.event_id]))
+        el.insert(elmod.param_change_event(4_000_000, init.event_id,
+                                           "vol", 0.25))
+        for i in range(3):
+            el.insert(elmod.frame_event(i * 4_000_000, [1], [i]))
+        els[pkg] = el
+    data = assert_both_ways(els["j"], els["t"])
+    plants = [leaves for ptype, leaves in tw.read_plants(io.BytesIO(data))
+              if ptype == tw.PLANT_EVENT and "index" in leaves]
+    names = [p.name for p in get_filter(name).params]
+    assert {p["index"][1][0] for p in plants} == {names.index(k)
+                                                  for k in values}
+    got, _ = t_render(load("t", data), TSource(32, 48, device="cpu"),
+                      TSink(width=48, height=32), batch_size=2)
+    ref, _ = j_render(load("j", data), JSource(32, 48),
+                      JSink(width=48, height=32), batch_size=2)
+    assert got.shape == (3, 3, 32, 48)
+    frames_close(got, ref)
 
 
 def test_loader_survives_fuzz():
