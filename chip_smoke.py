@@ -64,7 +64,12 @@ plain PyTorch version:
   `effects/milkshader.py`) as `GeneratorClip`s on the card against the
   CPU route, the synthetic preset corpus, the player on a preset playlist
   over a decoded clip (K2, K3), and the in-process libav lane
-  (`io/av.py`) where the host has libav.
+  (`io/av.py`) where the host has libav;
+- the control surfaces: an embeddable `api.LiVESApp` on the card with a
+  Y4M sink, driven over real UDP by `osc.OSCClient` through its OSC
+  server (a take recorded and rendered, a multitrack timeline rendered,
+  a clip set saved and loaded in a fresh app), and a crashed session
+  recovered by the console's `recover` (K2, K3, K4).
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --config-d   # config D alone (phase 11's render
@@ -85,6 +90,7 @@ plain PyTorch version:
     python3 chip_smoke.py --clipedit   # phase 21 alone, no result line
     python3 chip_smoke.py --multitrack # phase 22 alone, no result line
     python3 chip_smoke.py --milk       # phase 23 alone, no result line
+    python3 chip_smoke.py --control    # phase 24 alone, no result line
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
@@ -438,6 +444,30 @@ Phases, one line each:
       loads, `AV_FRAMES` 1080p frames encoded to `.mkv` by the "av"
       encoder, decoded by `AVDecoder`, uploaded and converted by K2 on the
       card, 0 LSB from K2's plain version.
+24. the control surfaces at 1920x1080, 30 fps, on two of phase 16's
+   decoded Y4M clips (48 frames each): a `LiVESApp(device="cuda")` with a
+   Y4M sink (the sink step YUV420P) and its OSC server on a free UDP
+   port, driven by `osc.OSCClient`; parts a-c run twice, first with K2,
+   K3 and K4 swapped for their plain versions (no launch allowed), then
+   with the kernels:
+   a. the clips opened over OSC, a crossfade key over the bg clip and a
+      gaussian_blur key, `CONTROL_CYCLES` cycles through `process_one` on
+      the scripted clock while recording (`CONTROL_ACTS`: the blur on, a
+      parameter set, fg and bg swapped, each over OSC), then
+      `/record/render` (rendered on the OSC thread): K2 and K3 launches
+      of the take and the render's;
+   b. `/block/insert` of both clips into a 1920x1080 `Multitrack` with
+      the model's auto-transition (a crossfade over their overlap), two
+      region effects, `/mt/render` under LIVES_TPU_PALLAS_COMPOSITE=1
+      (K2 a track a batch, K4 over the segment with three stages):
+      launches and frames/s;
+   c. `/clipset/save`, and `/clipset/load` in a fresh app over the same
+      workdir (the clips' images byte for byte);
+   then the two passes' take and timeline clips and sink files within
+   1 LSB; and, once, a take autosaved every cycle and never stopped
+   (`CRASH_CYCLES`), `python -m lives_tpu_torch.cli recover` in a
+   subprocess, its clip byte for byte a direct render of the autosave in
+   this process. The whole phase's and each step's seconds.
 Then a `resources` line for K1 (both builds), K4, K5 and K6 (the path's
 entry: ptxas registers and spills, blocks an SM), a JSON line of the kernels
 (with each one's bound: the larger of its bytes over 3.35 TB/s and its
@@ -5131,6 +5161,310 @@ def libav_lane(dev, card, launches, tmp):
     launches["yuv420_to_rgb"] += k2
 
 
+# -- phase 24: the control surfaces ------------------------------------------
+
+#: phase 24's take: cycles on the scripted clock, and the cycles (before that
+#: cycle's `process_one`) at which the OSC script acts: gaussian_blur on,
+#: the crossfade's amount, fg and bg swapped
+CONTROL_CYCLES = 30
+CONTROL_ACTS = {10: [("/effect_key/enable", 2),
+                     ("/effect_key/nparameter/set", 2, "radius", 3.0)],
+                15: [("/effect_key/parameter/value/set", 1, 0, 0.7)],
+                20: [("/clip/foreground/background/swap",)]}
+#: the crash take's cycles before the "crash" (no record_stop)
+CRASH_CYCLES = 20
+
+
+def png_clip_gap(a, b):
+    """Max |diff| over the frames of two clips of image frames, and
+    whether their image files are byte-identical; only the frames whose
+    files differ are decoded (PIL, on the host)."""
+    assert a.frames == b.frames > 0, (a.frames, b.frames)
+    worst, same = 0, True
+    for n in range(a.frames):
+        if a.image_path(n).read_bytes() == b.image_path(n).read_bytes():
+            continue
+        same = False
+        x, y = a.get_frame(n).planes[0], b.get_frame(n).planes[0]
+        worst = max(worst, int((x.int() - y.int()).abs().max()))
+    return worst, same
+
+
+def control_run(dev, card, root, paths, steps, plain):
+    """One pass of phase 24a-c on `root`: a `LiVESApp` on `dev` with a Y4M
+    sink (the sink step YUV420P, as cli.build_player), driven over real
+    UDP by `OSCClient`. Returns what the caller compares."""
+    from lives_tpu_torch.api import LiVESApp
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.graph import (SinkSpec, composite, fused_sweep,
+                                       stateful_sweep)
+    from lives_tpu_torch.multitrack import Multitrack
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.osc import OSCClient
+    from lives_tpu_torch.player import Y4MSink
+    from lives_tpu_torch.player import player as player_mod
+
+    tag = "24 plain" if plain else "24"
+    out = {}
+
+    def zero():
+        fused_sweep.MODE_LAUNCHES.update(
+            dict.fromkeys(fused_sweep.MODE_LAUNCHES, 0))
+        stateful_sweep.LAUNCHES = 0
+        yk.LAUNCHES.update(dict.fromkeys(yk.LAUNCHES, 0))
+        composite.LAUNCHES = 0
+        sync(dev)
+        return time.perf_counter()
+
+    def counts():
+        """Every kernel's launches since `zero`, those of no launch too."""
+        sync(dev)
+        return {**{f"k1_{k}": v for k, v in
+                   fused_sweep.MODE_LAUNCHES.items()},
+                "k2": yk.LAUNCHES["yuv420_to_rgb"],
+                "k3": yk.LAUNCHES["rgb_to_yuv420"],
+                "k4": composite.LAUNCHES, "k5": stateful_sweep.LAUNCHES}
+
+    clock = ScriptedClock()
+    saved_time = player_mod.time
+    player_mod.time = clock
+    app = LiVESApp(workdir=root / "wd", sink=Y4MSink(str(root / "sink.y4m")),
+                   osc_port=0, device=dev)
+    cl = OSCClient(port=app.osc.port, timeout=120.0)
+    try:
+        pl = app.player._player
+        pl.sink_spec = SinkSpec(palette=int(Palette.YUV420P))
+        pl.async_compile = False
+        pl.prewarm_compile = False
+        q = cl.query1
+        # 24a. a take: both clips opened over OSC, a transition key and a
+        # blur, played on the scripted clock while recording
+        t0 = zero()
+        ids = [q("/clip/open/file", p) for p in paths]
+        assert ids == [1, 2], ids
+        cl.send("/clip/background/select", 2)
+        assert q("/effect_key/map", 1, "crossfade") == 1
+        assert q("/effect_key/map", 2, "gaussian_blur") == 1
+        cl.send("/effect_key/enable", 1)
+        cl.send("/video/fps/set", FPS)
+        cl.send("/video/play")
+        cl.send("/record/enable")
+        assert cl.barrier() == []
+        pl._frame0 += 0.5   # mid-frame: floor never lands a frame off
+        for c in range(CONTROL_CYCLES):
+            for msg in CONTROL_ACTS.get(c, ()):
+                cl.send(*msg)
+            if c in CONTROL_ACTS:
+                assert cl.barrier() == []
+            pl.process_one()
+            clock.now = (c + 1) / FPS
+        cl.send("/record/disable")
+        cl.send("/video/stop")
+        assert cl.barrier() == []
+        take = counts()
+        shown = pl.frames_shown
+        t1 = time.perf_counter()
+        cid = q("/record/render", 0)
+        render_s = time.perf_counter() - t1
+        rendered = counts()
+        line(f"{tag}a take", card=repr(card), cycles=CONTROL_CYCLES,
+             frames_shown=shown, take_launches=take,
+             render_launches={k: v - take[k] for k, v in rendered.items()},
+             clip=cid, frames=app.osc.clips[cid].frames,
+             render_s=f"{render_s:.3f}",
+             wall_s=f"{time.perf_counter() - t0:.3f}")
+        out["take"] = (take, rendered)
+        out["take_clip"] = app.osc.clips[cid]
+        out["sink"] = root / "sink.y4m"
+        steps[f"{tag}a"] = time.perf_counter()
+
+        # 24b. the timeline: blocks from both clips over OSC with the
+        # model's auto-transition, region effects, `/mt/render` under
+        # LIVES_TPU_PALLAS_COMPOSITE=1
+        app.multitrack = Multitrack(fps=FPS, width=W, height=H)
+        app.osc.multitrack = app.multitrack
+        assert app.get_multitrack().set_auto_transition("crossfade")
+        assert q("/block/insert", 1, 0, 0.0) == 1
+        assert q("/block/insert", 2, 1, PLAYER_CLIP_FRAMES / 2 / FPS) == 1
+        n = int(q("/mt/nframes/get"))
+        for fx, tracks in (("saturation", (0,)), ("colour_balance", (0,))):
+            assert q("/mt/fx/region", fx, 0, n, *tracks)
+        fxs = q("/mt/fx/list")
+        os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "1"
+        try:
+            t0 = zero()
+            mid = q("/mt/render", 0)
+            wall = time.perf_counter() - t0
+        finally:
+            os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "0"
+        got = counts()
+        line(f"{tag}b timeline", card=repr(card), frames=n,
+             effects=fxs.count(";") + 1, launches=got, clip=mid,
+             wall_s=f"{wall:.3f}", frames_per_s=f"{n / wall:.1f}")
+        assert app.osc.clips[mid].frames == n
+        out["mt"] = got
+        out["mt_clip"] = app.osc.clips[mid]
+        steps[f"{tag}b"] = time.perf_counter()
+
+        # 24c. the set over OSC, loaded back in a fresh app over OSC
+        name = q("/clipset/save", "set24")
+        app2 = LiVESApp(workdir=root / "wd", osc_port=0, device=dev)
+        try:
+            with OSCClient(port=app2.osc.port, timeout=120.0) as cl2:
+                loaded = cl2.query1("/clipset/load", name)
+                back = app2.osc.clips[max(app2.osc.clips)]
+                assert cl2.query1("/clip/count") == loaded == len(
+                    app.osc.clips)
+        finally:
+            app2.quit()
+        worst, same = png_clip_gap(back, out["mt_clip"])
+        line(f"{tag}c set", card=repr(card), name=name, clips=loaded,
+             last_clip_frames=back.frames, max_abs_err=worst,
+             identical=same)
+        assert worst == 0 and same
+    finally:
+        cl.close()
+        app.quit()
+        player_mod.time = saved_time
+    return out
+
+
+def crash_and_recover(dev, card, root, paths):
+    """24c's crash: a take autosaved every cycle and never stopped, then
+    `python -m lives_tpu_torch.cli recover` in a subprocess, its clip
+    against a direct render of the autosave in this process."""
+    import numpy as np
+
+    from lives_tpu_torch.api import LiVESApp
+    from lives_tpu_torch.events.event_list import EventList
+    from lives_tpu_torch.io.clips import Clip
+    from lives_tpu_torch.player import NullSink
+    from lives_tpu_torch.player import player as player_mod
+
+    wd = root / "crash"
+    clock = ScriptedClock()
+    saved_time = player_mod.time
+    player_mod.time = clock
+    app = LiVESApp(workdir=wd, sink=NullSink(), device=dev)
+    try:
+        pl = app.player._player
+        pl.async_compile = False
+        a, b = (app.open_file(p) for p in paths)   # journaled
+        b.select_background()
+        app.effect_key_map[0].map("crossfade")
+        app.effect_key_map[0].set_enabled(True)
+        app.effect_key_map[1].map("gaussian_blur")
+        app.player.set_fps(FPS)
+        app.player.play()
+        app.player.record_start(backup_every=0.0)
+        pl._frame0 += 0.5
+        for c in range(CRASH_CYCLES):
+            if c == CRASH_CYCLES // 2:
+                app.effect_key_map[1].set_enabled(True)
+            pl.process_one()
+            clock.now = (c + 1) / FPS
+        sync(dev)
+        # the crash: no record_stop; what the autosave holds
+        pl.record = False
+        pl.state.playing = False
+        text = (wd / "recording.autosave.json").read_text()
+        before = {d for d in wd.iterdir() if (d / "header.lives").is_file()}
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "lives_tpu_torch.cli",
+                            "recover", str(wd), "--device", str(dev)],
+                           cwd=ROOT, capture_output=True, text=True,
+                           timeout=600)
+        sub_s = time.perf_counter() - t0
+        assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+        made = [d for d in wd.iterdir() if (d / "header.lives").is_file()
+                and d not in before]
+        assert len(made) == 1, made
+        recovered = Clip.load(made[0])
+        # the direct render of the same take in this process
+        pl.last_recording = EventList.from_autosave(text)
+        direct = app.player.render_recording(render_audio=False).raw()
+        worst, same = png_clip_gap(recovered, direct)
+        line("24c recover", card=repr(card), autosave_events=len(
+             pl.last_recording.events), frames=recovered.frames,
+             subprocess_s=f"{sub_s:.2f}",
+             out=" | ".join(r.stdout.strip().splitlines())[-120:],
+             max_abs_err=worst, identical=same)
+        assert worst == 0 and same and recovered.frames > 0
+        assert np.asarray(direct.get_frame(0).planes[0]).max() > 0
+    finally:
+        app.quit()
+        player_mod.time = saved_time
+
+
+def control_phase(dev, card, launches):
+    """24. the control surfaces at 1920x1080, 30 fps, on two of phase 16's
+    decoded Y4M clips: `LiVESApp(device=dev)` driven over OSC, every part
+    first with K2, K3 and K4 swapped for their plain versions, then with
+    the kernels."""
+    import numpy as np
+    import torch
+
+    from lives_tpu_torch.graph import composite
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+
+    if torch.device(dev).type == "cuda":
+        for built in (yk.build(), composite.build()):
+            assert built is not None
+    t_phase = time.perf_counter()
+    steps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        src = DeviceSyntheticSource(H, W, device=dev)
+        allc, _, _ = write_clips(str(tmp), src, 2, PLAYER_CLIP_FRAMES)
+        paths = [allc[c].source_uri for c in (1, 2)]
+        for c in allc.values():
+            c.close()
+        steps["24 clips"] = time.perf_counter()
+        runs = {}
+        kernels = (yk.yuv420_to_rgb, yk.rgb_to_yuv420, composite.composite)
+        for label in ("plain", "kern"):
+            if label == "plain":
+                yk.yuv420_to_rgb = yk.plain_yuv420_to_rgb
+                yk.rgb_to_yuv420 = yk.plain_rgb_to_yuv420
+                composite.composite = composite.plain_composite
+            try:
+                runs[label] = control_run(dev, card, tmp / label, paths,
+                                          steps, label == "plain")
+            finally:
+                yk.yuv420_to_rgb, yk.rgb_to_yuv420, composite.composite = \
+                    kernels
+        plain, kern = runs["plain"], runs["kern"]
+        assert not any(plain["take"][1].values()) and \
+            not any(plain["mt"].values()), (plain["take"], plain["mt"])
+        take, rendered = kern["take"]
+        assert take["k2"] > 0 and take["k3"] > 0, take
+        assert rendered["k2"] > take["k2"], rendered
+        assert kern["mt"]["k2"] > 0 and kern["mt"]["k4"] > 0, kern["mt"]
+        gaps = {}
+        for what in ("take_clip", "mt_clip"):
+            gaps[what] = png_clip_gap(plain[what], kern[what])[0]
+        a, b = (np.fromfile(r["sink"], np.uint8).astype(np.int16)
+                for r in (plain, kern))
+        assert a.shape == b.shape, (a.shape, b.shape)
+        gaps["sink"] = int(np.abs(a - b).max())
+        line("24 vs_plain", card=repr(card), bound=1, **{
+            f"{k}_max_abs_err": v for k, v in gaps.items()})
+        assert max(gaps.values()) <= 1, gaps
+        launches["yuv420_to_rgb"] += rendered["k2"] + kern["mt"]["k2"]
+        launches["rgb_to_yuv420"] += rendered["k3"] + kern["mt"]["k3"]
+        launches["composite"] += kern["mt"]["k4"]
+        steps["24 compare"] = time.perf_counter()
+        crash_and_recover(dev, card, tmp, paths)
+        steps["24c recover"] = time.perf_counter()
+    t = t_phase
+    for k, v in steps.items():
+        line("24 step", card=repr(card), step=k, seconds=f"{v - t:.2f}")
+        t = v
+    total = time.perf_counter() - t_phase
+    line("24 phase", card=repr(card), seconds=f"{total:.2f}")
+
+
 def synced_calls(fn):
     """(fn's result, the synchronizing CUDA calls it made, as the warnings
     of torch's sync debug mode)."""
@@ -5217,6 +5551,9 @@ def main(argv) -> int:
         return 0
     if argv == ["--milk"]:
         milk_phase(dev, card, dict.fromkeys(NAMES, 0))
+        return 0
+    if argv == ["--control"]:
+        control_phase(dev, card, dict.fromkeys(NAMES, 0))
         return 0
     if argv and argv not in (["--vocabulary"], ["--vjfilters"],
                              ["--titles"]):
@@ -5802,6 +6139,7 @@ def main(argv) -> int:
     clipedit_phase(dev, card, launches)
     multitrack_phase(dev, card, launches)
     milk_phase(dev, card, launches)
+    control_phase(dev, card, launches)
     vel = timeline_v(1)
     vspec, _, _, vrows = chunk_of(vel, dev, 1)
     v_geom = fused_sweep.plan_geometry(

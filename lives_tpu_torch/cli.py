@@ -1,8 +1,8 @@
 """Headless VJ console: the terminal front-end.
 
-Counterpart of `lives_tpu/cli.py:23-175,195-221,243-311` (`build_player`,
-`run_interactive`, the `play`, `effects`, `render` and `rfx`
-subcommands). It opens
+Counterpart of `lives_tpu/cli.py:23-175,189-193,195-311,338-345`
+(`build_player`, `run_interactive`, the `play` subcommand with `--osc`,
+and the `effects`, `recover`, `render` and `rfx` subcommands). It opens
 a clip, binds effect keys, starts playback with a live status line (inst
 fps / p99 / effort) and takes single-key commands on stdin (the clip
 editor's hotkey map). Also usable non-interactively:
@@ -12,18 +12,24 @@ editor's hotkey map). Also usable non-interactively:
     python -m lives_tpu_torch.cli effects
     python -m lives_tpu_torch.cli rfx sepia clipdir     # a rendered effect
     python -m lives_tpu_torch.cli render layout.lay --clip 1=a.avi --audio --out out.y4m
+    python -m lives_tpu_torch.cli play clip.y4m --osc 49999   # + OSC server
+    python -m lives_tpu_torch.cli recover workdir   # a crashed session
 
 Playback runs on `--device` (default `cuda`; without CUDA it raises, it
 does not fall back): YUV4MPEG clips into a null, Y4M or PNG sink, or the
-plasma generator without a clip; `rfx` applies a rendered-effect script
-on `--device` (default `cuda`); `render` renders a multitrack layout
-(`.json` or binary `.lay`) on `--device` (default `cuda`) over the clips
-`--clip` maps, or the synthetic source, into a YUV4MPEG file, with
-`--audio` its mixed audio as a WAV beside it. Not ported yet, each
-raising `NotImplementedError` naming its ROADMAP Queue 1 item: the
-stream, l2l, sdl, vjack and av sinks and `--osc`, and the `selftest`,
-`recover` and `webui` subcommands (item 23); the av encoder (item 11), so
-`render` writes YUV4MPEG whatever the output's suffix.
+plasma generator without a clip, with `--osc PORT` an `osc.OSCServer` on
+the player, its full namespace answering on that UDP port; `rfx` applies
+a rendered-effect script on `--device` (default `cuda`); `render` renders
+a multitrack layout (`.json` or binary `.lay`) on `--device` (default
+`cuda`) over the clips `--clip` maps, or the synthetic source, into a
+YUV4MPEG file, with `--audio` its mixed audio as a WAV beside it;
+`recover` reopens a crashed session's journaled clips in a
+`api.LiVESApp` on `--device` (default `cuda`) and renders its autosaved
+take to a new clip there. Not ported yet, each raising
+`NotImplementedError` naming its ROADMAP Queue 1 item: the stream, l2l,
+sdl, vjack and av sinks, and the `selftest` and `webui` subcommands
+(item 23); the av encoder (item 11), so `render` writes YUV4MPEG
+whatever the output's suffix.
 
 Keys: space=play/stop  0-8=toggle fx key  r=record  R=stop rec+save
       [ ]=fps down/up  v=reverse  p=ping-pong  q=quit
@@ -43,8 +49,7 @@ UNPORTED_SINKS = {"stream": 23, "l2l": 23, "sdl": 23,
 #: subcommands of the JAX console not ported yet, and their items
 UNPORTED_COMMANDS = {
     "selftest": "diagnostics.run_startup_tests (ROADMAP Queue 1 item 23)",
-    "recover": "api.py and sets.py (ROADMAP Queue 1 item 23)",
-    "webui": "webui.py and the OSC server (ROADMAP Queue 1 item 23)",
+    "webui": "webui.py (ROADMAP Queue 1 item 23)",
 }
 
 
@@ -173,7 +178,7 @@ def main(argv=None):
     play.add_argument("--height", type=int, default=0)
     play.add_argument("--seconds", type=float, default=None)
     play.add_argument("--osc", type=int, default=None,
-                      help="also serve OSC on this port (not ported)")
+                      help="also serve OSC on this port")
     play.add_argument("--device", default="cuda",
                       help="the device to play on (default cuda; no "
                            "fallback)")
@@ -204,6 +209,14 @@ def main(argv=None):
     rend.add_argument("--device", default="cuda",
                       help="the device to render on (default cuda; no "
                            "fallback)")
+    rcv = sub.add_parser("recover", help="recover a crashed session: "
+                         "reopen journaled clips and render the "
+                         "autosaved recording")
+    rcv.add_argument("workdir")
+    rcv.add_argument("--no-audio", action="store_true")
+    rcv.add_argument("--device", default="cuda",
+                     help="the device the take renders on (default cuda; "
+                          "no fallback)")
     for cmd in UNPORTED_COMMANDS:
         sub.add_parser(cmd, help="not ported yet").add_argument(
             "rest", nargs="*")
@@ -220,17 +233,46 @@ def main(argv=None):
         return _rfx(args)
     if args.cmd == "render":
         return _render(args)
+    if args.cmd == "recover":
+        return _recover(args)
     if args.cmd in UNPORTED_COMMANDS:
         raise NotImplementedError(
             f"`{args.cmd}` needs {UNPORTED_COMMANDS[args.cmd]}, not ported "
             "yet")
-    if args.osc:
-        raise NotImplementedError(
-            "the OSC server is not ported yet (ROADMAP Queue 1 item 23)")
     fx = [f for f in args.fx.split(",") if f]
     p = build_player(args.uri, fx, args.width, args.height, args.sink,
                      args.out, device=args.device)
-    run_interactive(p, args.seconds)
+    srv = None
+    if args.osc:
+        from .osc.server import OSCServer
+        srv = OSCServer(p, port=args.osc)
+        srv.start()
+    try:
+        run_interactive(p, args.seconds)
+    finally:
+        if srv is not None:
+            srv.stop()
+    return 0
+
+
+def _recover(args) -> int:
+    """`recover` (`lives_tpu/cli.py:227-240`): the journaled clips back into
+    a `LiVESApp` on `--device` over the workdir, then its autosaved take
+    rendered to a new clip there."""
+    from .api import LiVESApp
+    from .sets import recover_clips
+    app = LiVESApp(workdir=args.workdir, device=args.device)
+    n = recover_clips(app)
+    print(f"recovered {n} journaled clip(s)")
+    if not app.check_recording_recovery():
+        print("no autosaved recording")
+        return 0 if n else 1
+    out = app.recover_recording(render_audio=not args.no_audio)
+    if out is None:
+        print("autosaved recording did not resolve (kept on disk)")
+        return 1
+    print(f"rendered take -> clip {out.number}: "
+          f"{out.raw().frames} frames under {app.workdir}")
     return 0
 
 

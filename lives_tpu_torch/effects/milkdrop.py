@@ -1167,7 +1167,7 @@ def build_preset_process(pre: MilkPreset):
 
     grids: dict = {}
 
-    def init_state(w, h, pal=None, device="cpu"):
+    def init_state(w, h, pal, device):
         base = (torch.zeros((3, h, w), dtype=torch.float32, device=device),
                 torch.zeros((32,), dtype=torch.float32, device=device),
                 torch.zeros((1,), dtype=torch.float32, device=device))

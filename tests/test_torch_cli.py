@@ -3,7 +3,12 @@ CPU: `effects` lists the port's registered filters, `build_player` sets a
 player up as the JAX console does, `play` runs a clip or the plasma
 generator on the device it is given and, with no `--device`, refuses when
 CUDA is absent instead of falling back; what is not ported raises naming
-its ROADMAP item; `rfx` lists the rendered-effect scripts, shows a
+its ROADMAP item; `play --osc PORT` serves the OSC namespace on the
+player and answers the queries the JAX console answers, with the same
+replies; `recover` reopens a crashed session's journaled clips and
+renders its autosaved take, printing what the JAX console prints, the
+clip within 1 LSB of the JAX console's, and both refuse without CUDA
+when no `--device` is given; `rfx` lists the rendered-effect scripts, shows a
 script's parameters and applies it to a clip directory or a media file
 on the device it is given, as the JAX console does (the frames within
 the JAX script's tolerance, tests/test_torch_rfx.py); `render` renders a
@@ -152,9 +157,151 @@ def test_unported_subcommands_raise_naming_their_item(cmd):
         cli.main([cmd])
 
 
-def test_osc_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 23"):
-        cli.main(["play", "--osc", "9000", "--device", "cpu"])
+def _free_port():
+    import socket
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _osc_session(main, argv, queries):
+    """Run `main(argv)` (a `play --osc` console) on a thread and send it
+    `queries` through the port's OSCClient, each retried until the server
+    answers; returns the replies."""
+    import threading
+    import time
+    from lives_tpu_torch.osc import OSCClient
+    port = int(argv[argv.index("--osc") + 1])
+    rc = []
+    th = threading.Thread(target=lambda: rc.append(main(argv)), daemon=True)
+    th.start()
+    out = []
+    with OSCClient(port=port, timeout=0.5) as c:
+        deadline = time.monotonic() + 60.0
+        for q in queries:
+            while True:
+                try:
+                    out.append(c.query(*q))
+                    break
+                except OSError:
+                    assert time.monotonic() < deadline, "no OSC answer"
+    th.join(timeout=60)
+    assert not th.is_alive() and rc == [0]
+    return out
+
+
+def test_play_osc_answers_like_the_jax_console(y4m_clip, monkeypatch,
+                                               tmp_path):
+    import sys
+    # a stdin that is no terminal (both consoles then take no keys)
+    null = open(tmp_path / "stdin", "w+")
+    monkeypatch.setattr(sys, "stdin", null)
+    queries = [("/ping",), ("/app/ping",), ("/app/name/get",),
+               ("/clip/frame/count",), ("/clip/size/get",),
+               ("/video/fps/get",), ("/effect_key/name/get", 1),
+               ("/clip/fps/get",)]
+    argv = ["play", y4m_clip, "--fx", "negate", "--seconds", "3"]
+    port = _free_port()
+    got = _osc_session(cli.main, argv + ["--osc", str(port), "--device",
+                                         "cpu"], queries)
+    assert got[0] == ["pong"]
+    port = _free_port()
+    ref = _osc_session(jcli.main, argv + ["--osc", str(port)], queries)
+    null.close()
+    assert got == ref
+
+
+def test_play_osc_without_device_refuses_when_cuda_is_absent(y4m_clip):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the refusal is for one without")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["play", y4m_clip, "--osc", str(_free_port()),
+                  "--seconds", "0.1"])
+
+
+def _crashed_session(pkg, root, clip_path, monkeypatch, n=5):
+    """A workdir a session left behind after a take it did not render:
+    its clip journaled, its take autosaved by record_stop."""
+    import random
+    import chip_smoke as cs
+    from test_torch_weed_binary import _Counter
+    if pkg == "jax":
+        import lives_tpu.api as api
+        import lives_tpu.events.event_list as elmod
+        import lives_tpu.io.clips as clips
+        from lives_tpu.player import player as pmod
+        kw = {}
+    else:
+        import lives_tpu_torch.api as api
+        import lives_tpu_torch.events.event_list as elmod
+        import lives_tpu_torch.io.clips as clips
+        from lives_tpu_torch.player import player as pmod
+        kw = {"device": "cpu"}
+    clock = cs.ScriptedClock()
+    monkeypatch.setattr(pmod, "time", clock)
+    monkeypatch.setattr(elmod, "uuid", _Counter())
+    monkeypatch.setattr(clips, "_handle_counter", 0)
+    random.seed(5)
+    app = api.LiVESApp(workdir=root, **kw)
+    app.player._player.async_compile = False
+    app.open_file(clip_path)
+    app.effect_key_map[0].map("negate")
+    app.player.play()
+    app.player.record_start()
+    for i in range(n):
+        if i == 2:
+            app.effect_key_map[0].set_enabled(True)
+        p = app.player._player
+        p.state.frame, p._clock0, p._frame0 = -1, clock.now, float(i)
+        p.process_one()
+        clock.now += 1 / 30.0
+    app.player.record_stop()
+    app.player.stop()
+    app.quit()
+    return root
+
+
+def test_recover_prints_what_the_jax_console_prints(y4m_clip, tmp_path,
+                                                    monkeypatch, capsys):
+    from lives_tpu_torch.io.clips import Clip
+    from test_torch_osc import assert_clips_within_1
+    import lives_tpu.io.clips as jclips
+    outs, made = {}, {}
+    for pkg, main, extra in (("jax", jcli.main, []),
+                             ("torch", cli.main, ["--device", "cpu"])):
+        wd = _crashed_session(pkg, tmp_path / pkg, y4m_clip, monkeypatch)
+        capsys.readouterr()
+        assert main(["recover", str(wd)] + extra) == 0
+        outs[pkg] = capsys.readouterr().out.replace(str(wd), "<wd>")
+        assert not (wd / "recording.autosave.json").exists()
+        load = jclips.Clip.load if pkg == "jax" else Clip.load
+        made[pkg] = load(sorted(d for d in wd.iterdir()
+                                if (d / "header.lives").is_file())[-1])
+        # a second run: the journal again, no autosave left
+        assert main(["recover", str(wd), "--no-audio"] + extra) == 0
+        outs[pkg] += capsys.readouterr().out.replace(str(wd), "<wd>")
+    assert outs["torch"] == outs["jax"]
+    assert "rendered take -> clip 2: 4 frames under <wd>" in outs["torch"]
+    assert "no autosaved recording" in outs["torch"]
+    assert_clips_within_1(made["jax"], made["torch"])
+
+
+def test_recover_an_empty_workdir_like_jax(tmp_path, capsys):
+    assert jcli.main(["recover", str(tmp_path / "j")]) == 1
+    ref = capsys.readouterr().out
+    assert cli.main(["recover", str(tmp_path / "t"), "--device",
+                     "cpu"]) == 1
+    assert capsys.readouterr().out == ref == (
+        "recovered 0 journaled clip(s)\nno autosaved recording\n")
+
+
+def test_recover_without_device_refuses_when_cuda_is_absent(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the refusal is for one without")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["recover", str(tmp_path / "wd")])
 
 
 def _out(main, argv, capsys):

@@ -18,6 +18,7 @@ import io
 import random
 import time
 import types
+import uuid
 
 import jax.numpy as jnp
 import numpy as np
@@ -407,20 +408,31 @@ def s_avol_binary_roundtrip(P):
 
 def s_editor_ops_fast_on_long_timeline(P):
     """A 20k-frame timeline: a window edit costs a fraction of building it
-    (`tests/test_multitrack.py:323-361`, relative bounds)."""
+    (`tests/test_multitrack.py:323-361`, relative bounds). Both are timed
+    on the calling thread's CPU clock (`time.thread_time`), which the load
+    of other test processes does not inflate as it does the wall clock.
+    The build draws its event ids from the `uuid` module, as the JAX
+    test's does: the counter `run_both` installs makes the build about
+    half as costly, and the bound then held only where a collection of
+    the garbage collector fell into the build."""
     mt = P.Multitrack(n_tracks=2, width=32, height=16)
-    t0 = time.monotonic()
-    for i in range(20_000):
-        e = mt._ensure_frame_event(i)
-        e.props["clips"][0] = 1
-        e.props["frames"][0] = i
-    build = max(time.monotonic() - t0, 0.05)
+    elmod = j_elmod if P.pkg == "j" else t_elmod
+    counter, elmod.uuid = elmod.uuid, uuid
+    try:
+        t0 = time.thread_time()
+        for i in range(20_000):
+            e = mt._ensure_frame_event(i)
+            e.props["clips"][0] = 1
+            e.props["frames"][0] = i
+        build = max(time.thread_time() - t0, 0.05)
+    finally:
+        elmod.uuid = counter
     dts = []
     for k in range(3):
-        t0 = time.monotonic()
+        t0 = time.thread_time()
         mt.insert_block(1, 2, 15_000 + k * 1000, 200,
                         mode=P.InsertMode.OVERWRITE)
-        dts.append(time.monotonic() - t0)
+        dts.append(time.thread_time() - t0)
     assert min(dts) < build * 0.5
     P.note("blocks", [tuple(b.__dict__.values()) for b in mt.blocks(1)])
     P.note("n", (mt.n_frames, len(mt.el.events)))
