@@ -69,7 +69,13 @@ plain PyTorch version:
   Y4M sink, driven over real UDP by `osc.OSCClient` through its OSC
   server (a take recorded and rendered, a multitrack timeline rendered,
   a clip set saved and loaded in a fresh app), and a crashed session
-  recovered by the console's `recover` (K2, K3, K4).
+  recovered by the console's `recover` (K2, K3, K4);
+- the browser and streaming surfaces: the console's `selftest`, the web
+  UI over an OSC server (the preview's device JPEG lane, its routes, a
+  Save-As encode job and a multitrack render job: K2, K3, K4), and a
+  player streaming over loopback UDP in the L2L and LTPU formats to a
+  second player (K3 in the sender's sink step, K2 and K3 in the
+  receiver's).
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --config-d   # config D alone (phase 11's render
@@ -91,6 +97,7 @@ plain PyTorch version:
     python3 chip_smoke.py --multitrack # phase 22 alone, no result line
     python3 chip_smoke.py --milk       # phase 23 alone, no result line
     python3 chip_smoke.py --control    # phase 24 alone, no result line
+    python3 chip_smoke.py --surfaces   # phase 25 alone, no result line
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
@@ -176,7 +183,9 @@ Phases, one line each:
    e. `pipeline_chain_fn`, 4 stages of point filters over (8,3,1080,1920)
       f32 frames, within 1e-5 of the sequential chain;
    f. `dryrun_multichip` on the 4 entries (every path at a small size,
-      each against the DP render);
+      each against the DP render), and its JPEG lanes' DP steps
+      (`parallel.dryrun.jpeg_dp_steps`: the sharded decoder and encoder
+      bit for bit against one device), printed;
 13. the roofline study: the variants full, noblur, trans (10 tracks) and
    trans2 (2 tracks) of benchmarks/sweep_profile.py:68-72,102-107 through
    `render_events`, 192 frames in 96-frame chunks after a warm pass, one
@@ -468,6 +477,37 @@ Phases, one line each:
    (`CRASH_CYCLES`), `python -m lives_tpu_torch.cli recover` in a
    subprocess, its clip byte for byte a direct render of the autosave in
    this process. The whole phase's and each step's seconds.
+25. the browser and streaming surfaces at 1920x1080, 30 fps, on two of
+   phase 16's decoded Y4M clips:
+   a. `cli.main(["selftest", "--device", dev])`: 0 and no FAIL line; the
+      host's `benchmark_memcpy`;
+   then b and c run twice, first with K2, K3 and K4 swapped for their
+   plain versions (no launch allowed), then with the kernels:
+   b. a `webui.WebUI` on port 0 over an `OSCServer` whose player (a null
+      sink behind the preview tap) holds clip 1 under gaussian_blur and
+      colour_balance keys: `SURFACE_CYCLES` cycles of `process_one` on
+      the scripted clock, each cycle's preview JPEG awaited (the device
+      lane: `device_encodes`, no `host_encodes`), key toggles over
+      `POST /api/cmd` (`SURFACE_ACTS`), `/api/state`, `/api/timeline`,
+      `/api/params/<key>`, `/api/keymap`, the MJPEG stream's first part
+      and `/preview.jpg`; a Save-As encode job (clip 1 to YUV4MPEG: K2,
+      K3) and an `/mt/render` job (both clips, the model's crossfade over
+      their overlap and two region effects, under
+      LIVES_TPU_PALLAS_COMPOSITE=1: K2, K4) run to completion;
+   c. a player playing clip 1 under a saturation key into an
+      `L2LSender`, then a `StreamSender`, with a YUV420P sink spec (K3 in
+      the sink step) over loopback UDP, one frame at a time awaited with
+      a limit; the receiver is the clip of a second player under a
+      vignette key into a Y4M sink (K2, K3); frames and datagrams sent,
+      received and lost;
+   then the preview JPEGs, the encoded file, the rendered clip, the
+   received frames and the receivers' Y4M files of the two passes
+   compared (0 LSB expected; the measured LSB printed);
+   d. where puretext is registered: spiral_text's and spinning_letters'
+      letters at `PURETEXT_COUNTS` letters, for one frame and 96, on the
+      card equal to the CPU route's, and one 1080p frame of each rendered
+      on the card within 1 LSB of the CPU's.
+   The whole phase's and each step's seconds.
 Then a `resources` line for K1 (both builds), K4, K5 and K6 (the path's
 entry: ptxas registers and spills, blocks an SM), a JSON line of the kernels
 (with each one's bound: the larger of its bytes over 3.35 TB/s and its
@@ -1071,11 +1111,15 @@ def phase12(dev, card0, card, el, src, sink, held, ms, bounds, launches):
          max_abs_err=f"{worst:.3g}")
     assert worst <= 1e-5, ("pipeline", worst)
 
-    # 12f. the dry run of every path at a small size
+    # 12f. the dry run of every path at a small size, with the JPEG
+    # lanes' DP steps
     t0 = time.perf_counter()
-    dryrun_multichip([card0] * 4)
+    jpeg = dryrun_multichip([card0] * 4)
     line("12f dryrun_multichip", entries=4,
          seconds=f"{time.perf_counter() - t0:.2f}")
+    line("12f jpeg_dp", entries=4,
+         decode_bit_identical=jpeg["decode"],
+         encode_bit_identical=jpeg["encode"])
     os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "1"
 
 
@@ -2827,8 +2871,7 @@ TITLED_ANIMATE = 3
 TITLED_TRACKS = 5
 
 #: phase 18a's filters at B = 2 with their static values; haip and
-#: randomiser at frames 0, 1 and 100,000; puretext, deferred, through its
-#: unregistered filter
+#: randomiser at frames 0, 1 and 100,000
 TITLES_FILTERS = [
     ("livetext", {"text": "live text", "size": 96}),
     ("videowall", {"tiles": 3}), ("push", {}), ("data_processor", {}),
@@ -3012,8 +3055,7 @@ def titles(dev, card, launches):
 
     # 18a. each filter alone, the card against the CPU
     for name, static in TITLES_FILTERS:
-        # puretext is written and deferred: its filter, unregistered
-        f = puretext.FILTER if name == "puretext" else get_filter(name)
+        f = get_filter(name)
         rng = np.random.default_rng(sum(map(ord, name)))
         frames = [0, 1, 100_000] if name in ("haip", "randomiser") else [0, 7]
         B = len(frames)
@@ -5465,6 +5507,474 @@ def control_phase(dev, card, launches):
     line("24 phase", card=repr(card), seconds=f"{total:.2f}")
 
 
+SURFACE_CYCLES = 30
+#: 25b's key toggles over HTTP, before that cycle's `process_one`
+SURFACE_ACTS = {10: [("/effect_key/toggle", 3)],
+                20: [("/effect_key/toggle", 1)]}
+#: frames each stream format of 25c carries
+STREAM_FRAMES = 12
+#: 25d's letter counts
+PURETEXT_COUNTS = (56, 64, 104, 128, 200, 256)
+
+
+def launch_counts(dev):
+    """Every kernel's launch count, after a synchronise; and a function
+    that sets them all to 0."""
+    from lives_tpu_torch.graph import composite, fused_sweep, stateful_sweep
+    from lives_tpu_torch.ops import yuv_kernels as yk
+
+    def zero():
+        fused_sweep.MODE_LAUNCHES.update(
+            dict.fromkeys(fused_sweep.MODE_LAUNCHES, 0))
+        stateful_sweep.LAUNCHES = 0
+        yk.LAUNCHES.update(dict.fromkeys(yk.LAUNCHES, 0))
+        composite.LAUNCHES = 0
+        sync(dev)
+
+    def counts():
+        sync(dev)
+        return {"k1": sum(fused_sweep.MODE_LAUNCHES.values()),
+                "k2": yk.LAUNCHES["yuv420_to_rgb"],
+                "k3": yk.LAUNCHES["rgb_to_yuv420"],
+                "k4": composite.LAUNCHES, "k5": stateful_sweep.LAUNCHES}
+    return zero, counts
+
+
+def http_call(ui, path, body=None, timeout=120.0):
+    """(status, body) of one request to the web UI, with a time limit."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://{ui.host}:{ui.port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def mjpeg_first_part(ui, timeout=60.0):
+    """The first JPEG of the web UI's MJPEG stream."""
+    import http.client
+    c = http.client.HTTPConnection(ui.host, ui.port, timeout=timeout)
+    try:
+        c.request("GET", "/preview.mjpg")
+        r = c.getresponse()
+        assert r.status == 200 and "multipart" in r.getheader(
+            "Content-Type"), r.status
+        assert r.readline().strip() == b"--frame"
+        n = None
+        while True:
+            h = r.readline().strip()
+            if not h:
+                break
+            if h.lower().startswith(b"content-length:"):
+                n = int(h.split(b":")[1])
+        return r.read(n)
+    finally:
+        c.close()
+
+
+def join_named(name, timeout=600.0):
+    import threading
+    for t in threading.enumerate():
+        if t.name == name:
+            t.join(timeout=timeout)
+            assert not t.is_alive(), f"{name} did not finish"
+
+
+def webui_run(dev, card, root, paths, plain):
+    """25b once: a `WebUI` over an `OSCServer` whose player on `dev` holds
+    clip 1 and a three-filter chain, driven over HTTP and `process_one` on
+    the scripted clock. Returns what the caller compares."""
+    from lives_tpu_torch.graph import SinkSpec
+    from lives_tpu_torch.multitrack import Multitrack
+    from lives_tpu_torch.osc.server import OSCServer
+    from lives_tpu_torch.player import NullSink, Player
+    from lives_tpu_torch.player import player as player_mod
+    from lives_tpu_torch.webui import WebUI
+
+    tag = "25b plain" if plain else "25b"
+    zero, counts = launch_counts(dev)
+    root.mkdir(parents=True, exist_ok=True)
+    clock = ScriptedClock()
+    saved_time = player_mod.time
+    player_mod.time = clock
+    pl = Player(NullSink(), SinkSpec(), fps=FPS, device=dev)
+    pl.async_compile = False
+    pl.prewarm_compile = False
+    srv = OSCServer(pl, port=0)
+    srv.workdir = str(root / "wd")
+    (root / "wd").mkdir(exist_ok=True)
+    srv.start()
+    ui = WebUI(srv, port=0).start()
+    ui.tap.min_interval = 0.0
+    out = {}
+    try:
+        def cmd(path, *args):
+            code, body = http_call(ui, "/api/cmd",
+                                   {"path": path, "args": list(args)})
+            assert code == 200, (path, code, body[:200])
+            return json.loads(body)["ret"]
+        t0 = time.perf_counter()
+        zero()
+        assert [cmd("/clip/open/file", p) for p in paths] == [1, 2]
+        cmd("/clip/select", 1)
+        for key, name in ((1, "gaussian_blur"), (2, "colour_balance"),
+                          (3, "saturation")):
+            assert cmd("/effect_key/map", key, name) == 1
+        cmd("/effect_key/enable", 1)
+        cmd("/effect_key/enable", 2)
+        cmd("/video/fps/set", FPS)
+        cmd("/video/play")
+        pl._frame0 += 0.5
+        jpegs, seq = [], -1
+        for c in range(SURFACE_CYCLES):
+            for act in SURFACE_ACTS.get(c, ()):
+                cmd(*act)
+            pl.process_one()
+            clock.now = (c + 1) / FPS
+            jpeg, seq2 = ui.tap.wait_jpeg(seq, timeout=120)
+            assert seq2 != seq, f"no preview for cycle {c}"
+            seq = seq2
+            jpegs.append(jpeg)
+        cycles_s = time.perf_counter() - t0
+        routes = {}
+        for r in ("/api/state", "/api/timeline", "/api/params/1",
+                  "/api/params/2", "/api/keymap"):
+            code, body = http_call(ui, r)
+            assert code == 200, (r, code)
+            routes[r] = json.loads(body)
+        mjpeg = mjpeg_first_part(ui)
+        code, still = http_call(ui, "/preview.jpg")
+        assert code == 200 and still == jpegs[-1] == mjpeg
+        cmd("/video/stop")
+        played = counts()
+        # the Save-As encode job
+        t1 = time.perf_counter()
+        code, body = http_call(ui, "/api/encode", {
+            "cid": 1, "path": str(root / "saved.y4m"),
+            "encoder": "yuv4mpeg"})
+        assert code == 200 and json.loads(body)["ok"], body
+        join_named("encode-job")
+        encode_s = time.perf_counter() - t1
+        # the multitrack render job: both clips on two tracks with the
+        # model's crossfade over their overlap and two region effects
+        srv.multitrack = Multitrack(fps=FPS, width=W, height=H)
+        srv.multitrack.autotrans_filter = "crossfade"
+        assert cmd("/block/insert", 1, 0, 0.0) == 1
+        assert cmd("/block/insert", 2, 1, PLAYER_CLIP_FRAMES / 2 / FPS) == 1
+        n = int(cmd("/mt/nframes/get"))
+        for fx in ("saturation", "colour_balance"):
+            assert cmd("/mt/fx/region", fx, 0, n, 0)
+        os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "1"
+        try:
+            t2 = time.perf_counter()
+            code, body = http_call(ui, "/api/mt_render", {"audio": False})
+            assert code == 200 and json.loads(body)["ok"], body
+            join_named("mt-render-job")
+            render_s = time.perf_counter() - t2
+        finally:
+            os.environ["LIVES_TPU_PALLAS_COMPOSITE"] = "0"
+        jobs = json.loads(http_call(ui, "/api/jobs")[1])
+        assert [j["state"] for j in jobs.values()] == ["done", "done"], jobs
+        got = counts()
+        tap = ui.tap
+        line(tag, card=repr(card), cycles=SURFACE_CYCLES,
+             previews=len(jpegs), preview_bytes=sum(map(len, jpegs)),
+             device_encodes=tap.device_encodes,
+             host_encodes=tap.host_encodes,
+             shown=routes["/api/state"]["shown"],
+             keys_on=[k["key"] for k in routes["/api/state"]["keys"]
+                      if k["active"]],
+             play_launches=played, all_launches=got,
+             cycles_s=f"{cycles_s:.3f}", encode_s=f"{encode_s:.3f}",
+             mt_render_s=f"{render_s:.3f}", mt_frames=n)
+        assert tap.error is None and tap.host_encodes == 0
+        assert tap.device_encodes >= SURFACE_CYCLES
+        out.update(jpegs=jpegs, launches=got, saved=root / "saved.y4m",
+                   mt_clip=srv.clips[jobs["2"]["clip"]], routes=routes)
+    finally:
+        ui.stop()
+        srv.stop()
+        pl.stop()
+        player_mod.time = saved_time
+    return out
+
+
+def jpeg_gap(a: bytes, b: bytes) -> int:
+    """Max |diff| of two JPEGs after decoding (0 where the bytes agree)."""
+    if a == b:
+        return 0
+    import io
+
+    import numpy as np
+    from PIL import Image
+    x, y = (np.asarray(Image.open(io.BytesIO(d)).convert("RGB"), np.int16)
+            for d in (a, b))
+    return int(np.abs(x - y).max()) if x.shape == y.shape else 255
+
+
+def stream_run(dev, card, root, path, fmt, plain):
+    """25c once, for one format: a player on `dev` playing clip `path`
+    under a saturation key into a sender with a YUV420P sink spec over
+    loopback UDP, the receiver the clip of a second player under a
+    vignette key into a Y4M sink; one frame at a time, each awaited with
+    a time limit."""
+    import hashlib
+    import threading
+
+    from lives_tpu_torch import stream
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.graph import SinkSpec
+    from lives_tpu_torch.io.clips import open_clip
+    from lives_tpu_torch.player import Player, Y4MSink
+    from lives_tpu_torch.player import player as player_mod
+
+    zero, counts = launch_counts(dev)
+    root.mkdir(parents=True, exist_ok=True)
+    rx = (stream.StreamReceiver if fmt == "ltpu"
+          else stream.L2LReceiver)(port=0)
+    tx = (stream.StreamSender if fmt == "ltpu"
+          else stream.L2LSender)("127.0.0.1", rx.port)
+    clock = ScriptedClock()
+    saved_time = player_mod.time
+    player_mod.time = clock
+    yuv = SinkSpec(palette=int(Palette.YUV420P))
+    p = Player(tx, yuv, fps=FPS, device=dev)
+    q = Player(Y4MSink(str(root / f"{fmt}.y4m")), yuv, fps=FPS, device=dev)
+    ev = threading.Event()
+    hashes, lost, t_wait = [], 0, 0.0
+    try:
+        for pp in (p, q):
+            pp.async_compile = False
+            pp.prewarm_compile = False
+        p.state.fg_clip = open_clip(path, str(root / "work"))
+        p.keymap.set_key(0, 0, "saturation")
+        p.key_toggle(0, True)
+        # a key on the receiving player too: the received YUV420P frames
+        # reach its chain through K2 (with no chain they would pass
+        # through to its YUV420P sink unconverted)
+        q.keymap.set_key(0, 0, "vignette")
+        q.key_toggle(0, True)
+        q.state.fg_clip = rx
+        zero()
+        t0 = time.perf_counter()
+        p.start()
+        p._frame0 += 0.5
+        for c in range(STREAM_FRAMES):
+            p.process_one()
+            tw = time.perf_counter()
+            while rx.received < c + 1 - lost and \
+                    time.perf_counter() - tw < 10.0:
+                ev.wait(0.002)
+            t_wait += time.perf_counter() - tw
+            if rx.received < c + 1 - lost:
+                lost += 1
+            else:
+                lay = rx.get_frame(0)
+                hashes.append(hashlib.sha256(b"".join(
+                    pl.numpy().tobytes() for pl in lay.planes)).hexdigest())
+                if not q.state.playing:   # the receiver knows the size
+                    q.start()
+                    q._frame0 += 0.5
+                q.process_one()
+            clock.now = (c + 1) / FPS
+        p.stop()
+        q.stop()
+        wall = time.perf_counter() - t0
+        got = counts()
+        tw = time.perf_counter()   # the last datagram (L2L: STREND) lands
+        while rx.datagrams < tx.datagrams and \
+                time.perf_counter() - tw < 5.0:
+            ev.wait(0.002)
+    finally:
+        rx.close()
+        player_mod.time = saved_time
+    sent_dg = tx.datagrams
+    line(f"25c {fmt}{' plain' if plain else ''}", card=repr(card),
+         frames_sent=STREAM_FRAMES, frames_received=rx.received,
+         frames_lost=lost, datagrams_sent=sent_dg,
+         datagrams_received=rx.datagrams,
+         datagrams_dropped=sent_dg - rx.datagrams,
+         partial_frames_dropped=getattr(rx, "dropped", "n/a"),
+         shown_by_receiver=q.frames_shown, launches=got,
+         wall_s=f"{wall:.3f}", waiting_s=f"{t_wait:.3f}")
+    return {"hashes": hashes, "y4m": root / f"{fmt}.y4m", "launches": got,
+            "lost": lost}
+
+
+def puretext_card(dev, card):
+    """25d: spiral_text's and spinning_letters' cell origins, rotations and
+    opacities on the card at `PURETEXT_COUNTS` letters, for one frame and
+    a batch of 96, against the CPU route's; one 1080p frame of each mode
+    rendered on the card against the CPU's."""
+    import numpy as np
+    import torch
+
+    from lives_tpu_torch.effects.builtin import puretext
+    from lives_tpu_torch.effects.host import instantiate
+    from lives_tpu_torch.graph import FrameGraph, SinkSpec
+    from lives_tpu_torch.layer import Layer
+    from tools.puretext_forms import letters_text
+
+    rng = np.random.default_rng(25)
+    t0 = time.perf_counter()
+    checked = 0
+    for n in PURETEXT_COUNTS:
+        text = letters_text(n)
+        for mode in (0, 1):
+            for B in (1, 96):
+                tc = rng.uniform(0, 30, B).astype(np.float32)
+                sp = rng.uniform(0.05, 10, B).astype(np.float32)
+                got = {}
+                for label, d in (("card", dev), ("cpu", "cpu")):
+                    on = puretext._atlas_on(text, 48, W, H, mode == 1,
+                                            str(torch.device(d)))
+                    got[label] = [v.cpu() for v in puretext.letters(
+                        mode, torch.from_numpy(tc)[:, None].to(d),
+                        torch.from_numpy(sp)[:, None].to(d), on, W, H, B)]
+                for a, b in zip(*got.values()):
+                    assert torch.equal(a, b), (n, mode, B)
+                checked += 1
+    letters_s = time.perf_counter() - t0
+    frames = {}
+    base = torch.from_numpy(np.random.default_rng(26).integers(
+        0, 256, (3, H, W), np.uint8))
+    for label, d in (("card", dev), ("cpu", "cpu")):
+        for mode in (0, 1):
+            g = FrameGraph([instantiate("puretext", text=letters_text(256),
+                                        mode=mode, size=48)],
+                           SinkSpec(), fps=FPS)
+            frames[(label, mode)] = g.run(
+                [Layer(planes=(base.to(d),))], tc=3.7, frame=111
+            ).planes[0].cpu()
+    gaps = [int((frames[("card", m)].int()
+                 - frames[("cpu", m)].int()).abs().max()) for m in (0, 1)]
+    line("25d puretext", card=repr(card), counts=list(PURETEXT_COUNTS),
+         cases=checked, letters_equal=True, frame_max_abs_err=gaps,
+         seconds=f"{letters_s:.2f}")
+    assert max(gaps) <= 1, gaps
+
+
+def surfaces_phase(dev, card, launches):
+    """25. the browser and streaming surfaces at 1920x1080, 30 fps, on two
+    of phase 16's decoded Y4M clips: the console's selftest; a `WebUI`
+    and two stream formats, each first with K2, K3 and K4 swapped for
+    their plain versions, then with the kernels; puretext's letters on the
+    card where it is registered."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from lives_tpu_torch import cli
+    from lives_tpu_torch.diagnostics import benchmark_memcpy
+    from lives_tpu_torch.effects.host import list_filters
+    from lives_tpu_torch.graph import composite
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+
+    if torch.device(dev).type == "cuda":
+        for built in (yk.build(), composite.build()):
+            assert built is not None
+    t_phase = time.perf_counter()
+    steps = {}
+    # 25a. the console's self-test on the card
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["selftest", "--device", str(dev)])
+    out = buf.getvalue().splitlines()
+    line("25a selftest", card=repr(card), rc=rc,
+         passed=sum(ln.startswith("PASS") for ln in out),
+         failed=[ln for ln in out if ln.startswith("FAIL")],
+         **{k: f"{v:.2f}" for k, v in benchmark_memcpy().items()},
+         memcpy="host")
+    assert rc == 0 and not any("FAIL" in ln for ln in out), out
+    steps["25a selftest"] = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        src = DeviceSyntheticSource(H, W, device=dev)
+        allc, _, _ = write_clips(str(tmp), src, 2, PLAYER_CLIP_FRAMES)
+        paths = [allc[c].source_uri for c in (1, 2)]
+        for c in allc.values():
+            c.close()
+        steps["25 clips"] = time.perf_counter()
+        runs = {}
+        kernels = (yk.yuv420_to_rgb, yk.rgb_to_yuv420, composite.composite)
+        for label in ("plain", "kern"):
+            if label == "plain":
+                yk.yuv420_to_rgb = yk.plain_yuv420_to_rgb
+                yk.rgb_to_yuv420 = yk.plain_rgb_to_yuv420
+                composite.composite = composite.plain_composite
+            try:
+                runs[label] = {"web": webui_run(
+                    dev, card, tmp / label / "web", paths, label == "plain")}
+                steps[f"25b {label}"] = time.perf_counter()
+                for fmt in ("l2l", "ltpu"):
+                    runs[label][fmt] = stream_run(
+                        dev, card, tmp / label / fmt, paths[0], fmt,
+                        label == "plain")
+                steps[f"25c {label}"] = time.perf_counter()
+            finally:
+                yk.yuv420_to_rgb, yk.rgb_to_yuv420, composite.composite = \
+                    kernels
+        plain, kern = runs["plain"], runs["kern"]
+        for what in ("web", "l2l", "ltpu"):
+            assert not any(plain[what]["launches"].values()), \
+                (what, plain[what]["launches"])
+        web = kern["web"]["launches"]
+        assert web["k2"] > 0 and web["k3"] > 0 and web["k4"] > 0, web
+        for fmt in ("l2l", "ltpu"):
+            # K2 and K3 in each player, a frame each
+            got = kern[fmt]["launches"]
+            assert got["k2"] == got["k3"] == 2 * (
+                STREAM_FRAMES - kern[fmt]["lost"]), (fmt, got)
+        gaps = {"preview": max(jpeg_gap(a, b) for a, b in zip(
+            plain["web"]["jpegs"], kern["web"]["jpegs"])),
+            "preview_identical": plain["web"]["jpegs"]
+            == kern["web"]["jpegs"]}
+        a, b = (np.fromfile(r["web"]["saved"], np.uint8).astype(np.int16)
+                for r in (plain, kern))
+        assert a.shape == b.shape, (a.shape, b.shape)
+        gaps["encode_job"] = int(np.abs(a - b).max())
+        gaps["mt_render_job"] = png_clip_gap(plain["web"]["mt_clip"],
+                                             kern["web"]["mt_clip"])[0]
+        for fmt in ("l2l", "ltpu"):
+            x, y = (np.fromfile(r[fmt]["y4m"], np.uint8).astype(np.int16)
+                    for r in (plain, kern))
+            same = plain[fmt]["hashes"] == kern[fmt]["hashes"]
+            gaps[f"{fmt}_received_identical"] = same
+            gaps[f"{fmt}_sink"] = int(np.abs(x - y).max()) \
+                if x.shape == y.shape else "lengths differ"
+        line("25 vs_plain", card=repr(card), bound=1, **gaps)
+        assert gaps["preview"] <= 1 and gaps["encode_job"] <= 1 and \
+            gaps["mt_render_job"] <= 1, gaps
+        for fmt in ("l2l", "ltpu"):
+            if not (plain[fmt]["lost"] or kern[fmt]["lost"]):
+                assert gaps[f"{fmt}_sink"] != "lengths differ" and \
+                    gaps[f"{fmt}_sink"] <= 1, gaps
+        for r in (kern["web"], kern["l2l"], kern["ltpu"]):
+            launches["yuv420_to_rgb"] += r["launches"]["k2"]
+            launches["rgb_to_yuv420"] += r["launches"]["k3"]
+            launches["composite"] += r["launches"]["k4"]
+        steps["25 compare"] = time.perf_counter()
+    if "puretext" in list_filters():
+        puretext_card(dev, card)
+        steps["25d puretext"] = time.perf_counter()
+    else:
+        line("25d puretext", card=repr(card), registered=False)
+    t = t_phase
+    for k, v in steps.items():
+        line("25 step", card=repr(card), step=k, seconds=f"{v - t:.2f}")
+        t = v
+    line("25 phase", card=repr(card),
+         seconds=f"{time.perf_counter() - t_phase:.2f}")
+
+
 def synced_calls(fn):
     """(fn's result, the synchronizing CUDA calls it made, as the warnings
     of torch's sync debug mode)."""
@@ -5554,6 +6064,9 @@ def main(argv) -> int:
         return 0
     if argv == ["--control"]:
         control_phase(dev, card, dict.fromkeys(NAMES, 0))
+        return 0
+    if argv == ["--surfaces"]:
+        surfaces_phase(dev, card, dict.fromkeys(NAMES, 0))
         return 0
     if argv and argv not in (["--vocabulary"], ["--vjfilters"],
                              ["--titles"]):
@@ -6140,6 +6653,7 @@ def main(argv) -> int:
     multitrack_phase(dev, card, launches)
     milk_phase(dev, card, launches)
     control_phase(dev, card, launches)
+    surfaces_phase(dev, card, launches)
     vel = timeline_v(1)
     vspec, _, _, vrows = chunk_of(vel, dev, 1)
     v_geom = fused_sweep.plan_geometry(

@@ -1,35 +1,41 @@
 """Headless VJ console: the terminal front-end.
 
-Counterpart of `lives_tpu/cli.py:23-175,189-193,195-311,338-345`
-(`build_player`, `run_interactive`, the `play` subcommand with `--osc`,
-and the `effects`, `recover`, `render` and `rfx` subcommands). It opens
-a clip, binds effect keys, starts playback with a live status line (inst
-fps / p99 / effort) and takes single-key commands on stdin (the clip
-editor's hotkey map). Also usable non-interactively:
+Counterpart of `lives_tpu/cli.py` (`build_player`, `run_interactive`,
+the `play` subcommand with `--osc`, and the `effects`, `selftest`,
+`recover`, `render`, `rfx` and `webui` subcommands). It opens a clip,
+binds effect keys, starts playback with a live status line (inst fps /
+p99 / effort) and takes single-key commands on stdin (the clip editor's
+hotkey map). Also usable non-interactively:
 
     python -m lives_tpu_torch.cli play file.y4m --fx gaussian_blur,vignette --seconds 5
     python -m lives_tpu_torch.cli play --fx saturation --seconds 5   # plasma
+    python -m lives_tpu_torch.cli play clip.y4m --sink l2l --out host:8888
     python -m lives_tpu_torch.cli effects
+    python -m lives_tpu_torch.cli selftest
     python -m lives_tpu_torch.cli rfx sepia clipdir     # a rendered effect
     python -m lives_tpu_torch.cli render layout.lay --clip 1=a.avi --audio --out out.y4m
     python -m lives_tpu_torch.cli play clip.y4m --osc 49999   # + OSC server
     python -m lives_tpu_torch.cli recover workdir   # a crashed session
+    python -m lives_tpu_torch.cli webui clip.y4m --port 8765  # browser UI
 
 Playback runs on `--device` (default `cuda`; without CUDA it raises, it
-does not fall back): YUV4MPEG clips into a null, Y4M or PNG sink, or the
-plasma generator without a clip, with `--osc PORT` an `osc.OSCServer` on
-the player, its full namespace answering on that UDP port; `rfx` applies
-a rendered-effect script on `--device` (default `cuda`); `render` renders
-a multitrack layout (`.json` or binary `.lay`) on `--device` (default
-`cuda`) over the clips `--clip` maps, or the synthetic source, into a
-YUV4MPEG file, with `--audio` its mixed audio as a WAV beside it;
-`recover` reopens a crashed session's journaled clips in a
-`api.LiVESApp` on `--device` (default `cuda`) and renders its autosaved
-take to a new clip there. Not ported yet, each raising
-`NotImplementedError` naming its ROADMAP Queue 1 item: the stream, l2l,
-sdl, vjack and av sinks, and the `selftest` and `webui` subcommands
-(item 23); the av encoder (item 11), so `render` writes YUV4MPEG
-whatever the output's suffix.
+does not fall back): YUV4MPEG clips or the plasma generator without a
+clip into a null, Y4M or PNG sink, an LTPU (`stream`) or reference L2L
+(`l2l`) UDP stream to `--out host:port`, or the libav lane (`av`, a file
+or URL; it raises the bridge's own error where the bridge does not
+load); with `--osc PORT` an `osc.OSCServer` on the player, its full
+namespace answering on that UDP port. `selftest` runs
+`diagnostics.run_startup_tests` on `--device`; `webui` serves the
+browser UI (`webui.WebUI`) and OSC over a player on `--device`; `rfx`
+applies a rendered-effect script on `--device`; `render` renders a
+multitrack layout (`.json` or binary `.lay`) on `--device` over the
+clips `--clip` maps, or the synthetic source, into a YUV4MPEG file, with
+`--audio` its mixed audio as a WAV beside it; `recover` reopens a
+crashed session's journaled clips in a `api.LiVESApp` on `--device` and
+renders its autosaved take to a new clip there. Not ported yet, each
+raising `NotImplementedError` naming its ROADMAP Queue 1 item: the sdl
+and vjack sinks (item 23); the av encoder (item 11), so `render` writes
+YUV4MPEG whatever the output's suffix.
 
 Keys: space=play/stop  0-8=toggle fx key  r=record  R=stop rec+save
       [ ]=fps down/up  v=reverse  p=ping-pong  q=quit
@@ -44,13 +50,9 @@ import time
 
 #: sink kinds `play --sink` names, and the item that ports each one not
 #: ported yet
-UNPORTED_SINKS = {"stream": 23, "l2l": 23, "sdl": 23,
-                  "vjack": 23, "av": 23}
+UNPORTED_SINKS = {"sdl": 23, "vjack": 23}
 #: subcommands of the JAX console not ported yet, and their items
-UNPORTED_COMMANDS = {
-    "selftest": "diagnostics.run_startup_tests (ROADMAP Queue 1 item 23)",
-    "webui": "webui.py (ROADMAP Queue 1 item 23)",
-}
+UNPORTED_COMMANDS: dict[str, str] = {}
 
 
 def build_player(uri: str | None, fx: list[str], width: int, height: int,
@@ -71,6 +73,24 @@ def build_player(uri: str | None, fx: list[str], width: int, height: int,
     elif sink_kind == "png":
         from .player.sinks import PNGSink
         sink = PNGSink(out or "frames")
+        spec = SinkSpec(width=width, height=height)
+    elif sink_kind == "stream":
+        from .stream import StreamSender
+        host, _, port = (out or "127.0.0.1:48888").partition(":")
+        sink = StreamSender(host, int(port or 48888))
+        spec = SinkSpec(width=width, height=height)
+    elif sink_kind == "l2l":
+        # reference LiVES-to-LiVES wire format: a real LiVES instance
+        # can receive this (Advanced / Receive LiVES stream from...)
+        from .stream import L2LSender
+        host, _, port = (out or "127.0.0.1:8888").partition(":")
+        sink = L2LSender(host, int(port or 8888))
+        spec = SinkSpec(width=width, height=height)
+    elif sink_kind == "av":
+        # encode/stream through the libav bridge: file (mkv/mp4/ogv) or
+        # network URL (udp://host:port mpegts, icecast://...)
+        from .player.sinks import AVStreamSink
+        sink = AVStreamSink(out or "out.mkv")
         spec = SinkSpec(width=width, height=height)
     else:
         sink = NullSink()
@@ -217,6 +237,22 @@ def main(argv=None):
     rcv.add_argument("--device", default="cuda",
                      help="the device the take renders on (default cuda; "
                           "no fallback)")
+    diag = sub.add_parser("selftest", help="run startup diagnostics")
+    diag.add_argument("--device", default="cuda",
+                      help="the device the checks run on (default cuda; "
+                           "no fallback)")
+    web = sub.add_parser("webui", help="serve the browser UI + OSC")
+    web.add_argument("uri", nargs="?", default=None)
+    web.add_argument("--port", type=int, default=8765)
+    web.add_argument("--osc", type=int, default=0)
+    web.add_argument("--width", type=int, default=0)
+    web.add_argument("--height", type=int, default=0)
+    web.add_argument("--device", default="cuda",
+                     help="the device to play on (default cuda; no "
+                          "fallback)")
+    web.add_argument("--seconds", type=float, default=None,
+                     help="serve this long, then stop (default: until "
+                          "interrupted)")
     for cmd in UNPORTED_COMMANDS:
         sub.add_parser(cmd, help="not ported yet").add_argument(
             "rest", nargs="*")
@@ -229,6 +265,14 @@ def main(argv=None):
                 continue
             print(f"{name:24s} {get_filter(name).description}")
         return 0
+    if args.cmd == "selftest":
+        from .diagnostics import run_startup_tests
+        res = run_startup_tests(verbose=True, device=args.device)
+        for k, v in res.items():
+            print(f"{'PASS' if v else 'FAIL'} {k}")
+        return 0 if all(res.values()) else 1
+    if args.cmd == "webui":
+        return _webui(args)
     if args.cmd == "rfx":
         return _rfx(args)
     if args.cmd == "render":
@@ -252,6 +296,35 @@ def main(argv=None):
     finally:
         if srv is not None:
             srv.stop()
+    return 0
+
+
+def _webui(args) -> int:
+    """`webui` (`lives_tpu/cli.py:290-318`): a player on `--device` over
+    the clip (or the plasma generator), an OSC server on it and the
+    browser UI on `--port` (0 picks a free one), served until interrupted
+    or for `--seconds`."""
+    from .osc.server import OSCServer
+    from .webui import WebUI
+    p = build_player(args.uri, [], args.width, args.height, "null", None,
+                     device=args.device)
+    srv = OSCServer(p, port=args.osc)
+    srv.start()
+    ui = WebUI(srv, port=args.port).start()
+    print(f"web ui: http://{ui.host}:{ui.port}/  (osc udp {srv.port})",
+          flush=True)
+    p.start()
+    t_end = time.monotonic() + args.seconds if args.seconds else None
+    try:
+        while t_end is None or time.monotonic() < t_end:
+            p.process_one()
+            time.sleep(0.001)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        p.stop()
+        ui.stop()
+        srv.stop()
     return 0
 
 

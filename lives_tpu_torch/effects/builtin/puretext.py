@@ -23,13 +23,16 @@ operations that round alike on the CPU and a GPU: `utils.sinf` and
 backend calls, `utils.xla_exp.expf` is XLA's own `exp`, and `fma32` stands
 where XLA's code generator contracts a multiply and an add into one FMA.
 
-The filter is deferred (`effects.host.DEFERRED`, ROADMAP Queue 3): the JAX
-plan contracts spiral_text's `i * 0.55 - t * 0.6` and spinning_letters'
-`t * 1.5 + i * 0.13` into an FMA only in the vector lanes of a letter loop
-that LLVM keeps rather than unrolls, which depends on the letter count,
-the batch size and the fusion (`tools/puretext_positions.py` measures
-it). The forms here are those of an unrolled loop, exact below 56
-letters, so `FILTER` stays out of the registry until the rest is matched.
+The jitted plan rounds three sums by the letter count n and the batch B
+(`tools/puretext_forms.py` maps them; `contracted` holds the rule):
+spiral_text's theta `i * 0.55 - t * 0.6` and spinning_letters' rotation
+`t * 1.5 + i * 0.13` contract into an FMA in the vector body of a letter
+loop that LLVM keeps (from `LOOP_KEPT` letters; the letters past the last
+whole vector of `LANES` run unrolled, uncontracted), and a one-letter
+starfield contracts its distance. One frame's plan multiplies spiral_text's
+frame scalars before the letter constant. Over letter counts 1-256 and
+batches of 1, 8, 32 and 96 every letter's cell origin, rotation and
+opacity is the JAX plan's (both tools read 0 differing letters).
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ import torch
 from ...constants import Palette
 from ...utils.sinf import cosf, sinf
 from ...utils.xla_exp import expf, fma32
-from ..host import ChannelTemplate, Filter, Param
+from ..host import ChannelTemplate, Filter, Param, register_filter
 from ..util import from_f01, join_alpha, per_frame, split_alpha, to_f01
 
 _RGBX = (Palette.RGB24, Palette.RGBA32)
@@ -193,16 +196,22 @@ def _fold(*factors) -> float:
 
 
 def positions(mode: int, t, speed, consts, n: int, w: int, h: int,
-              cell: int):
+              cell: int, batch: int, contract: int | None = None):
     """Each letter's (px, py, alpha, variant in [0, 1)) float32, (B, n),
     from (B, 1) t and speed (`puretext.py:155-195`), rounded as the jitted
     plan rounds them. XLA's simplifier turns a division by a constant into
     a product with its float32 reciprocal and folds the constant factors
     of a product into one (`_fold`); its code generator contracts the
-    multiply-adds the plan's position sums end in (`fma32`)."""
+    multiply-adds the plan's position sums end in (`fma32`), and in a
+    kept letter loop the sums of the first `contract` letters
+    (`contracted(mode, n, batch)` unless given)."""
     lx, ly, widx, rnd, rnd2, cos_ang, sin_ang = consts
     dev = lx.device
     i = torch.arange(n, dtype=torch.float32, device=dev)
+    if contract is None:
+        contract = contracted(mode, n, batch)
+    # the contracted letters, or None for none: a compare on the device
+    contract = (i < contract) if contract else None
     cx, cy = float(_F32((w - cell) / 2.0)), float(_F32((h - cell) / 2.0))
     one = torch.ones_like(i).expand(t.shape[0], n)
     var = torch.zeros_like(one)
@@ -210,7 +219,12 @@ def positions(mode: int, t, speed, consts, n: int, w: int, h: int,
     if mode == 0:      # spiral_text (puretext.c:2048 Archimedean unwind)
         prog = torch.clamp(ts * 0.25, 0.0, 1.0)
         theta = i * float(_F32(0.55)) - ts * float(_F32(0.6))
-        r = (i + 3.0) * _fold(_F32(1) / _F32(n + 3), min(w, h), 0.45) * prog
+        if contract is not None:
+            theta = torch.where(contract, fma32(
+                i, float(_F32(0.55)), -(ts * float(_F32(0.6)))), theta)
+        k = _fold(_F32(1) / _F32(n + 3), min(w, h), 0.45)
+        # one frame's plan multiplies its scalars first
+        r = (i + 3.0) * (prog * k) if batch == 1 else (i + 3.0) * k * prog
         px = fma32(r, cosf(theta), cx)
         py = fma32(r, sinf(theta), cy)
         alpha = one * (prog > i * float(_F32(1) / _F32(n + 1)))
@@ -218,8 +232,14 @@ def positions(mode: int, t, speed, consts, n: int, w: int, h: int,
         px, py = lx.expand_as(one), ly.expand_as(one)
         alpha = one
         var = _mod(ts * 1.5 + i * float(_F32(0.13)))
+        if contract is not None:
+            var = torch.where(contract, _mod(fma32(
+                i, float(_F32(0.13)), ts * 1.5)), var)
     elif mode == 2:    # letter_starfield (puretext.c:1614): radial fly-out
-        d = _mod(ts * float(_F32(0.4)) + rnd2)
+        d = ts * float(_F32(0.4)) + rnd2
+        if contract is not None:
+            d = torch.where(contract, fma32(ts, float(_F32(0.4)), rnd2), d)
+        d = _mod(d)
         rad = d * _fold(min(w, h), 0.7)
         px = fma32(cos_ang, rad, cx)
         py = fma32(sin_ang, rad, cy)
@@ -252,14 +272,39 @@ def positions(mode: int, t, speed, consts, n: int, w: int, h: int,
     return px, py, alpha, var
 
 
-def letters(mode: int, t, speed, atlas_on, w: int, h: int):
+#: the letter count from which the JAX plan keeps the loop over letters,
+#: by mode, for one frame and for a batch (`tools/puretext_forms.py`)
+LOOP_KEPT = {0: (64, 56), 1: (104, 104)}
+#: float32 lanes of the kept loop's vector body; the letters past its
+#: last whole vector run in an unrolled remainder
+LANES = 8
+
+
+def contracted(mode: int, n: int, B: int) -> int:
+    """How many leading letters of n the JAX plan computes with a
+    contracted FMA at batch B (0: none). Spiral_text's theta and
+    spinning_letters' rotation contract in the vector body of a kept
+    letter loop; letter_starfield's distance contracts for a text of one
+    letter, whose plan has no loop."""
+    if mode == 2:
+        return int(n == 1)
+    first = LOOP_KEPT.get(mode, (None, None))[B > 1]
+    if first is None or n < first:
+        return 0
+    return n // LANES * LANES
+
+
+def letters(mode: int, t, speed, atlas_on, w: int, h: int,
+            batch: int | None = None, contract: int | None = None):
     """(pxi, pyi, vki) int64 and alpha float32, each (B, n): every
     letter's cell origin, rotation and opacity, as the compositor takes
-    them (`puretext.py:219-226`)."""
+    them (`puretext.py:219-226`), as the JAX plan of `batch` frames (t's
+    rows unless given) computes them; `contract` overrides how many
+    leading letters take the contracted forms."""
     atlas = atlas_on[0]
     n, K, cell, _ = atlas.shape
     px, py, alpha, var = positions(mode, t, speed, atlas_on[1:], n, w, h,
-                                   cell)
+                                   cell, batch or t.shape[0], contract)
     # letters fully outside the frame vanish instead of clamping at edges
     inside = ((px > -cell) & (px < w) & (py > -cell) & (py < h)) \
         .to(torch.float32)
@@ -281,7 +326,7 @@ def _puretext_process(ins, p, ctx):
     n, K, cell, _ = atlas.shape
     t = per_frame(ctx.tc, dev).reshape(-1, 1)
     speed = per_frame(p["speed"], dev).reshape(-1, 1)
-    pxi, pyi, vki, alpha = letters(mode, t, speed, atlas_on, w, h)
+    pxi, pyi, vki, alpha = letters(mode, t, speed, atlas_on, w, h, B)
     Bk = max(B, pxi.shape[0])
     pxi, pyi, vki, alpha = (v.expand(Bk, n) for v in (pxi, pyi, vki, alpha))
     colour = torch.stack(torch.broadcast_tensors(
@@ -302,8 +347,7 @@ def _puretext_process(ins, p, ctx):
     return from_f01(join_alpha(out, al), lay)
 
 
-#: the filter, not registered (see the module's docstring)
-FILTER = Filter(
+FILTER = register_filter(Filter(
     name="puretext", process=_puretext_process, in_channels=_ONE_IN,
     params=(Param("text", "string", "pure text"),
             Param("mode", "string_list", 4, choices=MODES),
@@ -313,4 +357,4 @@ FILTER = Filter(
             Param("green", "num", 1.0, 0.0, 1.0),
             Param("blue", "num", 1.0, 0.0, 1.0)),
     description="animated text over video: 7 motion modes "
-                "(gdk/puretext.c PT_* op modes)")
+                "(gdk/puretext.c PT_* op modes)"))

@@ -4,13 +4,9 @@ interchange format.
 Counterpart of `lives_tpu/events/weed_binary.py:1-468`, copied (pure
 Python; importing it from `lives_tpu` would import jax); both packages
 write the same bytes for the same event list and read each other's files.
-The filter registry it reads is the port's, which lacks the filter
-`effects.host.DEFERRED` names (puretext): its in-parameter names are
-`puretext.FILTER`'s, so a layout that names it serialises, imports and
-maps names as the JAX package's does, and the renderer then refuses it
-naming its ROADMAP item rather than rendering something else. A name
-neither registry holds keeps the JAX package's path: imported verbatim,
-skipped with a warning at render.
+The filter registry it reads is the port's, which holds every filter of the
+JAX package's. A name neither registry holds keeps the JAX package's path:
+imported verbatim, skipped with a warning at render.
 
 Byte format (reference `weed_plant_serialise`, src/effects-weed.c:10969 and
 `weed_leaf_serialise` :10807, deserialise :11613):
@@ -175,11 +171,7 @@ def _filter_params(name: str) -> list[str] | None:
     try:
         return [p.name for p in get_filter(name).params]
     except KeyError:
-        pass
-    if name == "puretext":  # deferred (`effects.host.DEFERRED`)
-        from ..effects.builtin.puretext import FILTER
-        return [p.name for p in FILTER.params]
-    return None
+        return None
 
 
 def _param_index(filter_hashname: str, param_name: str) -> int:

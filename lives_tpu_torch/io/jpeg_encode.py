@@ -40,9 +40,9 @@ always holds). Nothing reads a value back to the host before the fetch.
 Wire bytes are the JAX package's byte for byte, so AVIs and packs cross
 between the two packages. Coefficients match the JAX lane and the
 float64 twin within +-1 on a small share of coefficients (a rounding tie
-at .5). Not ported yet: `shard_encode_batch` (`:845`, with the dry run's
-JPEG steps over the port's `Mesh`, ROADMAP Queue 1 item 25); and on
-purpose not the chunked prefix
+at .5). `shard_encode_batch` (`:845-861`) splits an encoder's frame
+batch over a `parallel.mesh.Mesh` axis. Not ported, on purpose: the
+chunked prefix
 fetch of the v3 buffer (`_fetch_prefix`, `:657-716`), which exists for
 the TPU attachment's transfer latency.
 """
@@ -661,3 +661,40 @@ def encode_frame_ref(rgb: np.ndarray, quality: int = 85,
         blocks.append(np.rint(F / qt[qno].reshape(8, 8))
                       .astype(np.int32).reshape(-1, 64))
     return meta, blocks
+
+
+def shard_encode_batch(mesh, enc: JpegDeviceEncoder, frames,
+                       axis: str | None = None) -> list[bytes]:
+    """Encode a (B, 3, H, W) u8 RGB batch with its frames split over
+    `mesh`'s `axis` (`jpeg_encode.py:845-861`): data-parallel export,
+    each device of the axis transforming, quantising and packing its
+    shard, and each shard's wire bytes fetched from its own device. B must
+    divide by the axis length. Each shard runs an encoder like `enc` (its
+    geometry, quality, sampling and pool density) of the shard's batch on
+    its device, built once and kept on `enc`. All shards are dispatched
+    before the first is collected. Returns the B JPEGs, equal to
+    `enc.encode_batch(frames)`'s wherever no pool overflows."""
+    if axis is None:
+        axis = mesh.axis_names[0]
+    devs = mesh.axis_devices(axis)
+    if isinstance(frames, (list, tuple)):
+        frames = torch.stack(list(frames))
+    if not isinstance(frames, torch.Tensor):
+        frames = torch.from_numpy(np.ascontiguousarray(frames))
+    B = int(frames.shape[0])
+    if B % len(devs):
+        raise ValueError(f"a batch of {B} does not split over the "
+                         f"{len(devs)} devices of axis {axis!r}")
+    Bs = B // len(devs)
+    shards = enc.__dict__.setdefault("shards", {})
+    handles = []
+    for k, d in enumerate(devs):
+        e = shards.get((str(d), Bs))
+        if e is None:
+            e = shards[(str(d), Bs)] = JpegDeviceEncoder(
+                enc.meta.width, enc.meta.height, enc.quality, batch=Bs,
+                sampling=enc.meta.sampling, density=enc.density, device=d)
+        part = frames[k * Bs:(k + 1) * Bs].to(
+            d, non_blocking=d.type == "cuda")
+        handles.append((e, e.dispatch_batch(part)))
+    return [data for e, h in handles for data in e.collect_batch(h, Bs)]

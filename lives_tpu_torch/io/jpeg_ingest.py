@@ -41,8 +41,9 @@ through the float64 twin on the host) and `MJPEGMultiClipSource.
 host_decoded` (a clip that is not MJPG, or whose stream fails to
 entropy-decode, is decoded frame by frame on the host).
 
-Not ported yet: `shard_decode_batch` (`:354`), which goes with the dry
-run's JPEG steps over the port's `Mesh` (ROADMAP Queue 1 item 25).
+`shard_decode_batch` (`:354-366`) runs a built decoder with its frame
+batch split over a `parallel.mesh.Mesh` axis: a decoder of the shard's
+batch on each device of the axis, the planes gathered on the first.
 """
 
 from __future__ import annotations
@@ -304,7 +305,40 @@ def build_device_decoder(meta: JpegMeta, B: int, capacity: int,
                           .reshape(B, hb * 8, wb * 8)[:, :dh, :dw])
         return planes
 
+    decode.meta, decode.capacity = meta, capacity
     return decode
+
+
+def shard_decode_batch(mesh, dec, arrays, axis: str | None = None):
+    """Run the built decoder `dec` with its frame batch split over `mesh`'s
+    `axis` (`jpeg_ingest.py:354-366`): data-parallel ingest, each device
+    of the axis dequantising and transforming its shard of the batch (the
+    decode is per frame, so the shards need nothing of each other).
+    `arrays` is the (dc, counts, pos, vals, esc_idx, esc_val, qtabs)
+    tuple with a leading batch axis B that divides by the axis length;
+    each shard's decoder (the shard's batch on its device) is built once
+    and kept on `dec`. Returns the planes, gathered on the axis's first
+    device, equal to `dec(*arrays)`'s."""
+    if axis is None:
+        axis = mesh.axis_names[0]
+    devs = mesh.axis_devices(axis)
+    B = int(arrays[0].shape[0])
+    if B % len(devs):
+        raise ValueError(f"a batch of {B} does not split over the "
+                         f"{len(devs)} devices of axis {axis!r}")
+    Bs = B // len(devs)
+    shards = dec.__dict__.setdefault("shards", {})
+    outs = []
+    for k, d in enumerate(devs):
+        fn = shards.get((str(d), Bs))
+        if fn is None:
+            fn = shards[(str(d), Bs)] = build_device_decoder(
+                dec.meta, Bs, dec.capacity, device=d)
+        outs.append(fn(*(a[k * Bs:(k + 1) * Bs].to(
+            d, non_blocking=d.type == "cuda") for a in arrays)))
+    dst = devs[0]
+    return [torch.cat([o[c].to(dst) for o in outs]) for c in
+            range(len(outs[0]))]
 
 
 def layer_from_planes(planes, meta: JpegMeta) -> Layer:

@@ -5,10 +5,10 @@ Counterpart of `__graft_entry__.py:17-49,73-270` (`FLAGSHIP_TRANS`,
 main path's 10 tracks and 13 effects) at a small geometry through every
 path of `parallel.mesh`: frame-batch DP, spatial bands, a DP x SP grid,
 the band sweep (which must engage), a stateful chain over bands, and a
-pipeline over four one-input filters. The JAX dry run's DP steps over the
-JPEG device decoder and encoder (`__graft_entry__.py:186-238`) come with
-`shard_decode_batch` and `shard_encode_batch` over the port's `Mesh`
-(ROADMAP Queue 1 item 25) and are left out.
+pipeline over four one-input filters, and the JAX dry run's DP steps over
+the JPEG device decoder and encoder (`__graft_entry__.py:186-238`:
+`jpeg_ingest.shard_decode_batch`, `jpeg_encode.shard_encode_batch`), each
+bit for bit against the single-device call (`jpeg_dp_steps`).
 
     from lives_tpu_torch.parallel import dryrun_multichip
     dryrun_multichip(["cpu"] * 8)        # or ["cuda:0"] * 4, or 4 cards
@@ -73,10 +73,57 @@ def _within_1(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
     assert worst <= 1, f"{what}: max |diff| {worst} > 1"
 
 
-def dryrun_multichip(devices: Sequence) -> None:
+def jpeg_dp_steps(devices: Sequence) -> dict[str, bool]:
+    """The compressed lanes with their frame batch over a mesh of
+    `devices` (`__graft_entry__.py:186-238`): the JPEG device decoder on
+    one 64x32 JPEG a device and the device encoder on as many frames,
+    each bit for bit against its single-device call on the first device.
+    Returns {"decode": equal, "encode": equal}; raises if either is not."""
+    import io
+
+    from PIL import Image
+
+    from ..io.jpeg_encode import JpegDeviceEncoder, shard_encode_batch
+    from ..io.jpeg_ingest import (JpegStreamSource, build_device_decoder,
+                                  shard_decode_batch)
+    devices = [torch.device(d) for d in devices]
+    n = len(devices)
+    mesh = frame_mesh(devices)
+    yy, xx = np.mgrid[0:32, 0:64]
+    chunks = []
+    for s in range(n):
+        base = (128 + 80 * np.sin(xx / 9.0 + s)
+                * np.cos(yy / 7.0)).clip(0, 255)
+        bio = io.BytesIO()
+        Image.fromarray(np.stack([base] * 3, -1).astype(np.uint8)
+                        ).save(bio, "JPEG", quality=85)
+        chunks.append(bio.getvalue())
+    jsrc = JpegStreamSource(chunks, device=devices[0])
+    packed, _ = jsrc.entropy_pack(range(n))
+    dec = build_device_decoder(jsrc.meta, n, jsrc.capacity,
+                               device=devices[0])
+    ref = dec(*(a.to(devices[0]) for a in packed))
+    shd = shard_decode_batch(mesh, dec, packed)
+    same_dec = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(ref, shd))
+    assert same_dec, "sharded JPEG decode differs from one device"
+    frames = torch.from_numpy(np.stack([
+        np.clip(np.stack([128 + 80 * np.sin(xx / 9.0 + s),
+                          128 + 60 * np.cos(yy / 7.0),
+                          (xx + yy + s) % 256]), 0, 255).astype(np.uint8)
+        for s in range(n)]))
+    enc = JpegDeviceEncoder(64, 32, quality=85, batch=n, device=devices[0])
+    ref_w = enc.encode_batch(frames.to(devices[0]))
+    shd_w = shard_encode_batch(mesh, enc, frames)
+    same_enc = ref_w == shd_w
+    assert same_enc, "sharded JPEG encode differs from one device"
+    return {"decode": same_dec, "encode": same_enc}
+
+
+def dryrun_multichip(devices: Sequence) -> dict[str, bool]:
     """The flagship graph through every multi-device path on `devices`
     (n entries, repeats allowed), at a small geometry: checks that each
-    runs and agrees with the frame-batch DP render (+/-1 LSB)."""
+    runs and agrees with the frame-batch DP render (+/-1 LSB). Returns
+    `jpeg_dp_steps`' result."""
     devices = [torch.device(d) for d in devices]
     n = len(devices)
     B = max(n, 2) * 2
@@ -138,6 +185,8 @@ def dryrun_multichip(devices: Sequence) -> None:
     assert tuple(out_st.shape) == (B, 3, h, w)
     assert st_graph.states[0] is not None  # fire's state carried out
 
+    jpeg = jpeg_dp_steps(devices)
+
     # PP: one stage a device, frames streamed through the stages
     insts = ([instantiate(nm, **kw) for nm, kw in PIPELINE]
              + [None] * max(n - len(PIPELINE), 0))[:n]
@@ -155,4 +204,4 @@ def dryrun_multichip(devices: Sequence) -> None:
             FrameContext(tc=0.0, frame=0, fps=25.0, width=24,
                          height=16)).planes[0]
     assert torch.allclose(out_pp[:1], x, rtol=1e-5, atol=1e-5)
-
+    return jpeg

@@ -60,18 +60,16 @@ def test_effects_lists_the_ports_filters(capsys):
 
 
 def test_effects_lists_every_jax_filter_but_the_deferred(capsys):
-    """146 of the JAX console's 147 builtins: all but puretext, which
-    `DEFERRED` names with its item (the JAX registry may also hold
-    filters another test registered)."""
+    """All 147 of the JAX console's builtins, puretext included, and
+    nothing deferred (the JAX registry may also hold filters another test
+    registered)."""
     from lives_tpu_torch.effects.host import DEFERRED
     got = _listing(cli.main, capsys)
     ref = _listing(jcli.main, capsys)
-    assert len(got) == 146 and set(got) <= set(ref)
+    assert len(got) == 147 and set(got) <= set(ref)
     assert {f"milk_{n}" for n in ("geometry", "pulse", "spin",
-                                  "tunnel")} <= set(got)
-    assert sorted(DEFERRED) == ["puretext"]
-    assert set(DEFERRED) <= set(ref) - set(got)
-    assert all("ROADMAP" in why for why in DEFERRED.values())
+                                  "tunnel")} | {"puretext"} <= set(got)
+    assert not DEFERRED
 
 
 def test_build_player_matches_the_jax_console(y4m_clip, tmp_path):
@@ -151,10 +149,124 @@ def test_unported_sinks_raise_naming_their_item(sink, item):
         cli.build_player(None, [], 32, 16, sink, None, device="cpu")
 
 
-@pytest.mark.parametrize("cmd", sorted(cli.UNPORTED_COMMANDS))
-def test_unported_subcommands_raise_naming_their_item(cmd):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        cli.main([cmd])
+#: the JAX console's subcommands (`lives_tpu/cli.py:152-210`)
+JAX_COMMANDS = ["play", "effects", "render", "selftest", "recover", "rfx",
+                "webui"]
+
+
+@pytest.mark.parametrize("cmd", JAX_COMMANDS)
+def test_every_jax_subcommand_is_ported(cmd, capsys):
+    assert not cli.UNPORTED_COMMANDS
+    with pytest.raises(SystemExit) as e:
+        cli.main([cmd, "--help"])
+    assert e.value.code == 0
+    assert "not ported" not in capsys.readouterr().out
+
+
+def test_selftest_passes_on_the_cpu_as_jax(capsys):
+    assert cli.main(["selftest", "--device", "cpu"]) == 0
+    got = capsys.readouterr().out.splitlines()
+    assert jcli.main(["selftest"]) == 0
+    ref = capsys.readouterr().out.splitlines()
+    assert got == ref and len(got) == 6
+    assert all(ln.startswith("PASS ") for ln in got)
+
+
+def test_selftest_without_device_refuses_when_cuda_is_absent():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the refusal is for one without")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["selftest"])
+
+
+def test_webui_serves_on_port_0_and_stops(monkeypatch, capsys):
+    """`webui --port 0` on the CPU: the page and the state answer while
+    it serves, and it stops after `--seconds`."""
+    import json
+    import threading
+    import urllib.request
+    from lives_tpu_torch import webui
+    up, uis = threading.Event(), []
+    start = webui.WebUI.start
+
+    def started(self):
+        uis.append(start(self))
+        up.set()
+        return uis[-1]
+    monkeypatch.setattr(webui.WebUI, "start", started)
+    rc = []
+    th = threading.Thread(target=lambda: rc.append(cli.main(
+        ["webui", "--device", "cpu", "--port", "0", "--width", "32",
+         "--height", "16", "--seconds", "3"])), daemon=True)
+    th.start()
+    assert up.wait(60), "the web UI did not start"
+    base = f"http://{uis[0].host}:{uis[0].port}"
+    with urllib.request.urlopen(base + "/", timeout=30) as r:
+        assert r.read() == webui._PAGE.encode()
+    with urllib.request.urlopen(base + "/api/state", timeout=30) as r:
+        state = json.loads(r.read())
+    assert state["clips"] == [] and len(state["keys"]) == 9
+    th.join(timeout=60)
+    assert not th.is_alive() and rc == [0]
+    assert f"web ui: http://127.0.0.1:{uis[0].port}/" in \
+        capsys.readouterr().out
+
+
+@pytest.mark.parametrize("sink", ["stream", "l2l"])
+def test_play_streams_to_a_receiver(y4m_clip, sink):
+    """`play --sink stream|l2l --out host:port` on the CPU: the port's
+    receiver on port 0 gets the clip's frames as RGB24."""
+    import threading
+    from lives_tpu_torch.stream import L2LReceiver, StreamReceiver
+    rx = (StreamReceiver if sink == "stream" else L2LReceiver)(port=0)
+    try:
+        assert cli.main(["play", y4m_clip, "--sink", sink, "--out",
+                         f"127.0.0.1:{rx.port}", "--seconds", "0.5",
+                         "--device", "cpu"]) == 0
+        ev = threading.Event()
+        for _ in range(2000):
+            if rx.received:
+                break
+            ev.wait(0.01)
+        lay = rx.get_frame(0)
+        assert rx.received >= 1
+        assert (lay.width, lay.height, lay.palette) == \
+            (32, 16, int(Palette.RGB24))
+    finally:
+        rx.close()
+
+
+def test_play_av_sink_writes_through_the_bridge(y4m_clip, tmp_path):
+    from lives_tpu_torch.io.av import load_avbridge
+    if load_avbridge() is None:
+        pytest.skip("no libav lane on this host")
+    out = tmp_path / "out.mkv"
+    p = cli.build_player(y4m_clip, [], 0, 0, "av", str(out), device="cpu")
+    from lives_tpu_torch.player.sinks import AVStreamSink
+    assert isinstance(p.sink, AVStreamSink) and p.sink.url == str(out)
+    assert cli.main(["play", y4m_clip, "--sink", "av", "--out", str(out),
+                     "--seconds", "0.3", "--device", "cpu"]) == 0
+    assert out.stat().st_size > 0
+
+
+def test_play_av_sink_raises_the_bridges_error_where_absent(y4m_clip,
+                                                             tmp_path,
+                                                             monkeypatch):
+    """Without the libav bridge the console raises the bridge's own
+    error when playback opens the sink, as the JAX console's sink does."""
+    import lives_tpu.io.av as jav
+    import lives_tpu_torch.io.av as tav
+    monkeypatch.setattr(tav, "load_avbridge", lambda: None)
+    monkeypatch.setattr(jav, "load_avbridge", lambda: None)
+    out = str(tmp_path / "out.mkv")
+    with pytest.raises(RuntimeError, match="no libav lane") as got:
+        cli.main(["play", y4m_clip, "--sink", "av", "--out", out,
+                  "--seconds", "0.3", "--device", "cpu"])
+    # the JAX console's sink, as its `play` opens it
+    jp = jcli.build_player(y4m_clip, [], 0, 0, "av", out)
+    with pytest.raises(RuntimeError, match="avbridge unavailable") as ref:
+        jp.sink.init_screen(32, 16, 30.0)
+    assert type(got.value) is type(ref.value)
 
 
 def _free_port():

@@ -1792,3 +1792,108 @@ def test_milk_preset_on_the_card_against_the_cpu(cuda, name):
         a, b = (c._state for c in clips)
         torch.testing.assert_close(a[1].cpu(), b[1], rtol=0, atol=0)
         torch.testing.assert_close(a[0].cpu(), b[0], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_startup_tests_on_the_card(cuda):
+    from lives_tpu_torch.diagnostics import run_startup_tests
+    res = run_startup_tests(device=cuda)
+    assert len(res) == 6 and all(res.values()), res
+
+
+@pytest.mark.cuda
+def test_jpeg_dp_steps_on_the_card(cuda):
+    """The dry run's JPEG steps on a 4-entry mesh of the card, bit for bit
+    against one device."""
+    from lives_tpu_torch.parallel.dryrun import jpeg_dp_steps
+    assert jpeg_dp_steps([cuda] * 4) == {"decode": True, "encode": True}
+
+
+@pytest.mark.cuda
+def test_preview_tap_takes_the_device_lane(cuda):
+    """A YUV420P frame on the card: K2 to RGB, the resize and the device
+    JPEG encoder on the tap's worker (`device_encodes`), never PIL; the
+    JPEG decodes at the preview's width, within a JPEG's error of the
+    same frame coded by PIL."""
+    import io
+    from PIL import Image
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.layer import Layer
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.webui import PreviewTap
+    rng = np.random.default_rng(4)
+    y = np.tile(np.linspace(16, 235, 640, dtype=np.float32), (360, 1))
+    planes = (y.astype(np.uint8),
+              rng.integers(120, 136, (180, 320), np.uint8),
+              rng.integers(120, 136, (180, 320), np.uint8))
+    lay = Layer(planes=tuple(torch.from_numpy(p).to(cuda) for p in planes),
+                palette=int(Palette.YUV420P))
+    tap = PreviewTap(max_width=320)
+    yk.LAUNCHES.update(dict.fromkeys(yk.LAUNCHES, 0))
+    assert tap.play_frame(lay, 0.0)
+    data, seq = tap.wait_jpeg(-1, timeout=60)
+    tap.exit_screen()
+    assert yk.LAUNCHES["yuv420_to_rgb"] == 1
+    assert (tap.device_encodes, tap.host_encodes, tap.error) == (1, 0, None)
+    img = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"), np.int16)
+    assert img.shape == (180, 320, 3)
+    cpu = PreviewTap(max_width=320)
+    cpu.play_frame(Layer(planes=tuple(torch.from_numpy(p) for p in planes),
+                         palette=int(Palette.YUV420P)), 0.0)
+    ref = np.asarray(Image.open(io.BytesIO(cpu.wait_jpeg(-1, 60)[0]))
+                     .convert("RGB"), np.int16)
+    cpu.exit_screen()
+    assert cpu.host_encodes == 1
+    assert np.abs(img - ref).mean() < 2.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["ltpu", "l2l"])
+def test_stream_ends_launch_k3_and_k2_a_frame(cuda, fmt):
+    """A player on the card into a stream sender with a YUV420P sink spec
+    runs K3 once a frame in the sink step; the receiving player on the
+    card runs K2 once a frame on the received host frames, which equal
+    the sent bytes."""
+    from lives_tpu_torch import stream
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.io.genclip import GeneratorClip
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.player import CollectSink, Player
+    rx = (stream.StreamReceiver if fmt == "ltpu"
+          else stream.L2LReceiver)(port=0)
+    tx = (stream.StreamSender if fmt == "ltpu"
+          else stream.L2LSender)("127.0.0.1", rx.port)
+    try:
+        p = Player(tx, SinkSpec(palette=int(Palette.YUV420P)), fps=25.0,
+                   device=cuda)
+        p.state.fg_clip = GeneratorClip("plasma", 160, 96, device=cuda)
+        p.async_compile = False
+        yk.LAUNCHES.update(dict.fromkeys(yk.LAUNCHES, 0))
+        p.start()
+        p.state.frame = -1
+        p.time_source = lambda: 0.5 / 25.0
+        p.process_one()
+        torch.cuda.synchronize()
+        assert yk.LAUNCHES == {"yuv420_to_rgb": 0, "rgb_to_yuv420": 1}
+        ev = __import__("threading").Event()
+        for _ in range(2000):
+            if rx.received:
+                break
+            ev.wait(0.01)
+        assert rx.received == 1
+        got = rx.get_frame(0)
+        assert got.palette == int(Palette.YUV420P)
+        q = Player(CollectSink(), SinkSpec(), fps=25.0, device=cuda)
+        q.state.fg_clip = rx
+        q.async_compile = False
+        yk.LAUNCHES.update(dict.fromkeys(yk.LAUNCHES, 0))
+        q.start()
+        q.state.frame = -1
+        q.time_source = lambda: 0.5 / 25.0
+        q.process_one()
+        q.stop()
+        assert yk.LAUNCHES == {"yuv420_to_rgb": 1, "rgb_to_yuv420": 0}
+        assert len(q.sink.frames) == 1
+        p.stop()
+    finally:
+        rx.close()

@@ -197,3 +197,61 @@ def test_dryrun_multichip(n):
     """The port's dry run (`__graft_entry__.py:73-270`'s twin) on n CPU
     entries; it checks each path against the DP render itself."""
     dryrun_multichip(["cpu"] * n)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_jpeg_dp_steps_bit_for_bit(n):
+    """The dry run's JPEG steps (`__graft_entry__.py:186-238`) on n CPU
+    entries: the sharded decoder's planes and the sharded encoder's JPEGs
+    equal the single-device calls bit for bit."""
+    from lives_tpu_torch.parallel.dryrun import jpeg_dp_steps
+    assert jpeg_dp_steps(["cpu"] * n) == {"decode": True, "encode": True}
+
+
+def test_jpeg_shards_refuse_an_uneven_batch():
+    from lives_tpu_torch.io.jpeg_encode import (JpegDeviceEncoder,
+                                                shard_encode_batch)
+    from lives_tpu_torch.io.jpeg_ingest import (JpegMeta,
+                                                build_device_decoder,
+                                                shard_decode_batch)
+    mesh = frame_mesh(["cpu"] * 4)
+    enc = JpegDeviceEncoder(16, 16, batch=6, device="cpu")
+    with pytest.raises(ValueError, match="does not split"):
+        shard_encode_batch(mesh, enc, torch.zeros((6, 3, 16, 16),
+                                                  dtype=torch.uint8))
+    meta = JpegMeta(16, 16, ((2, 2, 0, 16, 16),), (1, 1))
+    dec = build_device_decoder(meta, 6, 64, device="cpu")
+    with pytest.raises(ValueError, match="does not split"):
+        shard_decode_batch(mesh, dec, [torch.zeros((6, 4))] * 7)
+
+
+def test_jpeg_shards_match_the_jax_decoder_within_1_lsb():
+    """The sharded decode of four JPEGs over a 4-entry mesh, within 1 LSB
+    of the JAX lane's sharded decode over conftest's devices."""
+    import io
+    from PIL import Image
+    from lives_tpu.io.jpeg_ingest import JpegStreamSource as JSource
+    from lives_tpu.io.jpeg_ingest import build_device_decoder as j_build
+    from lives_tpu.io.jpeg_ingest import shard_decode_batch as j_shard
+    from lives_tpu_torch.io.jpeg_ingest import (JpegStreamSource,
+                                                build_device_decoder,
+                                                shard_decode_batch)
+    yy, xx = np.mgrid[0:32, 0:64]
+    chunks = []
+    for s in range(4):
+        base = (128 + 80 * np.sin(xx / 9.0 + s) * np.cos(yy / 7.0))
+        bio = io.BytesIO()
+        Image.fromarray(np.stack([base.clip(0, 255)] * 3, -1)
+                        .astype(np.uint8)).save(bio, "JPEG", quality=85)
+        chunks.append(bio.getvalue())
+    src = JpegStreamSource(chunks, device="cpu")
+    packed, _ = src.entropy_pack(range(4))
+    dec = build_device_decoder(src.meta, 4, src.capacity, device="cpu")
+    got = shard_decode_batch(frame_mesh(["cpu"] * 4), dec, packed)
+    jsrc = JSource(chunks)
+    jpacked = jsrc.entropy_pack(range(4))[:-1]
+    ref = j_shard(j_frame_mesh(4), j_build(jsrc.meta, 4, jsrc.capacity),
+                  jpacked)
+    for g, r in zip(got, ref):
+        d = np.abs(g.numpy().astype(int) - np.asarray(r).astype(int))
+        assert d.max() <= 1

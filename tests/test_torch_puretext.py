@@ -1,10 +1,11 @@
 """puretext of lives_tpu_torch against lives_tpu: the host atlas and
 hash, every letter's cell origin, rotation and opacity against the jitted
-JAX filter, and frames through both FrameGraphs. The filter is written but
-deferred (`effects.host.DEFERRED`): the JAX plan's spiral and spinning
-positions contract an FMA only where LLVM keeps the letter loop
-(`tools/puretext_positions.py`), so the tests hold the letter counts the
-port matches, 11 to 29 letters, at batch sizes of 1 and 2,000.
+JAX filter, and frames through both FrameGraphs and both renderers. The
+JAX plan's spiral and spinning positions contract an FMA only where LLVM
+keeps the letter loop, and a one-letter starfield contracts its distance
+(`tools/puretext_forms.py` maps it, `puretext.contracted` holds the rule):
+the tests hold letter counts from 1 to 256 across the loops' boundaries
+and their vector tails, at batch sizes of 1, 8, 96 and 2,000.
 
 Tolerances: letters exact; frames +/-1 LSB."""
 
@@ -26,6 +27,7 @@ from lives_tpu_torch.effects.host import Instance
 from lives_tpu_torch.graph import FrameGraph as TGraph
 from lives_tpu_torch.graph import SinkSpec as TSink
 from lives_tpu_torch.layer import Layer as TLayer
+from tools.puretext_forms import letters_text
 from tools.puretext_positions import jax_letters
 
 
@@ -102,23 +104,67 @@ def test_puretext_atlas_and_hash_are_the_jax_ones():
     np.testing.assert_array_equal(puretext._hash01(i, 11), jpt._hash01(i, 11))
 
 
+#: (mode, letters): the kept loops' boundaries (spiral 56 in a batch and
+#: 64 for one frame, spinning 104) and vector tails (70, 111), up to the
+#: atlas' cap; the one-letter starfield
+LONG_CASES = ([(0, n) for n in (55, 56, 63, 64, 70, 128, 256)]
+              + [(1, n) for n in (103, 104, 111, 200, 256)] + [(2, 1)])
 
 
-def test_puretext_is_deferred_naming_its_reason():
-    """Not registered; a timeline naming it raises with DEFERRED's reason,
-    which names the positions' FMA."""
+@pytest.mark.parametrize("mode,n", LONG_CASES)
+def test_puretext_letters_exact_at_long_texts(mode, n):
+    """Every letter of a text of n glyphs at 640x360, one frame at a time,
+    in batches of 8 and of 96: equal to the jitted JAX filter's."""
+    text, w, h, size = letters_text(n), 640, 360, 14
+    rng = np.random.default_rng(n + 1000 * mode)
+    tc = rng.uniform(0, 30, 192).astype(np.float32)
+    sp = rng.uniform(0.05, 10.0, 192).astype(np.float32)
+    sp[:64] = 1.0
+    on = puretext._atlas_on(text, size, w, h, mode == 1, "cpu")
+    assert on[0].shape[0] == n
+    fn = jax_letters(mode, text, size, w, h)
+    for B, stop in ((1, 48), (8, 192), (96, 192)):
+        for k in range(0, stop, B):
+            ref = fn(jnp.asarray(tc[k:k + B]), jnp.asarray(sp[k:k + B]))
+            got = puretext.letters(
+                mode, torch.from_numpy(tc[k:k + B])[:, None],
+                torch.from_numpy(sp[k:k + B])[:, None], on, w, h, B)
+            for g, r in zip(got, ref):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("n", [56, 104, 256])
+@pytest.mark.parametrize("mode", [0, 1])
+def test_puretext_is_registered_and_renders_long_texts(mode, n):
+    """Registered and deferred no more (it was until its letter forms
+    were matched): `render_events` renders a timeline of it at n letters
+    over the synthetic source, in chunks of 4 frames and then of 1, within
+    1 LSB of the JAX renderer."""
+    from lives_tpu.events import renderer as jr
+    from lives_tpu.events.event_list import EventList as JEventList
+    from lives_tpu.scenes import DeviceSyntheticSource as JSource
     from lives_tpu_torch.events import renderer as tr
     from lives_tpu_torch.events.event_list import (EventList,
                                                    filter_init_event,
                                                    filter_map_event,
                                                    frame_event)
     from lives_tpu_torch.scenes import DeviceSyntheticSource
-    assert "puretext" not in t_host.list_filters()
-    assert "FMA" in t_host.DEFERRED["puretext"]
-    el = EventList(fps=25.0, width=16, height=8)
-    init = filter_init_event(0, "puretext")
+    assert "puretext" in t_host.list_filters()
+    assert "puretext" not in t_host.DEFERRED
+    el = EventList(fps=25.0, width=96, height=54)
+    init = filter_init_event(0, "puretext", values={
+        "text": letters_text(n), "mode": mode, "size": 8, "speed": 2.5})
     el.insert(init)
     el.insert(filter_map_event(0, [init.event_id]))
-    el.insert(frame_event(0, [1], [0]))
-    with pytest.raises(NotImplementedError, match="Queue 3"):
-        list(tr.render_events(el, DeviceSyntheticSource(8, 16, device="cpu")))
+    for i in range(4):
+        el.insert(frame_event(i * 40_000_000 + 7_000_000, [1], [i]))
+    for B in (4, 1):
+        got, _ = tr.render_to_arrays(
+            el, DeviceSyntheticSource(54, 96, device="cpu"),
+            TSink(96, 54), batch_size=B)
+        ref, _ = jr.render_to_arrays(JEventList.from_json(el.to_json()),
+                                     JSource(54, 96), JSink(96, 54),
+                                     batch_size=B)
+        assert got.shape == (4, 3, 54, 96)
+        assert np.abs(got.astype(int) - np.asarray(ref).astype(int)) \
+            .max() <= 1

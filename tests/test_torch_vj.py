@@ -175,12 +175,13 @@ def test_edge_and_blurzoom_wrap():
 
 
 def test_registry_is_a_subset_of_jax():
-    """146 of the JAX package's 147 filters (117 before data connections
-    were ported, 142 before the milkdrop presets), each with the JAX
-    hashname, flags, params, out-params and alpha channel templates."""
+    """All 147 of the JAX package's filters (117 before data connections
+    were ported, 142 before the milkdrop presets, 146 before puretext),
+    each with the JAX hashname, flags, params, out-params and alpha
+    channel templates."""
     from lives_tpu.effects.host import list_filters as j_list_filters
     names = t_host.list_filters()
-    assert len(names) == 146 and set(names) <= set(j_list_filters())
+    assert len(names) == 147 and set(names) <= set(j_list_filters())
     for name in names:
         jf, tf = j_get_filter(name), t_host.get_filter(name)
         assert (tf.hashname, tf.flags) == (jf.hashname, jf.flags), name
@@ -271,10 +272,10 @@ def test_make_compound_exports_extra_params_and_connections(
 
 
 def test_deferred_compound_raises_naming_its_item(monkeypatch):
-    """A timeline naming image_stabilizer (deferred until data connections
-    were ported) renders as the JAX package renders it; one naming a
-    filter still deferred (puretext) raises through the renderer's
-    deferral lookup, naming its item."""
+    """Timelines naming image_stabilizer (deferred until data connections
+    were ported) and puretext (deferred until its letter forms were
+    matched) render as the JAX package renders them; nothing is deferred
+    any more."""
     from lives_tpu.events import renderer as jr
     from lives_tpu.events.event_list import EventList as JEventList
     from lives_tpu_torch.events import renderer as tr
@@ -300,9 +301,14 @@ def test_deferred_compound_raises_naming_its_item(monkeypatch):
                                  JSource(16, 32), JSink(32, 16),
                                  batch_size=3)
     assert np.abs(got.astype(int) - np.asarray(ref).astype(int)).max() <= 1
-    with pytest.raises(NotImplementedError, match="Queue 3"):
-        list(tr.render_events(timeline("puretext", 1),
-                              TSource(8, 16, device="cpu")))
+    el = timeline("puretext", 3)
+    got, _ = tr.render_to_arrays(el, TSource(16, 32, device="cpu"),
+                                 TSink(32, 16), batch_size=3)
+    ref, _ = jr.render_to_arrays(JEventList.from_json(el.to_json()),
+                                 JSource(16, 32), JSink(32, 16),
+                                 batch_size=3)
+    assert np.abs(got.astype(int) - np.asarray(ref).astype(int)).max() <= 1
+    assert not t_host.DEFERRED
 
 
 def test_milk_preset_timeline_renders_as_jax(monkeypatch):

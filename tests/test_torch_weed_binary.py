@@ -5,10 +5,9 @@ same bytes, each package reads the other's files into the same event list
 random and truncated bytes fail or parse alike, and layouts render within
 1 LSB of the JAX renderer. Event ids come from a counter in both packages
 (`same_ids`), so lists built or read step for step are equal as text. A layout
-naming a filter the JAX package registers and the port defers (puretext)
-serialises with the JAX package's parameter indices and imports the same
-way; the port's renderer then refuses it naming its ROADMAP item. The
-milkdrop presets, registered in both packages, round-trip byte for byte
+naming puretext (once deferred) serialises with the JAX package's parameter
+indices, imports the same way and renders within 1 LSB of the JAX renderer.
+The milkdrop presets, registered in both packages, round-trip byte for byte
 and render within 1 LSB of the JAX renderer. A name neither registry
 holds renders with a warning, the unknown filter skipped, as in the JAX
 package."""
@@ -306,14 +305,15 @@ def test_unknown_filter_layout_renders_with_warning(scan_env):
     np.testing.assert_array_equal(out["t"], np.asarray(out["j"]))
 
 
-@pytest.mark.parametrize("name,values,item", [
-    ("puretext", {"text": "hi", "size": 12, "speed": 0.5}, "Queue 3"),
+@pytest.mark.parametrize("name,values", [
+    ("puretext", {"text": "hi", "size": 12, "speed": 0.5}),
 ])
-def test_deferred_filter_layout(name, values, item):
-    """A layout naming a filter the port defers: the bytes are the JAX
-    package's (hashname, parameter indices, the init values' pchain heads),
-    both read it to the same list, and the port's renderer refuses it
-    naming its item instead of rendering something else."""
+def test_deferred_filter_layout(name, values, scan_env):
+    """A layout naming a filter the port once deferred (puretext): the
+    bytes are the JAX package's (hashname, parameter indices, the init
+    values' pchain heads), both read it to the same list, and the port
+    renders it within 1 LSB of the JAX renderer."""
+    from lives_tpu.scenes import DeviceSyntheticSource as JSource
     from lives_tpu_torch.scenes import DeviceSyntheticSource as TSource
     els = {}
     for pkg in PKGS:
@@ -334,9 +334,12 @@ def test_deferred_filter_layout(name, values, item):
     names = [p.name for p in j_get_filter(name).params]
     assert {p["index"][1][0] for p in plants} == {names.index(k)
                                                   for k in values}
-    with pytest.raises(NotImplementedError, match=item):
-        t_render(load("t", data), TSource(32, 64, device="cpu"),
-                 TSink(width=64, height=32))
+    got, _ = t_render(load("t", data), TSource(32, 64, device="cpu"),
+                      TSink(width=64, height=32), batch_size=3)
+    ref, _ = j_render(load("j", data), JSource(32, 64),
+                      JSink(width=64, height=32), batch_size=3)
+    assert got.shape == (3, 3, 32, 64)
+    frames_close(got, ref)
 
 
 @pytest.mark.parametrize("name", ["milk_geometry", "milk_pulse",
