@@ -250,9 +250,6 @@ def main(argv=None):
     web.add_argument("--device", default="cuda",
                      help="the device to play on (default cuda; no "
                           "fallback)")
-    web.add_argument("--seconds", type=float, default=None,
-                     help="serve this long, then stop (default: until "
-                          "interrupted)")
     for cmd in UNPORTED_COMMANDS:
         sub.add_parser(cmd, help="not ported yet").add_argument(
             "rest", nargs="*")
@@ -302,8 +299,8 @@ def main(argv=None):
 def _webui(args) -> int:
     """`webui` (`lives_tpu/cli.py:290-318`): a player on `--device` over
     the clip (or the plasma generator), an OSC server on it and the
-    browser UI on `--port` (0 picks a free one), served until interrupted
-    or for `--seconds`."""
+    browser UI on `--port` (0 picks a free one), served until
+    interrupted."""
     from .osc.server import OSCServer
     from .webui import WebUI
     p = build_player(args.uri, [], args.width, args.height, "null", None,
@@ -314,9 +311,8 @@ def _webui(args) -> int:
     print(f"web ui: http://{ui.host}:{ui.port}/  (osc udp {srv.port})",
           flush=True)
     p.start()
-    t_end = time.monotonic() + args.seconds if args.seconds else None
     try:
-        while t_end is None or time.monotonic() < t_end:
+        while True:
             p.process_one()
             time.sleep(0.001)
     except KeyboardInterrupt:

@@ -30,9 +30,11 @@ spiral_text's theta `i * 0.55 - t * 0.6` and spinning_letters' rotation
 loop that LLVM keeps (from `LOOP_KEPT` letters; the letters past the last
 whole vector of `LANES` run unrolled, uncontracted), and a one-letter
 starfield contracts its distance. One frame's plan multiplies spiral_text's
-frame scalars before the letter constant. Over letter counts 1-256 and
-batches of 1, 8, 32 and 96 every letter's cell origin, rotation and
-opacity is the JAX plan's (both tools read 0 differing letters).
+frame scalars before the letter constant. Every letter's cell origin,
+rotation and opacity is the JAX plan's over letter counts 1-256 at 19
+batch sizes of 1-96, and at the loops' boundaries at every batch of
+1-96. In a batch of more than 96 frames the plan's spiral_text at 56-63
+letters computes 1-2 letters in a form the rule does not pick.
 """
 
 from __future__ import annotations
@@ -196,22 +198,21 @@ def _fold(*factors) -> float:
 
 
 def positions(mode: int, t, speed, consts, n: int, w: int, h: int,
-              cell: int, batch: int, contract: int | None = None):
+              cell: int, batch: int):
     """Each letter's (px, py, alpha, variant in [0, 1)) float32, (B, n),
     from (B, 1) t and speed (`puretext.py:155-195`), rounded as the jitted
     plan rounds them. XLA's simplifier turns a division by a constant into
     a product with its float32 reciprocal and folds the constant factors
     of a product into one (`_fold`); its code generator contracts the
     multiply-adds the plan's position sums end in (`fma32`), and in a
-    kept letter loop the sums of the first `contract` letters
-    (`contracted(mode, n, batch)` unless given)."""
+    kept letter loop the sums of the first `contracted(mode, n, batch)`
+    letters."""
     lx, ly, widx, rnd, rnd2, cos_ang, sin_ang = consts
     dev = lx.device
     i = torch.arange(n, dtype=torch.float32, device=dev)
-    if contract is None:
-        contract = contracted(mode, n, batch)
     # the contracted letters, or None for none: a compare on the device
-    contract = (i < contract) if contract else None
+    first = contracted(mode, n, batch)
+    contract = (i < first) if first else None
     cx, cy = float(_F32((w - cell) / 2.0)), float(_F32((h - cell) / 2.0))
     one = torch.ones_like(i).expand(t.shape[0], n)
     var = torch.zeros_like(one)
@@ -295,16 +296,15 @@ def contracted(mode: int, n: int, B: int) -> int:
 
 
 def letters(mode: int, t, speed, atlas_on, w: int, h: int,
-            batch: int | None = None, contract: int | None = None):
+            batch: int | None = None):
     """(pxi, pyi, vki) int64 and alpha float32, each (B, n): every
     letter's cell origin, rotation and opacity, as the compositor takes
     them (`puretext.py:219-226`), as the JAX plan of `batch` frames (t's
-    rows unless given) computes them; `contract` overrides how many
-    leading letters take the contracted forms."""
+    rows unless given) computes them."""
     atlas = atlas_on[0]
     n, K, cell, _ = atlas.shape
     px, py, alpha, var = positions(mode, t, speed, atlas_on[1:], n, w, h,
-                                   cell, batch or t.shape[0], contract)
+                                   cell, batch or t.shape[0])
     # letters fully outside the frame vanish instead of clamping at edges
     inside = ((px > -cell) & (px < w) & (py > -cell) & (py < h)) \
         .to(torch.float32)

@@ -24,11 +24,12 @@ The preview's device lane: a frame on a CUDA device is converted to RGB24
 JpegDeviceEncoder` (transform, quantisation and pack on the device; only
 coefficients cross to the host) on the tap's worker thread, which waits
 for the serving stream on its own stream. A frame on the CPU is encoded by
-PIL. `device_encodes` and `host_encodes` count each route; a device encode
-that fails ends the worker with its exception (kept in `error`, raised by
-`wait_jpeg`), it never falls back to PIL. Frames reach the host with
-`.cpu().numpy()` where the JAX UI calls `np.asarray`: thumbnails, strips
-and the multitrack preview.
+PIL. `device_encodes` and `host_encodes` count each route; a conversion,
+resize or encode of a CUDA frame that fails ends the preview with its
+exception (kept in `error`, raised by `wait_jpeg`), it never falls back to
+PIL; a CPU frame PIL cannot take is skipped, as in the JAX UI. Frames
+reach the host with `.cpu().numpy()` where the JAX UI calls `np.asarray`:
+thumbnails, strips and the multitrack preview.
 
 Usage:
     ui = WebUI(osc_server)          # wraps the server's player
@@ -100,8 +101,8 @@ class PreviewTap(Sink):
     def play_frame(self, layer: Layer, tc: float) -> bool:
         ok = self.inner.play_frame(layer, tc) if self.inner else True
         now = time.monotonic()
-        if self._jpeg is not None and now - self._last_enc \
-                < self.min_interval:
+        if self.error is not None or (self._jpeg is not None and now
+                                      - self._last_enc < self.min_interval):
             return ok
         self._last_enc = now
         try:
@@ -116,7 +117,12 @@ class PreviewTap(Sink):
                 rgb = resize_layer(rgb, self.max_width,
                                    max(2, int(rgb.height * sc)) // 2 * 2)
             plane = rgb.planes[0]
-        except Exception:
+        except Exception as e:
+            if layer.planes[0].device.type == "cuda":
+                # the device lane failed: the preview ends on it
+                with self._cv:
+                    self.error = e
+                    self._cv.notify_all()
             return ok
         ev = None
         if plane.device.type == "cuda":

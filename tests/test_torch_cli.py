@@ -181,23 +181,30 @@ def test_selftest_without_device_refuses_when_cuda_is_absent():
 
 def test_webui_serves_on_port_0_and_stops(monkeypatch, capsys):
     """`webui --port 0` on the CPU: the page and the state answer while
-    it serves, and it stops after `--seconds`."""
+    it serves, and it stops on an interrupt, as from Ctrl-C."""
     import json
     import threading
     import urllib.request
     from lives_tpu_torch import webui
-    up, uis = threading.Event(), []
-    start = webui.WebUI.start
+    from lives_tpu_torch.player import Player
+    up, uis, interrupt = threading.Event(), [], threading.Event()
+    start, process_one = webui.WebUI.start, Player.process_one
 
     def started(self):
         uis.append(start(self))
         up.set()
         return uis[-1]
+
+    def processed(self):
+        if interrupt.is_set():
+            raise KeyboardInterrupt
+        return process_one(self)
     monkeypatch.setattr(webui.WebUI, "start", started)
+    monkeypatch.setattr(Player, "process_one", processed)
     rc = []
     th = threading.Thread(target=lambda: rc.append(cli.main(
         ["webui", "--device", "cpu", "--port", "0", "--width", "32",
-         "--height", "16", "--seconds", "3"])), daemon=True)
+         "--height", "16"])), daemon=True)
     th.start()
     assert up.wait(60), "the web UI did not start"
     base = f"http://{uis[0].host}:{uis[0].port}"
@@ -206,6 +213,7 @@ def test_webui_serves_on_port_0_and_stops(monkeypatch, capsys):
     with urllib.request.urlopen(base + "/api/state", timeout=30) as r:
         state = json.loads(r.read())
     assert state["clips"] == [] and len(state["keys"]) == 9
+    interrupt.set()
     th.join(timeout=60)
     assert not th.is_alive() and rc == [0]
     assert f"web ui: http://127.0.0.1:{uis[0].port}/" in \

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import letters_text
 from lives_tpu.constants import Palette as JPalette
 from lives_tpu.effects import instantiate as j_instantiate
 from lives_tpu.effects.builtin import puretext as jpt
@@ -27,7 +28,7 @@ from lives_tpu_torch.effects.host import Instance
 from lives_tpu_torch.graph import FrameGraph as TGraph
 from lives_tpu_torch.graph import SinkSpec as TSink
 from lives_tpu_torch.layer import Layer as TLayer
-from tools.puretext_forms import letters_text
+from tools.puretext_forms import samples
 from tools.puretext_positions import jax_letters
 
 
@@ -129,6 +130,28 @@ def test_puretext_letters_exact_at_long_texts(mode, n):
             got = puretext.letters(
                 mode, torch.from_numpy(tc[k:k + B])[:, None],
                 torch.from_numpy(sp[k:k + B])[:, None], on, w, h, B)
+            for g, r in zip(got, ref):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("B", [2, 5, 17, 33, 95])
+def test_puretext_letters_exact_at_other_batches(B):
+    """At the kept loops' boundaries and vector tails, in batches of B
+    frames (a render's last chunk, a caller's `batch_size`), on the form
+    map's (tc, speed) samples, whose even steps of tc catch an ulp of
+    rotation that random ones miss: every letter equal to the jitted JAX
+    filter's."""
+    w, h, size = 640, 360, 14
+    for mode, n in ((0, 55), (0, 56), (0, 63), (0, 64), (1, 103),
+                    (1, 104), (1, 111)):
+        text = letters_text(n)
+        on = puretext._atlas_on(text, size, w, h, mode == 1, "cpu")
+        fn = jax_letters(mode, text, size, w, h)
+        for tc, sp in zip(*samples(768, B)):
+            ref = fn(jnp.asarray(tc), jnp.asarray(sp))
+            got = puretext.letters(
+                mode, torch.from_numpy(tc)[:, None],
+                torch.from_numpy(sp)[:, None], on, w, h, B)
             for g, r in zip(got, ref):
                 np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 

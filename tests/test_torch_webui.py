@@ -24,13 +24,12 @@ waits on the wall clock."""
 
 import io
 import json
-import threading
-import urllib.error
-import urllib.request
 import wave
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 import chip_smoke as cs
@@ -56,16 +55,7 @@ class TickingClock(cs.ScriptedClock):
 
 
 def http(ui, path, body=None):
-    req = urllib.request.Request(
-        f"http://{ui.host}:{ui.port}{path}",
-        data=None if body is None else (
-            body if isinstance(body, bytes) else json.dumps(body).encode()),
-        method="GET" if body is None else "POST")
-    try:
-        with urllib.request.urlopen(req, timeout=TIMEOUT) as r:
-            return r.status, r.headers.get("Content-Type"), r.read()
-    except urllib.error.HTTPError as e:
-        return e.code, e.headers.get("Content-Type"), e.read()
+    return cs.http_call(ui, path, body, timeout=TIMEOUT)
 
 
 def write_wav(path, seconds=1.0, rate=44100):
@@ -79,13 +69,6 @@ def write_wav(path, seconds=1.0, rate=44100):
         w.setframerate(rate)
         w.writeframes(pcm.tobytes())
     return str(path)
-
-
-def join_jobs(name):
-    for t in threading.enumerate():
-        if t.name == name:
-            t.join(timeout=TIMEOUT)
-            assert not t.is_alive(), f"{name} did not finish"
 
 
 def canon(obj, root):
@@ -157,9 +140,9 @@ def run_session(pkg, root, media, monkeypatch):
         enc = json.loads(http(ui, "/api/encode", {
             "cid": 1, "path": str(root / "saved.y4m"),
             "encoder": "yuv4mpeg"})[2])
-        join_jobs("encode-job")
+        cs.join_named("encode-job", TIMEOUT)
         mt = json.loads(http(ui, "/api/mt_render", {"audio": True})[2])
-        join_jobs("mt-render-job")
+        cs.join_named("mt-render-job", TIMEOUT)
         out["jobs"] = canon(json.loads(http(ui, "/api/jobs")[2]), root)
         out["job_rets"] = (enc, mt)
         out["mt_clip"] = s.srv.clips[max(s.srv.clips)]
@@ -287,6 +270,20 @@ def test_preview_tap_codes_cpu_frames_on_the_host(sessions):
     assert tap.error is None
     img = Image.open(io.BytesIO(sessions["torch"]["preview_jpeg"]))
     assert img.size == (48, 24)
+
+
+def test_preview_tap_ends_on_a_failing_device_lane():
+    """A CUDA frame the device lane cannot convert ends the preview: its
+    exception is kept in `error` and raised by `wait_jpeg`, and no frame
+    goes to PIL."""
+    tap = tw.PreviewTap()
+    bad = SimpleNamespace(planes=(SimpleNamespace(
+        device=torch.device("cuda")),))
+    assert tap.play_frame(bad, 0.0)
+    assert tap.error is not None and tap.host_encodes == 0
+    with pytest.raises(RuntimeError, match="preview encode failed"):
+        tap.wait_jpeg(0, timeout=1.0)
+    assert tap.play_frame(bad, 0.04) and tap._worker is None
 
 
 def test_mt_preview_frame_within_1_lsb(sessions):

@@ -10,9 +10,9 @@ LLVM keeps a loop over the letters, not where it unrolls one. Two of
 puretext's per-letter values end in such a sum: spiral_text's theta
 `i * 0.55 - ts * 0.6` and spinning_letters' rotation `ts * 1.5 + i * 0.13`
 (`lives_tpu/effects/builtin/puretext.py:157,165`); a one-letter
-starfield's distance `ts * 0.4 + rnd2` is a third. For each letter count
-n (`letters_text(n)`, n glyphs at 640x360, size 14), batch size B and
-mode, this evaluates the JAX filter's letters (`puretext_positions.
+starfield's distance `ts * 0.4 + rnd2` is a third. For each letter
+count n (`chip_smoke.letters_text(n)`, n glyphs at 640x360, size 14),
+batch size B and mode, this evaluates the JAX filter's letters (`puretext_positions.
 jax_letters`: cell origins, rotations, opacities), jitted and vmapped
 over B frames as the JAX FrameGraph runs them, on `--pairs` (tc, speed)
 pairs, beside the port's `puretext.letters` with every letter in the
@@ -24,9 +24,11 @@ where the port's rule (`puretext.contracted`: `LOOP_KEPT`, `LANES`)
 picks a form the plan does not compute (`rule_differing`). The last line
 is the total, `differing=N`. The default grid is every letter count of
 1-256, the port's batch sizes (1: the player and `FrameGraph.run`; 8:
-`render_last_recording`; 32: the console and the editor; 96:
-`render_events`' chunk) and the seven modes: 7,168 cases, about 40
-minutes on one core (split `--n` over processes).
+`render_last_recording`; 32: the console and the editor; 96: the
+largest a render's `batch_size` is held to) and the seven modes: 7,168
+cases, about 40 minutes on one core (split `--n` over processes). Past
+96 frames a batch the rule misses spiral_text's form on 1-2 letters of
+56-63 (`--n 56-63 --b 128 --modes 0`).
 
 `--check` exits 1 where the rule and the plan disagree on any letter.
 """
@@ -48,23 +50,6 @@ def parse_counts(s: str) -> list[int]:
         a, _, b = part.partition("-")
         out.extend(range(int(a), int(b or a) + 1))
     return out
-
-
-def letters_text(n: int) -> str:
-    """A text of n glyphs (1-256) that the atlas keeps whole: words of 10
-    letters (`puretext_positions.text_of`) while that fits its 256
-    characters, fewer spaces past that."""
-    from tools.puretext_positions import text_of
-    text = text_of(n)
-    if len(text) <= 256:
-        return text
-    out, spaces = [], 256 - n
-    for k in range(n):
-        out.append("ABCDEFGHIJKLMNOP"[k % 16])
-        if k % 10 == 9 and spaces and k < n - 1:
-            out.append(" ")
-            spaces -= 1
-    return "".join(out)
 
 
 def jax_positions(mode, text):
@@ -119,9 +104,11 @@ def samples(pairs: int, B: int):
 def main(argv) -> int:
     import jax.numpy as jnp
     import torch
+    from chip_smoke import letters_text
     from lives_tpu_torch.effects.builtin import puretext
     torch.set_num_threads(1)
     from tools.puretext_positions import jax_letters
+    rule_of = puretext.contracted
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", default="1-256")
     ap.add_argument("--b", default="1,8,32,96")
@@ -142,18 +129,24 @@ def main(argv) -> int:
                                   fn(jnp.asarray(tc), jnp.asarray(sp))])
                         for tc, sp in zip(tcs, sps)]
                 # the port's forms do not depend on the batch: all frames
-                # at once
-                forms = {contract: [np.stack([g.numpy().astype(np.float64)
-                                              for g in puretext.letters(
-                    mode, torch.from_numpy(tcs.reshape(-1, 1)),
-                    torch.from_numpy(sps.reshape(-1, 1)), on, W, H, B,
-                    nl if contract else 0)])]
-                    for contract in (False, True)}
+                # at once, with no letter and with every letter contracted
+                forms = {}
+                for contract in (False, True):
+                    puretext.contracted = lambda *_, k=nl * contract: k
+                    try:
+                        forms[contract] = [np.stack([
+                            g.numpy().astype(np.float64)
+                            for g in puretext.letters(
+                                mode, torch.from_numpy(tcs.reshape(-1, 1)),
+                                torch.from_numpy(sps.reshape(-1, 1)), on,
+                                W, H, B)])]
+                    finally:
+                        puretext.contracted = rule_of
                 # (frames, 4 values, letters)
                 ref = np.concatenate(refs, 1).transpose(1, 0, 2)
                 u = np.concatenate(forms[False], 1).transpose(1, 0, 2)
                 c = np.concatenate(forms[True], 1).transpose(1, 0, 2)
-                rule = np.arange(nl) < puretext.contracted(mode, nl, B)
+                rule = np.arange(nl) < rule_of(mode, nl, B)
                 pick = np.where(rule, c, u)
                 bad = int((pick != ref).any(axis=(0, 1)).sum())
                 bad_total += bad
