@@ -14,6 +14,7 @@ every op, and after each undo and redo, and the structural invariants
 hold. Layouts save byte for byte both ways, JSON and binary (audio
 blocks, avol envelopes, keyframes, split markers)."""
 
+import gc
 import io
 import random
 import time
@@ -407,33 +408,40 @@ def s_avol_binary_roundtrip(P):
 
 
 def s_editor_ops_fast_on_long_timeline(P):
-    """A 20k-frame timeline: a window edit costs a fraction of building it
-    (`tests/test_multitrack.py:323-361`, relative bounds). Both are timed
-    on the calling thread's CPU clock (`time.thread_time`), which the load
-    of other test processes does not inflate as it does the wall clock.
-    The build draws its event ids from the `uuid` module, as the JAX
-    test's does: the counter `run_both` installs makes the build about
-    half as costly, and the bound then held only where a collection of
-    the garbage collector fell into the build."""
+    """A 50k-frame timeline, the JAX test's own length: a window edit
+    costs a fraction of building it (`tests/test_multitrack.py:323-361`,
+    relative bounds). Both are timed on the calling thread's CPU clock
+    (`time.thread_time`), which the load of other test processes does not
+    inflate as it does the wall clock, with the garbage collector off
+    across both timed regions (a collection that fell into one edit, and
+    none into the build, read 0.60 of the build against the bound of
+    0.5), and the edit is the least of seven samples. The build draws its
+    event ids from the `uuid` module, as the JAX test's does: the counter
+    `run_both` installs makes the build about half as costly."""
     mt = P.Multitrack(n_tracks=2, width=32, height=16)
     elmod = j_elmod if P.pkg == "j" else t_elmod
     counter, elmod.uuid = elmod.uuid, uuid
+    gc_was = gc.isenabled()
+    gc.disable()
     try:
         t0 = time.thread_time()
-        for i in range(20_000):
+        for i in range(50_000):
             e = mt._ensure_frame_event(i)
             e.props["clips"][0] = 1
             e.props["frames"][0] = i
         build = max(time.thread_time() - t0, 0.05)
+        elmod.uuid = counter
+        dts = []
+        for k in range(7):
+            t0 = time.thread_time()
+            mt.insert_block(1, 2, 40_000 + k * 1000, 200,
+                            mode=P.InsertMode.OVERWRITE)
+            dts.append(time.thread_time() - t0)
     finally:
         elmod.uuid = counter
-    dts = []
-    for k in range(3):
-        t0 = time.thread_time()
-        mt.insert_block(1, 2, 15_000 + k * 1000, 200,
-                        mode=P.InsertMode.OVERWRITE)
-        dts.append(time.thread_time() - t0)
-    assert min(dts) < build * 0.5
+        if gc_was:
+            gc.enable()
+    assert min(dts) < build * 0.5, (min(dts), build)
     P.note("blocks", [tuple(b.__dict__.values()) for b in mt.blocks(1)])
     P.note("n", (mt.n_frames, len(mt.el.events)))
 
