@@ -24,9 +24,16 @@ from lives_tpu.io.decoders import try_decoders as j_try_decoders
 from lives_tpu_torch import native
 from lives_tpu_torch.io import av
 from lives_tpu_torch.io.decoders import try_decoders
+from test_torch_bridges import jax_bridge, jax_encoder
 
 pytestmark = pytest.mark.skipif(av.load_avbridge() is None,
                                 reason="libav bridge unavailable")
+
+
+@pytest.fixture(autouse=True)
+def jax_avbridge():
+    """Every test here compares against the JAX package's avbridge bridge."""
+    jax_bridge("avbridge")
 
 W, H, N = 128, 64, 30
 
@@ -179,7 +186,6 @@ def test_theora_ogv_roundtrip(tmp_path):
 
 
 def test_encoder_registry_contract():
-    from lives_tpu.io.encoders import get_encoder as j_get_encoder
     from lives_tpu_torch.io.encoders import (CAP_AUDIO, CAP_VIDEO,
                                              get_encoder, list_encoders)
     assert "av" in list_encoders()
@@ -188,7 +194,7 @@ def test_encoder_registry_contract():
     fmts = {(f.name, f.extension) for f in enc.get_formats()}
     assert {"mkv", "mp4", "ogv"} <= {e for _, e in fmts}
     assert fmts == {(f.name, f.extension)
-                    for f in j_get_encoder("av").get_formats()}
+                    for f in jax_encoder("av").get_formats()}
 
 
 @pytest.mark.parametrize("ext", ["mkv", "ogv", "avi", "webm"])
@@ -196,13 +202,12 @@ def test_port_encoder_file_decodes_as_the_jax_encoders(ext, tmp_path):
     """The same frames through both packages' "av" encoders: the JAX
     package decodes the port's file to the planes of its own (MPEG-4 in
     AVI byte for byte)."""
-    from lives_tpu.io.encoders import get_encoder as j_get_encoder
     from lives_tpu_torch.io.encoders import get_encoder
     frames = _frames()[:12]
     port, ref = tmp_path / f"p.{ext}", tmp_path / f"j.{ext}"
     assert get_encoder("av").encode(str(port), [torch.from_numpy(f)
                                                 for f in frames], 25.0)
-    assert j_get_encoder("av").encode(str(ref), frames, 25.0)
+    assert jax_encoder("av").encode(str(ref), frames, 25.0)
     a, b = j_try_decoders(str(port)), j_try_decoders(str(ref))
     assert a.nframes == b.nframes == 12
     for i in range(12):

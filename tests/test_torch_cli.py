@@ -538,6 +538,8 @@ def test_render_clips_and_audio_match_jax(monkeypatch, tmp_path, capsys):
     from lives_tpu_torch.io.encoders import get_encoder
     from lives_tpu_torch.multitrack import Multitrack
     from lives_tpu_torch.scenes import DeviceSyntheticSource
+    from test_torch_bridges import jax_bridge
+    jax_bridge("jpegcoef")
     monkeypatch.setattr(cs, "W", 64)
     monkeypatch.setattr(cs, "H", 32)
     cs.write_mjpeg_clips(str(tmp_path), DeviceSyntheticSource(

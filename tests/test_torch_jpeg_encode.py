@@ -23,6 +23,13 @@ from PIL import Image
 from lives_tpu.io import jpeg_encode as jje
 from lives_tpu_torch.io import jpeg_encode as je
 from lives_tpu_torch.io import jpeg_ingest as ji
+from test_torch_bridges import jax_bridge
+
+
+@pytest.fixture(autouse=True)
+def jax_jpegcoef():
+    """Every test here compares against the JAX package's jpegcoef bridge."""
+    jax_bridge("jpegcoef")
 
 
 def smooth_rgb(h, w, seed=0):

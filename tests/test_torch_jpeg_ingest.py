@@ -26,6 +26,13 @@ from lives_tpu_torch import native
 from lives_tpu_torch.constants import Palette, YUVClamping
 from lives_tpu_torch.io import jpeg_ingest as ji
 from lives_tpu_torch.ops.colorspace import convert_layer
+from test_torch_bridges import jax_bridge
+
+
+@pytest.fixture(autouse=True)
+def jax_jpegcoef():
+    """Every test here compares against the JAX package's jpegcoef bridge."""
+    jax_bridge("jpegcoef")
 
 CPU = torch.device("cpu")
 

@@ -42,8 +42,15 @@ from lives_tpu_torch.player import CollectSink, Player
 from lives_tpu_torch.player import player as t_player_mod
 from lives_tpu_torch.scenes import DeviceSyntheticSource, multitrack_timeline
 from lives_tpu_torch.transcode import render_to_encoder
+from test_torch_bridges import jax_bridge, jax_encoder
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True)
+def jax_jpegcoef():
+    """Every test here compares against the JAX package's jpegcoef bridge."""
+    jax_bridge("jpegcoef")
 
 
 @pytest.fixture(autouse=True)
@@ -214,7 +221,7 @@ def test_mjpeg_encoder_chunks_frames_and_jax_agree(tmp_path):
     assert enc.encode(str(paths[1]), list(rgb), 30.0)
     assert enc.encode(str(paths[2]),
                       [f.permute(1, 2, 0).numpy() for f in rgb], 30.0)
-    j = jenc.get_encoder("mjpeg")
+    j = jax_encoder("mjpeg")
     j.batch = 4
     assert j.encode(str(paths[3]), [jnp.asarray(f.numpy()) for f in rgb],
                     30.0)
@@ -264,7 +271,7 @@ def test_render_to_encoder_default_is_mjpeg(tmp_path):
     assert np.array_equal(np.asarray(jdc), dc.numpy()) and \
         np.array_equal(np.asarray(jac), ac.numpy())
     ref = tmp_path / "jax.avi"
-    assert jenc.get_encoder("mjpeg").encode(
+    assert jax_encoder("mjpeg").encode(
         str(ref), [jnp.asarray(f) for f in frames], 25.0)
     assert out.read_bytes() == ref.read_bytes()
     clip = open_clip(str(out), tmp_path / "w")

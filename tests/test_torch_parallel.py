@@ -236,6 +236,8 @@ def test_jpeg_shards_match_the_jax_decoder_within_1_lsb():
     from lives_tpu_torch.io.jpeg_ingest import (JpegStreamSource,
                                                 build_device_decoder,
                                                 shard_decode_batch)
+    from test_torch_bridges import jax_bridge
+    jax_bridge("jpegcoef")
     yy, xx = np.mgrid[0:32, 0:64]
     chunks = []
     for s in range(4):

@@ -129,6 +129,8 @@ def test_mjpeg_scrap_recorder_and_recovery_scan(tmp_path):
     frames are the queued ones at JPEG quality, and `scan_scrap_clips`
     rebuilds the uid -> clip map from the file name, as the JAX scan
     does."""
+    from test_torch_bridges import jax_bridge
+    jax_bridge("jpegcoef")
     rec = tscrap.MJPEGScrapRecorder(W, H, fps=30.0, device=CPU)
     yy, xx = np.mgrid[0:H, 0:W]
     sent = []
