@@ -75,7 +75,13 @@ plain PyTorch version:
   Save-As encode job and a multitrack render job: K2, K3, K4), and a
   player streaming over loopback UDP in the L2L and LTPU formats to a
   second player (K3 in the sender's sink step, K2 and K3 in the
-  receiver's).
+  receiver's);
+- the gated backends: the player behind a frei0r plugin (compiled from
+  native/test_plugins/) into the GL and SDL display sinks over recording
+  libraries, a Video-JACK sink over a mock libjack and a Y4M sink (K2,
+  K3); the Kinect and Video-JACK live sources, a fourKlives synth into
+  the JACK sink with the transport as master and a LADSPA plugin, on the
+  card against the CPU; a FireWire DV grab over a mock raw1394.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --config-d   # config D alone (phase 11's render
@@ -98,6 +104,7 @@ plain PyTorch version:
     python3 chip_smoke.py --milk       # phase 23 alone, no result line
     python3 chip_smoke.py --control    # phase 24 alone, no result line
     python3 chip_smoke.py --surfaces   # phase 25 alone, no result line
+    python3 chip_smoke.py --backends   # phase 26 alone, no result line
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
@@ -507,6 +514,35 @@ Phases, one line each:
       letters at `PURETEXT_COUNTS` letters, for one frame and 96, on the
       card equal to the CPU route's, and one 1080p frame of each rendered
       on the card within 1 LSB of the CPU's.
+   The whole phase's and each step's seconds.
+26. the gated backends at 1920x1080, 30 fps, on one of phase 16's decoded
+   Y4M clips, after gcc builds native/test_plugins/f0r_testinvert.c and
+   ladspa_testgain.c into build/test_plugins/:
+   a. twice, first with K2 and K3 swapped for their plain versions (no
+      launch allowed), then with the kernels: four players on the clip
+      under gaussian_blur, f0r_testinvert (the frames cross to the host,
+      through the plugin, and back) and colour_balance keys,
+      `BACKEND_CYCLES` cycles each on the scripted clock, into `GLSink`
+      and `SDLSink` over libraries that record every texture upload, a
+      `VJackSink` over a mock libjack (its port drained each cycle) and a
+      YUV420P Y4M sink (K3 in the sink step); the uploads, port buffers
+      and Y4M files of the two passes compared (0 LSB), K2 and K3
+      launches;
+   b. `KinectClip` over a mock freenect at 640x480 and `VJackSource` at
+      1920x1080 fed `VJACK_FOREIGN` frames (resized on the device,
+      bilinear): the card's frames within 1 LSB of the CPU route's, the
+      depth planes equal;
+   c. a player whose clip's audio is a fourKlives synth, its feeder
+      stepped a block a cycle into `JackAudioSink` over a mock libjack
+      (the process callback fired after each pull), `JackTransport` as
+      master, the LADSPA testgain over each block: the blocks, the port
+      buffers, the plugin's output and the transport's locate, start and
+      stop calls equal between the card and the CPU;
+   d. a mock raw1394 feeding `grab` through the camera
+      `FirewireCamera.find` discovers: the file holds the stream's frames
+      byte for byte; where libav loads, a DV file of the "av" encoder
+      grabbed and opened as a clip (its frames the file's), else one line
+      saying why the lane is absent.
    The whole phase's and each step's seconds.
 Then a `resources` line for K1 (both builds), K4, K5 and K6 (the path's
 entry: ptxas registers and spills, blocks an SM), a JSON line of the kernels
@@ -5979,6 +6015,750 @@ def surfaces_phase(dev, card, launches):
          seconds=f"{time.perf_counter() - t_phase:.2f}")
 
 
+# -- phase 26: the gated backends --------------------------------------------
+
+#: 26a: cycles a sink's player plays, and its keys (the plugin between the
+#: blur and the grade, so the frames cross to the host and back mid-chain)
+BACKEND_CYCLES = 24
+BACKEND_KEYS = (("gaussian_blur", {"radius": 3}),
+                ("f0r_testinvert", {"amount": 0.75}),
+                ("colour_balance", {}))
+#: 26b: frames of each live source; the Video-JACK sender's geometry
+LIVE_FRAMES = 4
+VJACK_FOREIGN = (1280, 720)
+#: 26c: cycles, the JACK rate and period, the frame the transport
+#: locates to at start, the seek half way, the testgain's gain
+AUDIO_CYCLES, AUDIO_RATE, AUDIO_BLOCK = 12, 48000, 1024
+AUDIO_START_FRAME, AUDIO_SEEK_S, LADSPA_GAIN = 12, 1.0, 0.5
+#: 26d: DV frames grabbed
+DV_FRAMES = 3
+
+
+def build_test_plugin(name: str) -> Path:
+    """native/test_plugins/<name>.c compiled by gcc into a directory of its
+    own under build/test_plugins/ (a plugin search path); the directory."""
+    out = ROOT / "build" / "test_plugins" / name
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / f"{name}.so"
+    tmp = out / f".{name}.{os.getpid()}.so"
+    subprocess.run(["gcc", "-O2", "-shared", "-fPIC", "-o", str(tmp),
+                    str(ROOT / "native" / "test_plugins" / f"{name}.c")],
+                   check=True, capture_output=True, timeout=120)
+    os.replace(tmp, so)
+    return out
+
+
+class RecordingEGL:
+    """libEGL stand-in: every call succeeds, `eglChooseConfig` finds one
+    config."""
+
+    def __getattr__(self, name):
+        def fn(*args):
+            if name == "eglChooseConfig":
+                args[4]._obj.value = 1
+            return 1234 if name in ("eglGetDisplay", "eglCreateContext",
+                                    "eglCreatePbufferSurface") else 1
+        return fn
+
+
+class RecordingGL:
+    """libGL stand-in that keeps the bytes of every texture upload."""
+
+    def __init__(self):
+        self.uploads: list[bytes] = []
+
+    def __getattr__(self, name):
+        import ctypes
+
+        def fn(*args):
+            if name == "glGenTextures":
+                args[1]._obj.value = 7
+            if name == "glTexSubImage2D":
+                w, h = args[4], args[5]
+                self.uploads.append(ctypes.string_at(args[8], w * h * 3))
+            return 1
+        return fn
+
+
+class RecordingSDL:
+    """libSDL2 stand-in that keeps the bytes of every texture update."""
+
+    def __init__(self):
+        self.uploads: list[bytes] = []
+        self.h = 0
+
+    def SDL_Init(self, flags):
+        return 0
+
+    def SDL_CreateWindow(self, *args):
+        return 1
+
+    def SDL_CreateRenderer(self, *args):
+        return 2
+
+    def SDL_CreateTexture(self, ren, fmt, access, w, h):
+        self.h = h
+        return 3
+
+    def SDL_UpdateTexture(self, tex, rect, pixels, pitch):
+        import ctypes
+        self.uploads.append(ctypes.string_at(pixels, pitch * self.h))
+        return 0
+
+    def SDL_RenderClear(self, ren):
+        return 0
+
+    def SDL_RenderCopy(self, *args):
+        return 0
+
+    def SDL_RenderPresent(self, ren):
+        pass
+
+    def SDL_PollEvent(self, ev):
+        return 0
+
+    def SDL_DestroyTexture(self, tex):
+        pass
+
+    def SDL_DestroyRenderer(self, ren):
+        pass
+
+    def SDL_DestroyWindow(self, win):
+        pass
+
+    def SDL_Quit(self):
+        pass
+
+
+class MockVJack:
+    """The videojack libjack stand-in: per-port geometry, the process
+    callback fired by the script in place of the JACK thread."""
+
+    def __init__(self, fps=30):
+        self.fps = fps
+        self.cb = None
+        self.ports: dict[int, list[int]] = {}
+        self._buf = None
+
+    def jack_client_open(self, name, opts, status):
+        return 0xC11E47
+
+    def jack_client_close(self, client):
+        return 0
+
+    def jack_get_sample_rate(self, client):
+        return self.fps
+
+    def jack_port_register(self, client, name, ptype, flags, bufsz):
+        port = len(self.ports) + 1
+        self.ports[port] = [0, 0]
+        return port
+
+    def jack_set_process_callback(self, client, cb, arg):
+        self.cb = cb
+        return 0
+
+    def jack_activate(self, client):
+        return 0
+
+    def jack_deactivate(self, client):
+        return 0
+
+    def jack_video_get_width(self, client, port):
+        return self.ports[port][0]
+
+    def jack_video_get_height(self, client, port):
+        return self.ports[port][1]
+
+    def jack_video_set_width_and_height(self, client, port, w, h):
+        self.ports[port] = [int(w), int(h)]
+
+    def jack_port_get_buffer(self, port, nframes):
+        import ctypes
+        return ctypes.addressof(self._buf) if self._buf is not None else 0
+
+    def feed(self, port, rgba_hw4):
+        """A frame on the input port, then the process callback."""
+        import ctypes
+        h, w = rgba_hw4.shape[:2]
+        self.jack_video_set_width_and_height(None, port, w, h)
+        self._buf = ctypes.create_string_buffer(rgba_hw4.tobytes(),
+                                                h * w * 4)
+        assert self.cb(1, None) == 0
+
+    def drain(self, port) -> bytes:
+        """A zeroed output buffer, the process callback, its bytes."""
+        import ctypes
+        w, h = self.ports[port]
+        self._buf = ctypes.create_string_buffer(w * h * 4)
+        assert self.cb(1, None) == 0
+        return self._buf.raw[:w * h * 4]
+
+
+class MockJack:
+    """The audio libjack stand-in: two output ports' buffers, the process
+    callback fired by the script, the transport calls recorded."""
+
+    def __init__(self, rate=AUDIO_RATE):
+        self.rate = rate
+        self.calls: list[tuple] = []
+        self.state = 0
+        self.frame = 0
+        self._bufs: dict = {}
+        self._cb = None
+
+    def jack_client_open(self, name, options, status):
+        self.calls.append(("open", bytes(name)))
+        return 0xC0FFEE
+
+    def jack_client_close(self, client):
+        self.calls.append(("close",))
+        return 0
+
+    def jack_get_sample_rate(self, client):
+        return self.rate
+
+    def jack_port_register(self, client, name, ptype, flags, bufsz):
+        import ctypes
+        port = 100 + len(self._bufs)
+        self._bufs[port] = (ctypes.c_float * 4096)()
+        return port
+
+    def jack_port_get_buffer(self, port, nframes):
+        import ctypes
+        return ctypes.addressof(self._bufs[port])
+
+    def jack_set_process_callback(self, client, cb, arg):
+        self._cb = cb
+        return 0
+
+    def jack_activate(self, client):
+        self.calls.append(("activate",))
+        return 0
+
+    def jack_deactivate(self, client):
+        self.calls.append(("deactivate",))
+        return 0
+
+    def jack_transport_start(self, client):
+        self.calls.append(("t_start",))
+        self.state = 1
+
+    def jack_transport_stop(self, client):
+        self.calls.append(("t_stop",))
+        self.state = 0
+
+    def jack_transport_locate(self, client, frame):
+        self.calls.append(("t_locate", int(frame)))
+        self.frame = int(frame)
+        return 0
+
+    def jack_transport_query(self, client, pos_ref):
+        pos = pos_ref._obj
+        pos.frame_rate = self.rate
+        pos.frame = self.frame
+        return self.state
+
+    def run_process(self, nframes):
+        return self._cb(nframes, None)
+
+    def port_audio(self, nframes):
+        """(nframes, 2) float32: the two ports' buffers."""
+        import numpy as np
+        return np.stack([np.frombuffer(self._bufs[p], np.float32,
+                                       count=nframes).copy()
+                         for p in sorted(self._bufs)], 1)
+
+
+class MockFreenect:
+    """libfreenect_sync stand-in: seeded 640x480 RGB and registered depth
+    (millimetres) a frame, through the sync API's out-pointers."""
+
+    def __init__(self, seed=26):
+        import numpy as np
+        self.rng = np.random.default_rng(seed)
+        self.index = 0
+        self.next_frame()
+
+    def next_frame(self):
+        import ctypes
+        self.rgb = self.rng.integers(0, 256, (480, 640, 3), dtype="u1")
+        self.depth = self.rng.integers(0, 2048, (480, 640), dtype="<u2")
+        self._rgb = ctypes.create_string_buffer(self.rgb.tobytes())
+        self._depth = ctypes.create_string_buffer(self.depth.tobytes())
+
+    def freenect_sync_get_video(self, data_ref, ts_ref, index, fmt):
+        import ctypes
+        data_ref._obj.value = ctypes.addressof(self._rgb)
+        return 0
+
+    def freenect_sync_get_depth(self, data_ref, ts_ref, index, fmt):
+        import ctypes
+        data_ref._obj.value = ctypes.addressof(self._depth)
+        return 0
+
+    def freenect_sync_stop(self):
+        pass
+
+
+class MockRaw1394:
+    """libraw1394 stand-in: one port, two nodes, an iso loop replaying
+    canned packets through the registered handler on channel 63."""
+
+    def __init__(self, packets):
+        self.packets = list(packets)
+        self.handler = None
+
+    def raw1394_new_handle(self):
+        return 0xBEEF
+
+    def raw1394_get_port_info(self, handle, pinf, n):
+        return 1
+
+    def raw1394_set_port(self, handle, port):
+        return 0
+
+    def raw1394_get_nodecount(self, handle):
+        return 2
+
+    def raw1394_destroy_handle(self, handle):
+        pass
+
+    def raw1394_set_iso_handler(self, handle, channel, cb):
+        self.handler = cb
+
+    def raw1394_start_iso_rcv(self, handle, channel):
+        pass
+
+    def raw1394_stop_iso_rcv(self, handle, channel):
+        pass
+
+    def raw1394_loop_iterate(self, handle):
+        import ctypes
+        if not self.packets:
+            return -1
+        pkt = self.packets.pop(0)
+        buf = ctypes.create_string_buffer(pkt, len(pkt))
+        self.handler(None, 63, len(pkt),
+                     ctypes.cast(buf, ctypes.c_void_p).value)
+        return 0
+
+
+class MockRom1394:
+    """librom1394 stand-in: node 1 is an AVC device."""
+
+    def __init__(self):
+        self._last = None
+
+    def rom1394_get_directory(self, handle, node, rom_dir):
+        self._last = node
+        return 0
+
+    def rom1394_get_node_type(self, rom_dir):
+        return 2 if self._last == 1 else 0   # ROM1394_NODE_TYPE_AVC
+
+
+class MockAvc1394:
+    """libavc1394 stand-in: node 1 has a VCR subunit; the tape transport
+    calls recorded."""
+
+    def __init__(self):
+        self.calls: list[str] = []
+
+    def avc1394_check_subunit_type(self, handle, node, subtype):
+        return 1 if node == 1 else 0
+
+    def __getattr__(self, name):
+        if name.startswith("avc1394_vcr_"):
+            return lambda handle, device: self.calls.append(
+                name.removeprefix("avc1394_vcr_"))
+        raise AttributeError(name)
+
+
+def synth_dv_frame(seed: int) -> bytes:
+    """A PAL-sized DV frame with the DIF ids the assembler reads: 12
+    sequences of 150 blocks of 80 bytes, each sequence led by its SCT=0
+    header block."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = bytearray()
+    for seq in range(12):
+        for blk in range(150):
+            head = (0x00, seq << 4, 0) if blk == 0 else \
+                (0x40 | (blk & 0x1F), seq << 4, 0)
+            out += bytes(head) + rng.integers(0, 256, 77, np.uint8).tobytes()
+    return bytes(out)
+
+
+def dv_packets(stream: bytes) -> list[bytes]:
+    """A DV stream as 8 + 480-byte CIP iso packets, an empty CIP keepalive
+    every ten."""
+    pkts = []
+    for ofs in range(0, len(stream), 480):
+        pkts.append(b"\0" * 8 + stream[ofs:ofs + 480])
+        if ofs % 4800 == 0:
+            pkts.append(b"\0" * 8)
+    return pkts
+
+
+def backend_sinks_run(dev, card, root, path, plain):
+    """26a once: one player a sink on `dev`, clip `path` under
+    `BACKEND_KEYS`, `BACKEND_CYCLES` cycles on the scripted clock: GLSink
+    and SDLSink over recording libraries, a VJackSink over a mock libjack
+    (its port drained after each cycle) and a YUV420P Y4M sink."""
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.graph import SinkSpec
+    from lives_tpu_torch.io.clips import open_clip
+    from lives_tpu_torch.io.videojack import VJackSink
+    from lives_tpu_torch.player import GLSink, Player, Y4MSink
+    from lives_tpu_torch.player import player as player_mod
+    from lives_tpu_torch.player.sdl import SDLSink
+
+    zero, counts = launch_counts(dev)
+    root.mkdir(parents=True, exist_ok=True)
+    gl, sdl, vj = RecordingGL(), RecordingSDL(), MockVJack(fps=int(FPS))
+    vsink = VJackSink(lib=vj)
+    sinks = {"gl": (GLSink(libs=(RecordingEGL(), gl)), SinkSpec()),
+             "sdl": (SDLSink(lib=sdl), SinkSpec()),
+             "vjack": (vsink, SinkSpec(palette=int(Palette.RGBA32))),
+             "y4m": (Y4MSink(str(root / "out.y4m")),
+                     SinkSpec(palette=int(Palette.YUV420P)))}
+    ports: list[bytes] = []
+    clock = ScriptedClock()
+    saved_time = player_mod.time
+    player_mod.time = clock
+    try:
+        zero()
+        t0 = time.perf_counter()
+        for kind, (sink, spec) in sinks.items():
+            clock.now = 0.0
+            p = Player(sink, spec, fps=FPS, device=dev)
+            p.async_compile = False
+            p.prewarm_compile = False
+            p.state.fg_clip = open_clip(path, str(root / "work"))
+            for k, (name, vals) in enumerate(BACKEND_KEYS):
+                p.keymap.set_key(k, 0, name)
+                if vals:
+                    p.keymap.set_key_defaults(k, 0, **vals)
+                p.key_toggle(k, True)
+            p.start()
+            p._frame0 += 0.5
+            for c in range(BACKEND_CYCLES):
+                p.process_one()
+                if kind == "vjack":
+                    ports.append(vj.drain(vsink._client.port))
+                clock.now = (c + 1) / FPS
+            p.stop()
+        got = counts()
+        wall = time.perf_counter() - t0
+    finally:
+        player_mod.time = saved_time
+    line(f"26a sinks{' plain' if plain else ''}", card=repr(card),
+         cycles=BACKEND_CYCLES, gl_uploads=len(gl.uploads),
+         sdl_uploads=len(sdl.uploads), vjack_buffers=len(ports),
+         launches=got, wall_s=f"{wall:.3f}")
+    return {"gl": gl.uploads, "sdl": sdl.uploads, "vjack": ports,
+            "y4m": (root / "out.y4m").read_bytes(), "launches": got}
+
+
+def byte_gap(a: bytes, b: bytes):
+    """max |a - b| over two equal-length byte strings, else a reason."""
+    import numpy as np
+    if len(a) != len(b):
+        return "lengths differ"
+    if a == b:
+        return 0
+    x, y = (np.frombuffer(s, np.uint8).astype(np.int16) for s in (a, b))
+    return int(np.abs(x - y).max())
+
+
+def backend_live_run(dev):
+    """26b once on `dev`: `KinectClip` over a mock freenect (640x480,
+    keyed to [400, 1600) mm) and `VJackSource` at 1920x1080 fed frames of
+    `VJACK_FOREIGN`: the frames and depths as host arrays."""
+    import numpy as np
+
+    from lives_tpu_torch.io.kinect import KinectCamera, KinectClip
+    from lives_tpu_torch.io.videojack import VJackSource
+
+    fake = MockFreenect()
+    kin = KinectClip(camera=KinectCamera(lib=fake), minthresh=400,
+                     maxthresh=1600, ccol=(0, 255, 0), device=dev)
+    out = {"kinect": [], "depth": [], "vjack": []}
+    for i in range(LIVE_FRAMES):
+        fake.next_frame()
+        out["kinect"].append(kin.get_frame(i).planes[0].cpu().numpy())
+        out["depth"].append(kin.last_depth.planes[0].cpu().numpy())
+    kin.close()
+    vj = MockVJack(fps=int(FPS))
+    src = VJackSource(width=W, height=H, lib=vj, device=dev)
+    rng = np.random.default_rng(26)
+    fw, fh = VJACK_FOREIGN
+    for i in range(LIVE_FRAMES):
+        vj.feed(src.port, rng.integers(0, 256, (fh, fw, 4), np.uint8))
+        lay = src.get_frame(i)
+        assert lay.device.type == torch_device_type(dev)
+        out["vjack"].append(lay.planes[0].cpu().numpy())
+    src.close()
+    return out
+
+
+def torch_device_type(dev) -> str:
+    import torch
+    return torch.device(dev).type
+
+
+def stepped_feeder(p, sink):
+    """`audio.fx.AudioPlayer` attached to player `p` as a feeder the
+    script steps: its `start` starts no thread, and the script pulls one
+    block a cycle."""
+    from lives_tpu_torch.audio.fx import AudioPlayer
+
+    class Feeder(AudioPlayer):
+        def start(self):
+            self._running = True
+    p.audio = Feeder(p, sink, rate=AUDIO_RATE, block=AUDIO_BLOCK)
+    return p.audio
+
+
+def backend_audio_run(dev, root, path, ladspa_dir):
+    """26c once on `dev`: a player on clip `path` whose audio is a
+    fourKlives synth, its feeder into `JackAudioSink` over a mock libjack
+    (the process callback fired after each cycle's pull), the transport
+    master; the testgain plugin over each pulled block."""
+    import numpy as np
+
+    from lives_tpu_torch.audio.fourklives import FourKLives
+    from lives_tpu_torch.audio.jack import JackAudioSink, JackTransport
+    from lives_tpu_torch.audio.ladspa import LadspaInstance, scan_plugins
+    from lives_tpu_torch.graph import SinkSpec
+    from lives_tpu_torch.io.clips import open_clip
+    from lives_tpu_torch.player import NullSink, Player
+    from lives_tpu_torch.player import player as player_mod
+
+    saved_env = os.environ.get("LADSPA_PATH")
+    os.environ["LADSPA_PATH"] = str(ladspa_dir)
+    try:
+        (plug,) = scan_plugins()
+    finally:
+        if saved_env is None:
+            os.environ.pop("LADSPA_PATH")
+        else:
+            os.environ["LADSPA_PATH"] = saved_env
+    gain = LadspaInstance(plug, rate=AUDIO_RATE)
+    gain.set_control("Gain", LADSPA_GAIN)
+    mock = MockJack()
+    jsink = JackAudioSink(lib=mock)
+    clock = ScriptedClock()
+    saved_time = player_mod.time
+    player_mod.time = clock
+    out = {"ports": [], "gained": [], "pulled": []}
+    try:
+        p = Player(NullSink(), SinkSpec(), fps=FPS, device=dev)
+        p.async_compile = False
+        p.prewarm_compile = False
+        clip = open_clip(path, str(root / "work"))
+        clip.audio_source = FourKLives(rate=AUDIO_RATE)
+        p.state.fg_clip = clip
+        feeder = stepped_feeder(p, jsink)
+        p.transport = JackTransport(jsink.client, p, mode="master")
+        p.state.frame = AUDIO_START_FRAME
+        p.start()
+        p._frame0 += 0.5
+        for c in range(AUDIO_CYCLES):
+            p.process_one()
+            blk = feeder.pull()
+            jsink.write(blk, AUDIO_RATE)
+            assert mock.run_process(AUDIO_BLOCK) == 0
+            out["pulled"].append(blk)
+            out["ports"].append(mock.port_audio(AUDIO_BLOCK))
+            out["gained"].append(gain.run(blk))
+            if c == AUDIO_CYCLES // 2:
+                p.transport.on_seek(AUDIO_SEEK_S)
+            clock.now = (c + 1) / FPS
+        p.stop()
+    finally:
+        player_mod.time = saved_time
+        gain.close()
+    return {k: np.stack(v) for k, v in out.items()} | {
+        "calls": list(mock.calls), "shown": p.frames_shown}
+
+
+def backend_dv(card, root):
+    """26d: a mock raw1394 feeds `grab` a PAL DV stream through the
+    camera `FirewireCamera.find` discovers; the captured file holds the
+    stream's frames byte for byte; the clip step where libav loads, else
+    one line saying why it is absent."""
+    from lives_tpu_torch.io import av
+    from lives_tpu_torch.io.dvgrab import (DVGrabSession, FirewireCamera,
+                                           grab)
+
+    root.mkdir(parents=True, exist_ok=True)
+    frames = [synth_dv_frame(i) for i in range(DV_FRAMES + 1)]
+    raw, avc = MockRaw1394(dv_packets(b"".join(frames))), MockAvc1394()
+    cam = FirewireCamera.find((raw, MockRom1394(), avc))
+    assert cam is not None and cam.device == 1
+    session = DVGrabSession(root)
+    cam.play()
+    files = grab(cam, session, max_frames=DV_FRAMES)
+    cam.stop()
+    cam.close()
+    data = b"".join(p.read_bytes() for p in files)
+    line("26d grab", files=[p.name for p in files], bytes=len(data),
+         frames=session.frames_written, transport=avc.calls,
+         identical=data == b"".join(frames[:DV_FRAMES]))
+    assert data == b"".join(frames[:DV_FRAMES]) and \
+        avc.calls == ["play", "stop"]
+    if av.load_avbridge() is None:
+        line("26d clip", loads=False, reason=repr(av.absent_reason()))
+        return
+    dv_clip_round_trip(card, root)
+
+
+def dv_clip_round_trip(card, root):
+    """A real DV file (the "av" encoder's), CIP-wrapped and grabbed, opens
+    as a clip whose frames are the file's."""
+    import numpy as np
+
+    from lives_tpu_torch.io.clips import open_clip
+    from lives_tpu_torch.io.dvgrab import (DVGrabSession, FirewireCamera,
+                                           grab)
+    from lives_tpu_torch.io.encoders import get_encoder
+
+    src = root / "src.dv"
+    pal = [np.full((576, 720, 3), 40 * i + 20, np.uint8)
+           for i in range(DV_FRAMES)]
+    assert get_encoder("av").encode(str(src), pal, 25.0)
+    stream = src.read_bytes()
+    raw = MockRaw1394(dv_packets(stream + stream[:144000]))
+    cam = FirewireCamera.find((raw, MockRom1394(), MockAvc1394()))
+    (root / "cap").mkdir()
+    (cap,) = grab(cam, DVGrabSession(root / "cap", base="rt-"),
+                  max_frames=DV_FRAMES)
+    a, b = open_clip(str(src), str(root / "wa")), \
+        open_clip(str(cap), str(root / "wb"))
+    gap = max(int(np.abs(a.get_frame(i).planes[k].numpy().astype(int)
+                         - b.get_frame(i).planes[k].numpy().astype(int))
+                  .max()) for i in range(DV_FRAMES) for k in range(3))
+    line("26d clip", loads=True, card=repr(card), frames=b.frames,
+         max_abs_err=gap)
+    assert cap.read_bytes() == stream and gap == 0
+
+
+def backends_phase(dev, card, launches):
+    """26. the gated backends at 1920x1080, 30 fps, on one of phase 16's
+    decoded Y4M clips: the display, Video-JACK and Y4M sinks behind a
+    frei0r plugin, first with K2 and K3 swapped for their plain versions,
+    then with the kernels; the live sources and the audio on the card
+    against the CPU; a DV grab."""
+    import numpy as np
+    import torch
+
+    from lives_tpu_torch.effects import frei0r
+    from lives_tpu_torch.effects.host import list_filters
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+
+    if torch.device(dev).type == "cuda":
+        assert yk.build() is not None
+    t_phase = time.perf_counter()
+    steps = {}
+    os.environ["FREI0R_PATH"] = str(build_test_plugin("f0r_testinvert"))
+    ladspa_dir = build_test_plugin("ladspa_testgain")
+    if "f0r_testinvert" not in list_filters():
+        assert frei0r.register_frei0r_filters() == 1
+    steps["26 plugins"] = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        src = DeviceSyntheticSource(H, W, device=dev)
+        allc, _, _ = write_clips(str(tmp), src, 1, PLAYER_CLIP_FRAMES)
+        path = allc[1].source_uri
+        allc[1].close()
+        steps["26 clip"] = time.perf_counter()
+        runs = {}
+        kernels = (yk.yuv420_to_rgb, yk.rgb_to_yuv420)
+        for label in ("plain", "kern"):
+            if label == "plain":
+                yk.yuv420_to_rgb = yk.plain_yuv420_to_rgb
+                yk.rgb_to_yuv420 = yk.plain_rgb_to_yuv420
+            try:
+                runs[label] = backend_sinks_run(dev, card, tmp / label, path,
+                                                label == "plain")
+            finally:
+                yk.yuv420_to_rgb, yk.rgb_to_yuv420 = kernels
+            steps[f"26a {label}"] = time.perf_counter()
+        plain, kern = runs["plain"], runs["kern"]
+        assert plain["launches"]["k2"] == plain["launches"]["k3"] == 0, \
+            plain["launches"]
+        k2, k3 = kern["launches"]["k2"], kern["launches"]["k3"]
+        gaps = {}
+        for what in ("gl", "sdl", "vjack"):
+            a, b = plain[what], kern[what]
+            assert len(a) == len(b) == BACKEND_CYCLES, (what, len(a), len(b))
+            gs = [byte_gap(x, y) for x, y in zip(a, b)]
+            gaps[what] = "lengths differ" if "lengths differ" in gs \
+                else max(gs)
+        gaps["y4m"] = byte_gap(plain["y4m"], kern["y4m"])
+        line("26a vs_plain", card=repr(card), bound=0, k2_launches=k2,
+             k3_launches=k3, **{f"{k}_max_abs_err": v
+                                for k, v in gaps.items()})
+        assert k2 > 0 and k3 > 0, kern["launches"]
+        assert all(v == 0 for v in gaps.values()), gaps
+        launches["yuv420_to_rgb"] += k2
+        launches["rgb_to_yuv420"] += k3
+        # 26b. the live sources, the card against the CPU
+        card_live, cpu_live = backend_live_run(dev), \
+            backend_live_run(torch.device("cpu"))
+        live_gap = {k: max(int(np.abs(a.astype(np.int16)
+                                      - b.astype(np.int16)).max())
+                           for a, b in zip(card_live[k], cpu_live[k]))
+                    for k in ("kinect", "vjack")}
+        live_gap["depth_equal"] = all(np.array_equal(a, b) for a, b in zip(
+            card_live["depth"], cpu_live["depth"]))
+        line("26b live", card=repr(card), frames=LIVE_FRAMES, bound=1,
+             kinect_shape=card_live["kinect"][0].shape,
+             vjack_shape=card_live["vjack"][0].shape,
+             vjack_from=VJACK_FOREIGN, **{f"{k}_max_abs_err"
+                                          if k != "depth_equal" else k: v
+                                          for k, v in live_gap.items()})
+        assert live_gap["kinect"] <= 1 and live_gap["vjack"] <= 1 and \
+            live_gap["depth_equal"], live_gap
+        steps["26b live"] = time.perf_counter()
+        # 26c. the audio: fourKlives into JACK, the transport, LADSPA
+        a_card = backend_audio_run(dev, tmp / "audio_card", path, ladspa_dir)
+        a_cpu = backend_audio_run(torch.device("cpu"), tmp / "audio_cpu",
+                                  path, ladspa_dir)
+        same = {k: bool(np.array_equal(a_card[k], a_cpu[k]))
+                for k in ("pulled", "ports", "gained")}
+        same["transport"] = a_card["calls"] == a_cpu["calls"]
+        transport = [c for c in a_card["calls"] if c[0].startswith("t_")]
+        gain_err = float(np.abs(a_card["gained"][..., 0] - LADSPA_GAIN
+                                * a_card["pulled"][..., 0]).max())
+        line("26c audio", card=repr(card), cycles=AUDIO_CYCLES,
+             block=AUDIO_BLOCK, rate=AUDIO_RATE, shown=a_card["shown"],
+             transport=transport,
+             peak=f"{float(np.abs(a_card['ports']).max()):.4f}",
+             ladspa_gain_err=gain_err,
+             **{f"{k}_equal": v for k, v in same.items()})
+        assert all(same.values()) and gain_err <= 1e-6, (same, gain_err)
+        assert transport[0] == ("t_locate", int(
+            AUDIO_START_FRAME / FPS * AUDIO_RATE)) and \
+            transport[1] == ("t_start",) and \
+            ("t_locate", int(AUDIO_SEEK_S * AUDIO_RATE)) in transport and \
+            transport[-1] == ("t_stop",), transport
+        assert np.abs(a_card["ports"]).max() > 0
+        steps["26c audio"] = time.perf_counter()
+        # 26d. DV grab
+        backend_dv(card, tmp / "dv")
+        steps["26d dv"] = time.perf_counter()
+    t = t_phase
+    for k, v in steps.items():
+        line("26 step", card=repr(card), step=k, seconds=f"{v - t:.2f}")
+        t = v
+    line("26 phase", card=repr(card),
+         seconds=f"{time.perf_counter() - t_phase:.2f}")
+
+
 def synced_calls(fn):
     """(fn's result, the synchronizing CUDA calls it made, as the warnings
     of torch's sync debug mode)."""
@@ -6071,6 +6851,9 @@ def main(argv) -> int:
         return 0
     if argv == ["--surfaces"]:
         surfaces_phase(dev, card, dict.fromkeys(NAMES, 0))
+        return 0
+    if argv == ["--backends"]:
+        backends_phase(dev, card, dict.fromkeys(NAMES, 0))
         return 0
     if argv and argv not in (["--vocabulary"], ["--vjfilters"],
                              ["--titles"]):
@@ -6658,6 +7441,7 @@ def main(argv) -> int:
     milk_phase(dev, card, launches)
     control_phase(dev, card, launches)
     surfaces_phase(dev, card, launches)
+    backends_phase(dev, card, launches)
     vel = timeline_v(1)
     vspec, _, _, vrows = chunk_of(vel, dev, 1)
     v_geom = fused_sweep.plan_geometry(

@@ -12,8 +12,8 @@ default; without CUDA it raises, as `Player` does) and passes it to its
 player, to `MJPEGMultiClipSource` in `LiVESMultitrack.render` and so to
 every render; a take (`render_recording`) and a timeline render reach the
 new clip as host arrays, a chunk at a time for a take. FireWire capture
-(`grab_firewire`, `io/dvgrab.py`) is not ported yet: it raises naming
-ROADMAP Queue 1 item 23 step 5.
+(`grab_firewire`, `io/dvgrab.py`) writes DV files under the work
+directory and opens them as clips.
 """
 
 from __future__ import annotations
@@ -605,11 +605,27 @@ class LiVESApp:
         """Capture from a FireWire DV/HDV camera and open the captured
         file(s) as clips (`src/ldvgrab.c` on_open_fw_activate ->
         camready -> rec -> open; in-process instead of the dvgrab
-        child). Not ported yet: `io/dvgrab.py` is one of the gated
-        backends."""
-        raise NotImplementedError(
-            "FireWire capture (io/dvgrab.py) is not ported yet (ROADMAP "
-            "Queue 1 item 23 step 5, the gated backends)")
+        child; `lives_tpu/api.py:597-624`). Returns [] when no camera or
+        raw1394 libs are present (gated). The captured DV opens through
+        the libav lane (`io/av.py`), as any clip does."""
+        from .io.dvgrab import DVGrabSession, FirewireCamera, grab
+        cam = FirewireCamera.find(libs)
+        if cam is None:
+            from .messaging import d_print
+            d_print("no FireWire AVC camera (or raw1394 libs) found",
+                    "warn")
+            return []
+        capdir = self.workdir / "capture"
+        capdir.mkdir(exist_ok=True)
+        session = DVGrabSession(capdir, base=base, fmt=fmt,
+                                autosplit=autosplit)
+        cam.play()
+        try:
+            files = grab(cam, session, max_frames=max_frames)
+        finally:
+            cam.stop()
+            cam.close()
+        return [self.open_file(str(p)) for p in files]
 
     def new_clip(self, width: int, height: int, fps: float = 25.0,
                  name: str = "") -> LiVESClip:

@@ -5,10 +5,8 @@ role, src/jack.c / src/pulse.c).
 
 Counterpart of `lives_tpu/audio/fx.py:1-770`, copied (host numpy and
 ctypes; importing it would import the JAX package). The filters compute
-what the JAX ones compute, sample for sample. The JACK sink
-(`lives_tpu/audio/jack.py`, which `best_audio_sink` prefers,
-`fx.py:689-692`) is not ported yet: where libjack loads, `best_audio_sink`
-raises naming its ROADMAP item rather than picking another sink. The ALSA
+what the JAX ones compute, sample for sample. `best_audio_sink` prefers
+the JACK sink (`audio/jack.py`, `fx.py:689-692`) where libjack loads. The ALSA
 and PulseAudio sinks and the ALSA capture load their libraries through
 ctypes and report `available()` False where the library is absent, as the
 JAX ones do.
@@ -692,27 +690,17 @@ class PulseAudioSink(AudioSink):
             self._s = None
 
 
-def _libjack_loads() -> bool:
-    """Whether libjack loads (`lives_tpu/audio/jack.py:52-59`)."""
-    import ctypes
-    for name in ("libjack.so.0", "libjack.so"):
-        try:
-            ctypes.CDLL(name)
-            return True
-        except OSError:
-            continue
-    return False
-
-
 def best_audio_sink(rate: int = 44100) -> AudioSink:
     """Pick the most real output available: JACK > PulseAudio > ALSA
     device > null (the reference's audio-player preference order,
-    prefs->audio_player). Where libjack loads, the JAX package plays
-    through its JACK sink, which the port does not have yet."""
-    if _libjack_loads():
-        raise NotImplementedError(
-            "libjack is present, and the JACK sink (audio/jack.py) is not "
-            "ported yet (ROADMAP Queue 1 item 23)")
+    prefs->audio_player; `lives_tpu/audio/fx.py:686-696`)."""
+    from .jack import load_libjack
+    if load_libjack() is not None:
+        try:
+            from .jack import JackAudioSink
+            return JackAudioSink()
+        except RuntimeError:
+            pass
     if PulseAudioSink.available():
         try:
             return PulseAudioSink(rate=rate)

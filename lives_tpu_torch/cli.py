@@ -32,10 +32,12 @@ multitrack layout (`.json` or binary `.lay`) on `--device` over the
 clips `--clip` maps, or the synthetic source, into a YUV4MPEG file, with
 `--audio` its mixed audio as a WAV beside it; `recover` reopens a
 crashed session's journaled clips in a `api.LiVESApp` on `--device` and
-renders its autosaved take to a new clip there. Not ported yet, each
-raising `NotImplementedError` naming its ROADMAP Queue 1 item: the sdl
-and vjack sinks (item 23); the av encoder (item 11), so `render` writes
-YUV4MPEG whatever the output's suffix.
+renders its autosaved take to a new clip there. `play --sink sdl` shows
+the frames in an SDL2 window (`player.sdl.SDLSink`) and `--sink vjack`
+sends them to a Video-JACK output port (`io.videojack.VJackSink`); both
+raise where their library is absent. `render` writes YUV4MPEG for a
+`.y4m` output and otherwise through the libav encoder where the bridge
+loads, as the JAX console does.
 
 Keys: space=play/stop  0-8=toggle fx key  r=record  R=stop rec+save
       [ ]=fps down/up  v=reverse  p=ping-pong  q=quit
@@ -48,9 +50,9 @@ import select
 import sys
 import time
 
-#: sink kinds `play --sink` names, and the item that ports each one not
-#: ported yet
-UNPORTED_SINKS = {"sdl": 23, "vjack": 23}
+#: sink kinds `play --sink` names that are not ported yet, and the item
+#: that ports each one
+UNPORTED_SINKS: dict[str, int] = {}
 #: subcommands of the JAX console not ported yet, and their items
 UNPORTED_COMMANDS: dict[str, str] = {}
 
@@ -86,6 +88,18 @@ def build_player(uri: str | None, fx: list[str], width: int, height: int,
         host, _, port = (out or "127.0.0.1:8888").partition(":")
         sink = L2LSender(host, int(port or 8888))
         spec = SinkSpec(width=width, height=height)
+    elif sink_kind == "sdl":
+        from .player.sdl import SDLSink
+        sink = SDLSink()
+        spec = SinkSpec(width=width, height=height)
+    elif sink_kind == "vjack":
+        # videojack output port (vjack_output.c role; needs the
+        # videojack libjack fork, errors cleanly otherwise)
+        from .constants import Palette
+        from .io.videojack import VJackSink
+        sink = VJackSink(client_name=out or "lives_tpu-vjack-out")
+        spec = SinkSpec(width=width, height=height,
+                        palette=int(Palette.RGBA32))
     elif sink_kind == "av":
         # encode/stream through the libav bridge: file (mkv/mp4/ogv) or
         # network URL (udp://host:port mpegts, icecast://...)
@@ -350,13 +364,15 @@ def _render(args) -> int:
     the clips `--clip` maps (their MJPEG lanes through
     `MJPEGMultiClipSource`) or, with none, `DeviceSyntheticSource`, both on
     `--device`, rendered chunk by chunk into the YUV4MPEG encoder, which
-    converts each chunk on the device. `--audio` mixes the timeline's
-    audio from the clips (`Multitrack.render_audio`) into a WAV beside
-    it."""
+    converts each chunk on the device, for a `.y4m` output, and else into
+    the libav encoder frame by frame where the bridge loads (YUV4MPEG
+    where it does not). `--audio` mixes the timeline's audio from the
+    clips (`Multitrack.render_audio`) into the file, or a WAV beside a
+    YUV4MPEG one."""
     import tempfile
     from .events.renderer import render_events
     from .io.clips import open_clip
-    from .io.encoders import get_encoder
+    from .io.encoders import get_encoder, list_encoders
     from .multitrack import Multitrack
     from .utils.device import resolve_device
     device = resolve_device(args.device, "render")
@@ -377,17 +393,26 @@ def _render(args) -> int:
         src = DeviceSyntheticSource(el.height or 360, el.width or 640,
                                     device=device)
 
+    ext = args.out.rsplit(".", 1)[-1].lower()
+    if ext in ("y4m", "yuv4mpeg"):
+        enc = "yuv4mpeg"
+    else:
+        enc = "av" if "av" in list_encoders() else "yuv4mpeg"
+
     def frames():
         for _, lay in render_events(el, src):
-            yield lay.planes[0]
+            if enc == "yuv4mpeg":
+                yield lay.planes[0]          # a chunk, converted on device
+            else:
+                yield from lay.planes[0]     # frame by frame to libav
     audio = None
     if args.audio and clips:
         audio = mt.render_audio(
             {getattr(c, "unique_id", uid): c
              for uid, c in clips.items()} | clips)
-    get_encoder("yuv4mpeg").encode(args.out, frames(), el.fps, audio=audio,
-                                   arate=44100)
-    print(f"rendered -> {args.out} (yuv4mpeg"
+    get_encoder(enc).encode(args.out, frames(), el.fps, audio=audio,
+                            arate=44100)
+    print(f"rendered -> {args.out} ({enc}"
           f"{', audio mixed' if audio is not None else ''})")
     return 0
 

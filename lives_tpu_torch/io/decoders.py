@@ -28,10 +28,15 @@ PIL on the host as RGB24; for MJPG, `get_frames_device(ns, device=...)`
 is the compressed lane (`io/jpeg_ingest.py`: entropy decode on the host,
 the rest on the device), which the player's precache takes.
 
-Plain Python file IO. Not ported yet (ROADMAP Queue 1 item 11): the JAX
-decoder's optional native prefetch cache (`enable_prefetch`, `:191-205`),
-the libav bridge and the ffmpeg decoder, which need a native library and
-an `ffmpeg` binary.
+`FFmpegDecoder` (`decoders.py:666-728`, the reference's zzavformat role)
+probes a file with `ffprobe` and reads frame n as raw RGB24 from
+`ffmpeg -ss`, where both binaries were on PATH at import, as in the JAX
+package; `io/__init__.py` registers it last, after the libav bridge's
+decoder (`io/av.py`), the JAX package's order.
+
+Plain Python file IO. The JAX Y4M decoder's optional native prefetch
+cache (`enable_prefetch`, `:191-205`) is not ported: the player's
+precache worker reads ahead into pinned memory instead.
 """
 
 from __future__ import annotations
@@ -40,7 +45,9 @@ import io
 import mmap
 import os
 import re
+import shutil
 import struct
+import subprocess
 import threading
 from dataclasses import dataclass
 from pathlib import Path
@@ -659,3 +666,71 @@ class AVIDecoder(Decoder):
 
     def close(self):
         self._fh.close()
+
+
+# ---------------------------------------------------------------------------
+# ffmpeg-backed decoder (only when the binaries exist; the reference's
+# zzavformat equivalent)
+# ---------------------------------------------------------------------------
+
+FFMPEG = shutil.which("ffmpeg")
+FFPROBE = shutil.which("ffprobe")
+
+
+class FFmpegDecoder(Decoder):
+    """Frames through `ffmpeg` subprocesses (`decoders.py:674-728`): one
+    seek and decode a frame, host RGB24 planes."""
+
+    name = "ffmpeg"
+
+    def __init__(self, cdata: ClipData):
+        self.cdata = cdata
+
+    @classmethod
+    def get_clip_data(cls, uri: str):
+        if not (FFMPEG and FFPROBE and Path(uri).is_file()):
+            return None
+        try:
+            out = subprocess.run(
+                [FFPROBE, "-v", "quiet", "-select_streams", "v:0",
+                 "-show_entries",
+                 "stream=width,height,nb_frames,r_frame_rate",
+                 "-of", "csv=p=0", uri],
+                capture_output=True, text=True, timeout=30).stdout.strip()
+            w, h, fps_s, nf = out.split(",")[:4]
+            num, den = fps_s.split("/")
+            cd = ClipData(uri=uri, nframes=int(nf) if nf.isdigit() else 0,
+                          width=int(w), height=int(h),
+                          fps=int(num) / int(den))
+            cd.decoder = cls(cd)
+            return cd
+        except Exception:
+            return None
+
+    def get_frame(self, n: int, out=None) -> Layer:
+        cd = self.cdata
+        t = n / cd.fps
+        need = cd.width * cd.height * 3
+
+        def grab(ts):
+            return subprocess.run(
+                [FFMPEG, "-v", "quiet", "-ss", f"{ts:.6f}", "-i", cd.uri,
+                 "-frames:v", "1", "-f", "rawvideo", "-pix_fmt", "rgb24",
+                 "-"],
+                capture_output=True, timeout=60).stdout
+
+        raw = grab(t)
+        if len(raw) < need and t > 0:
+            # VFR tails overshoot the duration: retry a frame earlier,
+            # then fall back to black rather than crashing the render
+            raw = grab(max(t - 1.0 / cd.fps, 0.0))
+        if len(raw) < need:
+            raw = bytes(need)
+        arr = np.moveaxis(np.frombuffer(raw[:need], np.uint8)
+                          .reshape(cd.height, cd.width, 3), -1, 0)
+        if out is not None:
+            out[0][...] = arr
+            plane = torch.from_numpy(out[0])
+        else:
+            plane = torch.from_numpy(arr.copy())
+        return Layer(planes=(plane,), palette=int(Palette.RGB24))

@@ -29,14 +29,17 @@ the file beside the video (`.wav` for the video's suffix).
 `AVEncoder` ("av", `encoders.py:203-290`) encodes through the in-process
 libav bridge (`io/av.py`); it is registered where the bridge loads, which
 the registry finds out on its first lookup, not at import (the bridge
-builds with g++ on first use). Not ported (ROADMAP Queue 1 item 11): the
-ffmpeg encoder (an `ffmpeg` binary); `get_encoder("ffmpeg")` raises
-naming the item.
+builds with g++ on first use). `FFmpegEncoder` ("ffmpeg",
+`encoders.py:171-200`) pipes raw RGB24 frames into an `ffmpeg` binary;
+it stands in the registry while `shutil.which("ffmpeg")` finds one (the
+JAX package decides at import; the port at each lookup).
 """
 
 from __future__ import annotations
 
+import shutil
 import struct
+import subprocess
 import time
 import warnings
 from dataclasses import dataclass
@@ -52,10 +55,8 @@ from ..layer import Layer
 CAP_VIDEO = 1
 CAP_AUDIO = 2
 
-#: the JAX package's other encoders, and why the port lacks them
-DEFERRED = {
-    "ffmpeg": "ROADMAP Queue 1 item 11 (an ffmpeg binary)",
-}
+#: the JAX package's encoders the port lacks, and why (none now)
+DEFERRED: dict[str, str] = {}
 
 
 @dataclass
@@ -99,13 +100,18 @@ _AV_CHECKED = False
 
 
 def _register_av():
-    """Register `AVEncoder` once, where the libav bridge loads."""
+    """Register `AVEncoder` once, where the libav bridge loads, and keep
+    `FFmpegEncoder` registered while an `ffmpeg` binary is on PATH."""
     global _AV_CHECKED
     if not _AV_CHECKED:
         _AV_CHECKED = True
         from .av import load_avbridge
         if load_avbridge() is not None:
             register_encoder(AVEncoder)
+    if shutil.which("ffmpeg"):
+        register_encoder(FFmpegEncoder)
+    else:
+        _ENCODERS.pop(FFmpegEncoder.name, None)
 
 
 def get_encoder(name: str) -> Encoder:
@@ -394,3 +400,36 @@ class AVEncoder(Encoder):
         finally:
             sess.close()
         return n > 0
+
+
+class FFmpegEncoder(Encoder):
+    """Raw RGB24 frames piped into an `ffmpeg` binary
+    (`encoders.py:171-200`): each frame crosses to the host in one copy;
+    the audio is not muxed, as in the JAX encoder."""
+
+    name = "ffmpeg"
+
+    @classmethod
+    def get_capabilities(cls):
+        return CAP_VIDEO | CAP_AUDIO
+
+    @classmethod
+    def get_formats(cls):
+        return [EncFormat("h264", "mp4"), EncFormat("vp9", "webm"),
+                EncFormat("mjpeg", "avi")]
+
+    def encode(self, out_path, frames, fps, audio=None, arate=44100):
+        frames = list(frames)
+        if not frames:
+            return False
+        h, w = _host_hwc(frames[0]).shape[:2]
+        cmd = [shutil.which("ffmpeg"), "-y", "-f", "rawvideo",
+               "-pix_fmt", "rgb24", "-s", f"{w}x{h}", "-r", str(fps),
+               "-i", "-", out_path]
+        proc = subprocess.Popen(cmd, stdin=subprocess.PIPE,
+                                stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+        for f in frames:
+            proc.stdin.write(np.ascontiguousarray(_host_hwc(f)).tobytes())
+        proc.stdin.close()
+        return proc.wait() == 0

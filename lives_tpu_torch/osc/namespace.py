@@ -21,13 +21,12 @@ scripts, `/clip/save_as`, `/mt/render` (its clips through
 clip a chunk at a time as host arrays, as the JAX package writes them).
 Out-parameter values leave the device as numpy values, so their wire
 text is the JAX package's. `/lives/version/get` answers the port's own
-version. Three sources are not ported yet (ROADMAP Queue 1 item 23 step
-5): `/clip/open/unicap` (`io/videodev.py`, `:216-217,1447`) and
-`/clip/open/vjack` (`io/videojack.py`, `:234-245`) raise
-`NotImplementedError` naming it, and `/clip/open/kinect` (`:219-230`)
-reaches the port's `io/kinect.py`, whose camera raises so; the dispatch
-turns each into the `/error` reply on the same path that the JAX package
-gives where the hardware is absent.
+version. The live sources, `/clip/open/unicap` (`io/videodev.py`,
+`:216-217,1447`), `/clip/open/kinect` (`io/kinect.py`, `:219-230`) and
+`/clip/open/vjack` (`io/videojack.py`, `:234-245`), serve their frames on
+the player's device; where the hardware or its library is absent the
+dispatch turns the source's error into the `/error` reply on the same
+path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,10 +36,6 @@ import time
 from typing import Any, Optional
 
 from .server import _version
-
-#: the sources of Queue 1 item 23 step 5 that this namespace reaches
-_ITEM23_5 = ("{} is not ported yet (ROADMAP Queue 1 item 23 step 5, the "
-             "gated backends)")
 
 #: /lives/constant/value/get table (reference exposes build constants)
 CONSTANTS = {
@@ -248,7 +243,8 @@ def register_extended(srv) -> None:
         errors cleanly when libfreenect isn't present (gated hardware)."""
         from ..io.kinect import KinectCamera, KinectClip
         src = KinectClip(camera=KinectCamera(index=int(index)),
-                         minthresh=int(minthresh), maxthresh=int(maxthresh))
+                         minthresh=int(minthresh), maxthresh=int(maxthresh),
+                         device=dev())
         cid = new_id()
         srv.clips[cid] = src
         if st().fg_clip is None:
@@ -261,8 +257,15 @@ def register_extended(srv) -> None:
     def clip_open_vjack(w=640, h=480, name="lives_tpu-vjack-rcv"):
         """Video-JACK receive port as a live source (vjack_rcv.c role);
         errors cleanly without the videojack libjack fork."""
-        raise NotImplementedError(_ITEM23_5.format(
-            "the Video-JACK source (io/videojack.py)"))
+        from ..io.videojack import VJackSource
+        src = VJackSource(width=int(w), height=int(h),
+                          client_name=str(name), device=dev())
+        cid = new_id()
+        srv.clips[cid] = src
+        if st().fg_clip is None:
+            st().fg_clip = src
+        srv.notify(512, f"vjack:{name}")  # CLIP_OPENED
+        return cid
 
     m("/clip/open/vjack", clip_open_vjack)
 
@@ -1466,8 +1469,11 @@ def _host(v):
 
 
 def _open_videodev(srv, dev: str):
-    raise NotImplementedError(_ITEM23_5.format(
-        f"the V4L2 source (io/videodev.py) for {dev}"))
+    from ..io.videodev import V4L2Source
+    src = V4L2Source(dev, torch_device=srv.player.device)
+    cid = max(srv.clips, default=0) + 1
+    srv.clips[cid] = src
+    return cid
 
 
 def _fx_name_by_idx(idx):

@@ -1,9 +1,9 @@
 """Realtime player (reference L6, src/player.c): counterpart of
-`lives_tpu/player/__init__.py`, less the GL and SDL sinks (ROADMAP Queue 1
-item 23)."""
+`lives_tpu/player/__init__.py`."""
 
+from .gl import GLSink
 from .player import KeyMap, Player, PlayerState
-from .sinks import CollectSink, NullSink, Y4MSink
+from .sinks import CollectSink, NullSink, PNGSink, Y4MSink
 
 __all__ = ["Player", "PlayerState", "KeyMap", "CollectSink", "NullSink",
-           "Y4MSink"]
+           "PNGSink", "Y4MSink", "GLSink"]

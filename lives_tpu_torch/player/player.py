@@ -70,9 +70,11 @@ starts the feeder, an autotransition's clip switch loads the new clip's,
 and `stop` stops it first. `time_source="audio"` takes the feeder's
 position as the clock, and a recorded FRAME carries the feeder's
 `audio_clips`/`audio_seeks` pair (track -1, the source clip) that
-`audio.engine.render_audio_from_seeks` re-renders. The JACK transport
-that mirrors start and stop (`transport`, ROADMAP Queue 1 item 23) is
-absent. The JAX worker's fixed decode batch
+`audio.engine.render_audio_from_seeks` re-renders. `transport`
+(`lives_tpu/player/player.py:298-300,886-893`) takes an
+`audio.jack.JackTransport`: `start` calls its `on_play` last and `stop`
+its `on_stop` first, so a transport master mirrors playback onto JACK; a
+slave installs the JACK clock as `time_source`. The JAX worker's fixed decode batch
 sizes {4, `precache_chunk`} existed so that XLA compiled two templates;
 the port decodes the window as it stands, in chunks of `precache_chunk`.
 """
@@ -447,6 +449,9 @@ class Player:
         # clip position, reference soundcard time source) or a callable
         # returning seconds (an external transport)
         self.time_source = "system"
+        # external transport glue (audio/jack.py JackTransport): master
+        # mode mirrors start/stop/seek onto the JACK transport
+        self.transport = None
         # optional realtime audio feeder (audio/fx.AudioPlayer), attached
         # by attach_audio()
         self.audio = None
@@ -991,11 +996,16 @@ class Player:
             self.sink.init_screen(w, h, abs(self.state.pb_fps))
             if self._load_audio(clip):
                 self.audio.start()
+        if self.transport is not None:
+            # jack transport master (jack_pb_start, player.c:2288)
+            self.transport.on_play()
 
     def stop(self):
         """Stop playback: drain the pipeline into the sink, stop the
         precache worker, let a warm-up in flight land, close the sink."""
         self.state.playing = False
+        if self.transport is not None:
+            self.transport.on_stop()
         for o, t in self._pending:
             self.sink.play_frame(o, t)
         self._pending.clear()

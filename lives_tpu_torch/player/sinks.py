@@ -16,8 +16,9 @@ its attachment's `block_until_ready` did not wait; PyTorch's events do.)
 `PNGSink` (`sinks.py:93-106`) writes numbered PNGs through PIL on the
 host, the frame crossing in one copy. `AVStreamSink` (`sinks.py:140`)
 encodes RGB frames through the libav bridge (`io/av.py`) to a file or a
-network target. Not ported: `VLoopbackSink` (v4l2, ROADMAP Queue 1 item
-23), which raises naming its item.
+network target. `VLoopbackSink` (`sinks.py:190-233`) writes RGB24 frames
+to a v4l2loopback device; `host_rgb24` is the one copy the display sinks
+(`player/gl.py`, `player/sdl.py`) make of a frame.
 """
 
 from __future__ import annotations
@@ -30,6 +31,14 @@ import torch
 
 from ..constants import Palette
 from ..layer import Layer
+
+
+def host_rgb24(layer: Layer) -> np.ndarray:
+    """One frame as interleaved (H, W, 3) uint8 host pixels: converted to
+    RGB24 on its device, then one device -> host copy."""
+    from ..ops.colorspace import convert_layer
+    rgb = convert_layer(layer, Palette.RGB24).planes[0]
+    return rgb.movedim(-3, -1).contiguous().cpu().numpy()
 
 
 def host_planes(layer: Layer) -> list[np.ndarray]:
@@ -217,8 +226,47 @@ class AVStreamSink(Sink):
 
 
 class VLoopbackSink(Sink):
-    """v4l2loopback output: not ported."""
+    """v4l2loopback output (`lives_tpu/player/sinks.py:190-233`,
+    reference vloopback2.c): raw RGB24 frames written to a /dev/videoN
+    loopback device, so any V4L2 consumer (a browser, OBS, ffmpeg) sees a
+    camera. Gated: raises RuntimeError where the device is absent. The
+    frame crosses to the host in one copy, interleaved (H, W, 3)."""
+
+    palette_list = (Palette.RGB24,)
+
+    V4L2_PIX_FMT_RGB24 = 0x33424752  # 'RGB3'
 
     def __init__(self, device: str = "/dev/video10"):
-        raise NotImplementedError(
-            "VLoopbackSink is not ported yet (ROADMAP Queue 1 item 23)")
+        import os
+        if not os.path.exists(device):
+            raise RuntimeError(f"{device} absent (v4l2loopback not loaded)")
+        self.device = device
+        self._fd = None
+        self.frames = 0
+
+    def init_screen(self, width, height, fps):
+        import fcntl
+        import os
+        import struct as st
+        self._fd = os.open(self.device, os.O_WRONLY)
+        # VIDIOC_S_FMT with v4l2_format(type=V4L2_BUF_TYPE_VIDEO_OUTPUT=2)
+        fmt = st.pack("<I", 2) + st.pack("<IIIII", width, height,
+                                         self.V4L2_PIX_FMT_RGB24, 1,
+                                         width * 3) \
+            + st.pack("<II", width * height * 3, 0) + bytes(200 - 36)
+        VIDIOC_S_FMT = 0xC0D05605
+        fcntl.ioctl(self._fd, VIDIOC_S_FMT, bytearray(fmt))
+
+    def play_frame(self, layer: Layer, tc: float) -> bool:
+        import os
+        (arr,) = host_planes(layer.replace(planes=layer.planes[:1]))
+        os.write(self._fd, np.ascontiguousarray(
+            np.moveaxis(arr, -3, -1)).tobytes())
+        self.frames += 1
+        return True
+
+    def exit_screen(self):
+        import os
+        if self._fd is not None:
+            os.close(self._fd)
+            self._fd = None

@@ -530,10 +530,19 @@ def test_app_device_reaches_player_and_renders(tmp_path):
     assert app.player._player.device == app.device
 
 
-def test_grab_firewire_names_its_item(tmp_path):
+def test_grab_firewire_names_its_item(tmp_path, monkeypatch):
+    """FireWire capture, a stub naming ROADMAP item 23 until it was
+    ported: with no raw1394 libraries both apps find no camera and return
+    [] (`lives_tpu/api.py:597-610`; the grab itself against mocks is
+    `tests/test_torch_dvgrab.py`)."""
+    import lives_tpu.io.dvgrab as j_dv
+    import lives_tpu_torch.io.dvgrab as t_dv
+    for mod in (j_dv, t_dv):
+        monkeypatch.setattr(mod, "load_firewire_libs", lambda: None)
     app = t_api.LiVESApp(workdir=tmp_path / "wd", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 23 step 5"):
-        app.grab_firewire(10)
+    japp = j_api.LiVESApp(workdir=tmp_path / "jwd")
+    assert app.grab_firewire(10) == japp.grab_firewire(10) == []
+    assert not (tmp_path / "wd" / "capture").exists()
 
 
 def test_app_serves_osc_over_its_workdir(tmp_path):

@@ -505,20 +505,27 @@ def test_device_audio_gated_as_in_jax():
     if not tfx.PulseAudioSink.available():
         with pytest.raises(RuntimeError):
             tfx.PulseAudioSink()
-    if tfx._libjack_loads():
-        with pytest.raises(NotImplementedError, match="item 23"):
-            tfx.best_audio_sink()
-    else:
-        assert type(tfx.best_audio_sink()).__name__ == \
-            type(jfx.best_audio_sink()).__name__
+    t, j = tfx.best_audio_sink(), jfx.best_audio_sink()
+    assert type(t).__name__ == type(j).__name__
+    t.close()
+    j.close()
 
 
 def test_best_audio_sink_refuses_jack(monkeypatch):
-    """Where libjack loads, the JAX package plays through its JACK sink,
-    which the port lacks: it raises naming the item."""
-    monkeypatch.setattr(tfx, "_libjack_loads", lambda: True)
-    with pytest.raises(NotImplementedError, match="item 23"):
-        tfx.best_audio_sink()
+    """Where libjack loads, both packages play through their JACK sink
+    (the port's refused with its ROADMAP item until `audio/jack.py` was
+    ported): a mock libjack behind both loaders."""
+    import lives_tpu.audio.jack as jjack
+    import lives_tpu_torch.audio.jack as tjack
+    from test_torch_jack import MockJack
+    for mod in (jjack, tjack):
+        monkeypatch.setattr(mod, "load_libjack", lambda: MockJack())
+    t, j = tfx.best_audio_sink(), jfx.best_audio_sink()
+    assert isinstance(t, tjack.JackAudioSink)
+    assert isinstance(j, jjack.JackAudioSink)
+    assert t.rate == j.rate == 48000
+    t.close()
+    j.close()
 
 
 # -- analysers ----------------------------------------------------------------

@@ -421,12 +421,14 @@ def test_av_stream_source_sequential(tmp_path):
 
 def test_probe_order_keeps_mjpeg_avi_on_the_jpeg_lane(tmp_path):
     """An MJPEG .avi opens with AVIDecoder (the device JPEG lane), an
-    MPEG-4 .avi, which AVIDecoder does not claim, with AVDecoder."""
+    MPEG-4 .avi, which AVIDecoder does not claim, with AVDecoder; the
+    ffmpeg decoder comes after it, last, as in the JAX registry."""
     import io as pyio
     from PIL import Image
     from lives_tpu_torch.io.decoders import _DECODERS, write_mjpeg_avi
     names = [c.name for c in _DECODERS]
-    assert names.index("avi") < names.index("avformat") == len(names) - 1
+    assert names.index("avi") < names.index("avformat") == len(names) - 2
+    assert names[-1] == "ffmpeg"
     jpegs = []
     for i in range(3):
         buf = pyio.BytesIO()

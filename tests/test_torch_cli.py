@@ -143,10 +143,33 @@ def test_play_without_device_refuses_when_cuda_is_absent(y4m_clip):
         cli.build_player(None, [], 32, 16, "null", None)
 
 
-@pytest.mark.parametrize("sink,item", sorted(cli.UNPORTED_SINKS.items()))
-def test_unported_sinks_raise_naming_their_item(sink, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        cli.build_player(None, [], 32, 16, sink, None, device="cpu")
+#: the sinks `build_player` refused naming their ROADMAP item until the
+#: gated backends were ported
+FORMERLY_UNPORTED = {"sdl": 23, "vjack": 23}
+
+
+@pytest.mark.parametrize("sink,item", sorted(FORMERLY_UNPORTED.items()))
+def test_unported_sinks_raise_naming_their_item(sink, item, monkeypatch):
+    """No sink is left unported: the sdl and vjack sinks build (over mock
+    libraries) as the JAX console's do, with the same sink spec
+    (`tests/test_torch_display_sinks.py`, `tests/test_torch_videojack.py`
+    hold their frames)."""
+    import lives_tpu.io.videojack as jvj
+    import lives_tpu.player.sdl as jsdl
+    import lives_tpu_torch.io.videojack as tvj
+    import lives_tpu_torch.player.sdl as tsdl
+    from test_torch_display_sinks import MockSDL
+    from test_torch_videojack import FakeVJackLib
+    assert sink not in cli.UNPORTED_SINKS
+    for mod in (jsdl, tsdl):
+        monkeypatch.setattr(mod, "load_libsdl2", lambda: MockSDL())
+    for mod in (jvj, tvj):
+        monkeypatch.setattr(mod, "load_vjack", lambda: FakeVJackLib())
+    p = cli.build_player(None, [], 32, 16, sink, None, device="cpu")
+    jp = jcli.build_player(None, [], 32, 16, sink, None)
+    assert type(p.sink).__name__ == type(jp.sink).__name__
+    assert (p.sink_spec.width, p.sink_spec.height, p.sink_spec.palette) \
+        == (jp.sink_spec.width, jp.sink_spec.height, jp.sink_spec.palette)
 
 
 #: the JAX console's subcommands (`lives_tpu/cli.py:152-210`)
@@ -526,6 +549,37 @@ def test_render_synthetic_layout_matches_jax(monkeypatch, tmp_path, capsys,
     a, b = _y4m_frames(t), _y4m_frames(j)
     assert a.shape == b.shape and len(a) == 10
     assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("suffix", ["mkv", "avi"])
+def test_render_picks_the_encoder_the_jax_console_picks(monkeypatch,
+                                                        tmp_path, capsys,
+                                                        suffix):
+    """A suffix other than `.y4m` renders through the libav encoder where
+    the bridge loads, else YUV4MPEG, as the JAX console does
+    (`lives_tpu/cli.py:272-276`): both print the same encoder, and where
+    it is libav both files decode to the same frame count and geometry."""
+    from lives_tpu_torch.io.av import load_avbridge
+    from lives_tpu_torch.io.decoders import try_decoders
+    from test_torch_bridges import jax_bridge
+    if load_avbridge() is not None:
+        jax_bridge("avbridge")
+    monkeypatch.setenv("LIVES_TPU_FUSED_SWEEP", "0")
+    lay = _layout(tmp_path, ".lay", n_frames=4)
+    said = {}
+    for pkg, main in (("t", cli.main), ("j", jcli.main)):
+        out = tmp_path / f"{pkg}.{suffix}"
+        extra = ["--device", "cpu"] if pkg == "t" else []
+        assert main(["render", str(lay), "--out", str(out), *extra]) == 0
+        said[pkg] = capsys.readouterr().out.split("(")[1].split(")")[0]
+    assert said["t"] == said["j"] == \
+        ("av" if load_avbridge() is not None else "yuv4mpeg")
+    if said["t"] == "av":
+        t, j = (try_decoders(str(tmp_path / f"{p}.{suffix}"))
+                for p in "tj")
+        assert (t.nframes, t.width, t.height) == \
+            (j.nframes, j.width, j.height)
+        assert t.nframes == 4
 
 
 def test_render_clips_and_audio_match_jax(monkeypatch, tmp_path, capsys):

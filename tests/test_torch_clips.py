@@ -250,7 +250,7 @@ def test_decoder_contract_defaults_match_jax(tmp_path):
         assert tcd.decoder.estimate_delay(a, b) == \
             jcd.decoder.estimate_delay(a, b)
     assert [c.name for c in tdec._DECODERS] == \
-        [c.name for c in jdec._DECODERS if c.name != "ffmpeg"]
+        [c.name for c in jdec._DECODERS]
 
 
 # -- the clip store -----------------------------------------------------------

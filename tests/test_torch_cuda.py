@@ -6,7 +6,11 @@ relative error of K * 2^-23); the live path (`FrameGraph.run`,
 (decoded clips: K2/K3 launches, its Y4M file byte-identical to the plain
 versions'; the upload ring; `NullSink`'s bounded lag); the MJPEG lanes'
 encoder and decoder at 1080p on the card against the CPU, and their
-block products in full precision whatever the TF32 switch.
+block products in full precision whatever the TF32 switch; and the gated
+backends at a small size (phase 26 of chip_smoke.py): the display,
+Video-JACK and Y4M sinks behind a frei0r plugin with K2 and K3 against
+their plain versions, the live sources and the audio on the card against
+the CPU.
 
 These tests need an NVIDIA GPU and skip without one. They import neither
 jax nor lives_tpu, so they also run where only PyTorch is installed:
@@ -1897,3 +1901,108 @@ def test_stream_ends_launch_k3_and_k2_a_frame(cuda, fmt):
         p.stop()
     finally:
         rx.close()
+
+
+# -- the gated backends (phase 26 at a small size) ---------------------------
+
+@pytest.fixture
+def small_backends(cuda, monkeypatch):
+    """chip_smoke at 64x32 with the test plugins built and `f0r_testinvert`
+    registered; its module."""
+    import chip_smoke as cs
+    from lives_tpu_torch.effects import frei0r
+    from lives_tpu_torch.effects.host import list_filters
+    monkeypatch.setattr(cs, "W", 64)
+    monkeypatch.setattr(cs, "H", 32)
+    monkeypatch.setattr(cs, "PLAYER_CLIP_FRAMES", 30)
+    monkeypatch.setattr(cs, "VJACK_FOREIGN", (40, 24))
+    monkeypatch.setenv("FREI0R_PATH",
+                       str(cs.build_test_plugin("f0r_testinvert")))
+    if "f0r_testinvert" not in list_filters():
+        assert frei0r.register_frei0r_filters() == 1
+    return cs
+
+
+def _one_clip(cs, cuda, tmp_path):
+    allc, _, _ = cs.write_clips(str(tmp_path), DeviceSyntheticSource(
+        cs.H, cs.W, device=cuda), 1, cs.PLAYER_CLIP_FRAMES)
+    allc[1].close()
+    return allc[1].source_uri
+
+
+@pytest.mark.cuda
+def test_backend_sinks_equal_on_the_kernels_and_their_plain_versions(
+        small_backends, cuda, tmp_path):
+    """Phase 26a: the GL, SDL, Video-JACK and Y4M sinks behind a frei0r
+    plugin on the card: K2 a decoded frame a player and K3 in the Y4M
+    sink step; the uploads, port buffers and file 0 LSB from the plain
+    pass's."""
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    cs = small_backends
+    path = _one_clip(cs, cuda, tmp_path)
+    kernels = (yk.yuv420_to_rgb, yk.rgb_to_yuv420)
+    yk.yuv420_to_rgb = yk.plain_yuv420_to_rgb
+    yk.rgb_to_yuv420 = yk.plain_rgb_to_yuv420
+    try:
+        plain = cs.backend_sinks_run(cuda, "test", tmp_path / "p", path,
+                                     True)
+    finally:
+        yk.yuv420_to_rgb, yk.rgb_to_yuv420 = kernels
+    kern = cs.backend_sinks_run(cuda, "test", tmp_path / "k", path, False)
+    assert plain["launches"]["k2"] == plain["launches"]["k3"] == 0
+    assert kern["launches"]["k2"] == 4 * cs.BACKEND_CYCLES
+    assert kern["launches"]["k3"] == cs.BACKEND_CYCLES
+    for what in ("gl", "sdl", "vjack", "y4m"):
+        assert plain[what] == kern[what], what
+
+
+@pytest.mark.cuda
+def test_live_sources_on_the_card_match_the_cpu(small_backends, cuda):
+    """Phase 26b: the Kinect clip's keyed frames and depths and the
+    Video-JACK source's resized frames, the card against the CPU."""
+    cs = small_backends
+    a, b = cs.backend_live_run(cuda), \
+        cs.backend_live_run(torch.device("cpu"))
+    for k in ("kinect", "vjack"):
+        for x, y in zip(a[k], b[k]):
+            assert x.shape == y.shape
+            assert np.abs(x.astype(np.int16) - y.astype(np.int16)).max() \
+                <= 1, k
+    for x, y in zip(a["depth"], b["depth"]):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_backend_audio_on_the_card_matches_the_cpu(small_backends, cuda,
+                                                   tmp_path):
+    """Phase 26c: fourKlives into the JACK sink, the transport master,
+    the LADSPA testgain: blocks and calls equal card and CPU."""
+    cs = small_backends
+    path = _one_clip(cs, cuda, tmp_path)
+    ladspa = cs.build_test_plugin("ladspa_testgain")
+    a = cs.backend_audio_run(cuda, tmp_path / "a", path, ladspa)
+    b = cs.backend_audio_run(torch.device("cpu"), tmp_path / "b", path,
+                             ladspa)
+    for k in ("pulled", "ports", "gained"):
+        np.testing.assert_array_equal(a[k], b[k])
+    assert a["calls"] == b["calls"]
+    assert [c for c in a["calls"] if c[0] == "t_start"] == [("t_start",)]
+
+
+@pytest.mark.cuda
+def test_frei0r_layer_on_the_card_comes_back_on_the_card(small_backends,
+                                                         cuda):
+    """The plugin's frames cross to the host and back to the input
+    layer's device, equal to the CPU route's."""
+    from lives_tpu_torch.constants import Palette
+    from lives_tpu_torch.effects.host import apply_instance
+    from lives_tpu_torch.layer import Layer
+    x = torch.from_numpy(np.random.default_rng(26).integers(
+        0, 256, (2, 4, 32, 64), np.uint8))
+    outs = [apply_instance(instantiate("f0r_testinvert", amount=0.8),
+                           [Layer(planes=(x.to(d),),
+                                  palette=int(Palette.RGBA32))])[0]
+            for d in (cuda, torch.device("cpu"))]
+    assert outs[0].planes[0].device.type == "cuda"
+    torch.testing.assert_close(outs[0].planes[0].cpu(), outs[1].planes[0],
+                               rtol=0, atol=0)

@@ -13,10 +13,10 @@ server, namespace) against lives_tpu's, on the CPU.
   equal notify messages. It covers clip open, select, edit and the
   clipboard, effect keys and their typed parameters, pconx and cconx,
   `/mt` and `/block` with `/mt/render`, record, render, preview and
-  discard, clip sets, `/omc`, the message console and the sources not
-  ported yet (ROADMAP Queue 1 item 23 step 5), whose replies are `/error`
-  on the same path in both (the messages differ: the JAX package names
-  the missing hardware, the port the item). Rendered clips agree within
+  discard, clip sets, `/omc`, the message console and the live sources
+  whose hardware is absent here (`/clip/open/unicap`, `/vjack`,
+  `/kinect`), whose replies are `/error` on the same path with the same
+  message in both, and whose console lines agree. Rendered clips agree within
   1 LSB (torch's and XLA's float kernels differ by an ulp), the takes'
   event lists as `to_json` text, and the set trees, clip headers, frame
   indexes and device maps byte for byte.
@@ -430,7 +430,7 @@ def osc_script(paths, root):
         ("/clipboard/paste_as_new", 1, 2, 3),
         ("/effect_key/parameter/name/get", 7, 0),
         ("/video/play/parameter/value/get", 0),
-        # the sources not ported yet: /error on the same path
+        # the live sources, their hardware absent: the same /error
         ("@error", "/clip/open/unicap", "/dev/video_absent"),
         ("@error", "/clip/open/vjack"),
         ("@error", "/clip/open/kinect", 0),
@@ -464,7 +464,8 @@ def run_script(pkg, root, paths, monkeypatch):
             got = s.send(*step[1:])
             assert [(r[1], r[2][0]) for r in got if r[1] == "/error"] == \
                 [("/error", step[1])], got
-            out.append(("error", step[1]))
+            out.append(("error", step[1],
+                        [r[2] for r in got if r[1] == "/error"]))
             continue
         if head == "@check":
             checks[step[1]] = observe(s, step[1])
@@ -503,12 +504,6 @@ def test_osc_script_matches_jax(tmp_path, monkeypatch):
     assert len(tout) == len(jout)
     for j, t in zip(jout, tout):
         if len(j) == 3 and j[1] in VERSION_PATHS:
-            continue
-        if len(j) == 3 and j[1] == "/messages/recent":
-            # the console's lines, the unported sources' errors aside
-            keep = lambda r: [ln for ln in r[2][0].splitlines()
-                              if "/clip/open/" not in ln]
-            assert keep(t) == keep(j)
             continue
         assert t == j
     # the notify socket saw the same messages

@@ -1162,18 +1162,44 @@ def test_generator_fg_rides_as_genslot_matches_jax(monkeypatch):
     same_frames(res["jax"][1].frames, res["torch"][1].frames)
 
 
-# -- what the slice leaves out ----------------------------------------------
+# -- what the slice left out, since ported ----------------------------------
 
+#: features this slice raised for, naming their ROADMAP item, until the
+#: gated backends were ported
 LEFT_OUT = {
-    "vloopback_sink": (lambda: t_sinks.VLoopbackSink(), 23),
+    "vloopback_sink": 23,
 }
 
 
 @pytest.mark.parametrize("feature", sorted(LEFT_OUT))
-def test_left_out_features_raise_naming_their_item(feature):
-    fn, item = LEFT_OUT[feature]
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        fn()
+def test_left_out_features_raise_naming_their_item(feature, tmp_path,
+                                                    monkeypatch):
+    """The v4l2loopback sink now works: a player's frames reach a fake
+    node as the JAX sink writes them (its VIDIOC_S_FMT recorded by a
+    stand-in for `fcntl.ioctl`), and a missing node raises RuntimeError
+    in both packages."""
+    import fcntl
+
+    from lives_tpu.player import sinks as j_sinks
+    assert feature == "vloopback_sink"
+    for mod in (j_sinks, t_sinks):
+        with pytest.raises(RuntimeError, match="v4l2loopback"):
+            mod.VLoopbackSink(str(tmp_path / "absent"))
+    monkeypatch.setattr(fcntl, "ioctl", lambda fd, req, arg, *r: 0)
+    out = {}
+    for pkg, mod in (("jax", j_sinks), ("torch", t_sinks)):
+        node = tmp_path / f"video{pkg}"
+        node.write_bytes(b"")
+        p, _ = make_player(pkg, sink=mod.VLoopbackSink(str(node)))
+        p.async_compile = False
+        p.start()
+        for i in (0, 5, 9):
+            show(p, i)
+        p.stop()
+        out[pkg] = np.frombuffer(node.read_bytes(), np.uint8)
+    assert out["torch"].shape == out["jax"].shape == (3 * 24 * 48 * 3,)
+    assert np.abs(out["torch"].astype(np.int16)
+                  - out["jax"].astype(np.int16)).max() <= 1
 
 
 def test_datacons_wire_the_served_graph():
