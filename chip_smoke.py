@@ -6024,7 +6024,7 @@ BACKEND_KEYS = (("gaussian_blur", {"radius": 3}),
                 ("f0r_testinvert", {"amount": 0.75}),
                 ("colour_balance", {}))
 #: 26b: frames of each live source; the Video-JACK sender's geometry
-LIVE_FRAMES = 4
+SOURCE_FRAMES = 4
 VJACK_FOREIGN = (1280, 720)
 #: 26c: cycles, the JACK rate and period, the frame the transport
 #: locates to at start, the seek half way, the testgain's gain
@@ -6477,6 +6477,7 @@ def backend_live_run(dev):
     keyed to [400, 1600) mm) and `VJackSource` at 1920x1080 fed frames of
     `VJACK_FOREIGN`: the frames and depths as host arrays."""
     import numpy as np
+    import torch
 
     from lives_tpu_torch.io.kinect import KinectCamera, KinectClip
     from lives_tpu_torch.io.videojack import VJackSource
@@ -6485,7 +6486,7 @@ def backend_live_run(dev):
     kin = KinectClip(camera=KinectCamera(lib=fake), minthresh=400,
                      maxthresh=1600, ccol=(0, 255, 0), device=dev)
     out = {"kinect": [], "depth": [], "vjack": []}
-    for i in range(LIVE_FRAMES):
+    for i in range(SOURCE_FRAMES):
         fake.next_frame()
         out["kinect"].append(kin.get_frame(i).planes[0].cpu().numpy())
         out["depth"].append(kin.last_depth.planes[0].cpu().numpy())
@@ -6494,18 +6495,13 @@ def backend_live_run(dev):
     src = VJackSource(width=W, height=H, lib=vj, device=dev)
     rng = np.random.default_rng(26)
     fw, fh = VJACK_FOREIGN
-    for i in range(LIVE_FRAMES):
+    for i in range(SOURCE_FRAMES):
         vj.feed(src.port, rng.integers(0, 256, (fh, fw, 4), np.uint8))
         lay = src.get_frame(i)
-        assert lay.device.type == torch_device_type(dev)
+        assert lay.device.type == torch.device(dev).type
         out["vjack"].append(lay.planes[0].cpu().numpy())
     src.close()
     return out
-
-
-def torch_device_type(dev) -> str:
-    import torch
-    return torch.device(dev).type
 
 
 def stepped_feeder(p, sink):
@@ -6715,7 +6711,7 @@ def backends_phase(dev, card, launches):
                     for k in ("kinect", "vjack")}
         live_gap["depth_equal"] = all(np.array_equal(a, b) for a, b in zip(
             card_live["depth"], cpu_live["depth"]))
-        line("26b live", card=repr(card), frames=LIVE_FRAMES, bound=1,
+        line("26b live", card=repr(card), frames=SOURCE_FRAMES, bound=1,
              kinect_shape=card_live["kinect"][0].shape,
              vjack_shape=card_live["vjack"][0].shape,
              vjack_from=VJACK_FOREIGN, **{f"{k}_max_abs_err"

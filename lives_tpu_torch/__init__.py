@@ -36,7 +36,11 @@ envelopes, effects, keyframes, undo, layouts), `events.weed_binary` (the
 reference's binary layout format), `audio` (`engine`'s mix-down, `fx`'s
 filters, sinks and the player's realtime feeder, `analysers`) and the
 console's `render` (`python -m lives_tpu_torch.cli render layout.lay`).
-Every entry point takes its device explicitly (a `GeneratorClip`, a
+The gated backends (ROADMAP Queue 1 item 23 step 5) wrap host libraries
+through ctypes and take injected ones: `audio.jack`, `audio.ladspa`,
+`audio.fourklives`, `effects.frei0r`, `player.gl`, `player.sdl`,
+`io.videodev`, `io.dvgrab`, `io.videojack`, the Kinect camera in
+`io.kinect`, and the ffmpeg encoder and decoder. Every entry point takes its device explicitly (a `GeneratorClip`, a
 `Player`, the editor's entry points and the console default to "cuda" and
 raise without it); nothing picks a device on its own.
 """

@@ -99,7 +99,7 @@ def register_encoder(cls):
 _AV_CHECKED = False
 
 
-def _register_av():
+def _register_gated():
     """Register `AVEncoder` once, where the libav bridge loads, and keep
     `FFmpegEncoder` registered while an `ffmpeg` binary is on PATH."""
     global _AV_CHECKED
@@ -115,7 +115,7 @@ def _register_av():
 
 
 def get_encoder(name: str) -> Encoder:
-    _register_av()
+    _register_gated()
     if name not in _ENCODERS and name in DEFERRED:
         raise NotImplementedError(f"encoder {name!r} is not ported yet "
                                   f"({DEFERRED[name]})")
@@ -123,7 +123,7 @@ def get_encoder(name: str) -> Encoder:
 
 
 def list_encoders() -> list[str]:
-    _register_av()
+    _register_gated()
     return sorted(_ENCODERS)
 
 

@@ -284,7 +284,7 @@ def test_sdl_fullscreen_and_vsync_flags_match_jax():
 @pytest.fixture
 def fake_v4l2_node(tmp_path, monkeypatch):
     """A regular file standing in for /dev/videoN, and `fcntl.ioctl`
-    recording VIDIOC_S_FMT in place of the v4l2loopback driver."""
+    recording VIDIOC_S_FMT in place of the v4l2loopback module."""
     import fcntl
     node = tmp_path / "video10"
     node.write_bytes(b"")

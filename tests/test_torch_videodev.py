@@ -41,7 +41,7 @@ def mjpeg_bytes(w, h, seed):
     return buf.getvalue()
 
 
-class FakeDriver:
+class FakeV4L2:
     """DQBUF hands out the canned buffers in turn (index and bytesused
     written into the v4l2_buffer as the kernel would); the other ioctls
     are recorded."""
@@ -61,12 +61,12 @@ class FakeDriver:
         return 0
 
 
-def fake_source(pkg, driver, w, h, pixfmt):
-    """A V4L2Source as its constructor leaves it, on the fake driver's
+def fake_source(pkg, v4l2, w, h, pixfmt):
+    """A V4L2Source as its constructor leaves it, on the fake's
     buffers (the constructor's own ioctls need a device node)."""
     src = V4L[pkg].V4L2Source.__new__(V4L[pkg].V4L2Source)
     src.fd, src.width, src.height, src.pixfmt = -1, w, h, pixfmt
-    src._buffers = list(driver.payloads)
+    src._buffers = list(v4l2.payloads)
     if pkg == "torch":
         src.torch_device = torch.device("cpu")
     return src
@@ -78,9 +78,9 @@ def host(lay):
 
 
 @pytest.fixture
-def driver(monkeypatch):
+def v4l2(monkeypatch):
     def install(payloads):
-        d = FakeDriver(payloads)
+        d = FakeV4L2(payloads)
         monkeypatch.setattr(fcntl, "ioctl", d.ioctl)
         monkeypatch.setattr(select, "select", lambda r, w, x, t: (r, w, x))
         return d
@@ -94,11 +94,11 @@ def test_constants_match_jax():
 
 
 @pytest.mark.parametrize("geom", [(32, 16), (64, 48), (10, 6)])
-def test_yuyv_frames_match_jax(driver, geom):
+def test_yuyv_frames_match_jax(v4l2, geom):
     """YUYV bytes, clamped range: the same planes in both packages (the
     port's on its device), three buffers in turn."""
     w, h = geom
-    d = driver([yuyv_bytes(w, h, s) for s in range(3)])
+    d = v4l2([yuyv_bytes(w, h, s) for s in range(3)])
     res = {}
     for pkg in V4L:
         d.k = 0
@@ -114,9 +114,9 @@ def test_yuyv_frames_match_jax(driver, geom):
 
 
 @pytest.mark.parametrize("geom", [(32, 16), (40, 24)])
-def test_mjpeg_frames_match_jax(driver, geom):
+def test_mjpeg_frames_match_jax(v4l2, geom):
     w, h = geom
-    d = driver([mjpeg_bytes(w, h, s) for s in range(2)])
+    d = v4l2([mjpeg_bytes(w, h, s) for s in range(2)])
     res = {}
     for pkg in V4L:
         d.k = 0
@@ -138,8 +138,8 @@ def test_frame_layer_is_on_the_asked_device_and_refuses_unknown_formats():
             call()
 
 
-def test_dequeue_requeues_each_buffer_like_jax(driver):
-    d = driver([yuyv_bytes(8, 4, s) for s in range(2)])
+def test_dequeue_requeues_each_buffer_like_jax(v4l2):
+    d = v4l2([yuyv_bytes(8, 4, s) for s in range(2)])
     calls = {}
     for pkg in V4L:
         d.k, d.calls = 0, []
