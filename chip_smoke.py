@@ -81,7 +81,12 @@ plain PyTorch version:
   libraries, a Video-JACK sink over a mock libjack and a Y4M sink (K2,
   K3); the Kinect and Video-JACK live sources, a fourKlives synth into
   the JACK sink with the transport as master and a LADSPA plugin, on the
-  card against the CPU; a FireWire DV grab over a mock raw1394.
+  card against the CPU; a FireWire DV grab over a mock raw1394;
+- the user tools and examples: rte_test's sweep of every filter's
+  parameters at 1080p, the OSC soak with the notify monitor, batchproc's
+  encodes over UDP (K2, K3), the multitrack edit soak through the web UI,
+  and the embedding, export (K1) and multi-device (K1's band mode)
+  examples against their CPU runs.
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --config-d   # config D alone (phase 11's render
@@ -105,6 +110,7 @@ plain PyTorch version:
     python3 chip_smoke.py --control    # phase 24 alone, no result line
     python3 chip_smoke.py --surfaces   # phase 25 alone, no result line
     python3 chip_smoke.py --backends   # phase 26 alone, no result line
+    python3 chip_smoke.py --tools      # phase 27 alone, no result line
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
@@ -544,6 +550,35 @@ Phases, one line each:
       grabbed and opened as a clip (its frames the file's), else one line
       saying why the lane is absent.
    The whole phase's and each step's seconds.
+27. the user tools and examples (`lives_tpu_torch.tools`, `.examples`),
+   each through its own entry point:
+   a. `rte_test.run_rte_test` self-hosted on the card at 1920x1080, one
+      frame a filter: every filter of the registry mapped on a key over
+      UDP, every parameter at its minimum, midpoint and maximum, each
+      state and choice, a frame rendered at each setting; filters,
+      settings, frames, seconds, the five slowest filters by ms a frame,
+      and every failure with its setting. Only a filter of
+      `RTE_REFERENCE_FAULTS` (the JAX package fails there too) may fail;
+   b. `soaktest.soak` for `SOAK_SECONDS` at 1920x1080, `SOAK_RATE`
+      commands a second, seed `SOAK_SEED`, against its self-hosted player
+      with `monitor.Monitor` subscribed on a thread: commands, frames
+      shown, `process_one` p50/p99/max, notify events decoded, the
+      server's backlog drained over UDP, the engine alive;
+   c. `batchproc.run_batch` sending `/clip/encode_as,<tmp>/out$clip.y4m`
+      to a `LiVESApp` over UDP holding two `BATCH_CLIP_FRAMES`-frame
+      1080p Y4M clips, plain then with the kernels: the files byte for
+      byte, K2 and K3 launches;
+   d. `mt_edit_soak.session` (`MT_SOAK_OPS` ops, seed `MT_SOAK_SEED`)
+      through the web UI on the card and on the CPU: 0 errors, the render
+      covering every timeline frame, the frames within 1 LSB;
+   e. the examples on the card against the CPU: `embed_demo` on an
+      `AdvancingClock` (its work directory: files byte for byte, PNG
+      frames within 1 LSB and byte for byte where their pixels agree),
+      `export_demo` (the rendered frames within 1 LSB, the AVI's JPEGs
+      equal where the pixels are; K1 launches), `multichip_render` over
+      `[cuda:0] * MULTICHIP_ENTRIES` (its three modes within 1 LSB, K1's
+      band mode launched once a band).
+   The whole phase's and each step's seconds.
 Then a `resources` line for K1 (both builds), K4, K5 and K6 (the path's
 entry: ptxas registers and spills, blocks an SM), a JSON line of the kernels
 (with each one's bound: the larger of its bytes over 3.35 TB/s and its
@@ -554,6 +589,7 @@ and, last, the JSON result line.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -5045,6 +5081,7 @@ def milk_phase(dev, card, launches):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from lives_tpu_torch.effects import host as fx_host
     from lives_tpu_torch.effects import milkdrop
     from lives_tpu_torch.io.genclip import GeneratorClip
     from lives_tpu_torch.ops import yuv_kernels as yk
@@ -5106,6 +5143,10 @@ def milk_phase(dev, card, launches):
                 c["shaders"] += 1
                 c["shader_ok"] += not pre.shader_fallback
             card_corpus.append(run)
+        # the corpus presets leave the registry as the phase found it
+        # (phase 27's rte_test sweeps every registered filter)
+        for name, _era, _text in corpus:
+            del fx_host._REGISTRY[f"milk_{name.lower()}"]
         steps["23b_card"] = time.perf_counter()
         cpu_runs = list(cpu_runs)
     steps["23_cpu_pool"] = time.perf_counter()
@@ -6755,6 +6796,412 @@ def backends_phase(dev, card, launches):
          seconds=f"{time.perf_counter() - t_phase:.2f}")
 
 
+#: phase 27: the user tools and examples (`lives_tpu_torch.tools`,
+#: `lives_tpu_torch.examples`) on the card
+RTE_FRAMES = 1
+SOAK_SECONDS = 30.0
+SOAK_RATE = 30.0
+SOAK_SEED = 0
+BATCH_CLIP_FRAMES = 48
+MT_SOAK_OPS = 300
+MT_SOAK_SEED = 0
+MULTICHIP_ENTRIES = 4
+#: filters whose every setting fails in the JAX package as in the port,
+#: so rte_test lists them wherever it runs: name -> (the JAX line at
+#: fault, why); tests/test_torch_tools.py shows the JAX package failing
+#: at the same settings
+RTE_REFERENCE_FAULTS = {
+    "toonz_light_bloom": (
+        "lives_tpu/effects/builtin/extra.py:240",
+        "int() of the per-frame radius: no FrameGraph renders it (JAX "
+        "ConcretizationTypeError, the port's TypeError)"),
+}
+#: ... and those that fail only on frames under their fixed patch's side
+#: (the CPU tests' 32x18), not at 1080p
+RTE_SMALL_FRAME_FAULTS = {
+    "template_tracker": (
+        "lives_tpu/effects/builtin/analysers.py:287",
+        "its 32x32 template patch is cut from a frame under 32 rows"),
+}
+
+
+class AdvancingClock(ScriptedClock):
+    """A `ScriptedClock` whose `sleep` advances `now` instead of waiting:
+    a demo's paced performance on a clock of its own. Each reading moves
+    it on by `tick` (a player's frame times are then not 0)."""
+
+    def __init__(self, now=0.0, tick=0.0):
+        super().__init__(now)
+        self.tick = tick
+
+    def monotonic(self):
+        self.now += self.tick
+        return self.now
+
+    def advance(self, seconds):
+        self.now += seconds
+
+
+class UuidCounter:
+    """Stands in for an event_list module's `uuid`: event ids 1, 2, ...
+    in creation order, so two runs' saved files agree."""
+
+    def __init__(self):
+        self.n = 0
+
+    def uuid4(self):
+        import types
+        self.n += 1
+        return types.SimpleNamespace(hex=f"{self.n:016x}" + "0" * 16)
+
+
+def rte_phase(dev, card):
+    """27a. `rte_test.run_rte_test` self-hosted on `dev` at W x H: every
+    filter mapped on a key over UDP, every parameter at its minimum,
+    midpoint and maximum, each state and choice, a frame rendered at
+    each. Each filter's sweep is timed between two synchronises."""
+    from lives_tpu_torch.effects.host import list_filters
+    from lives_tpu_torch.tools import rte_test as rt
+
+    per = {}
+    test_filter = rt.test_filter
+
+    def timed(cli, name, key, pump=None, frames=2):
+        sync(dev)
+        f0, t0 = rt.frames_rendered, time.perf_counter()
+        try:
+            return test_filter(cli, name, key, pump, frames)
+        finally:
+            sync(dev)
+            per[name] = (time.perf_counter() - t0, rt.frames_rendered - f0)
+
+    rt.frames_rendered = rt.settings_swept = 0
+    rt.test_filter = timed
+    t0 = time.perf_counter()
+    try:
+        names, failures = rt.run_rte_test(frames=RTE_FRAMES, device=dev,
+                                          width=W, height=H,
+                                          timeout=120.0, log=lambda s: None)
+    finally:
+        rt.test_filter = test_filter
+    seconds = time.perf_counter() - t0
+    slow = sorted(((s * 1e3 / max(n, 1), name) for name, (s, n)
+                   in per.items()), reverse=True)[:5]
+    line("27a rte_test", card=repr(card), size=f"{W}x{H}",
+         filters=len(names), settings=rt.settings_swept,
+         frames=rt.frames_rendered, seconds=f"{seconds:.2f}",
+         failing=len(failures),
+         slowest_ms_a_frame=[(n, round(ms, 3)) for ms, n in slow])
+    for name, errs in failures.items():
+        for e in errs:
+            line("27a failure", filter=name, listed=name in
+                 RTE_REFERENCE_FAULTS, error=e[:300])
+    assert sorted(names) == sorted(list_filters()) and len(names) > 0
+    unlisted = sorted(set(failures) - set(RTE_REFERENCE_FAULTS))
+    assert not unlisted, f"rte_test failures not on the list: {unlisted}"
+    assert rt.settings_swept > 0 and rt.frames_rendered > 0
+    return {"filters": len(names), "settings": rt.settings_swept,
+            "frames": rt.frames_rendered, "failing": sorted(failures)}
+
+
+def soak_phase(dev, card):
+    """27b. `soaktest.soak` against its self-hosted player on `dev` at W x
+    H, `monitor.Monitor` subscribed to the notify socket on a thread; then
+    a barrier over UDP (the server's backlog drained) and the JAX tool's
+    liveness ping."""
+    import threading
+
+    import numpy as np
+
+    from lives_tpu_torch.osc import OSCClient
+    from lives_tpu_torch.osc.protocol import OSCMessage
+    from lives_tpu_torch.tools import monitor, soaktest
+
+    p, srv = soaktest.self_host(dev, W, H)
+    mon = monitor.Monitor(srv.port, out=lambda s: None)
+    mon.subscribe()
+    th = threading.Thread(target=mon.run, name="soak-monitor", daemon=True)
+    th.start()
+    try:
+        got = soaktest.soak(srv.port, SOAK_SECONDS, SOAK_SEED, SOAK_RATE,
+                            player=p)
+        t0 = time.perf_counter()
+        with OSCClient(port=srv.port, timeout=300.0) as cli:
+            drain_errors = cli.barrier()
+        drain = time.perf_counter() - t0
+        alive = bool(srv.dispatch(OSCMessage("/app/ping", [])))
+    finally:
+        mon.stop()
+        th.join(timeout=10)
+        p.stop()
+        srv.stop()
+    ms = np.asarray(got["cycle_s"]) * 1e3
+    names = sorted({n for n, _ in mon.events})
+    line("27b soak", card=repr(card), size=f"{W}x{H}", seed=SOAK_SEED,
+         seconds=SOAK_SECONDS, rate=SOAK_RATE, sent=got["sent"],
+         frames_shown=p.frames_shown, dropped=p.frames_dropped,
+         p50_ms=f"{np.percentile(ms, 50):.3f}",
+         p99_ms=f"{np.percentile(ms, 99):.3f}", max_ms=f"{ms.max():.3f}",
+         notify_events=len(mon.events), notify_kinds=names,
+         drain_s=f"{drain:.2f}", errors_at_drain=len(drain_errors),
+         engine="alive" if alive else "DEAD")
+    assert alive and p.frames_shown > 0, (alive, p.frames_shown)
+    assert mon.events, "the monitor decoded no notify event"
+    return {"sent": got["sent"], "shown": p.frames_shown,
+            "events": len(mon.events)}
+
+
+def batchproc_run(dev, root, paths, plain):
+    """27c's pass on `root`: a `LiVESApp` on `dev` over UDP holding the
+    clips, `batchproc.run_batch` sending /clip/encode_as to each. Returns
+    ({clip: file bytes}, launch counts, seconds)."""
+    from lives_tpu_torch.api import LiVESApp
+    from lives_tpu_torch.player import NullSink
+    from lives_tpu_torch.tools import batchproc
+
+    zero, counts = launch_counts(dev)
+    root.mkdir(parents=True)
+    app = LiVESApp(workdir=root / "wd", sink=NullSink(), osc_port=0,
+                   device=dev)
+    try:
+        for pth in paths:
+            app.open_file(pth)
+        t0 = zero()
+        res = batchproc.run_batch(f"/clip/encode_as,{root}/out$clip.y4m",
+                                  port=app.osc.port, timeout=300.0,
+                                  log=lambda s: None)
+        n = counts()
+        seconds = time.perf_counter() - t0
+    finally:
+        app.quit()
+    assert res == [(c, True) for c in range(1, len(paths) + 1)], res
+    assert not plain or not any(n.values()), n
+    return ({c: (root / f"out{c}.y4m").read_bytes() for c, _ in res}, n,
+            seconds)
+
+
+def embed_run(dev, root):
+    """27e's embed demo on `dev` under `root`, on an `AdvancingClock`, its
+    app's player without async compiles, event ids and clip handles
+    counted from 0: {relative path: bytes} of its work directory."""
+    import random
+
+    import lives_tpu_torch.api as api
+    import lives_tpu_torch.events.event_list as elmod
+    import lives_tpu_torch.io.clips as clips_mod
+    from lives_tpu_torch.examples import embed_demo
+    from lives_tpu_torch.player import player as player_mod
+
+    clock = AdvancingClock()
+    saved = (player_mod.time, elmod.uuid, clips_mod._handle_counter,
+             api.LiVESApp.__init__, tempfile.tempdir)
+    init = api.LiVESApp.__init__
+
+    def init_sync(self, *a, **kw):
+        init(self, *a, **kw)
+        pl = self.player._player
+        pl.async_compile = pl.prewarm_compile = pl.drop_on_miss = False
+
+    root.mkdir(parents=True)
+    player_mod.time, elmod.uuid = clock, UuidCounter()
+    clips_mod._handle_counter = 0
+    api.LiVESApp.__init__ = init_sync
+    tempfile.tempdir = str(root)
+    random.seed(27)
+    try:
+        wd = Path(embed_demo.demo(dev, sleep=clock.advance))
+    finally:
+        (player_mod.time, elmod.uuid, clips_mod._handle_counter,
+         api.LiVESApp.__init__, tempfile.tempdir) = saved
+    return work_tree(wd.parent)
+
+
+def work_tree(top) -> dict:
+    """`dir_tree(top)`, the path of `top` written as `<root>` inside the
+    files."""
+    return {k: v.replace(str(top).encode(), b"<root>")
+            for k, v in dir_tree(top).items()}
+
+
+def png_pixels(data: bytes):
+    import io
+
+    import numpy as np
+    from PIL import Image
+    return np.asarray(Image.open(io.BytesIO(data)), np.int16)
+
+
+def tree_gap(a: dict, b: dict):
+    """Two work directories' files: (max LSB over PNG frames, PNGs with
+    equal pixels, PNGs byte for byte among them, other files differing)."""
+    import numpy as np
+    assert sorted(a) == sorted(b), sorted(set(a) ^ set(b))[:8]
+    worst = same_px = same_bytes = other = 0
+    for k in a:
+        if k.endswith(".png"):
+            pa, pb = png_pixels(a[k]), png_pixels(b[k])
+            gap = int(np.abs(pa - pb).max()) if pa.shape == pb.shape \
+                else 255
+            worst = max(worst, gap)
+            if gap == 0:
+                same_px += 1
+                same_bytes += a[k] == b[k]
+        elif a[k] != b[k]:
+            other += 1
+    return worst, same_px, same_bytes, other
+
+
+def avi_jpegs(path) -> list:
+    from lives_tpu_torch.io.decoders import try_decoders
+    cd = try_decoders(str(path))
+    try:
+        return [cd.decoder.get_frame_bytes(n) for n in range(cd.nframes)]
+    finally:
+        cd.decoder.close()
+
+
+def export_run(dev):
+    """27e's export demo on `dev`: (its AVI's JPEG frames, the timeline's
+    frames as `render_to_arrays` renders them before the encode, the
+    reopened middle frame, launch counts of the demo)."""
+    from lives_tpu_torch.events.renderer import render_to_arrays
+    from lives_tpu_torch.examples import export_demo
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+
+    zero, counts = launch_counts(dev)
+    zero()
+    avi, clip, frame = export_demo.export(dev)
+    n = counts()
+    jpegs = avi_jpegs(avi)
+    clip.close()
+    el = export_demo.timeline().el
+    frames, _ = render_to_arrays(el, DeviceSyntheticSource(
+        el.height, el.width, device=dev), batch_size=32)
+    shutil.rmtree(Path(avi).parent, ignore_errors=True)
+    return jpegs, frames, frame, n
+
+
+def tools_phase(dev, card, launches):
+    """27. the user tools and examples on the card, each through its own
+    entry point at the card's sizes: rte_test's sweep at W x H, the soak
+    with the monitor, batchproc over UDP (plain, then kernels), the
+    multitrack edit soak and the three examples against their CPU runs."""
+    import torch
+
+    from lives_tpu_torch.examples import multichip_render
+    from lives_tpu_torch.graph import fused_sweep
+    from lives_tpu_torch.ops import yuv_kernels as yk
+    from lives_tpu_torch.scenes import DeviceSyntheticSource
+    from lives_tpu_torch.tools import mt_edit_soak
+
+    cpu = torch.device("cpu")
+    if torch.device(dev).type == "cuda":
+        for built in (yk.build(), fused_sweep.build()):
+            assert built is not None
+    t_phase = time.perf_counter()
+    steps = {}
+    rte_phase(dev, card)
+    steps["27a rte_test"] = time.perf_counter()
+    soak_phase(dev, card)
+    steps["27b soak"] = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # 27c. batchproc: /clip/encode_as to each clip of an app over UDP
+        src = DeviceSyntheticSource(H, W, device=dev)
+        allc, _, _ = write_clips(str(tmp), src, 2, BATCH_CLIP_FRAMES)
+        paths = [allc[c].source_uri for c in (1, 2)]
+        for c in allc.values():
+            c.close()
+        runs = {}
+        kernels = (yk.yuv420_to_rgb, yk.rgb_to_yuv420)
+        for label in ("plain", "kern"):
+            if label == "plain":
+                yk.yuv420_to_rgb = yk.plain_yuv420_to_rgb
+                yk.rgb_to_yuv420 = yk.plain_rgb_to_yuv420
+            try:
+                runs[label] = batchproc_run(dev, tmp / f"batch_{label}",
+                                            paths, label == "plain")
+            finally:
+                yk.yuv420_to_rgb, yk.rgb_to_yuv420 = kernels
+        (pf, _, ps), (kf, kn, ks) = runs["plain"], runs["kern"]
+        same = all(pf[c] == kf[c] for c in pf)
+        line("27c batchproc", card=repr(card), clips=len(kf),
+             frames=BATCH_CLIP_FRAMES, size=f"{W}x{H}",
+             bytes=[len(kf[c]) for c in sorted(kf)], byte_equal=same,
+             k2=kn["k2"], k3=kn["k3"], plain_s=f"{ps:.2f}",
+             kern_s=f"{ks:.2f}")
+        assert same and kn["k2"] > 0 and kn["k3"] > 0, (same, kn)
+        launches["yuv420_to_rgb"] += kn["k2"]
+        launches["rgb_to_yuv420"] += kn["k3"]
+        steps["27c batchproc"] = time.perf_counter()
+        # 27d. the multitrack edit soak through the web UI, card and CPU
+        card_s, cpu_s = (mt_edit_soak.session(MT_SOAK_OPS, MT_SOAK_SEED, d,
+                                              log=lambda s: None)
+                         for d in (dev, cpu))
+        gap = diff_stats(*(torch.from_numpy(r["frames"])
+                           for r in (card_s, cpu_s)))[0]
+        line("27d mt_edit_soak", card=repr(card), ops=MT_SOAK_OPS,
+             seed=MT_SOAK_SEED, errors=card_s["errors"],
+             n_frames=card_s["n_frames"], rendered=card_s["rendered"],
+             bound=1, max_abs_err=gap,
+             cpu_rendered=cpu_s["rendered"])
+        assert card_s["errors"] == 0 and card_s["rendered"] == \
+            card_s["n_frames"] == cpu_s["n_frames"] > 0 and gap <= 1
+        steps["27d mt_edit_soak"] = time.perf_counter()
+        # 27e. the examples, each against its CPU run
+        trees = [embed_run(d, tmp / f"embed_{i}")
+                 for i, d in enumerate((dev, cpu))]
+        worst, same_px, same_bytes, other = tree_gap(*trees)
+        n_png = sum(k.endswith(".png") for k in trees[1])
+        line("27e embed_demo", card=repr(card), files=len(trees[1]),
+             pngs=n_png, bound=1, max_abs_err=worst, pngs_same_pixels=
+             same_px, of_them_byte_equal=same_bytes,
+             other_files_differing=other)
+        assert worst <= 1 and same_bytes == same_px and other == 0
+        (kj, kfr, kmid, kn), (cj, cfr, cmid, _) = (export_run(d)
+                                                    for d in (dev, cpu))
+        px_gap = [diff_stats(torch.from_numpy(a), torch.from_numpy(b))[0]
+                  for a, b in zip(kfr, cfr)]
+        equal_px = [i for i, g in enumerate(px_gap) if g == 0]
+        bytes_eq = sum(kj[i] == cj[i] for i in equal_px)
+        mid = len(kj) // 2
+        mid_gap = diff_stats(torch.from_numpy(kmid), torch.from_numpy(
+            cmid))[0] if kj[mid] == cj[mid] else None
+        line("27e export_demo", card=repr(card), frames=len(kj),
+             bound=1, max_abs_err=max(px_gap),
+             frames_same_pixels=len(equal_px),
+             of_them_jpeg_equal=bytes_eq,
+             jpeg_equal=sum(a == b for a, b in zip(kj, cj)),
+             reopened_max_abs_err=mid_gap, k1_u8=kn["k1_u8"], k2=kn["k2"],
+             k3=kn["k3"])
+        assert len(kj) == len(cj) == len(kfr) and max(px_gap) <= 1 and \
+            bytes_eq == len(equal_px) and (mid_gap is None or mid_gap <= 1)
+        launches["fused_sweep"] += kn["k1_u8"]
+        launches["yuv420_to_rgb"] += kn["k2"]
+        launches["rgb_to_yuv420"] += kn["k3"]
+        zero, counts = launch_counts(dev)
+        zero()
+        mc = multichip_render.render([torch.device(dev)] * MULTICHIP_ENTRIES)
+        n = counts()
+        mc_cpu = multichip_render.render([cpu] * MULTICHIP_ENTRIES)
+        gaps = {k: diff_stats(mc[k].cpu(), mc_cpu[k])[0] for k in mc}
+        line("27e multichip_render", card=repr(card),
+             entries=MULTICHIP_ENTRIES, frames=tuple(mc["dp"].shape),
+             bound=1, band_launches=n["k1_band"], chunks=1,
+             **{f"{k}_max_abs_err": v for k, v in gaps.items()})
+        assert mc["sweep"] is not None and max(gaps.values()) <= 1
+        assert torch.device(dev).type != "cuda" or \
+            n["k1_band"] == MULTICHIP_ENTRIES, n
+        launches["fused_sweep_band"] += n["k1_band"]
+        steps["27e examples"] = time.perf_counter()
+    t = t_phase
+    for k, v in steps.items():
+        line("27 step", card=repr(card), step=k, seconds=f"{v - t:.2f}")
+        t = v
+    line("27 phase", card=repr(card),
+         seconds=f"{time.perf_counter() - t_phase:.2f}")
+
+
 def synced_calls(fn):
     """(fn's result, the synchronizing CUDA calls it made, as the warnings
     of torch's sync debug mode)."""
@@ -6850,6 +7297,9 @@ def main(argv) -> int:
         return 0
     if argv == ["--backends"]:
         backends_phase(dev, card, dict.fromkeys(NAMES, 0))
+        return 0
+    if argv == ["--tools"]:
+        tools_phase(dev, card, dict.fromkeys(NAMES, 0))
         return 0
     if argv and argv not in (["--vocabulary"], ["--vjfilters"],
                              ["--titles"]):
@@ -7438,6 +7888,7 @@ def main(argv) -> int:
     control_phase(dev, card, launches)
     surfaces_phase(dev, card, launches)
     backends_phase(dev, card, launches)
+    tools_phase(dev, card, launches)
     vel = timeline_v(1)
     vspec, _, _, vrows = chunk_of(vel, dev, 1)
     v_geom = fused_sweep.plan_geometry(

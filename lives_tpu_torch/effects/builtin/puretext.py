@@ -33,8 +33,12 @@ starfield contracts its distance. One frame's plan multiplies spiral_text's
 frame scalars before the letter constant. Every letter's cell origin,
 rotation and opacity is the JAX plan's over letter counts 1-256 at 19
 batch sizes of 1-96, and at the loops' boundaries at every batch of
-1-96. In a batch of more than 96 frames the plan's spiral_text at 56-63
-letters computes 1-2 letters in a form the rule does not pick.
+1-96. Past 96 frames a batch XLA's CPU backend cuts the batch into
+partitions run on threads (`outer_dimension_partitions`, 2 to 8 by B on
+the host the maps were made on), and spiral_text at 56-63 letters then
+computes some frames' theta unrolled, by the frame's partition, not by
+its letter: the rule, which takes no frame, misses 1-2 letters a case
+there (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
