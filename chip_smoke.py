@@ -878,15 +878,23 @@ def bound(nbytes, flops):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def device_events(prof):
+    """The device's own events of a torch.profiler trace (kernels, copies
+    and sets), without the program's `record_function` spans that the
+    profiler mirrors on the device's timeline as user annotations."""
+    import torch
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device_busy(prof):
     """(device ms, the 8 largest by name as text) of a torch.profiler
     trace."""
-    import torch
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
+    for e in device_events(prof):
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return (sum(by_name.values()),
             repr("; ".join(f"{n[:48]} {t:.1f}" for n, t in top)))
@@ -894,10 +902,8 @@ def device_busy(prof):
 
 def dtoh_copies(prof) -> int:
     """Device -> host copies in a torch.profiler trace."""
-    import torch
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.name.startswith("Memcpy DtoH"))
+    return sum(1 for e in device_events(prof)
+               if e.name.startswith("Memcpy DtoH"))
 
 
 def main_geometry(plan, ids, packed, card):
@@ -1745,9 +1751,8 @@ def live(dev, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, top = device_busy(prof)
-    kernels = sum(1 for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.name.startswith(("Memcpy", "Memset")))
+    kernels = sum(1 for e in device_events(prof)
+                  if not e.name.startswith(("Memcpy", "Memset")))
     line("14 profiled", card=repr(card), frames=n_prof,
          wall_ms=f"{wall * 1e3:.1f}", device_busy_ms=f"{busy:.1f}",
          idle_share=f"{1 - busy / (wall * 1e3):.3f}",
@@ -2513,8 +2518,7 @@ def player_phase(dev, card, launches):
                 take_counts = counts
             if prof:
                 busy, top = device_busy(trace)
-                names = [e.name for e in trace.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA]
+                names = [e.name for e in device_events(trace)]
                 n_k2 = sum("yuv420_to_rgb" in n for n in names)
                 n_k3 = sum("rgb_to_yuv420" in n for n in names)
                 assert (n_k2, n_k3) == (counts["yuv420_to_rgb"],
@@ -3721,9 +3725,8 @@ def mjpeg_phase(dev, card, launches):
              dtoh_copies=dtoh_copies(prof), top=top)
         # the float64 GEMMs of the trace, and the block products split by
         # stage with the events around each call (the GEMMs and casts)
-        gemm = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and "gemm_f64" in e.name) / 1e3
+        gemm = sum(e.time_range.elapsed_us() for e in device_events(prof)
+                   if "gemm_f64" in e.name) / 1e3
         stage = {k: sum(a.elapsed_time(b) for a, b in v)
                  for k, v in pairs.items()}
         line("19b products", card=repr(card), trace_f64_gemm_ms=f"{gemm:.1f}",
@@ -4185,9 +4188,8 @@ def datacons_phase(dev, card, launches):
                 busy, top = device_busy(trace)
                 n_dtoh = dtoh_copies(trace)
                 pageable = sum(
-                    1 for e in trace.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and e.name.startswith("Memcpy HtoD (Pageable"))
+                    1 for e in device_events(trace)
+                    if e.name.startswith("Memcpy HtoD (Pageable"))
                 extra = dict(
                     dtoh_copies=n_dtoh, htod_pageable_copies=pageable,
                     dtoh_per_cycle=f"{n_dtoh / PLAYER_CYCLES:.3f}",
@@ -5053,9 +5055,7 @@ def milk_splat_cost(dev, reps=10):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         splat()
         torch.cuda.synchronize()
-    n = sum(1 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
-    return start.elapsed_time(end) / reps, n
+    return start.elapsed_time(end) / reps, len(device_events(prof))
 
 
 def milk_gaps(card, cpu):
@@ -5102,8 +5102,7 @@ def milk_phase(dev, card, launches):
                                      map(float, levels[name][-1]))))
             clip.get_frame(MILK_FRAMES)
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = device_events(prof)
         busy, top = device_busy(prof)
         card_runs[name] = (card_runs[name], ms, len(kernels), busy, top)
     splat_ms, splat_launches = milk_splat_cost(dev)

@@ -5,18 +5,25 @@ Counterpart of `lives_tpu/diagnostics.py` (reference `src/diagnostics.c`:
 instant-fps + stats overlay :97,398, micro-benchmarks :840). Copied, as
 host Python: `current_ticks`, `FrameLadder` (the per-frame timing ladder
 `Player.ladder` fills; `frameloader.c:46`, the layers.h:78 status enum),
-`StepTimer`, `benchmark_memcpy` (a host copy) and `CostPredictor`
+`benchmark_memcpy` (a host copy) and `CostPredictor`
 (`:21-107,182-231`). `run_startup_tests` (`:108-179`) runs the same six
 checks on the port's layers, colour engine, effect host, event lists and
 JPEG lanes, on an explicit device ("cuda" by default).
+
+`span` marks where the port's work happens (the renderer, the plan and its
+uploads, the live frame, each effect and generator) in a `torch.profiler`
+trace, on the clock of the device's own activity. The profiler being on is
+its only switch: with it off a span is one shared no-op context, and the
+port keeps no timestamps of its own.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from collections import defaultdict
 
 import numpy as np
+import torch
 
 TICKS_PER_SECOND = 100_000_000
 
@@ -78,30 +85,20 @@ class FrameLadder:
 
 
 # ---------------------------------------------------------------------------
-# Plan-step timing (nodemodel extract_timedata :1510 analogue)
+# Spans on the profiler's clock
 # ---------------------------------------------------------------------------
 
-class StepTimer:
-    def __init__(self):
-        self.times: dict[str, list[float]] = defaultdict(list)
+_OFF = contextlib.nullcontext()
 
-    def time(self, name: str):
-        timer = self
 
-        class _Ctx:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-
-            def __exit__(self, *a):
-                timer.times[name].append(time.perf_counter() - self.t0)
-
-        return _Ctx()
-
-    def summary(self) -> dict[str, dict[str, float]]:
-        return {k: {"mean_ms": float(np.mean(v) * 1e3),
-                    "std_ms": float(np.std(v) * 1e3),
-                    "n": len(v)}
-                for k, v in self.times.items()}
+def span(name: str, sub: str = ""):
+    """A `torch.profiler.record_function` named `name + sub` while the
+    profiler is on; otherwise one shared no-op context, so an unprofiled
+    call allocates nothing (a name that depends on a filter is built only
+    when it is on). Never hold one open across a `yield`."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name + sub)
+    return _OFF
 
 
 # ---------------------------------------------------------------------------
@@ -115,8 +112,6 @@ def run_startup_tests(verbose: bool = False,
     JPEG lanes' check passes where the host's libjpeg coder cannot load,
     as the JAX package's does, and names what is missing when
     `verbose`."""
-    import torch
-
     from .constants import Palette
     from .layer import layer_blank, layer_from_bytes, layer_to_bytes
     from .ops import colorspace as cs

@@ -25,6 +25,7 @@ from typing import Iterator, Protocol, Sequence
 import numpy as np
 import torch
 
+from ..diagnostics import span
 from ..effects.host import DEFERRED, Instance, get_filter
 from ..graph.nodemodel import _STATIC_KINDS, FrameGraph, SinkSpec
 from ..layer import Layer, _plane_shapes, layer_blank
@@ -232,7 +233,10 @@ def render_events(el: EventList, source, sink: SinkSpec | None = None,
     on the source's device (`lives_tpu/events/renderer.py:232`)."""
     fps = fps or el.fps
     sink = sink or SinkSpec(width=el.width, height=el.height)
-    segs = segment_events(el)
+    # spans close before each `yield`: a consumer's work between chunks
+    # is never put down to the renderer
+    with span("lives.render.segment"):
+        segs = segment_events(el)
     if segs and is_audio_terminator(segs[-1].frames[-1]):
         # a trailing audio terminator bounds the timeline's audio; it is
         # not a frame of video content
@@ -240,32 +244,39 @@ def render_events(el: EventList, source, sink: SinkSpec | None = None,
         if not segs[-1].frames:
             segs.pop()
     for seg in segs:
-        inits, chain = _chain_for(seg.inits, el, seg.frames[0].tc)
-        graph = FrameGraph(chain, sink, fps=fps, cconx=_cconx_for(inits))
+        with span("lives.render.chain"):
+            inits, chain = _chain_for(seg.inits, el, seg.frames[0].tc)
+            graph = FrameGraph(chain, sink, fps=fps,
+                               cconx=_cconx_for(inits))
         n_tracks = max((len(f.clips) for f in seg.frames), default=0)
         for ofs in range(0, len(seg.frames), batch_size):
-            chunk = seg.frames[ofs: ofs + batch_size]
-            tcs = [f.tc for f in chunk]
-            # int64: FRAME events recorded from live playback carry 63-bit
-            # clip unique_ids
-            cids = np.full((n_tracks, len(chunk)), -1, np.int64)
-            fnums = np.zeros((n_tracks, len(chunk)), np.int64)
-            for j, f in enumerate(chunk):
-                for t in range(min(n_tracks, len(f.clips))):
-                    cids[t, j] = f.clips[t]
-                    fnums[t, j] = f.frames[t]
-            params = _interp_arrays(el, inits, chain, tcs)
-            tcs_s = np.asarray(tcs, np.float64) / TICKS_PER_SECOND
-            frame_idx = np.asarray(
-                [round(tc * fps / TICKS_PER_SECOND) for tc in tcs], np.int32)
-            if hasattr(source, "traced_layer"):
+            with span("lives.render.chunk"):
+                chunk = seg.frames[ofs: ofs + batch_size]
+                tcs = [f.tc for f in chunk]
+                # int64: FRAME events recorded from live playback carry
+                # 63-bit clip unique_ids
+                cids = np.full((n_tracks, len(chunk)), -1, np.int64)
+                fnums = np.zeros((n_tracks, len(chunk)), np.int64)
+                for j, f in enumerate(chunk):
+                    for t in range(min(n_tracks, len(f.clips))):
+                        cids[t, j] = f.clips[t]
+                        fnums[t, j] = f.frames[t]
+                params = _interp_arrays(el, inits, chain, tcs)
+                tcs_s = np.asarray(tcs, np.float64) / TICKS_PER_SECOND
+                frame_idx = np.asarray(
+                    [round(tc * fps / TICKS_PER_SECOND) for tc in tcs],
+                    np.int32)
+                traced = hasattr(source, "traced_layer")
+                if not traced:
+                    layers = [source.get_batch(list(cids[t]),
+                                               list(fnums[t]))
+                              for t in range(n_tracks)]
+            if traced:
                 # generation is the plan's LOAD step (one call per chunk)
                 out = graph.run_batch([], tcs_s.astype(np.float32),
                                       frame_idx, params, source=source,
                                       src_args=(cids, fnums))
             else:
-                layers = [source.get_batch(list(cids[t]), list(fnums[t]))
-                          for t in range(n_tracks)]
                 out = graph.run_batch(layers, tcs_s.astype(np.float32),
                                       frame_idx, params)
             yield tcs, out

@@ -75,6 +75,7 @@ import numpy as np
 import torch
 
 from ..constants import Gamma, Palette, has_alpha, is_rgb_palette
+from ..diagnostics import span
 from ..effects.host import STATIC_KINDS as _STATIC_KINDS
 from ..effects.host import (FILTER_STATEFUL, FrameContext, Instance,
                             apply_instance)
@@ -254,14 +255,16 @@ def run_chain(chain_spec: Sequence[tuple], layers: Sequence[Layer | None],
         inst = Instance(filter=filt, values={**static, **tp}, enabled=enabled,
                         in_tracks=in_tr, out_tracks=out_tr,
                         state=states[j] if states is not None else None)
-        layers = apply_instance(inst, layers, ctx, alpha_ins=a_ins)
+        with span("lives.fx.", filt.name):
+            layers = apply_instance(inst, layers, ctx, alpha_ins=a_ins)
         if states is not None:
             states[j] = inst.state
         for name, lay in inst.out_channels.items():
             alpha_store[(i, name)] = lay
     if emit_comp:
         return convert_layer(layers[0], Palette.RGBFLOAT)
-    return _to_sink(layers[0], sink, geometry=origin is None)
+    with span("lives.sink"):
+        return _to_sink(layers[0], sink, geometry=origin is None)
 
 
 def source_frames(source, src_ids: torch.Tensor, chain_spec):
@@ -449,6 +452,10 @@ class FrameGraph:
         (it runs on copies, since rgb_delay writes its ring in place).
         Returns a one-frame Layer with the planes the JAX package's `run`
         returns: no batch axis."""
+        with span("lives.frame"):
+            return self._run(layers, tc, frame, mirror_state, device)
+
+    def _run(self, layers, tc, frame, mirror_state, device) -> Layer:
         gens, real = [], []          # gens: (slot, clip, n or None)
         for i, lay in enumerate(layers):
             if self._is_genclip(lay):
@@ -466,25 +473,28 @@ class FrameGraph:
         if device is None:
             raise ValueError("FrameGraph.run: no layer or clip to take a "
                              "device from; pass device=")
-        traced = [_split_params(inst)[1] for inst in self.chain]
-        gen_traced = [_split_params(c.inst)[1] for _, c, _ in gens]
-        # keyed as the JAX package keys its templates: a value that is not
-        # a host number makes another configuration
-        packable = all(isinstance(v, numbers.Number)
-                       for d in (*traced, *gen_traced) for v in d.values())
-        key = (_chain_static_key(self.chain), self.cconx,
-               tuple(l.config for l in real), self.sink.key(), self.fps,
-               tuple((i, c.inst.filter.hashname, c.width, c.height,
-                      n is None,
-                      tuple(sorted(_split_params(c.inst)[0].items())))
-                     for i, c, n in gens), packable)
-        self.stats[key] = self.stats.get(key, 0) + 1
-        vals = [d[k] for d in (*traced, *gen_traced) for k in sorted(d)]
-        for _, c, n in gens:
-            vals += [tc, frame] if n is None else [n / (c.fps or 25.0), n]
-        packed = pack_column(vals + [tc, frame], device)
-        rows_key = tuple((i, k) for i, d in enumerate(traced)
-                         for k in sorted(d))
+        with span("lives.frame.pack"):
+            traced = [_split_params(inst)[1] for inst in self.chain]
+            gen_traced = [_split_params(c.inst)[1] for _, c, _ in gens]
+            # keyed as the JAX package keys its templates: a value that is
+            # not a host number makes another configuration
+            packable = all(isinstance(v, numbers.Number)
+                           for d in (*traced, *gen_traced)
+                           for v in d.values())
+            key = (_chain_static_key(self.chain), self.cconx,
+                   tuple(l.config for l in real), self.sink.key(), self.fps,
+                   tuple((i, c.inst.filter.hashname, c.width, c.height,
+                          n is None,
+                          tuple(sorted(_split_params(c.inst)[0].items())))
+                         for i, c, n in gens), packable)
+            self.stats[key] = self.stats.get(key, 0) + 1
+            vals = [d[k] for d in (*traced, *gen_traced) for k in sorted(d)]
+            for _, c, n in gens:
+                vals += [tc, frame] if n is None else [n / (c.fps or 25.0),
+                                                       n]
+            packed = pack_column(vals + [tc, frame], device)
+            rows_key = tuple((i, k) for i, d in enumerate(traced)
+                             for k in sorted(d))
         r = len(rows_key)
         t0 = r + sum(len(d) for d in gen_traced)
         made = {}
@@ -556,6 +566,12 @@ class FrameGraph:
         arrays; default: instance values broadcast over B. The result lies
         on the device of the source or of the layers; a stateful chain's
         state carries over to the next call."""
+        with span("lives.plan.batch"):
+            return self._run_batch(layers, tcs, frames, traced_params,
+                                   source, src_args)
+
+    def _run_batch(self, layers, tcs, frames, traced_params, source,
+                   src_args) -> Layer:
         layers = list(layers)
         if source is not None and layers:
             raise ValueError("run_batch: pass layers or a source, not both")
@@ -571,14 +587,16 @@ class FrameGraph:
                 {k: np.broadcast_to(np.float32(v), (B,))
                  for k, v in _split_params(inst)[1].items()}
                 for inst in self.chain]
-        packed_np, rows_key = pack_params(traced_params, tcs, frames)
-        # the chunk's one parameter upload
-        packed = torch.from_numpy(packed_np).to(device)
-        src_dev = None
-        if source is not None:
-            # int64 clip ids wrap to int32, as in the JAX package
-            src_dev = torch.from_numpy(
-                np.stack(src_args).astype(np.int32)).to(device)
+        with span("lives.plan.pack"):
+            packed_np, rows_key = pack_params(traced_params, tcs, frames)
+        with span("lives.plan.upload"):
+            # the chunk's one parameter upload
+            packed = torch.from_numpy(packed_np).to(device)
+            src_dev = None
+            if source is not None:
+                # int64 clip ids wrap to int32, as in the JAX package
+                src_dev = torch.from_numpy(
+                    np.stack(src_args).astype(np.int32)).to(device)
         spec = chain_spec_of(self.chain)
         if self.has_stateful:
             return self._run_stateful(spec, layers, packed, rows_key, source,
@@ -591,19 +609,21 @@ class FrameGraph:
                tuple(src_dev.shape[:2]) if src_dev is not None else None,
                str(device), comp_n)
         if key not in _PLANS:
-            plan = None
-            if source is not None and not self.cconx:
-                plan = fused_sweep.build_fused_sweep(
-                    spec, src_dev.shape[1], source.h, source.w, rows_key,
-                    self.fps, source, self.sink, device)
-            elif comp_n:
-                plan = composite.build_composite(
-                    *composite_prefix(spec[:comp_n], len(layers)), rows_key,
-                    self.fps, device)
-            _PLANS[key] = plan
+            with span("lives.plan.build"):
+                plan = None
+                if source is not None and not self.cconx:
+                    plan = fused_sweep.build_fused_sweep(
+                        spec, src_dev.shape[1], source.h, source.w, rows_key,
+                        self.fps, source, self.sink, device)
+                elif comp_n:
+                    plan = composite.build_composite(
+                        *composite_prefix(spec[:comp_n], len(layers)),
+                        rows_key, self.fps, device)
+                _PLANS[key] = plan
         plan = _PLANS[key]
         if isinstance(plan, fused_sweep.SweepPlan):
-            u8 = fused_sweep.fused_sweep(plan, src_dev, packed)
+            with span("lives.plan.launch"):
+                u8 = fused_sweep.fused_sweep(plan, src_dev, packed)
             return Layer(planes=(u8,), palette=int(Palette.RGB24),
                          gamma=self.sink.gamma)
         if source is not None:
@@ -616,8 +636,10 @@ class FrameGraph:
             # the prefix as one kernel over the decoded tracks; its u8 comp
             # replaces track 0 and the chain goes on from instance comp_n
             # (`nodemodel.py:723-736`)
-            comp = composite.composite(
-                plan, [l.planes[0] for l in layers[:plan.n_tracks]], packed)
+            with span("lives.plan.launch"):
+                comp = composite.composite(
+                    plan, [l.planes[0] for l in layers[:plan.n_tracks]],
+                    packed)
             layers = [Layer(planes=(comp,), palette=int(Palette.RGB24))] \
                 + layers[1:]
             start = comp_n
@@ -667,33 +689,37 @@ class FrameGraph:
                tuple(src_dev.shape[:2]) if src_dev is not None else None,
                str(device), route)
         if key not in _PLANS:
-            pre_n, suf_n, sf = route
-            plans = {}
-            if source is not None:
-                args = (src_dev.shape[1], source.h, source.w, rows_key,
-                        self.fps, source, self.sink, device)
-                if sf:
-                    plans["sf"] = stateful_sweep.build_stateful_sweep(
-                        spec, *args)
-                if plans.get("sf") is None and pre_n:
-                    plans["pre"] = fused_sweep.build_fused_sweep(
-                        spec[:pre_n], *args, emit="comp")
-                if plans.get("sf") is None and suf_n:
-                    plans["suf"] = fused_sweep.build_fused_sweep(
-                        spec[-suf_n:], *args, consume="comp",
-                        idx_base=len(spec) - suf_n)
-            _PLANS[key] = StatefulRoute(**plans)
+            with span("lives.plan.build"):
+                pre_n, suf_n, sf = route
+                plans = {}
+                if source is not None:
+                    args = (src_dev.shape[1], source.h, source.w, rows_key,
+                            self.fps, source, self.sink, device)
+                    if sf:
+                        plans["sf"] = stateful_sweep.build_stateful_sweep(
+                            spec, *args)
+                    if plans.get("sf") is None and pre_n:
+                        plans["pre"] = fused_sweep.build_fused_sweep(
+                            spec[:pre_n], *args, emit="comp")
+                    if plans.get("sf") is None and suf_n:
+                        plans["suf"] = fused_sweep.build_fused_sweep(
+                            spec[-suf_n:], *args, consume="comp",
+                            idx_base=len(spec) - suf_n)
+                _PLANS[key] = StatefulRoute(**plans)
         route = _PLANS[key]
         if route.sf is not None:
-            u8, self.states = stateful_sweep.stateful_sweep(
-                route.sf, src_dev, packed, self.states)
+            with span("lives.plan.launch"):
+                u8, self.states = stateful_sweep.stateful_sweep(
+                    route.sf, src_dev, packed, self.states)
             out = Layer(planes=(u8,), palette=int(Palette.RGB24),
                         gamma=self.sink.gamma)
         else:
             start, stop = route.npre, len(spec) - route.nsuf
             if route.pre is not None:
                 # generation + the stateless prefix: one kernel, f32 comp
-                comp = fused_sweep.fused_sweep(route.pre, src_dev, packed)
+                with span("lives.plan.launch"):
+                    comp = fused_sweep.fused_sweep(route.pre, src_dev,
+                                                   packed)
                 frame_layers = lambda b: [Layer(  # noqa: E731
                     planes=(comp[b:b + 1],), palette=int(Palette.RGBFLOAT))]
             elif source is not None:
@@ -710,8 +736,9 @@ class FrameGraph:
             if route.suf is not None:
                 # the suffix: the other tracks regenerated in the kernel,
                 # the trailing point ops, the sink quantise
-                u8 = fused_sweep.fused_sweep(route.suf, src_dev, packed,
-                                             out.planes[0])
+                with span("lives.plan.launch"):
+                    u8 = fused_sweep.fused_sweep(route.suf, src_dev, packed,
+                                                 out.planes[0])
                 out = Layer(planes=(u8,), palette=int(Palette.RGB24),
                             gamma=self.sink.gamma)
         for inst, st in zip(self.chain, self.states):

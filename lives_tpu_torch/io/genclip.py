@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..constants import Palette
+from ..diagnostics import span
 from ..effects.host import (FILTER_STATEFUL, FrameContext, instantiate,
                             split_params)
 from ..layer import Layer
@@ -134,15 +135,16 @@ class GeneratorClip:
         stateful generator's state threads through; the caller holds the
         lock where that matters."""
         filt = self.inst.filter
-        params = {**{p.name: p.default for p in filt.params},
-                  **split_params(self.inst)[0], **rows}
-        ctx = FrameContext(tc=tc, frame=frame.to(torch.int32), fps=fps,
-                           width=self.width, height=self.height,
-                           device=tc.device)
-        if not filt.flags & FILTER_STATEFUL:
-            return filt.process([], params, ctx)
-        if self._state is None and filt.init_state is not None:
-            self._state = filt.init_state(self.width, self.height,
-                                          int(Palette.RGB24), tc.device)
-        out, self._state = filt.process([], params, ctx, self._state)
-        return out
+        with span("lives.gen.", filt.name):
+            params = {**{p.name: p.default for p in filt.params},
+                      **split_params(self.inst)[0], **rows}
+            ctx = FrameContext(tc=tc, frame=frame.to(torch.int32), fps=fps,
+                               width=self.width, height=self.height,
+                               device=tc.device)
+            if not filt.flags & FILTER_STATEFUL:
+                return filt.process([], params, ctx)
+            if self._state is None and filt.init_state is not None:
+                self._state = filt.init_state(self.width, self.height,
+                                              int(Palette.RGB24), tc.device)
+            out, self._state = filt.process([], params, ctx, self._state)
+            return out
