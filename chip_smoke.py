@@ -111,6 +111,7 @@ plain PyTorch version:
     python3 chip_smoke.py --surfaces   # phase 25 alone, no result line
     python3 chip_smoke.py --backends   # phase 26 alone, no result line
     python3 chip_smoke.py --tools      # phase 27 alone, no result line
+    python3 chip_smoke.py --live-sweep # phase 28 alone, no result line
 
 Phases, one line each:
 1. require CUDA (exit 1 without it); the card's name and power limit;
@@ -579,6 +580,15 @@ Phases, one line each:
       `[cuda:0] * MULTICHIP_ENTRIES` (its three modes within 1 LSB, K1's
       band mode launched once a band).
    The whole phase's and each step's seconds.
+28. the live sweep K7 (`graph/live_sweep.py`) alone, run only with
+   `--live-sweep`: its build time and ptxas report; on each of the live
+   cell's chains (cardbench/configs/vj_4k60.json) behind luma_key over
+   plasma and colour_bars at 3840x2160, K7 against the eager route on the
+   same column (max |diff| and share of differing values over four
+   frames), then K7's and the eager route's ms a frame by CUDA events in
+   turns (eager, K7, K7, eager) beside `cardbench.work.live_frame`'s bound;
+   then K7's ms on each chain at each block size (`LIVE_THREADS`), in
+   turns up and down.
 Then a `resources` line for K1 (both builds), K4, K5 and K6 (the path's
 entry: ptxas registers and spills, blocks an SM), a JSON line of the kernels
 (with each one's bound: the larger of its bytes over 3.35 TB/s and its
@@ -1807,6 +1817,87 @@ def live(dev, card):
     assert control and not host_syncs and not dev_syncs, \
         (control, host_syncs, dev_syncs)
     return p
+
+
+#: phase 28: the block sizes K7's launch is timed at
+LIVE_THREADS = (64, 128, 256)
+
+
+def live_sweep_phase(dev, card):
+    """28. K7 alone at 4K: build, ptxas, K7 against the eager route on the
+    live cell's chains, its time beside the eager route's and its bound,
+    then its time at each launch geometry."""
+    import json as _json
+
+    import torch
+
+    from cardbench import work
+    from lives_tpu_torch.effects.host import instantiate, split_params
+    from lives_tpu_torch.graph import FrameGraph, SinkSpec, live_sweep
+    from lives_tpu_torch.graph.nodemodel import chain_spec_of
+    from lives_tpu_torch.io.genclip import GeneratorClip
+    from lives_tpu_torch.utils.transfer import pack_column
+
+    built = live_sweep.build()
+    line("28 build", lib=built.path.name, seconds=f"{built.seconds:.2f}")
+    for entry, res in ptxas_entries(built.log).items():
+        line("28 ptxas", entry=entry, **res)
+    cfg = _json.loads((ROOT / "cardbench" / "configs" /
+                       "vj_4k60.json").read_text())
+    values = {"saturation": {"saturation": 1.6},
+              "vignette": {"amount": 0.7, "strength": 1.2},
+              "brightness_contrast": {"brightness": 0.1, "contrast": 1.3}}
+    gens = [GeneratorClip("plasma", LIVE_W, LIVE_H, fps=LIVE_FPS,
+                          device=dev, speed=0.7, scale=0.37),
+            GeneratorClip("colour_bars", LIVE_W, LIVE_H, fps=LIVE_FPS,
+                          device=dev)]
+
+    def setup(names, n):
+        chain = [instantiate("luma_key", threshold=0.3, softness=0.1)]
+        chain += [instantiate(k, **values.get(k, {})) for k in names]
+        g = FrameGraph(chain, SinkSpec(LIVE_W, LIVE_H), fps=LIVE_FPS)
+        traced = [split_params(i)[1] for i in chain]
+        rows = tuple((i, k) for i, d in enumerate(traced) for k in sorted(d))
+        ds = traced + [split_params(c.inst)[1] for c in gens]
+        vals = [d[k] for d in ds for k in sorted(d)]
+        vals += [n / LIVE_FPS, n] * (len(gens) + 1)
+        plan = live_sweep.build_live_sweep(
+            chain_spec_of(chain), gens, rows, g.sink, LIVE_H, LIVE_W, dev,
+            fps=LIVE_FPS)
+        assert plan is not None, names
+        return plan, pack_column(vals, dev)
+
+    for names in cfg["chains"]:
+        label = "+".join(["luma_key", *names])
+        worst = share = 0.0
+        for n in (0, 217, 12345, 35999):
+            plan, col = setup(names, n)
+            got = live_sweep.live_sweep(plan, col)
+            torch.cuda.synchronize()
+            w, sh = diff_stats(got, live_sweep.plain_live_sweep(plan, col))
+            worst, share = max(worst, w), max(share, sh)
+        ms, plain, times = in_turns(
+            lambda: live_sweep.plain_live_sweep(plan, col),
+            lambda: live_sweep.live_sweep(plan, col), 20, 200)
+        ops, nbytes = work.live_frame("luma_key", names, LIVE_W, LIVE_H)
+        b, by = bound(nbytes, ops)
+        line("28 chain", card=repr(card), chain=label,
+             max_abs_err=f"{worst:.6g}", differing_share=f"{share:.3g}",
+             k7_ms=f"{ms:.5f}", eager_ms=f"{plain:.4f}", times=times,
+             bound_ms=f"{b:.5f}", bound_by=by,
+             roofline=f"{100 * b / ms:.2f}%")
+        assert worst <= 1 and share <= 1e-4, (label, worst, share)
+    for names in cfg["chains"]:
+        plan, col = setup(names, 12345)
+        ms = {t: [] for t in LIVE_THREADS}
+        for order in (LIVE_THREADS, LIVE_THREADS[::-1]):
+            for t in order:
+                ms[t].append(time_ms(
+                    lambda: live_sweep.live_sweep(plan, col, threads=t), 200))
+        line("28 geometry", card=repr(card),
+             chain="+".join(["luma_key", *names]),
+             **{f"threads{t}": ",".join(f"{x:.5f}" for x in v)
+                for t, v in ms.items()})
 
 
 def new_ops():
@@ -7299,6 +7390,9 @@ def main(argv) -> int:
         return 0
     if argv == ["--tools"]:
         tools_phase(dev, card, dict.fromkeys(NAMES, 0))
+        return 0
+    if argv == ["--live-sweep"]:
+        live_sweep_phase(dev, card)
         return 0
     if argv and argv not in (["--vocabulary"], ["--vjfilters"],
                              ["--titles"]):

@@ -41,15 +41,29 @@ The single-frame live path, `FrameGraph.run` (`nodemodel.py:82-88,
 (generated on the clip's clock), each generated in the slot it holds;
 every traced scalar rides in one (P+2, 1) float32 column (the host numbers
 in one upload through pinned memory, so the host is not held; a device
-value copied in on the device, never read back), and the chain goes
-through `run_chain` at B = 1, eagerly: the JAX package runs no Pallas
-kernel on this path, so the port adds none.
+value copied in on the device, never read back). The frame takes one of
+two routes:
+
+(d) the live sweep kernel (`graph/live_sweep.py`), one launch a frame,
+    when the device is CUDA, every entry is a bare `GeneratorClip` or a
+    `GenSlot` of plasma or colour_bars at one geometry (no decoded layer),
+    the graph has no cconx and no stateful instance, every enabled
+    instance is a point op of the sweep's op table (no stencil) writing
+    track 0, and the sink is RGB24 and SRGB at the tracks' geometry or
+    none. The JAX package jits the whole frame into one program, which
+    XLA fuses; this kernel is the port's fusion of the plans it takes.
+    `PLAIN_FRAMES` counts the frames of generators alone on a CUDA device
+    that it did not take.
+(e) otherwise the tracks are generated in their slots (or arrive as
+    layers) and the chain goes through `run_chain` at B = 1, eagerly.
 
 PyTorch runs eagerly, so the JAX package's jitted plan template becomes a
 cached plan: `_PLANS` maps the template key of `nodemodel.py:507` to the
 sweep kernel's op table on the device (route a), to None or the composite
 kernel's `CompositePlan` (route b), or to a `StatefulRoute` of op tables
-(route c). A plan never holds state. The
+(route c); and ("live", a configuration key of `run`, the device) to the
+live sweep's `LivePlan` or None (routes d and e). A plan never holds
+state. The
 inter-stage comps are float32 (the JAX package's bf16 comp is a TPU
 bandwidth choice).
 
@@ -86,17 +100,24 @@ from ..ops.gamma import gamma_convert_layer
 from ..ops.resize import letterbox_layer, resize_layer
 from ..prefs import pref
 from ..utils.transfer import pack_column
-from . import composite, fused_sweep, stateful_sweep
+from . import composite, fused_sweep, live_sweep, stateful_sweep
 
 #: process-wide plans, keyed like the JAX package's plan templates:
 #: the sweep kernel's SweepPlan (route a), None (route b) or a
-#: StatefulRoute (route c)
+#: StatefulRoute (route c); the live sweep's LivePlan (route d) or None
+#: (route e)
 _PLANS: dict = {}
 
 #: chunks of a traceable source that ran a stateless chain on the plain
 #: route (b) since the count was last set to 0: the fused sweep did not
 #: take the chain, its source or its sink
 PLAIN_CHUNKS = 0
+
+#: `FrameGraph.run` calls on a CUDA device whose entries were all
+#: generators but which ran eagerly (route e) since the count was last set
+#: to 0: the live sweep did not take the chain, a generator, the sink or
+#: the cconx; with `live_sweep.LAUNCHES` it gives the route's share
+PLAIN_FRAMES = 0
 
 
 @dataclass(frozen=True)
@@ -445,8 +466,10 @@ class FrameGraph:
         column (`nodemodel.py:311-339`): the host numbers go to the device
         in one upload, and a value that is already a device tensor is
         copied into its row on the device, never read back. Frame numbers
-        ride as float32, exact to 2^24. The chain runs through `run_chain` at B = 1. Nothing
-        here waits on the device. With `mirror_state` the chain's new
+        ride as float32, exact to 2^24. The frame runs as one launch of the
+        live sweep kernel where route (d) takes it (a fresh u8 frame each
+        call), else through `run_chain` at B = 1. Nothing here waits on the
+        device. With `mirror_state` the chain's new
         states are kept on the graph and its instances; without it they are
         dropped, and the states the call started from stay as they were
         (it runs on copies, since rgb_delay writes its ring in place).
@@ -495,6 +518,16 @@ class FrameGraph:
             packed = pack_column(vals + [tc, frame], device)
             rows_key = tuple((i, k) for i, d in enumerate(traced)
                              for k in sorted(d))
+        plan = self._live_plan(key, [c for _, c, _ in gens], real, rows_key,
+                               device)
+        if plan is not None:
+            with span("lives.frame.launch"):
+                u8 = live_sweep.live_sweep(plan, packed)
+            return Layer(planes=(u8,), palette=int(Palette.RGB24),
+                         gamma=self.sink.gamma)
+        if torch.device(device).type == "cuda" and gens and not real:
+            global PLAIN_FRAMES
+            PLAIN_FRAMES += 1
         r = len(rows_key)
         t0 = r + sum(len(d) for d in gen_traced)
         made = {}
@@ -518,6 +551,23 @@ class FrameGraph:
             for inst, st in zip(self.chain, states):
                 inst.state = st
         return out.replace(planes=tuple(p[0] for p in out.planes))
+
+    def _live_plan(self, key, clips, real, rows_key, device):
+        """Route (d)'s rule and plan for configuration `key` of `run`: the
+        live sweep's LivePlan, built once, where the device is CUDA, the
+        entries are the generator `clips` alone (no `real` layer), the graph
+        has no cconx and `live_sweep.encode_live` takes the chain, the
+        generators and the sink; else None, and the frame runs eagerly."""
+        if torch.device(device).type != "cuda" or real or not clips \
+                or self.cconx:
+            return None
+        pkey = ("live", key, str(device))
+        if pkey not in _PLANS:
+            with span("lives.plan.build"):
+                _PLANS[pkey] = live_sweep.build_live_sweep(
+                    chain_spec_of(self.chain), clips, rows_key, self.sink,
+                    clips[0].height, clips[0].width, device, fps=self.fps)
+        return _PLANS[pkey]
 
     def _route(self, n_tracks: int) -> tuple[int, int, bool]:
         """(pre_n, suf_n, sf_eligible) of a stateful chain over a

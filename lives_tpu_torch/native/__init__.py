@@ -53,7 +53,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 #: as PyTorch's eager ops do (each source's note, "Numerics"); fused_sweep
 #: and fma_chain keep nvcc's contraction (K6 exists to count FFMAs)
 EXTRA_FLAGS = {name: ("-fmad=false",)
-               for name in ("stateful_sweep", "yuv420", "composite")}
+               for name in ("stateful_sweep", "yuv420", "composite",
+                            "live_sweep")}
 #: fused_sweep's exact build: the whole vocabulary, every multiply and add
 #: rounded on its own (csrc/fused_sweep.cu's note)
 EXTRA_FLAGS["fused_sweep_exact"] = ("-DLIVES_SWEEP_EXACT", "-fmad=false")
