@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from ..constants import Gamma, Palette, YUVClamping, YUVSampling, YUVSubspace
+from ..diagnostics import span
 from ..layer import Layer
 
 
@@ -482,8 +483,13 @@ def write_mjpeg_avi(path, jpeg_frames, width: int, height: int,
                     fps: float = 25.0):
     """Minimal MJPEG AVI writer (RIFF avih/strh/strf + movi 00dc chunks +
     idx1), byte for byte the JAX package's. Streams: `jpeg_frames` may be
-    any iterable; the frame count and sizes are backpatched."""
+    any iterable; the frame count and sizes are backpatched. The write is
+    the span `lives.mux`."""
+    with span("lives.mux"):
+        _write_mjpeg_avi(path, jpeg_frames, width, height, fps)
 
+
+def _write_mjpeg_avi(path, jpeg_frames, width, height, fps):
     def chunk(cid, payload):
         pad = b"\0" if len(payload) & 1 else b""
         return cid + struct.pack("<I", len(payload)) + payload + pad
@@ -609,7 +615,7 @@ class AVIDecoder(Decoder):
         """Raw codec chunk (the JPEG bitstream for MJPG streams), what the
         compressed lane (`io/jpeg_ingest.py`) reads."""
         ofs, sz = self.offsets[n]
-        with self._lock:
+        with span("lives.decode.read"), self._lock:
             self._fh.seek(ofs)
             return self._fh.read(sz)
 

@@ -41,7 +41,15 @@ Wire bytes are the JAX package's byte for byte, so AVIs and packs cross
 between the two packages. Coefficients match the JAX lane and the
 float64 twin within +-1 on a small share of coefficients (a rounding tie
 at .5). `shard_encode_batch` (`:845-861`) splits an encoder's frame
-batch over a `parallel.mesh.Mesh` axis. Not ported, on purpose: the
+batch over a `parallel.mesh.Mesh` axis.
+
+Module counters total every `JpegDeviceEncoder`'s work: `ENCODED_FRAMES`
+(frames written), `CUT_FRAMES` (frames written with their ACs cut at the
+pool, what each encoder's `overflows` counts) and `FETCH_BYTES` (the
+used prefixes fetched). Spans (`diagnostics.span`): `lives.encode.coef`
+(`dispatch_batch`, the device half), `lives.encode.fetch` (`_fetch` and
+its wait for the device) and `lives.encode.huffman` (the batch's
+`write_jpeg_packed` calls). Not ported, on purpose: the
 chunked prefix
 fetch of the v3 buffer (`_fetch_prefix`, `:657-716`), which exists for
 the TPU attachment's transfer latency.
@@ -56,9 +64,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..diagnostics import span
 from ..native import load_jpegcoef
 from .jpeg_ingest import (JpegMeta, _idct_basis, block_products, esc_cap_for,
                           resolve_device)
+
+#: frames the encoders wrote, those written with their ACs cut at the
+#: pool, and the bytes of the used prefixes fetched, since each was last
+#: set to 0
+ENCODED_FRAMES = 0
+CUT_FRAMES = 0
+FETCH_BYTES = 0
 
 # ---------------------------------------------------------------------------
 # Quantisation tables (ITU-T T.81 Annex K, scaled the libjpeg way)
@@ -550,27 +566,31 @@ class JpegDeviceEncoder:
         """The used prefix of a v3 buffer on the host: its 8·B-byte header
         first, then the rest of the prefix in one copy into pinned
         memory."""
-        lay = self.clayout
-        head = buf[:8 * lay.B].cpu().numpy()
-        used = lay.used(int(head[:4 * lay.B].view(np.int32).sum()),
-                        int(head[4 * lay.B:].view(np.int32).sum()))
-        if buf.device.type != "cuda":
-            return buf[:used].numpy()
-        host = torch.empty(used, dtype=torch.uint8, pin_memory=True)
-        host.copy_(buf[:used], non_blocking=True)
-        torch.cuda.current_stream(buf.device).synchronize()
-        return host.numpy()
+        global FETCH_BYTES
+        with span("lives.encode.fetch"):
+            lay = self.clayout
+            head = buf[:8 * lay.B].cpu().numpy()
+            used = lay.used(int(head[:4 * lay.B].view(np.int32).sum()),
+                            int(head[4 * lay.B:].view(np.int32).sum()))
+            FETCH_BYTES += used
+            if buf.device.type != "cuda":
+                return buf[:used].numpy()
+            host = torch.empty(used, dtype=torch.uint8, pin_memory=True)
+            host.copy_(buf[:used], non_blocking=True)
+            torch.cuda.current_stream(buf.device).synchronize()
+            return host.numpy()
 
     def dispatch_batch(self, frames):
         """Enqueue the device half only: returns the device v3 buffer.
         Pair with collect_batch: a producer can dispatch batch k+1 before
         collecting k."""
-        if self._grow is not None:
-            self.density = self._grow
-            self.capacity = capacity_for(self.meta, self.density)
-            self._grow = None
-            self._build()
-        return self.cfn(self._padded(frames))
+        with span("lives.encode.coef"):
+            if self._grow is not None:
+                self.density = self._grow
+                self.capacity = capacity_for(self.meta, self.density)
+                self._grow = None
+                self._build()
+            return self.cfn(self._padded(frames))
 
     def _overflowed(self, raw: np.ndarray) -> bool:
         """Whether the batch's true claims (the header) passed the pools;
@@ -586,19 +606,26 @@ class JpegDeviceEncoder:
             self._grow = min(1.0, max(self.density * 1.6, need * 1.3))
         return True
 
-    def _write(self, packed) -> list[bytes]:
-        return [write_jpeg_packed(self.meta, self.qtabs, dc, counts, pos,
-                                  vals, ei, ev, n_esc)
-                for (n_ac, n_esc, dc, counts, pos, vals, ei, ev) in packed]
+    def _write(self, packed, cut: int = 0) -> list[bytes]:
+        """The batch's JPEGs from its packed frames, `cut` of them written
+        with their ACs cut at the pool."""
+        global ENCODED_FRAMES, CUT_FRAMES
+        self.overflows += cut
+        CUT_FRAMES += cut
+        with span("lives.encode.huffman"):
+            out = [write_jpeg_packed(self.meta, self.qtabs, dc, counts, pos,
+                                     vals, ei, ev, n_esc)
+                   for (n_ac, n_esc, dc, counts, pos, vals, ei, ev)
+                   in packed]
+        ENCODED_FRAMES += len(out)
+        return out
 
     def collect_batch(self, handle, n: int) -> list[bytes]:
         """Fetch + entropy-encode a dispatch_batch result (first `n`
         frames)."""
         raw = self._fetch(handle)
         packed = unpack_compact(raw, self.clayout)[:n]
-        if self._overflowed(raw):
-            self.overflows += 1
-        return self._write(packed)
+        return self._write(packed, int(self._overflowed(raw)))
 
     def encode_batch(self, frames) -> list[bytes]:
         if isinstance(frames, (list, tuple)):
@@ -618,9 +645,9 @@ class JpegDeviceEncoder:
             # emitted best-effort (ACs truncated at the pool — a
             # high-frequency quality loss, never corruption); the pool
             # grows for the next batch
-            self.overflows += B
             esc_cap = self.clayout.esc_cap
             packed = [p[:1] + (min(p[1], esc_cap),) + p[2:] for p in packed]
+            return self._write(packed, B)
         return self._write(packed)
 
 

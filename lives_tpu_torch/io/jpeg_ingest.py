@@ -39,7 +39,17 @@ Two fallbacks are kept from the JAX package, each counted on its object:
 `JpegStreamSource.fallbacks` (a frame past the wire's capacity decodes
 through the float64 twin on the host) and `MJPEGMultiClipSource.
 host_decoded` (a clip that is not MJPG, or whose stream fails to
-entropy-decode, is decoded frame by frame on the host).
+entropy-decode, is decoded frame by frame on the host). Two module
+counters total the lane's work over every object: `ENTROPY_FRAMES`, the
+frames `entropy_pack` packed for the device (the fallbacks left out), and
+`UPLOAD_BYTES`, the packed bytes their batches uploaded.
+
+Spans (`diagnostics.span`, on while the profiler is): `lives.decode.
+entropy` (`entropy_pack`: the Huffman decode and the pack, the stream's
+reads, `lives.decode.read`, inside it), `lives.decode.upload` (the seven
+copies of a batch), `lives.decode.idct` (the built decoder's call) and
+`lives.decode.convert` (`MJPEGMultiClipSource`'s RGB conversion, resize
+and `index_copy_` of a clip's group).
 
 `shard_decode_batch` (`:354-366`) runs a built decoder with its frame
 batch split over a `parallel.mesh.Mesh` axis: a decoder of the shard's
@@ -57,9 +67,16 @@ import numpy as np
 import torch
 
 from ..constants import Gamma, Palette, YUVClamping, YUVSubspace
+from ..diagnostics import span
 from ..layer import Layer
 from ..native import load_jpegcoef
 from ..utils.device import resolve_device  # noqa: F401 (re-exported)
+
+#: frames `JpegStreamSource.entropy_pack` packed for the device, and the
+#: bytes of the packed batches `get_batch_planes` uploaded, since each was
+#: last set to 0
+ENTROPY_FRAMES = 0
+UPLOAD_BYTES = 0
 
 
 @dataclass
@@ -489,7 +506,8 @@ class MJPEGMultiClipSource:
                                   f"decodes on the host ({e!r})")
                     self._srcs[uid] = src = None
             if src is not None:
-                rgb = convert_layer(lay, Palette.RGB24)
+                with span("lives.decode.convert"):
+                    rgb = convert_layer(lay, Palette.RGB24)
             else:
                 clip = self.clips.get(uid)
                 if clip is None:
@@ -504,10 +522,11 @@ class MJPEGMultiClipSource:
                                   .planes[0])
                 rgb = Layer(planes=(torch.stack(frames),),
                             palette=int(Palette.RGB24))
-            if (rgb.height, rgb.width) != (self.h, self.w):
-                rgb = resize_layer(rgb, self.w, self.h)
-            out.index_copy_(0, torch.tensor(idx, device=self.device),
-                            rgb.planes[0])
+            with span("lives.decode.convert"):
+                if (rgb.height, rgb.width) != (self.h, self.w):
+                    rgb = resize_layer(rgb, self.w, self.h)
+                out.index_copy_(0, torch.tensor(idx, device=self.device),
+                                rgb.planes[0])
         return Layer(planes=(out,), palette=int(Palette.RGB24))
 
 
@@ -557,6 +576,13 @@ class JpegStreamSource:
         CUDA device) and `falls`, [(row, twin planes)] of the frames
         past the capacity. The native pass writes straight into the rows
         of the batch buffers."""
+        global ENTROPY_FRAMES
+        with span("lives.decode.entropy"):
+            t, falls = self._entropy_pack(idx)
+        ENTROPY_FRAMES += len(idx) - len(falls)
+        return t, falls
+
+    def _entropy_pack(self, idx: Sequence[int]):
         B = len(idx)
         NB, cap = self.meta.n_blocks, self.capacity
         ec = esc_cap_for(NB)
@@ -599,13 +625,17 @@ class JpegStreamSource:
     def get_batch_planes(self, idx: Sequence[int]) -> Layer:
         """Entropy decode + pack on the host, one upload, decode on the
         device. Returns the batched YUV Layer."""
+        global UPLOAD_BYTES
         host, falls = self.entropy_pack(idx)
         B = len(idx)
         if B not in self._dec:
             self._dec[B] = build_device_decoder(self.meta, B, self.capacity,
                                                 self.device)
-        planes = self._dec[B](*(t.to(self.device, non_blocking=True)
-                                for t in host))
+        with span("lives.decode.upload"):
+            dev = [t.to(self.device, non_blocking=True) for t in host]
+        UPLOAD_BYTES += sum(t.numel() * t.element_size() for t in host)
+        with span("lives.decode.idct"):
+            planes = self._dec[B](*dev)
         for bi, ref_planes in falls:
             for k, ref in enumerate(ref_planes):
                 planes[k][bi] = torch.from_numpy(ref).to(self.device)

@@ -20,7 +20,8 @@ frame; the pixels are the same.
 `render_to_encoder` hands an encoder that takes device frames each
 rendered chunk whole, a (B, C, H, W) device tensor (the MJPEG AVI of
 "mjpeg", the default, through the compressed lane), so the rendered
-frames never cross to the host as raw RGB.
+frames never cross to the host as raw RGB. A pass is the span
+`lives.export` (`diagnostics.span`), the render and the encode inside it.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import Sequence
 import numpy as np
 
 from .constants import Palette
+from .diagnostics import span
 from .effects.host import Instance
 from .graph.nodemodel import FrameGraph, SinkSpec
 from .io.clips import read_rgb_batch
@@ -100,4 +102,5 @@ def render_to_encoder(el, source, out_path: str, encoder: str = "mjpeg",
             else:
                 yield from p.cpu().numpy()
 
-    return enc.encode(out_path, frame_iter(), el.fps)
+    with span("lives.export"):
+        return enc.encode(out_path, frame_iter(), el.fps)
