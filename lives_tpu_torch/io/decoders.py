@@ -554,7 +554,6 @@ class AVIDecoder(Decoder):
         # negative biHeight = top-down DIB rows (no flip needed)
         self.topdown = topdown
         self._fh = open(path, "rb")
-        self._lock = threading.Lock()
         self._jsrc: dict = {}    # device -> MJPEGClipSource
 
     @classmethod
@@ -613,11 +612,13 @@ class AVIDecoder(Decoder):
 
     def get_frame_bytes(self, n: int) -> bytes:
         """Raw codec chunk (the JPEG bitstream for MJPG streams), what the
-        compressed lane (`io/jpeg_ingest.py`) reads."""
+        compressed lane (`io/jpeg_ingest.py`) reads: one positional read,
+        so threads read frames of one file side by side (the lane's
+        entropy pool does, each read's `lives.decode.read` span on the
+        thread that reads)."""
         ofs, sz = self.offsets[n]
-        with span("lives.decode.read"), self._lock:
-            self._fh.seek(ofs)
-            return self._fh.read(sz)
+        with span("lives.decode.read"):
+            return os.pread(self._fh.fileno(), sz, ofs)
 
     def _lane(self, device):
         if self.fourcc != "MJPG":

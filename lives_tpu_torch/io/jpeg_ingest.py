@@ -9,7 +9,13 @@ the whole decode on the host, `decplugin.h:280` get_frame):
           libjpeg's `jpeg_read_coefficients` (`native.load_jpegcoef`),
           then the v2 sparse pack: int16 DC per block, (count u8) per
           block, (pos u8, val i8) per nonzero AC, an escape list for
-          |AC| > 127; written into pinned host buffers;
+          |AC| > 127; written into pinned host buffers. A batch's frames
+          are read and decoded side by side on one process-wide pool of
+          host threads (the ctypes call releases the GIL and keeps its
+          state on its own stack, and each frame writes its own rows),
+          as wide as the cores the process may run on less one for the
+          calling thread; a one-frame batch, or a one-core host, decodes
+          on the calling thread;
   wire  : one packed upload a frame batch, `non_blocking=True`;
   device: scatter -> dequantise -> batched 8x8 IDCT as two matrix
           products -> block reassembly -> planar YUV Layer (full-range
@@ -42,11 +48,16 @@ host_decoded` (a clip that is not MJPG, or whose stream fails to
 entropy-decode, is decoded frame by frame on the host). Two module
 counters total the lane's work over every object: `ENTROPY_FRAMES`, the
 frames `entropy_pack` packed for the device (the fallbacks left out), and
-`UPLOAD_BYTES`, the packed bytes their batches uploaded.
+`UPLOAD_BYTES`, the packed bytes their batches uploaded; two more say how
+the host pool serves it: `POOLED_FRAMES`, the frames whose native pass ran
+on the pool's workers, and `ENTROPY_WORKERS`, the pool's width.
 
 Spans (`diagnostics.span`, on while the profiler is): `lives.decode.
-entropy` (`entropy_pack`: the Huffman decode and the pack, the stream's
-reads, `lives.decode.read`, inside it), `lives.decode.upload` (the seven
+entropy` (`entropy_pack` on the calling thread: the Huffman decode and the
+pack, or, where the pool takes the batch, the wait for it),
+`lives.decode.read` (a frame's read, on the thread that decodes the frame:
+the pool's workers open it off the calling thread, inside the calling
+thread's `lives.decode.entropy`), `lives.decode.upload` (the seven
 copies of a batch), `lives.decode.idct` (the built decoder's call) and
 `lives.decode.convert` (`MJPEGMultiClipSource`'s RGB conversion, resize
 and `index_copy_` of a clip's group).
@@ -59,7 +70,10 @@ batch on each device of the axis, the planes gathered on the first.
 from __future__ import annotations
 
 import ctypes
+import os
+import threading
 import warnings
+from concurrent.futures import ThreadPoolExecutor, wait
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -77,6 +91,37 @@ from ..utils.device import resolve_device  # noqa: F401 (re-exported)
 #: last set to 0
 ENTROPY_FRAMES = 0
 UPLOAD_BYTES = 0
+#: frames whose native pass ran on the entropy pool's workers, and the
+#: pool's width, set when the pool is made
+POOLED_FRAMES = 0
+ENTROPY_WORKERS = 0
+
+_POOL: Optional[ThreadPoolExecutor] = None
+_POOL_LOCK = threading.Lock()
+
+
+def _pool_width() -> int:
+    """Host threads a batch's entropy decode may use: the cores this
+    process may run on, less one for the calling thread, at least 1."""
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except AttributeError:              # no affinity call on this OS
+        cores = os.cpu_count() or 1
+    return max(1, cores - 1)
+
+
+def _entropy_pool(width: int) -> ThreadPoolExecutor:
+    """The pool every `JpegStreamSource` shares, made on first use and
+    made again where the width is another (the process's cores moved)."""
+    global _POOL, ENTROPY_WORKERS
+    with _POOL_LOCK:
+        if _POOL is None or ENTROPY_WORKERS != width:
+            if _POOL is not None:
+                _POOL.shutdown(wait=False)
+            _POOL = ThreadPoolExecutor(width,
+                                       thread_name_prefix="lives-entropy")
+            ENTROPY_WORKERS = width
+        return _POOL
 
 
 @dataclass
@@ -574,8 +619,14 @@ class JpegStreamSource:
         """Host half for a frame batch. Returns (dc, counts, pos, vals,
         esc_idx, esc_val, qt) host tensors (pinned when the device is a
         CUDA device) and `falls`, [(row, twin planes)] of the frames
-        past the capacity. The native pass writes straight into the rows
-        of the batch buffers."""
+        past the capacity. The native pass reads each frame and writes
+        straight into its rows of the batch buffers; a batch of two or
+        more frames is split into contiguous runs, one a task of the
+        shared pool (`_pool_width` of them at most), and the calling
+        thread waits for every run. The frames the native pass leaves
+        (a stream it cannot decode or pack) then take the Python path
+        on the calling thread in row order, where an undecodable stream
+        raises, and the counters are updated there."""
         global ENTROPY_FRAMES
         with span("lives.decode.entropy"):
             t, falls = self._entropy_pack(idx)
@@ -583,6 +634,7 @@ class JpegStreamSource:
         return t, falls
 
     def _entropy_pack(self, idx: Sequence[int]):
+        global POOLED_FRAMES
         B = len(idx)
         NB, cap = self.meta.n_blocks, self.capacity
         ec = esc_cap_for(NB)
@@ -595,17 +647,38 @@ class JpegStreamSource:
              buf((B, ec), torch.int32, -1), buf((B, ec), torch.int16),
              buf((B, 4, 64), torch.float32))
         dc, counts, pos, vals, ei, ev, qt = (a.numpy() for a in t)
-        qtmp = np.zeros((4, 64), np.uint16)
+
+        def native(rows):
+            """The native pass over `rows` [(row, frame)]; returns the
+            [(row, bytes)] it left."""
+            qtmp = np.zeros((4, 64), np.uint16)
+            left = []
+            for j, i in rows:
+                data = self.frames[int(i) % len(self.frames)]
+                if read_packed_native(
+                        data, self.meta, cap,
+                        out=(dc[j], counts[j], pos[j], vals[j], ei[j],
+                             ev[j], qtmp)) is None:
+                    left.append((j, data))
+                else:
+                    qt[j] = qtmp
+            return left
+
+        rows = list(enumerate(idx))
+        width = _pool_width()
+        n = min(width, B)
+        if n > 1:
+            pool = _entropy_pool(width)
+            cuts = [B * k // n for k in range(n + 1)]
+            futs = [pool.submit(native, rows[a:b])
+                    for a, b in zip(cuts, cuts[1:])]
+            wait(futs)
+            left = [r for f in futs for r in f.result()]
+            POOLED_FRAMES += B
+        else:
+            left = native(rows)
         falls = []
-        for j, i in enumerate(idx):
-            data = self.frames[int(i) % len(self.frames)]
-            p = read_packed_native(
-                data, self.meta, cap,
-                out=(dc[j], counts[j], pos[j], vals[j], ei[j], ev[j],
-                     qtmp))
-            if p is not None:
-                qt[j] = qtmp
-                continue
+        for j, data in left:
             f = read_coefficients(data)
             p = pack_frame(f, cap)
             if p is None:

@@ -25,6 +25,7 @@ from lives_tpu.ops.colorspace import convert_layer as j_convert_layer
 from lives_tpu_torch import native
 from lives_tpu_torch.constants import Palette, YUVClamping
 from lives_tpu_torch.io import jpeg_ingest as ji
+from lives_tpu_torch.layer import Layer
 from lives_tpu_torch.ops.colorspace import convert_layer
 from test_torch_bridges import jax_bridge
 
@@ -320,3 +321,157 @@ def test_block_products_round_once():
     assert got.dtype == torch.float32
     exact = A.numpy() @ F.double().numpy() @ A.numpy().T
     np.testing.assert_array_equal(got.numpy(), exact.astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# The entropy pool: a batch's frames decoded side by side on host threads
+# ---------------------------------------------------------------------------
+
+def noisy_jpeg(w, h, seed):
+    """Uniform noise at q95: nearly every coefficient nonzero, past a
+    capacity sized for smooth frames."""
+    rng = np.random.default_rng(seed)
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)).save(
+        buf, "JPEG", quality=95)
+    return buf.getvalue()
+
+
+#: batch -> (frames: seeds of smooth 64x48 frames, each at its own quality
+#: and so its own tables, None a noisy one past the capacity; the batch's
+#: indices)
+POOL_BATCHES = {
+    "wrapping": ([0, 1, 2, 3, 4],
+                 [5, 6, 7, 8, 0, 13, 2, 9, 11, 4, 1, 12, 3]),
+    "one_past_capacity": ([0, 1, None, 3], [0, 1, 2, 3, 6]),
+    "one_frame": ([0, 1], [3]),
+}
+
+
+def _pack(src, idx, width, monkeypatch):
+    """`entropy_pack` at `width`: the buffers, `falls`, and how far the
+    pool, entropy and fallback counters moved."""
+    monkeypatch.setattr(ji, "_pool_width", lambda: width)
+    before = (ji.POOLED_FRAMES, ji.ENTROPY_FRAMES, src.fallbacks)
+    t, falls = src.entropy_pack(idx)
+    after = (ji.POOLED_FRAMES, ji.ENTROPY_FRAMES, src.fallbacks)
+    return ([a.numpy().copy() for a in t], falls,
+            tuple(b - a for a, b in zip(before, after)))
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 8])
+@pytest.mark.parametrize("batch", sorted(POOL_BATCHES))
+def test_pooled_entropy_pack_matches_inline(batch, width, monkeypatch):
+    """At every pool width the buffers are byte for byte the inline
+    path's (width 1) and, row for row, each frame's own native pack; a
+    frame past the capacity leaves the same blank row, twin planes and
+    fallback count in row order; `POOLED_FRAMES` moves by the batch at
+    width > 1 on two frames or more, and `ENTROPY_FRAMES` as inline."""
+    seeds, idx = POOL_BATCHES[batch]
+    frames = [noisy_jpeg(64, 48, 9) if s is None else
+              jpeg_bytes(64, 48, 70 + 5 * s, seed=s) for s in seeds]
+    src = ji.JpegStreamSource(frames, capacity_frac=0.5, device="cpu")
+    want, wfalls, wmoved = _pack(src, idx, 1, monkeypatch)
+    got, falls, moved = _pack(src, idx, width, monkeypatch)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+    assert [j for j, _ in falls] == [j for j, _ in wfalls]
+    for (_, a), (_, b) in zip(wfalls, falls):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    pooled = len(idx) if width > 1 and len(idx) > 1 else 0
+    assert moved == (pooled,) + wmoved[1:]
+    if pooled:
+        assert ji.ENTROPY_WORKERS == width
+    n_falls = sum(seeds[i % len(seeds)] is None for i in idx)
+    assert wmoved == (0, len(idx) - n_falls, n_falls)
+    fall_rows = {j for j, _ in falls}
+    for j, i in enumerate(idx):
+        if j in fall_rows:
+            assert not got[0][j].any() and not got[1][j].any()
+            assert (got[4][j] == -1).all()
+            continue
+        p = ji.read_packed_native(frames[i % len(frames)], src.meta,
+                                  src.capacity)
+        for k in range(6):
+            np.testing.assert_array_equal(got[k][j], p[k])
+        np.testing.assert_array_equal(got[6][j], p[6].astype(np.float32))
+
+
+def _corrupt_at_two():
+    return [jpeg_bytes(64, 48, 90, seed=s) for s in range(2)] + [
+        b"not a jpeg", jpeg_bytes(64, 48, 90, seed=3)]
+
+
+@pytest.mark.parametrize("width", [1, 3])
+def test_corrupt_frame_in_a_pooled_batch(width, monkeypatch):
+    """A batch holding a stream that does not decode raises ValueError
+    through `get_batch_planes` at every width, and `MJPEGMultiClipSource`
+    then moves the clip to its host route, counted."""
+    monkeypatch.setattr(ji, "_pool_width", lambda: width)
+    frames = _corrupt_at_two()
+    with pytest.raises(ValueError, match="entropy decode failed"):
+        ji.JpegStreamSource(frames, device="cpu").get_batch_planes(
+            [0, 1, 2, 3])
+
+    class Dec:
+        fourcc = "MJPG"
+        cdata = type("CD", (), {"nframes": len(frames)})()
+
+        def get_frame_bytes(self, n):
+            return frames[n]
+
+    class Clip:
+        def get_frame(self, n):
+            return Layer(planes=(torch.full((3, 48, 64), 9 + n,
+                                            dtype=torch.uint8),),
+                         palette=int(Palette.RGB24))
+    clip = Clip()
+    clip.cdata = type("CD", (), {"decoder": Dec()})()
+    src = ji.MJPEGMultiClipSource({1: clip}, 64, 48, device="cpu")
+    with pytest.warns(UserWarning, match="clip 1 decodes on the host"):
+        out = src.get_batch([1] * 4, [0, 1, 2, 3])
+    assert src._srcs[1] is None and src.host_decoded == 4
+    for n in range(4):
+        assert (out.planes[0][n] == 9 + n).all()
+
+
+def test_avi_frame_bytes_read_side_by_side(tmp_path):
+    """`AVIDecoder.get_frame_bytes` from 8 threads at once, each over
+    every frame in its own order with a short switch interval, returns
+    frame for frame what a serial read returns (frames of ~20 KB, past a
+    buffered file's 8 KB, where a seek then a read from two threads
+    would interleave)."""
+    import sys
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lives_tpu_torch.io import decoders as tdec
+    frames = [noisy_jpeg(128, 128, s) for s in range(24)]
+    path = tmp_path / "m.avi"
+    tdec.write_mjpeg_avi(str(path), frames, 128, 128, 25.0)
+    dec = tdec.AVIDecoder.get_clip_data(str(path)).decoder
+    try:
+        serial = [dec.get_frame_bytes(n) for n in range(len(frames))]
+        assert serial == frames
+        start = threading.Barrier(8)
+
+        def reader(k):
+            order = np.random.default_rng(k).permutation(
+                np.tile(np.arange(len(frames)), 40))
+            start.wait(timeout=30)
+            return [(int(n), dec.get_frame_bytes(int(n))) for n in order]
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            with ThreadPoolExecutor(8) as ex:
+                futs = [ex.submit(reader, k) for k in range(8)]
+                got = [f.result(timeout=60) for f in futs]
+        finally:
+            sys.setswitchinterval(old)
+        for reads in got:
+            assert len(reads) == 40 * len(frames)
+            for n, data in reads:
+                assert data == serial[n], n
+    finally:
+        dec.close()
